@@ -1,11 +1,19 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Builds every CUDA kernel of the port from ``harp_tpu_torch/csrc/`` with nvcc,
-holds each kernel against its plain PyTorch version on the card, drives the
-main path (K-means regroupallgather through ``HarpSession`` and ``KMeans.fit``
-at the flagship n=1,000,000, k=100, d=100, 10 iterations) with the launch
-counters set to 0 just before and read just after, checks the five comm
-variants are bitwise equal, and prints:
+Builds every CUDA kernel of the port from ``harp_tpu_torch/csrc/`` with nvcc
+(one nvcc per source, all at once), holds each kernel against its plain
+PyTorch version on the card, and drives both main paths with the launch
+counters set to 0 just before each and read just after:
+
+  * K-means regroupallgather through ``HarpSession`` and ``KMeans.fit`` at
+    the flagship n=1,000,000, k=100, d=100, 10 iterations, and the five comm
+    variants bitwise equal;
+  * dense SGD-MF rotation through ``SGDMF.prepare``/``fit_prepared`` at the
+    flagship 32768 x 32768 ratings, 1%, rank 32, 8 minibatches a hop, 10
+    epochs, against the same fit through the plain hop; then the stacked
+    W=4 variants (1 and 2 slices, dense and sparse) at 4096 x 4096, 5%.
+
+It prints:
 
   * the card's name and power limit (nvidia-smi);
   * a ``{"kernels": [...]}`` line: per kernel its launches on the main path,
@@ -20,6 +28,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -29,11 +38,19 @@ import numpy as np
 import torch
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): float32 on the
-# CUDA cores and device-memory bandwidth
+# CUDA cores, bf16 on the tensor cores (dense) and device-memory bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 FLAGSHIP = dict(n=1_000_000, k=100, d=100, iterations=10)
 TIE_EPS = 1e-5        # near tie: best two scores within 1e-5 of the row's scale
+# README.md's SGD-MF row: sparse_ratings(32768, 32768, rank=16, density=0.01,
+# seed=5), SGDMFConfig(rank=32, lam=0.01, lr=0.05, minibatches_per_hop=8)
+MF_FLAGSHIP = dict(users=32768, items=32768, data_rank=16, density=0.01,
+                   seed=5, rank=32, lam=0.01, lr=0.05, nmb=8, epochs=10)
+# a column block that is not a multiple of the kernel's tile, K padded to 32
+MF_RAGGED = dict(users=8192, items=30000, rank=20, nmb=4)
+MF_VARIANTS = dict(n=4096, workers=4, epochs=3)
 
 
 def log(msg: str) -> None:
@@ -44,6 +61,54 @@ def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
     log(f"  ok: {what}")
+
+
+def ptxas_usage(build_log: str):
+    """(kernel, registers, spills) for every entry function in an ``nvcc
+    -Xptxas -v`` log, kernel names demangled where ``c++filt`` exists."""
+    rows, fn, spill = [], "?", ""
+    for line in build_log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line
+        elif "Used" in line and "registers" in line:
+            rows.append([fn, line.split(":", 1)[1].strip(), spill])
+            spill = ""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, check=True)
+        for r, name in zip(rows, out.stdout.splitlines()):
+            r[0] = name.replace("(anonymous namespace)::", "").replace(
+                "void ", "").split("(")[0]
+    except (OSError, subprocess.CalledProcessError):
+        pass                       # keep the mangled names
+    return rows
+
+
+def device_profile(fn):
+    """One call of ``fn`` (ending in a device sync) under torch.profiler:
+    (ms of device time per kernel name, device busy share of the span from
+    the first kernel's start to the last one's end). ``({}, None)`` if the
+    profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per, lo, hi = {}, float("inf"), 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.replace("(anonymous namespace)::", "").replace(
+            "void ", "").split("(")[0][:80]
+        per[name] = per.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        lo, hi = min(lo, e.time_range.start), max(hi, e.time_range.end)
+    if not per:
+        return per, None
+    return per, sum(per.values()) / ((hi - lo) / 1e3)
 
 
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -288,6 +353,343 @@ def variants_bitwise():
               f"{comm} bitwise equal to regroupallgather")
 
 
+# --------------------------------------------------------------------------- #
+# Dense SGD-MF hop: kernel against plain
+# --------------------------------------------------------------------------- #
+
+def max_rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def plain64_hop(slab, buckets, w, h, rc, cc, nmb, lr, lam):
+    """The plain hop with float64 factors (exact sums of the same bf16
+    products), its outputs back in float32: how far rounding alone moves a
+    hop, the yardstick the kernel's distance is held to."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    out = pk.dense_mf_hop_plain(slab, buckets, w.double(), h.double(),
+                                rc.double(), cc.double(), nmb, lr, lam)
+    return tuple(t.float() for t in out)
+
+
+def library_hop(slab, buckets, w, h, rc, cc, nmb, lr, lam):
+    """Yardstick only (never called by the port): the stripe loop with
+    cuBLAS bf16 ``torch.matmul`` (bf16 outputs) on the same inputs."""
+    bf = torch.bfloat16
+    _, _, rpw, cpb = slab.shape
+    s = rpw // nmb
+    b = int(buckets[0])
+    vb, rcb = slab[0, b], rc[0, b]
+    ccb = cc[0, b].reshape(nmb, -1, cpb).sum(dim=1)
+    hb, w_out, sse = h[0], torch.empty_like(w[0]), 0.0
+    for i in range(nmb):
+        rows = slice(i * s, (i + 1) * s)
+        w_s = w[0, rows]
+        wb, hbb = w_s.to(bf), hb.to(bf)
+        v = vb[rows].float()
+        g = torch.where(torch.isnan(v), 0.0,
+                        v - torch.matmul(wb, hbb.t()).float()).to(bf)
+        dw = torch.matmul(g, hbb).float()
+        dh = torch.matmul(g.t(), wb).float()
+        w_out[rows] = w_s + lr * (dw - lam * rcb[rows, None] * w_s)
+        hb = hb + lr * (dh - lam * ccb[i][:, None] * hb)
+        sse = sse + (g.float() ** 2).sum()
+    return w_out, hb, sse
+
+
+def mf_hop_bound(nw, rpw, cpb, k, nmb_fine):
+    """Least time for one hop: every worker's slab bucket (bf16), W, H and
+    the counts read once and W, H, SSE written once, against 6 rpw cpb K
+    operations at the bf16 tensor-core peak."""
+    moved = nw * (rpw * cpb * 2 + 2 * rpw * k * 4 + 2 * cpb * k * 4
+                  + rpw * 4 + nmb_fine * cpb * 4 + 4)
+    ops = 6 * nw * rpw * cpb * k
+    t_bytes, t_ops = moved / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed):
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    nw, _, rpw, cpb = slab.shape
+    k = w.shape[-1]
+    log(f"[mfhop:{name}] W={nw} rpw={rpw} cpb={cpb} K={k} nmb={nmb}")
+    args = (slab, buckets, w, h, rc, cc, nmb, lr, lam)
+    w1, h1, sse1 = pk.dense_mf_hop_cuda(*args)
+    torch.cuda.synchronize()
+    w2, h2, sse2 = pk.dense_mf_hop_plain(*args)
+    w3, h3, _ = plain64_hop(*args)
+    out = {"max_abs_err": max(float((w1 - w2).abs().max()),
+                              float((h1 - h2).abs().max()))}
+    for tag, got, plain, exact in (("W", w1, w2, w3), ("H", h1, h2, h3)):
+        err, ref = max_rel(got, exact), max_rel(plain, exact)
+        tol = max(1e-4, 4 * ref)
+        log(f"  {tag}: kernel vs float64 plain {err:.3g}, float32 plain vs "
+            f"float64 plain {ref:.3g}, kernel vs float32 plain "
+            f"{max_rel(got, plain):.3g}")
+        check(err <= tol, f"{tag} within {tol:.3g} of the float64 plain hop "
+              f"(1e-4 or 4x the float32 plain version's distance)")
+        out[f"{tag}_rel_vs_plain"] = max_rel(got, plain)
+    sse_rel = float(((sse1 - sse2).abs() / sse2.abs()).max())
+    check(sse_rel <= 1e-5, f"SSE within rtol 1e-5 of the plain hop "
+          f"(rel {sse_rel:.3g})")
+    again = pk.dense_mf_hop_cuda(*args)
+    check(all(torch.equal(a, b) for a, b in zip((w1, h1, sse1), again)),
+          "two kernel runs bitwise equal")
+    if timed:
+        out["ms"] = cuda_time_ms(lambda: pk.dense_mf_hop_cuda(*args),
+                                 reps=10, warmup=2)
+        out["plain_ms"] = cuda_time_ms(lambda: pk.dense_mf_hop_plain(*args),
+                                       reps=3, warmup=1)
+        out["library_ms"] = (cuda_time_ms(lambda: library_hop(*args), reps=3,
+                                          warmup=1) if nw == 1 else None)
+        out["bound_ms"], out["bound_by"] = mf_hop_bound(
+            nw, rpw, cpb, k, cc.shape[2])
+        log(f"  kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+            f"library {out['library_ms']:.4f} ms, bound "
+            f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+        kp = next(r for r in pk.MF_RANKS if k <= r)
+        lib = pk._mf_lib()
+        n_ct = -(-cpb // lib.dense_mf_hop_col_tile(kp))
+        ws_gb = nw * n_ct * rpw * kp * 4 / 1e9
+        per, _ = device_profile(lambda: pk.dense_mf_hop_cuda(*args))
+        log(f"  one launch under the profiler: " + ", ".join(
+            f"{name} {ms:.4f} ms" for name, ms in per.items()) +
+            f"; dW workspace {n_ct} tiles, {ws_gb:.3f} GB written and read; "
+            f"{lib.dense_mf_hop_smem_bytes(kp)} B of shared memory a block")
+        out["split_ms"] = per
+    return out
+
+
+def mf_hop_args(state):
+    """The hop operands of a prepared W=1 dense state, as the model's
+    stacked views (no copy)."""
+    _, (v_slab, row_cnt, col_cnt), w0, h0, meta = state
+    rpw, cpb = meta[4], meta[5]
+    nw = v_slab.shape[0]
+    buckets = torch.zeros(nw, dtype=torch.int32, device=v_slab.device)
+    return (v_slab, buckets, w0.view(nw, rpw, -1), h0.view(nw, cpb, -1),
+            row_cnt, col_cnt)
+
+
+# --------------------------------------------------------------------------- #
+# Main path: the flagship SGD-MF fit and the stacked variants
+# --------------------------------------------------------------------------- #
+
+def mf_plain_models(sess, cfg):
+    """The same model twice more: through the plain hop, and through the
+    plain hop in float64 (the rounding yardstick)."""
+    from harp_tpu_torch.models import sgd_mf
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    plain = sgd_mf.SGDMF(sess, cfg)
+    plain.dense_hop = pk.dense_mf_hop_plain
+    exact = sgd_mf.SGDMF(sess, cfg)
+    exact.dense_hop = plain64_hop
+    return plain, exact
+
+
+def check_fit_vs_plain(fit, plain_fit, exact_fit, rmse_rtol=1e-4):
+    (w1, h1, r1), (w2, h2, r2), (w3, h3, _) = fit, plain_fit, exact_fit
+    r_rel = float(np.abs(r1 / r2 - 1).max())
+    check(r_rel <= rmse_rtol, f"every epoch's RMSE within rtol {rmse_rtol:g} "
+          f"of the plain fit's (max rel {r_rel:.3g})")
+    worst = 0.0
+    for tag, a, b, c in (("W", w1, w2, w3), ("H", h1, h2, h3)):
+        a, b, c = (torch.from_numpy(x) for x in (a, b, c))
+        err, ref = max_rel(a, b), max_rel(b, c)
+        tol = max(1e-3, 4 * ref)
+        log(f"  {tag}: kernel fit vs plain fit {err:.3g}; plain fit vs "
+            f"float64-hop fit {ref:.3g}")
+        check(err <= tol, f"final {tag} within {tol:.3g} of the plain fit "
+              f"(1e-3 or 4x the float64-hop fit's distance)")
+        worst = max(worst, err)
+    return r_rel, worst
+
+
+def mf_flagship(cfg, state, nnz):
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.benchmark import timing
+    from harp_tpu_torch.models import sgd_mf
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    f = MF_FLAGSHIP
+    log(f"[sgd_mf] dense rotation {f['users']}x{f['items']}, {f['density']:g}"
+        f", rank {f['rank']}, {f['nmb']} minibatches a hop, {f['epochs']} "
+        f"epochs, W=1, nnz={nnz}")
+    sess = HarpSession(num_workers=1)
+    check(sess.device.type == "cuda", "HarpSession() runs on cuda")
+    model = sgd_mf.SGDMF(sess, cfg)
+    for name in pk.launches:
+        pk.launches[name] = 0
+    t0 = time.perf_counter()
+    fit = model.fit_prepared(state)
+    wall = time.perf_counter() - t0
+    launches = dict(pk.launches)
+    log(f"  fit wall {wall:.3f} s (first call, includes the factor fetch), "
+        f"launches {launches}")
+    check(state[0] == "dense", "auto layout picked dense")
+    check(launches["dense_mf_hop"] == f["epochs"],
+          f"dense_mf_hop launched once per epoch ({launches['dense_mf_hop']})")
+    rmse = fit[2]
+    log(f"  rmse {rmse.tolist()}")
+    check(bool(np.all(np.isfinite(rmse))) and np.isfinite(fit[0]).all()
+          and np.isfinite(fit[1]).all(), "finite RMSEs and factors")
+    check(rmse[-1] < rmse[0], "RMSE falls over the fit")
+    plain, exact = mf_plain_models(sess, cfg)
+    r_rel, f_rel = check_fit_vs_plain(fit, plain.fit_prepared(state),
+                                      exact.fit_prepared(state))
+
+    def build(epochs):
+        m = sgd_mf.SGDMF(sess, dataclasses.replace(cfg, epochs=epochs))
+        m.train_prepared(state)
+        return lambda: m.train_prepared(state)
+
+    tp = timing.two_point(build, 10, 40, float(nnz))
+    log(f"  two-point: {tp['rate']:.6g} ratings/s, {tp['per_iter_ms']:.4f} "
+        f"ms/epoch, fixed {tp['fixed_dispatch_s']:.4f} s, spread "
+        f"{tp['spread_pct']:.1f}%")
+
+    epochs = 5
+    per, busy = device_profile(build(epochs))
+    prof = {"hop_kernel_ms": None, "w_reduce_ms": None, "busy_share": busy}
+    if busy is None:
+        log("  profile: the profiler saw no device activity (not measured)")
+    else:
+        for name, ms in sorted(per.items(), key=lambda kv: -kv[1]):
+            log(f"  profile, {epochs} epochs: {name} {ms / epochs:.4f} ms an "
+                f"epoch")
+            if name.startswith("dense_mf_hop_kernel"):
+                prof["hop_kernel_ms"] = ms / epochs
+            elif name.startswith("dense_mf_w_kernel"):
+                prof["w_reduce_ms"] = ms / epochs
+        log(f"  profile: device busy {100 * busy:.2f}% of the span from the "
+            f"first kernel's start to the last one's end")
+    return {"launches": launches, "ratings_per_s": tp["rate"],
+            "per_epoch_ms": tp["per_iter_ms"], "rmse_rel_vs_plain": r_rel,
+            "factor_rel_vs_plain": f_rel, **prof}
+
+
+def mf_variants():
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import sgd_mf
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    n, w, epochs = (MF_VARIANTS[k] for k in ("n", "workers", "epochs"))
+    log(f"[sgd_mf variants] W={w} stacked, {n}x{n}, 5%, rank 32, {epochs} "
+        f"epochs")
+    rows, cols, vals = datagen.sparse_ratings(n, n, rank=16, density=0.05,
+                                              seed=9)
+    sess = HarpSession(num_workers=w)
+    for ns in (1, 2):
+        cfg = sgd_mf.SGDMFConfig(rank=32, lam=0.01, lr=0.05, epochs=epochs,
+                                 minibatches_per_hop=8, num_slices=ns,
+                                 layout="dense")
+        model = sgd_mf.SGDMF(sess, cfg)
+        state = model.prepare(rows, cols, vals, n, n, seed=2)
+        for name in pk.launches:
+            pk.launches[name] = 0
+        fit = model.fit_prepared(state)
+        got = pk.launches["dense_mf_hop"]
+        log(f"  dense, {ns} slice(s): rmse {fit[2].tolist()}")
+        check(got == epochs * w * ns, f"dense, {ns} slice(s): one launch per "
+              f"rotation step ({got} = {epochs} x {w} x {ns})")
+        plain, exact = mf_plain_models(sess, cfg)
+        check_fit_vs_plain(fit, plain.fit_prepared(state),
+                           exact.fit_prepared(state))
+        again = model.fit_prepared(state)
+        check(all(np.array_equal(a, b) for a, b in zip(fit, again)),
+              f"dense, {ns} slice(s): two fits bitwise equal")
+
+        cfg = dataclasses.replace(cfg, layout="sparse")
+        fit = sgd_mf.SGDMF(sess, cfg).fit(rows, cols, vals, n, n, seed=2)
+        cpu = sgd_mf.SGDMF(HarpSession(num_workers=w, device="cpu"),
+                           cfg).fit(rows, cols, vals, n, n, seed=2)
+        r, rc = fit[2], cpu[2]
+        log(f"  sparse, {ns} slice(s): rmse {r.tolist()}, on the CPU "
+            f"{rc.tolist()}")
+        check(bool(np.all(np.isfinite(r))) and bool(np.all(np.diff(r) < 0)),
+              f"sparse, {ns} slice(s): finite, falling RMSEs")
+        rel = float(np.abs(r / rc - 1).max())
+        check(rel <= 1e-3, f"sparse, {ns} slice(s): RMSEs within rtol 1e-3 of "
+              f"the CPU fit's (max rel {rel:.3g})")
+
+
+def mf_phases():
+    """Every SGD-MF phase; returns the kernels-line entry of dense_mf_hop."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import sgd_mf
+
+    f = MF_FLAGSHIP
+    t0 = time.perf_counter()
+    rows, cols, vals = datagen.sparse_ratings(
+        f["users"], f["items"], rank=f["data_rank"], density=f["density"],
+        seed=f["seed"])
+    cfg = sgd_mf.SGDMFConfig(rank=f["rank"], lam=f["lam"], lr=f["lr"],
+                             epochs=f["epochs"], minibatches_per_hop=f["nmb"])
+    model = sgd_mf.SGDMF(HarpSession(num_workers=1), cfg)
+    state = model.prepare(rows, cols, vals, f["users"], f["items"], seed=0)
+    nnz = model.last_layout_stats["nnz"]
+    log(f"[mf:prepare] {time.perf_counter() - t0:.2f} s: {len(vals)} ratings "
+        f"drawn, {nnz} after dedupe, layout {state[0]}")
+    args = mf_hop_args(state)
+    flag = mfhop_case("flagship", *args, f["nmb"], f["lr"], f["lam"],
+                      timed=True)
+
+    g = MF_RAGGED
+    rows_r, cols_r, vals_r = datagen.sparse_ratings(
+        g["users"], g["items"], rank=16, density=0.01, seed=7)
+    rstate = sgd_mf.SGDMF(HarpSession(num_workers=1), dataclasses.replace(
+        cfg, rank=g["rank"], minibatches_per_hop=g["nmb"])).prepare(
+        rows_r, cols_r, vals_r, g["users"], g["items"], seed=3)
+    mfhop_case("ragged", *mf_hop_args(rstate), g["nmb"], f["lr"], f["lam"],
+               timed=False)
+    del rstate
+
+    rng = np.random.default_rng(128)
+    slab, buckets, w32, h32, rc, cc = args
+    w128, h128 = (torch.from_numpy((rng.standard_normal(
+        t.shape[:2] + (128,)) / 128 ** 0.5).astype(np.float32)).to(t.device)
+        for t in (w32, h32))
+    r128 = mfhop_case("rank128", slab, buckets, w128, h128, rc, cc, f["nmb"],
+                      f["lr"], f["lam"], timed=True)
+    del w128, h128
+
+    fit = mf_flagship(cfg, state, nnz)
+    log(f"  kernel {flag['ms']:.4f} ms per hop (one hop an epoch) against a "
+        f"bound of {flag['bound_ms']:.4f} ms ({flag['bound_by']}); fit "
+        f"{fit['per_epoch_ms']:.4f} ms per epoch")
+    del state, args, slab
+    torch.cuda.empty_cache()
+    mf_variants()
+    return {
+        "name": "dense_mf_hop", "route": "cuda",
+        "source": "harp_tpu_torch/csrc/dense_mf_hop.cu",
+        "replaces": "harp_tpu/ops/pallas_kernels.py:250",
+        "launches": fit["launches"]["dense_mf_hop"],
+        "max_abs_err": flag["max_abs_err"], "ms": flag["ms"],
+        "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+        "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
+        "W_rel_vs_plain": flag["W_rel_vs_plain"],
+        "H_rel_vs_plain": flag["H_rel_vs_plain"],
+        "rank128_ms": r128["ms"], "rank128_plain_ms": r128["plain_ms"],
+        "rank128_bound_ms": r128["bound_ms"],
+        "rank128_library_ms": r128["library_ms"],
+        "split_ms": flag["split_ms"], "rank128_split_ms": r128["split_ms"],
+        "fit_ratings_per_s": fit["ratings_per_s"],
+        "fit_per_epoch_ms": fit["per_epoch_ms"],
+        "fit_rmse_rel_vs_plain": fit["rmse_rel_vs_plain"],
+        "fit_factor_rel_vs_plain": fit["factor_rel_vs_plain"],
+        "fit_hop_kernel_ms": fit["hop_kernel_ms"],
+        "fit_w_reduce_ms": fit["w_reduce_ms"],
+        "fit_device_busy_share": fit["busy_share"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -311,9 +713,8 @@ def main() -> int:
         f"{k} ({'built' if v['built'] else 'cached'} {v['seconds']:.2f} s)"
         for k, v in built.items()))
     for name, v in built.items():
-        for line in v["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for fn, regs, spill in ptxas_usage(v["log"]):
+            log(f"  {name}: {fn}: {regs}; {spill}")
 
     f = FLAGSHIP
     flag = estep_case("flagship", f["n"], f["k"], f["d"], f["k"],
@@ -328,6 +729,7 @@ def main() -> int:
         f"{flag['plain_ms']:.4f} ms, library {flag['library_ms']:.4f} ms")
     small_fit_vs_numpy()
     variants_bitwise()
+    mf = mf_phases()
     log(f"[done] {time.perf_counter() - t_start:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -343,7 +745,7 @@ def main() -> int:
         "fit_iters_per_s": fit["iters_per_s"],
         "fit_per_iter_ms": fit["per_iter_ms"],
         "fit_centroid_rel_vs_plain": fit["centroid_rel_vs_plain"],
-    }]
+    }, mf]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

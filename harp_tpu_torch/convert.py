@@ -1,9 +1,14 @@
 """Convert model state from the JAX package's form to the port's.
 
-The JAX package's K-means state is its centroid table (a numpy array) plus
-its ``KMeansConfig`` fields. :func:`kmeans_state_from_jax` turns them into
-the port's config and a float32 centroid tensor, so the two packages fit
-the same problem from the same start.
+* K-means: the centroid table (a numpy array) plus the ``KMeansConfig``
+  fields -> the port's config and a float32 centroid tensor
+  (:func:`kmeans_state_from_jax`).
+* SGD-MF: factors in original id order plus the ``SGDMFConfig`` fields ->
+  the port's config and a prepared state whose factor blocks hold those
+  factors (:func:`sgd_mf_state_from_jax`, the inverse of
+  ``SGDMF._finalize``).
+
+So the two packages fit the same problem from the same start.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import numpy as np
 import torch
 
 from harp_tpu_torch.models.kmeans import KMeansConfig
+from harp_tpu_torch.models.sgd_mf import SGDMF, SGDMFConfig
+from harp_tpu_torch.parallel.mesh import fetch
 
 
 def kmeans_state_from_jax(centroids_np: np.ndarray,
@@ -38,3 +45,62 @@ def kmeans_state_from_jax(centroids_np: np.ndarray,
         raise ValueError(f"centroids of shape {cen.shape} do not match "
                          f"num_centroids={cfg.num_centroids}, dim={cfg.dim}")
     return cfg, torch.from_numpy(np.ascontiguousarray(cen))
+
+
+def sgd_mf_state_from_jax(model: SGDMF, state: tuple, w_np: np.ndarray,
+                          h_np: np.ndarray, config_dict: Mapping
+                          ) -> Tuple[SGDMFConfig, tuple]:
+    """(port SGDMFConfig, prepared state) from the JAX model's factors in
+    original id order — W (num_rows, K) and H (num_cols, K), numpy — and
+    ``dataclasses.asdict`` of its SGDMFConfig.
+
+    ``state`` is the port model's own :meth:`SGDMF.prepare` result for the
+    same data; it supplies the layout (worker/block id maps, rows per
+    worker, columns per block, 1 or 2 slices). The returned state is that
+    state with its factor blocks replaced: every id's row placed where
+    ``SGDMF._finalize`` reads it back (2-slice H worker-major (W, 2, cpb,
+    K)); padded slots keep the state's values. Fields the port does not
+    have yet raise ``NotImplementedError``: ``quant`` other than None and
+    ``fused_dma=True``."""
+    fields = dict(config_dict)
+    if fields.get("quant") is not None:
+        raise NotImplementedError(f"quant={fields['quant']!r} is not ported "
+                                  f"yet")
+    if fields.get("fused_dma"):
+        raise NotImplementedError("fused_dma=True is not ported yet")
+    known = {f.name for f in dataclasses.fields(SGDMFConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"unknown SGDMFConfig fields {unknown}")
+    cfg = SGDMFConfig(**fields)
+    if cfg != model.config:
+        raise ValueError(f"the JAX config {cfg} does not match the port "
+                         f"model's {model.config}")
+    layout, data, w0, h0, meta = state
+    num_rows, num_cols, row_assign, col_assign, rpw, cpb = meta[:6]
+    k = cfg.rank
+    w_np = np.asarray(w_np, dtype=np.float32)
+    h_np = np.asarray(h_np, dtype=np.float32)
+    if w_np.shape != (num_rows, k) or h_np.shape != (num_cols, k):
+        raise ValueError(f"factors of shape {w_np.shape} and {h_np.shape} "
+                         f"do not match ({num_rows}, {k}) and "
+                         f"({num_cols}, {k})")
+    w_flat = fetch(w0).reshape(-1, k).copy()
+    rb, rl = row_assign
+    w_flat[rb[:num_rows].astype(np.int64) * rpw + rl[:num_rows]] = w_np
+    h_dev = fetch(h0)
+    two_slice = cfg.num_slices == 2
+    if two_slice:
+        # (W, 2, cpb, K) worker-major -> block-id-major (2W*cpb, K)
+        h_flat = h_dev.transpose(1, 0, 2, 3).reshape(-1, k).copy()
+    else:
+        h_flat = h_dev.reshape(-1, k).copy()
+    cb, cl = col_assign
+    h_flat[cb[:num_cols].astype(np.int64) * cpb + cl[:num_cols]] = h_np
+    if two_slice:
+        nw = h_dev.shape[0]
+        h_flat = np.ascontiguousarray(
+            h_flat.reshape(2, nw, cpb, k).transpose(1, 0, 2, 3))
+    sess = model.session
+    return cfg, (layout, data, sess.scatter(w_flat),
+                 sess.scatter(h_flat.reshape(h_dev.shape)), meta)

@@ -1,11 +1,14 @@
-"""Synthetic data generators for K-means (numpy on the host).
+"""Synthetic data generators (numpy on the host).
 
-Port of ``dense_points`` and ``initial_centroids`` from
+Port of ``dense_points``, ``initial_centroids`` and ``sparse_ratings`` from
 ``harp_tpu/io/datagen.py`` (reference: KMUtil.generatePoints /
-generateCentroids). The same seed gives the same arrays as the JAX package.
+generateCentroids and the SGD-MF rating generators). The same seed gives the
+same arrays as the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -28,3 +31,19 @@ def initial_centroids(points: np.ndarray, k: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     idx = rng.choice(points.shape[0], size=k, replace=False)
     return np.ascontiguousarray(points[idx])
+
+
+def sparse_ratings(num_users: int, num_items: int, rank: int,
+                   density: float = 0.05, seed: int = 0,
+                   noise: float = 0.01) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Low-rank rating matrix sample in COO form (rows, cols, vals): the
+    SGD-MF workload. Positions are drawn with replacement, so a few (row,
+    col) pairs repeat (``SGDMF.prepare`` keeps the first)."""
+    rng = np.random.default_rng(seed)
+    nnz = int(num_users * num_items * density)
+    rows = rng.integers(0, num_users, size=nnz).astype(np.int32)
+    cols = rng.integers(0, num_items, size=nnz).astype(np.int32)
+    u = rng.standard_normal((num_users, rank)).astype(np.float32) / np.sqrt(rank)
+    v = rng.standard_normal((num_items, rank)).astype(np.float32) / np.sqrt(rank)
+    vals = np.einsum("ij,ij->i", u[rows], v[cols]) + noise * rng.standard_normal(nnz)
+    return rows, cols, vals.astype(np.float32)

@@ -2,12 +2,20 @@
 kernels (``harp_tpu/ops/pallas_kernels.py``; the module keeps its name so a
 reader finds the counterpart).
 
-Ported: the fused K-means E-step. ``kmeans_stats_cuda`` launches the CUDA
-kernel ``csrc/kmeans_stats.cu`` (distance + argmin + partial sums, never
-writing the (N, K) score matrix); ``kmeans_stats_plain`` is the same
-function in plain PyTorch (``ops/distance.partial_sums_counts``); the
-dispatcher ``kmeans_stats`` sends a CPU tensor to the plain version and a
-CUDA tensor to the kernel — there is no fallback from one to the other.
+Ported:
+
+* the fused K-means E-step. ``kmeans_stats_cuda`` launches the CUDA kernel
+  ``csrc/kmeans_stats.cu`` (distance + argmin + partial sums, never writing
+  the (N, K) score matrix); ``kmeans_stats_plain`` is the same function in
+  plain PyTorch (``ops/distance.partial_sums_counts``);
+* the dense SGD-MF hop. ``dense_mf_hop_cuda`` launches ``csrc/
+  dense_mf_hop.cu`` (the masked stripe-GEMM update of every stacked
+  worker's H block against its slab bucket, pred and G kept on chip);
+  ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch.
+
+Each dispatcher (``kmeans_stats``, ``dense_mf_hop``) sends a CPU tensor to
+the plain version and a CUDA tensor to the kernel; there is no fallback
+from one to the other, and a shape the kernel cannot take raises.
 
 ``launches`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
@@ -20,10 +28,11 @@ import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from harp_tpu_torch.ops import distance
 
-launches: Dict[str, int] = {"kmeans_stats": 0}
+launches: Dict[str, int] = {"kmeans_stats": 0, "dense_mf_hop": 0}
 
 # shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -139,3 +148,174 @@ def kmeans_stats(x: torch.Tensor, c: torch.Tensor,
     if x.device.type == "cpu":
         return kmeans_stats_plain(x, c, valid_k)
     raise ValueError(f"kmeans_stats runs on cuda or cpu, not {x.device}")
+
+
+# --------------------------------------------------------------------------- #
+# Dense SGD-MF hop
+# --------------------------------------------------------------------------- #
+
+# ranks the kernel is built for; K is zero-padded up to the next one
+MF_RANKS = (16, 32, 64, 128)
+
+
+def _mf_shapes(slab, buckets, w, h, row_cnt, col_cnt, nmb):
+    """(W, n_blocks, rpw, cpb, K, nmb_fine) of one hop's operands, checked."""
+    if slab.dim() != 4:
+        raise ValueError(f"slab must be (W, n_blocks, rpw, cpb), got "
+                         f"{tuple(slab.shape)}")
+    nw, n_blocks, rpw, cpb = slab.shape
+    k = w.shape[-1]
+    if (tuple(w.shape) != (nw, rpw, k) or tuple(h.shape) != (nw, cpb, k)
+            or tuple(buckets.shape) != (nw,)
+            or tuple(row_cnt.shape) != (nw, n_blocks, rpw)
+            or col_cnt.dim() != 4
+            or tuple(col_cnt.shape[:2]) != (nw, n_blocks)
+            or col_cnt.shape[3] != cpb):
+        raise ValueError(
+            f"dense_mf_hop: inconsistent shapes: slab {tuple(slab.shape)}, "
+            f"buckets {tuple(buckets.shape)}, w {tuple(w.shape)}, h "
+            f"{tuple(h.shape)}, row_cnt {tuple(row_cnt.shape)}, col_cnt "
+            f"{tuple(col_cnt.shape)}")
+    nmb_fine = col_cnt.shape[2]
+    if nmb < 1 or rpw % nmb or nmb_fine % nmb:
+        raise ValueError(f"nmb={nmb} must divide rpw={rpw} and the fine "
+                         f"stripe count {nmb_fine}")
+    return nw, n_blocks, rpw, cpb, k, nmb_fine
+
+
+def dense_mf_hop_plain(slab: torch.Tensor, buckets: torch.Tensor,
+                       w: torch.Tensor, h: torch.Tensor,
+                       row_cnt: torch.Tensor, col_cnt: torch.Tensor, nmb: int,
+                       lr: float, lam: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One dense SGD-MF hop in plain PyTorch: the stripe loop of the JAX
+    package's ``SGDMF._build_dense``, per worker. Same contract as
+    :func:`dense_mf_hop_cuda`; the products are ``torch.matmul`` of the
+    bf16-rounded operands in the factors' type (bf16 products are exact in
+    float32, so only the order of the sums differs from the kernel; with
+    float64 factors the sums are exact to float32 precision, a reference
+    for how far rounding alone moves a hop). Reads the bucket indices on the
+    host (a device sync for a CUDA tensor)."""
+    nw, _, rpw, cpb, _, nmb_fine = _mf_shapes(slab, buckets, w, h, row_cnt,
+                                              col_cnt, nmb)
+    s = rpw // nmb
+    w_out = torch.empty_like(w)
+    h_out = torch.empty_like(h)
+    sse = w.new_zeros(nw)
+    zero = w.new_zeros(())
+    for wi, b in enumerate(buckets.tolist()):
+        vb, rc = slab[wi, b], row_cnt[wi, b]
+        cc = col_cnt[wi, b].reshape(nmb, nmb_fine // nmb, cpb).sum(dim=1)
+        hb, total = h[wi], zero
+        for i in range(nmb):
+            rows = slice(i * s, (i + 1) * s)
+            w_s = w[wi, rows]
+            wb = w_s.to(torch.bfloat16).to(w.dtype)
+            hbb = hb.to(torch.bfloat16).to(w.dtype)
+            v = vb[rows].to(w.dtype)
+            g = torch.where(torch.isnan(v), zero, v - wb @ hbb.t()
+                            ).to(torch.bfloat16).to(w.dtype)
+            dw = g @ hbb
+            dh = g.t() @ wb
+            w_out[wi, rows] = w_s + lr * (dw - lam * rc[rows, None] * w_s)
+            hb = hb + lr * (dh - lam * cc[i][:, None] * hb)
+            total = total + (g * g).sum()
+        h_out[wi] = hb
+        sse[wi] = total
+    return w_out, h_out, sse
+
+
+def _mf_lib() -> ctypes.CDLL:
+    lib = _LIB.get("dense_mf_hop")
+    if lib is None:
+        from harp_tpu_torch.ops import _cuda_build
+
+        lib = _cuda_build.library("dense_mf_hop")
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.dense_mf_hop_col_tile.argtypes = [i]
+        lib.dense_mf_hop_col_tile.restype = i
+        lib.dense_mf_hop_smem_bytes.argtypes = [i]
+        lib.dense_mf_hop_smem_bytes.restype = ctypes.c_longlong
+        lib.dense_mf_hop_launch.argtypes = [vp] * 11 + [i] * 7 + [f, f, vp]
+        lib.dense_mf_hop_launch.restype = i
+        _LIB["dense_mf_hop"] = lib
+    return lib
+
+
+def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
+                      w: torch.Tensor, h: torch.Tensor,
+                      row_cnt: torch.Tensor, col_cnt: torch.Tensor, nmb: int,
+                      lr: float, lam: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One dense SGD-MF hop of every stacked worker on the card:
+    (w' (W, rpw, K), h' (W, cpb, K), sse (W,)).
+
+    ``slab``: (W, n_blocks, rpw, cpb) bf16, NaN = missing; ``buckets``: (W,)
+    int32, the block each worker updates (no bucket is copied);
+    ``w``: (W, rpw, K) and ``h``: (W, cpb, K) float32; ``row_cnt``: (W,
+    n_blocks, rpw) and ``col_cnt``: (W, n_blocks, nmb_fine, cpb) float32
+    regularizer counts, ``col_cnt`` summed over ``nmb_fine // nmb`` adjacent
+    fine stripes per stripe. All on one CUDA device and contiguous. K <= 128
+    (zero-padded to 16, 32, 64 or 128 here: exact)."""
+    args = (slab, buckets, w, h, row_cnt, col_cnt)
+    if not all(t.is_cuda and t.device == slab.device for t in args):
+        raise ValueError("dense_mf_hop_cuda needs every tensor on one CUDA "
+                         "device, got " + ", ".join(str(t.device)
+                                                    for t in args))
+    if slab.dtype != torch.bfloat16 or buckets.dtype != torch.int32:
+        raise TypeError(f"slab must be bfloat16 and buckets int32, got "
+                        f"{slab.dtype} and {buckets.dtype}")
+    if any(t.dtype != torch.float32 for t in (w, h, row_cnt, col_cnt)):
+        raise TypeError("w, h, row_cnt and col_cnt must be float32")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("every dense_mf_hop_cuda operand must be contiguous")
+    nw, n_blocks, rpw, cpb, k, nmb_fine = _mf_shapes(*args, nmb)
+    kp = next((r for r in MF_RANKS if k <= r), 0)
+    if k < 1 or not kp:
+        raise ValueError(f"dense_mf_hop_cuda takes 1 <= K <= {MF_RANKS[-1]}, "
+                         f"got K={k}")
+    if slab.data_ptr() % 16:
+        raise ValueError("the slab must start on a 16-byte boundary")
+    lib = _mf_lib()
+    n_ct = -(-cpb // lib.dense_mf_hop_col_tile(kp))
+    w_in = w if kp == k else F.pad(w, (0, kp - k))
+    h_in = h if kp == k else F.pad(h, (0, kp - k))
+    if w_in.data_ptr() % 16:
+        w_in = w_in.clone()
+    dev = slab.device
+    with torch.cuda.device(dev):
+        w_out = torch.empty((nw, rpw, kp), dtype=torch.float32, device=dev)
+        h_out = torch.empty((nw, cpb, kp), dtype=torch.float32, device=dev)
+        ws = torch.empty((nw, n_ct, rpw, kp), dtype=torch.float32, device=dev)
+        sse_part = torch.empty((nw, n_ct), dtype=torch.float32, device=dev)
+        sse = torch.empty((nw,), dtype=torch.float32, device=dev)
+        err = lib.dense_mf_hop_launch(
+            slab.data_ptr(), buckets.data_ptr(), w_in.data_ptr(),
+            h_in.data_ptr(), row_cnt.data_ptr(), col_cnt.data_ptr(),
+            w_out.data_ptr(), h_out.data_ptr(), ws.data_ptr(),
+            sse_part.data_ptr(), sse.data_ptr(), nw, n_blocks, rpw, cpb, kp,
+            nmb, nmb_fine, float(lr), float(lam),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dense_mf_hop kernel launch failed: CUDA error "
+                           f"{err}")
+    launches["dense_mf_hop"] += 1
+    if kp != k:
+        w_out = w_out[..., :k].contiguous()
+        h_out = h_out[..., :k].contiguous()
+    return w_out, h_out, sse
+
+
+def dense_mf_hop(slab: torch.Tensor, buckets: torch.Tensor, w: torch.Tensor,
+                 h: torch.Tensor, row_cnt: torch.Tensor, col_cnt: torch.Tensor,
+                 nmb: int, lr: float, lam: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense SGD-MF hop the model calls: the CUDA kernel for a CUDA
+    slab, the plain version for a CPU slab."""
+    if slab.device.type == "cuda":
+        return dense_mf_hop_cuda(slab, buckets, w, h, row_cnt, col_cnt, nmb,
+                                 lr, lam)
+    if slab.device.type == "cpu":
+        return dense_mf_hop_plain(slab, buckets, w, h, row_cnt, col_cnt, nmb,
+                                  lr, lam)
+    raise ValueError(f"dense_mf_hop runs on cuda or cpu, not {slab.device}")

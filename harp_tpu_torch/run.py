@@ -1,14 +1,14 @@
 """Command-line launcher: ``python -m harp_tpu_torch.run <algorithm> [flags]``.
 
-Port of ``harp_tpu/run.py``. Ported subcommands: ``kmeans``. The run goes
-on CUDA unless ``--device cpu`` is given; without CUDA the default fails.
+Port of ``harp_tpu/run.py``. Ported subcommands: ``kmeans`` and ``sgd_mf``.
+The run goes on CUDA unless ``--device cpu`` is given; without CUDA the
+default fails.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import glob
 import os
 import sys
 import time
@@ -35,9 +35,11 @@ def _common_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _load_points(spec: str) -> np.ndarray:
-    """A CSV file, a directory of CSV part-files, or a glob (path order)."""
-    paths = (sorted(glob.glob(os.path.join(spec, "*"))) if os.path.isdir(spec)
-             else sorted(glob.glob(spec)))
+    """A CSV file, a directory of CSV part-files, or a glob (path order;
+    ``_``/``.``-prefixed part-files such as ``_README`` are skipped)."""
+    from harp_tpu_torch.io import loaders
+
+    paths = loaders.list_files(spec)
     if not paths:
         raise FileNotFoundError(f"no input files match {spec!r}")
     return np.concatenate([np.loadtxt(p, delimiter=",", dtype=np.float32,
@@ -96,7 +98,73 @@ def run_kmeans(argv) -> int:
     return 0
 
 
-COMMANDS = {"kmeans": run_kmeans}
+def run_sgd_mf(argv) -> int:
+    from harp_tpu_torch.io import datagen, loaders
+    from harp_tpu_torch.models import sgd_mf
+    from harp_tpu_torch.session import HarpSession
+
+    p = argparse.ArgumentParser(prog="harp_tpu_torch.run sgd_mf")
+    _common_flags(p)
+    p.add_argument("--num-users", type=int, default=8192)
+    p.add_argument("--num-items", type=int, default=8192)
+    p.add_argument("--density", type=float, default=0.01)
+    p.add_argument("--ratings-file", default="",
+                   help="COO 'row col value' file/dir/glob (e.g. "
+                        "datasets/sgd_mf); overrides the synthetic data")
+    p.add_argument("--adaptive", action="store_true",
+                   help="auto-tune the per-hop budget (adjustMiniBatch analog)")
+    p.add_argument("--save-every", type=int, default=0)
+    add_dataclass_args(p, sgd_mf.SGDMFConfig)
+    args = p.parse_args(argv)
+    if args.save_every:
+        p.error("--save-every is not yet ported to harp_tpu_torch")
+    if args.quant not in (None, "", "none"):
+        p.error("--quant is not yet ported to harp_tpu_torch")
+    if args.fused_dma:
+        p.error("--fused-dma is not yet ported to harp_tpu_torch")
+    cfg = sgd_mf.SGDMFConfig(**{
+        f.name: getattr(args, f.name)
+        for f in dataclasses.fields(sgd_mf.SGDMFConfig) if f.name != "quant"})
+    sess = HarpSession(num_workers=args.num_workers, device=args.device)
+    if args.ratings_file:
+        rows, cols, vals = loaders.load_coo(
+            loaders.list_files(args.ratings_file))
+        # shapes come from the data; --num-users/--num-items are ignored
+        nu, ni = int(rows.max()) + 1, int(cols.max()) + 1
+    else:
+        rows, cols, vals = datagen.sparse_ratings(
+            args.num_users, args.num_items, rank=min(cfg.rank, 16),
+            density=args.density, seed=args.seed)
+        nu, ni = args.num_users, args.num_items
+    model = sgd_mf.SGDMF(sess, cfg)
+    state = model.prepare(rows, cols, vals, nu, ni, seed=args.seed)
+    if args.adaptive:
+        w, h, rmse, tuner = model.fit_adaptive(state)
+        print(f"tuned budget: {tuner.chosen} "
+              f"(times {dict(sorted(tuner.times.items()))})")
+        # the tuner's steady-state epoch times, not the warm-up calls
+        dt = tuner.times[tuner.chosen] * cfg.epochs
+    else:
+        model.fit_prepared(state)                 # warm-up (builds the kernel)
+        sess.barrier()
+        t0 = time.perf_counter()
+        w, h, rmse = model.fit_prepared(state)
+        dt = time.perf_counter() - t0
+    nnz = len(vals) - model.last_layout_stats.get("duplicates_dropped", 0)
+    sps = nnz * cfg.epochs / dt
+    steady = " (tuner steady-state)" if args.adaptive else ""
+    print(f"sgd_mf[{model.last_layout_stats['layout']}] "
+          f"workers={sess.num_workers} nnz={nnz} rank={cfg.rank}: "
+          f"{sps / 1e6:.2f} M samples/s{steady}, rmse {rmse[0]:.4f} -> "
+          f"{rmse[-1]:.4f}")
+    if args.work_dir:
+        os.makedirs(args.work_dir, exist_ok=True)
+        np.savetxt(os.path.join(args.work_dir, "w.csv"), w, delimiter=",")
+        np.savetxt(os.path.join(args.work_dir, "h.csv"), h, delimiter=",")
+    return 0
+
+
+COMMANDS = {"kmeans": run_kmeans, "sgd_mf": run_sgd_mf}
 
 
 def main(argv=None) -> int:

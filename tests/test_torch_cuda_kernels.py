@@ -5,11 +5,21 @@ file imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Tolerances: f32 sums rtol 1e-4 (the kernel and the matmul sum the cross
-term in different orders), counts exact except for near-tie rows, cost rtol
-1e-4; bf16 sums rtol 2e-2. Two runs of a kernel are bitwise equal.
+Tolerances: K-means f32 sums rtol 1e-4 (the kernel and the matmul sum the
+cross term in different orders), counts exact except for near-tie rows, cost
+rtol 1e-4; bf16 sums rtol 2e-2. Two runs of a kernel are bitwise equal.
+
+Dense SGD-MF hop: SSE rtol 1e-5 against the plain version. W and H are
+held against the plain version run in float64 (exact sums of the same bf16
+products): relative to their largest entry, the kernel must be within 1e-4
+or within 4x the distance of the float32 plain version from it, whichever
+is larger. A last-bit difference in pred can flip the bf16 rounding of an
+entry of G, and the flip moves H, so every later stripe's pred, and G's
+roundings there: one hop amplifies rounding by itself, by an amount that
+depends on the data, so the yardstick is measured on the same inputs.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -81,3 +91,75 @@ def test_kmeans_stats_kernel_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         pk.kmeans_stats_cuda(torch.zeros(64, 256, device=cuda),
                              torch.zeros(200, 256, device=cuda))
+
+
+def mf_hop_inputs(nw, n_blocks, rpw, cpb, k, nmb_fine, density=0.05,
+                  seed=0):
+    """A NaN-coded bf16 slab of rank-8 ratings plus noise (the shape of
+    ``datagen.sparse_ratings``) with its true regularizer counts, and random
+    factors, made with numpy from a seed (CPU tensors)."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((nw, n_blocks, rpw, 8)).astype(np.float32)
+    m = rng.standard_normal((nw, n_blocks, 8, cpb)).astype(np.float32)
+    v = (u @ m) / 8.0 + 0.01 * rng.standard_normal((nw, n_blocks, rpw, cpb))
+    v[rng.random(v.shape) >= density] = np.nan
+    seen = ~np.isnan(v)
+    row_cnt = seen.sum(axis=3).astype(np.float32)
+    col_cnt = seen.reshape(nw, n_blocks, nmb_fine, rpw // nmb_fine,
+                           cpb).sum(axis=3).astype(np.float32)
+    scale = 1.0 / np.sqrt(k)
+    w = (scale * rng.standard_normal((nw, rpw, k))).astype(np.float32)
+    h = (scale * rng.standard_normal((nw, cpb, k))).astype(np.float32)
+    t = torch.from_numpy
+    return (t(v.astype(np.float32)).to(torch.bfloat16), t(w), t(h),
+            t(row_cnt), t(col_cnt))
+
+
+def max_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("nw,n_blocks,rpw,cpb,k,nmb,nmb_fine,buckets", [
+    (1, 1, 4096, 4096, 32, 8, 8, [0]),          # the flagship cut to 4096^2
+    (1, 1, 1024, 3000, 32, 4, 4, [0]),          # ragged column tile
+    (1, 1, 520, 1001, 16, 4, 4, [0]),           # odd cpb, ragged row chunks
+    (1, 1, 1024, 2048, 20, 4, 4, [0]),          # K padded to 32
+    (1, 1, 1024, 2048, 128, 4, 4, [0]),         # rank 128
+    (1, 2, 512, 1024, 64, 2, 4, [1]),           # K=64, coarser budget
+    (4, 8, 512, 512, 32, 4, 8, [5, 2, 7, 0]),   # stacked, per-worker buckets
+])
+def test_dense_mf_hop_kernel_matches_plain(cuda, nw, n_blocks, rpw, cpb, k,
+                                           nmb, nmb_fine, buckets):
+    v, w, h, rc, cc = (x.to(cuda) for x in mf_hop_inputs(
+        nw, n_blocks, rpw, cpb, k, nmb_fine, seed=rpw + cpb + k))
+    b = torch.tensor(buckets, dtype=torch.int32, device=cuda)
+    args = (v, b, w, h, rc, cc, nmb, 0.05, 0.01)
+    before = pk.launches["dense_mf_hop"]
+    w1, h1, sse1 = pk.dense_mf_hop_cuda(*args)
+    torch.cuda.synchronize()
+    assert pk.launches["dense_mf_hop"] == before + 1
+    w2, h2, sse2 = pk.dense_mf_hop_plain(*args)
+    w3, h3, _ = pk.dense_mf_hop_plain(v, b, w.double(), h.double(),
+                                      rc.double(), cc.double(), nmb, 0.05,
+                                      0.01)
+    assert w1.shape == w.shape and h1.shape == h.shape and sse1.shape == (nw,)
+    for got, plain, exact in ((w1, w2, w3), (h1, h2, h3)):
+        tol = max(1e-4, 4 * max_rel(plain.double(), exact))
+        assert max_rel(got.double(), exact) <= tol
+    torch.testing.assert_close(sse1, sse2, rtol=1e-5, atol=0)
+    again = pk.dense_mf_hop_cuda(*args)
+    for a, c in zip((w1, h1, sse1), again):
+        assert torch.equal(a, c)
+
+
+def test_dense_mf_hop_kernel_refuses_bad_inputs(cuda):
+    v, w, h, rc, cc = (x.to(cuda) for x in mf_hop_inputs(1, 1, 64, 64, 8, 2))
+    b = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        pk.dense_mf_hop_cuda(v, b.long(), w, h, rc, cc, 2, 0.05, 0.01)
+    with pytest.raises(ValueError, match="K <= 128"):
+        pk.dense_mf_hop_cuda(v, b, torch.zeros(1, 64, 130, device=cuda),
+                             torch.zeros(1, 64, 130, device=cuda), rc, cc, 2,
+                             0.05, 0.01)
+    with pytest.raises(ValueError, match="nmb"):
+        pk.dense_mf_hop_cuda(v, b, w, h, rc, cc, 3, 0.05, 0.01)

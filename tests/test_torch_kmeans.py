@@ -275,6 +275,24 @@ def test_cli_kmeans_on_cpu(capsys, tmp_path):
         assert "not yet ported" in capsys.readouterr().err
 
 
+def test_cli_kmeans_reads_a_part_file_directory(capsys, monkeypatch):
+    """--points-file on the bundled directory reads the 512 x 16 points the
+    JAX loader reads: part-files in path order, _README skipped."""
+    from harp_tpu.io import loaders as jloaders
+
+    spec = str(REPO / "datasets" / "kmeans")
+    ref = jloaders.load_dense_csv(jloaders.list_files(spec))
+    assert ref.shape == (512, 16)
+    seen = []
+    load = trun._load_points
+    monkeypatch.setattr(trun, "_load_points",
+                        lambda s: seen.append(load(s)) or seen[-1])
+    assert trun.main(["kmeans", "--device", "cpu", "--points-file", spec,
+                      "--num-centroids", "4", "--iterations", "2"]) == 0
+    np.testing.assert_array_equal(seen[0], ref)
+    assert "n=512 k=4 d=16" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv", [[], ["--num-centroids", "7", "--dim", "3",
                                    "--comm", "rotation", "--lane-pad", "no"]])
 def test_config_parse_into_matches_jax(argv):
