@@ -2,8 +2,8 @@
 
 Builds every CUDA kernel of the port from ``harp_tpu_torch/csrc/`` with nvcc
 (one nvcc per source, all at once), holds each kernel against its plain
-PyTorch version on the card, and drives both main paths with the launch
-counters set to 0 just before each and read just after:
+PyTorch version on the card, and drives the three main paths with the
+launch counters set to 0 just before each and read just after:
 
   * K-means regroupallgather through ``HarpSession`` and ``KMeans.fit`` at
     the flagship n=1,000,000, k=100, d=100, 10 iterations, and the five comm
@@ -11,7 +11,16 @@ counters set to 0 just before each and read just after:
   * dense SGD-MF rotation through ``SGDMF.prepare``/``fit_prepared`` at the
     flagship 32768 x 32768 ratings, 1%, rank 32, 8 minibatches a hop, 10
     epochs, against the same fit through the plain hop; then the stacked
-    W=4 variants (1 and 2 slices, dense and sparse) at 4096 x 4096, 5%.
+    W=4 variants (1 and 2 slices, dense and sparse) at 4096 x 4096, 5%;
+  * implicit ALS through ``ALS.prepare``/``fit_prepared`` at the flagship
+    8192 x 8192, 0.5%, rank 32, 10 iterations (dense layout, two SPD-solve
+    launches an iteration), against the same fit through the "cholesky"
+    solver; explicit ALS (sparse layout) at the same size, ``run als``, and
+    the stacked W=4 variants (dense and sparse, implicit and explicit) at
+    2048 x 2048 against the "cholesky" fit and the port's CPU fit, each
+    with a float64-solve fit as the yardstick. The SPD solve is held against
+    its plain version and a float64 solve on the flagship's own normal
+    equations and at K = 10 (N odd), 33 and 64.
 
 It prints:
 
@@ -30,9 +39,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -51,6 +62,17 @@ MF_FLAGSHIP = dict(users=32768, items=32768, data_rank=16, density=0.01,
 # a column block that is not a multiple of the kernel's tile, K padded to 32
 MF_RAGGED = dict(users=8192, items=30000, rank=20, nmb=4)
 MF_VARIANTS = dict(n=4096, workers=4, epochs=3)
+CARD = "cuda"
+# README.md:112 and bench.py:260-288: implicit ALS, sparse_ratings(8192,
+# 8192, rank=16, density=0.005, seed=9) as counts, rank 32, lam 0.1, alpha 40
+ALS_FLAGSHIP = dict(users=8192, items=8192, data_rank=16, density=0.005,
+                    seed=9, rank=32, lam=0.1, alpha=40.0, iterations=10)
+# explicit ALS (tests/test_als_nn_solvers.py:11-19) at the flagship size:
+# signed ratings, so layout auto picks the sparse capped chunks
+ALS_EXPLICIT = dict(users=8192, items=8192, data_rank=16, density=0.005,
+                    seed=9, rank=32, lam=0.05, iterations=10)
+# bench.py --small's ALS size (bench.py:1350), both layouts and modes, W=4
+ALS_VARIANTS = dict(n=2048, workers=4, density=0.01, rank=32, iterations=3)
 
 
 def log(msg: str) -> None:
@@ -690,6 +712,412 @@ def mf_phases():
     }
 
 
+# --------------------------------------------------------------------------- #
+# Batched SPD solve: kernel against plain and float64
+# --------------------------------------------------------------------------- #
+
+def lower_triangle_sectors(n, k):
+    """32-byte sectors of an (n, K, K) row-major float32 tensor that hold an
+    entry of a lower triangle: the only entries of A the solve reads. Row i
+    of a system covers sectors first..last; rows lie in address order, so a
+    sector that ends one row and starts the next counts once."""
+    i = np.arange(k, dtype=np.int64)
+    start = np.arange(n, dtype=np.int64)[:, None] * (k * k) + i * k
+    first, last = (start * 4 // 32).ravel(), ((start + i) * 4 // 32).ravel()
+    return int((last - first + 1).sum() - (first[1:] == last[:-1]).sum())
+
+
+def spd_bound(n, k):
+    """Least time for n K×K solves: the sectors of A's lower triangle and b
+    read once and x written once, against (2K³/3 + 4K²) operations a system
+    (Cholesky and the two substitutions) at the float32 CUDA-core peak."""
+    moved = lower_triangle_sectors(n, k) * 32 + 2 * n * k * 4
+    ops = (2 * k ** 3 / 3 + 4 * k * k) * n
+    t_bytes, t_ops = moved / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_spd(a, b):
+    """Yardstick only: the "cholesky" solver's route, cuSOLVER's batched
+    Cholesky then ``cholesky_solve``."""
+    return torch.cholesky_solve(b[..., None],
+                                torch.linalg.cholesky_ex(a).L)[..., 0]
+
+
+def random_spd(n, k, seed):
+    """ALS-shaped systems made on the card from a seed: V'V over 4k rows
+    plus 0.1 I, and right-hand sides."""
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    v = torch.randn(n, 4 * k, k, generator=g, device=CARD) / k ** 0.5
+    a = torch.bmm(v.transpose(1, 2), v) + 0.1 * torch.eye(k, device=CARD)
+    return a.contiguous(), torch.randn(n, k, generator=g, device=CARD)
+
+
+def spd_case(name, a, b, timed):
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    n, k = b.shape
+    log(f"[spd:{name}] N={n} K={k}")
+    x = pk.spd_solve_cuda(a, b)
+    torch.cuda.synchronize()
+    plain = pk.spd_solve_plain(a, b)
+    exact = torch.linalg.solve(a.double(), b.double())
+    err, ref = max_rel(x, exact), max_rel(plain, exact)
+    tol = max(1e-5, 4 * ref)
+    log(f"  kernel vs float64 {err:.3g}, plain vs float64 {ref:.3g}, kernel "
+        f"vs plain {max_rel(x, plain):.3g}")
+    check(bool(torch.isfinite(x).all()) and err <= tol,
+          f"x within {tol:.3g} of the float64 solve (1e-5 or 4x the plain "
+          f"version's distance)")
+    check(torch.equal(x, pk.spd_solve_cuda(a, b)),
+          "two kernel runs bitwise equal")
+    out = {"max_abs_err": float((x - plain).abs().max()),
+           "rel_vs_float64": err, "plain_rel_vs_float64": ref}
+    if timed:
+        out["ms"] = cuda_time_ms(lambda: pk.spd_solve_cuda(a, b))
+        out["plain_ms"] = cuda_time_ms(lambda: pk.spd_solve_plain(a, b),
+                                       reps=3, warmup=1)
+        out["library_ms"] = cuda_time_ms(lambda: library_spd(a, b))
+        out["bound_ms"], out["bound_by"] = spd_bound(n, k)
+        log(f"  kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+            f"library {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} "
+            f"ms ({out['bound_by']})")
+    return out
+
+
+def flagship_normal_equations(state, cfg):
+    """(A, b) of the first implicit dense half-step at the ALS flagship:
+    the users' systems from the initial item factor, through the model's
+    own half-step; and the A GEMM's relative distance from a float32 GEMM
+    of the same bf16 operands, with both GEMMs' times."""
+    from harp_tpu_torch.models import als
+
+    _, (u_plane, _, _, v0), _, _ = state
+    got = {}
+
+    def capture(a, b, _cfg):
+        got["a"], got["b"] = a.contiguous(), b.contiguous()
+        return b
+
+    with mock.patch.object(als, "_spd_solve", capture):
+        als._half_step_dense(v0, u_plane[None], cfg)
+    vz = torch.where(torch.isfinite(u_plane), u_plane, 0.0)
+    f_b = v0.to(torch.bfloat16)
+    k = cfg.rank
+    vv = (f_b[:, :, None] * f_b[:, None, :]).reshape(-1, k * k)
+    conf = vz * torch.tensor(cfg.alpha, dtype=torch.bfloat16, device=CARD)
+    fast = als._mm_f32(conf, vv)
+    slow = torch.mm(conf.float(), vv.float())
+    gemm = {"rel_vs_f32_gemm": max_rel(fast, slow),
+            "bf16_out_f32_ms": cuda_time_ms(lambda: als._mm_f32(conf, vv)),
+            "f32_ms": cuda_time_ms(
+                lambda: torch.mm(conf.float(), vv.float()), reps=5)}
+    return got["a"], got["b"], gemm
+
+
+def spd_phases(state, cfg):
+    f = ALS_FLAGSHIP
+    a, b, gemm = flagship_normal_equations(state, cfg)
+    log(f"[als:gemm] A = conf @ VV, ({f['users']}, {f['items']}) @ "
+        f"({f['items']}, {cfg.rank ** 2}) bf16 with float32 output: "
+        f"{gemm['bf16_out_f32_ms']:.4f} ms; float32 GEMM of the same "
+        f"operands {gemm['f32_ms']:.4f} ms; relative distance "
+        f"{gemm['rel_vs_f32_gemm']:.3g}")
+    check(gemm["rel_vs_f32_gemm"] <= 1e-5, "the bf16 GEMM keeps float32 "
+          "results (within 1e-5 of a float32 GEMM, relative to the largest "
+          "entry)")
+    flag = spd_case("flagship", a, b, timed=True)
+    del a, b
+    spd_case("ragged", *random_spd(8191, 10, seed=10), timed=False)
+    spd_case("k33", *random_spd(8192, 33, seed=33), timed=False)
+    k64 = spd_case("k64", *random_spd(8192, 64, seed=64), timed=True)
+    return flag, k64, gemm
+
+
+# --------------------------------------------------------------------------- #
+# Main path: ALS fits
+# --------------------------------------------------------------------------- #
+
+def f64_solve(a, b, _cfg):
+    """The same systems solved in float64: the rounding yardstick."""
+    return torch.linalg.solve(a.double(), b.double()).float()
+
+
+def plain_solve(a, b, _cfg):
+    """The kernel's plain version, on the card."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    return pk.spd_solve_plain(a, b)
+
+
+def reference_fits(sess, cfg, data):
+    """The same fit through the "cholesky" solver on the card (the
+    reference), and the rounding yardstick: how far a float32 solve's
+    rounding alone moves this fit, the larger distance from a fit whose
+    solve is float64 of two fits with float32 solves of their own
+    (cuSOLVER's Cholesky, the kernel's plain version). Returns (reference
+    fit, {"RMSE": rtol, "U": d, "V": d})."""
+    from harp_tpu_torch.models import als
+
+    chol = als.ALS(sess, dataclasses.replace(cfg, solver="cholesky"))
+    ref = chol.fit(*data)
+    with mock.patch.object(als, "_spd_solve", plain_solve):
+        plain = chol.fit(*data)
+    with mock.patch.object(als, "_spd_solve", f64_solve):
+        exact = chol.fit(*data)
+    yard = {"RMSE": max(float(np.abs(f[2] / exact[2] - 1).max())
+                        for f in (ref, plain))}
+    for i, tag in enumerate("UV"):
+        yard[tag] = max(max_rel(torch.from_numpy(f[i]),
+                                torch.from_numpy(exact[i]))
+                        for f in (ref, plain))
+    return ref, yard
+
+
+def check_als_fit(fit, other, yard, name):
+    """A fit against ``other`` (the cholesky fit on the card, or the CPU
+    fit), with the rounding yardstick d of :func:`reference_fits` (the rule
+    of the hop checks): every iteration's RMSE within rtol max(1e-4, 4 d),
+    final factors within max(1e-3, 4 d) of their largest entry. Returns
+    (RMSE distance, factor distance)."""
+    r_rel = float(np.abs(fit[2] / other[2] - 1).max())
+    rtol = max(1e-4, 4 * yard["RMSE"])
+    log(f"  RMSE: kernel fit vs {name} {r_rel:.3g}; float32-solve fits vs "
+        f"float64-solve fit up to {yard['RMSE']:.3g}")
+    check(r_rel <= rtol, f"every iteration's RMSE within rtol {rtol:.3g} of "
+          f"the {name}'s")
+    worst = 0.0
+    for i, tag in enumerate("UV"):
+        err = max_rel(torch.from_numpy(fit[i]), torch.from_numpy(other[i]))
+        tol = max(1e-3, 4 * yard[tag])
+        log(f"  {tag}: kernel fit vs {name} {err:.3g}; float32-solve fits vs "
+            f"float64-solve fit up to {yard[tag]:.3g}")
+        check(err <= tol, f"final {tag} within {tol:.3g} of the {name}")
+        worst = max(worst, err)
+    return r_rel, worst
+
+
+def als_fit_checked(sess, cfg, data, layout):
+    """Fit ``data`` through the kernel, counting launches, and hold it
+    against the cholesky and float64-solve fits. Returns (launches, fit,
+    RMSE distance, factor distance)."""
+    from harp_tpu_torch.models import als
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    model = als.ALS(sess, cfg)
+    state = model.prepare(*data)
+    check(model.last_layout_stats["layout"] == layout,
+          f"layout {model.last_layout_stats['layout']}")
+    for name in pk.launches:
+        pk.launches[name] = 0
+    t0 = time.perf_counter()
+    fit = model.fit_prepared(state)
+    wall = time.perf_counter() - t0
+    launches = dict(pk.launches)
+    log(f"  fit wall {wall:.3f} s (first call, includes the factor fetch), "
+        f"launches {launches}")
+    check(launches["spd_solve"] == 2 * cfg.iterations,
+          f"spd_solve launched twice an iteration ({launches['spd_solve']})")
+    log(f"  rmse {fit[2].tolist()}")
+    check(bool(np.all(np.isfinite(fit[2]))) and np.isfinite(fit[0]).all()
+          and np.isfinite(fit[1]).all(), "finite RMSEs and factors")
+    ref, yard = reference_fits(sess, cfg, data)
+    r_rel, f_rel = check_als_fit(fit, ref, yard, "cholesky fit")
+    return launches, fit, r_rel, f_rel
+
+
+def als_two_point(sess, cfg, data):
+    from harp_tpu_torch.benchmark import timing
+    from harp_tpu_torch.models import als
+
+    def build(iters):
+        m = als.ALS(sess, dataclasses.replace(cfg, iterations=iters))
+        s = m.prepare(*data)
+        m.train_prepared(s)
+        return lambda: m.train_prepared(s)
+
+    return timing.two_point(build, 10, 40, 1.0)
+
+
+def gemm_kernel(name: str) -> bool:
+    return bool(re.search("gemm|nvjet|xmma|cutlass|cublas", name, re.I))
+
+
+def als_flagship(data, cfg):
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.models import als
+
+    f = ALS_FLAGSHIP
+    log(f"[als:flagship] implicit {f['users']}x{f['items']}, "
+        f"{f['density']:g}, rank {f['rank']}, lam {f['lam']}, alpha "
+        f"{f['alpha']}, {f['iterations']} iterations, W=1")
+    sess = HarpSession(num_workers=1)
+    check(sess.device.type == "cuda", "HarpSession() runs on cuda")
+    launches, fit, r_rel, f_rel = als_fit_checked(sess, cfg, data, "dense")
+    tp = als_two_point(sess, cfg, data)
+    ab = als_two_point(sess, dataclasses.replace(cfg, ablate_solve=True),
+                       data)
+    share = (tp["per_iter_ms"] - ab["per_iter_ms"]) / tp["per_iter_ms"]
+    log(f"  two-point: {tp['rate']:.2f} iters/s, {tp['per_iter_ms']:.4f} "
+        f"ms/iter, fixed {tp['fixed_dispatch_s']:.4f} s, spread "
+        f"{tp['spread_pct']:.1f}%; solve ablated {ab['per_iter_ms']:.4f} "
+        f"ms/iter, so the solve is {100 * share:.2f}% of an iteration")
+    model = als.ALS(sess, cfg)
+    s = model.prepare(*data)
+    model.train_prepared(s)
+    per, busy = device_profile(lambda: model.train_prepared(s))
+    split = {"solve_kernel_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0}
+    if busy is None:
+        log("  profile: the profiler saw no device activity (not measured)")
+    else:
+        n = cfg.iterations
+        for name, ms in sorted(per.items(), key=lambda kv: -kv[1]):
+            log(f"  profile, {n} iterations: {name} {ms / n:.4f} ms an "
+                f"iteration")
+            key = ("solve_kernel_ms" if name.startswith("spd_solve_kernel")
+                   else "gemm_ms" if gemm_kernel(name) else "other_ms")
+            split[key] += ms / n
+        log(f"  profile: an iteration is {split['solve_kernel_ms']:.4f} ms "
+            f"in the solve kernel, {split['gemm_ms']:.4f} ms in GEMMs, "
+            f"{split['other_ms']:.4f} ms in other kernels; device busy "
+            f"{100 * busy:.2f}% of the span")
+    return {"launches": launches, "iters_per_s": tp["rate"],
+            "per_iter_ms": tp["per_iter_ms"],
+            "ablated_per_iter_ms": ab["per_iter_ms"], "solve_share": share,
+            "rmse_rel_vs_cholesky": r_rel, "factor_rel_vs_cholesky": f_rel,
+            "busy_share": busy, **split}
+
+
+def als_explicit():
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import als
+
+    e = ALS_EXPLICIT
+    log(f"[als:explicit] {e['users']}x{e['items']}, {e['density']:g}, signed "
+        f"ratings, rank {e['rank']}, lam {e['lam']}, {e['iterations']} "
+        f"iterations, W=1")
+    rows, cols, vals = datagen.sparse_ratings(
+        e["users"], e["items"], rank=e["data_rank"], density=e["density"],
+        seed=e["seed"])
+    data = (rows, cols, vals, e["users"], e["items"], 0)
+    cfg = als.ALSConfig(rank=e["rank"], lam=e["lam"],
+                        iterations=e["iterations"], implicit=False)
+    sess = HarpSession(num_workers=1)
+    launches, fit, r_rel, f_rel = als_fit_checked(sess, cfg, data, "sparse")
+    tp = als_two_point(sess, cfg, data)
+    log(f"  two-point: {tp['rate']:.2f} iters/s, {tp['per_iter_ms']:.4f} "
+        f"ms/iter, spread {tp['spread_pct']:.1f}%")
+    proc = subprocess.run(
+        [sys.executable, "-m", "harp_tpu_torch.run", "als", "--ratings-file",
+         "datasets/als"], capture_output=True, text=True, timeout=300)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    log(f"  run als --ratings-file datasets/als: exit {proc.returncode}: "
+        f"{line}")
+    check(proc.returncode == 0, "run als exits 0" + (
+        "" if proc.returncode == 0 else f":\n{proc.stderr[-2000:]}"))
+    first, last = (float(x) for x in line.split("rmse ")[1].split(" -> "))
+    check(last < first, "run als's printed RMSE falls")
+    return {"launches": launches, "iters_per_s": tp["rate"],
+            "per_iter_ms": tp["per_iter_ms"], "rmse_rel_vs_cholesky": r_rel,
+            "factor_rel_vs_cholesky": f_rel}
+
+
+def als_variants():
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import als
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    v = ALS_VARIANTS
+    n, w, iters = v["n"], v["workers"], v["iterations"]
+    log(f"[als variants] W={w} stacked, {n}x{n}, {v['density']:g}, rank "
+        f"{v['rank']}, {iters} iterations, against the cholesky and CPU "
+        f"fits")
+    rows, cols, vals = datagen.sparse_ratings(n, n, rank=16,
+                                              density=v["density"], seed=4)
+    sess = HarpSession(num_workers=w)
+    cpu = HarpSession(num_workers=w, device="cpu")
+    for layout in ("dense", "sparse"):
+        for implicit in (True, False):
+            cfg = als.ALSConfig(rank=v["rank"], lam=0.1 if implicit else 0.05,
+                                iterations=iters, implicit=implicit,
+                                layout=layout)
+            data = (rows, cols, np.abs(vals) if implicit else vals, n, n, 1)
+            for name in pk.launches:
+                pk.launches[name] = 0
+            fit = als.ALS(sess, cfg).fit(*data)
+            got = pk.launches["spd_solve"]
+            mode = "implicit" if implicit else "explicit"
+            log(f"  {layout} {mode}: rmse {fit[2].tolist()}")
+            check(got == 2 * iters, f"{layout} {mode}: two launches an "
+                  f"iteration ({got})")
+            check(all(bool(np.isfinite(x).all()) for x in fit),
+                  f"{layout} {mode}: finite RMSEs and factors")
+            ref, yard = reference_fits(sess, cfg, data)
+            check_als_fit(fit, ref, yard, "cholesky fit")
+            check_als_fit(fit, als.ALS(cpu, cfg).fit(*data), yard, "CPU fit")
+
+
+def als_phases():
+    """Every SPD-solve and ALS phase; returns the kernels-line entry of
+    spd_solve."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import als
+
+    f = ALS_FLAGSHIP
+    t0 = time.perf_counter()
+    rows, cols, vals = datagen.sparse_ratings(
+        f["users"], f["items"], rank=f["data_rank"], density=f["density"],
+        seed=f["seed"])
+    data = (rows, cols, np.abs(vals), f["users"], f["items"], 0)
+    cfg = als.ALSConfig(rank=f["rank"], lam=f["lam"], alpha=f["alpha"],
+                        iterations=f["iterations"], implicit=True)
+    model = als.ALS(HarpSession(num_workers=1), cfg)
+    state = model.prepare(*data)
+    log(f"[als:prepare] {time.perf_counter() - t0:.2f} s: {len(vals)} "
+        f"ratings drawn, {model.last_layout_stats['duplicates_dropped']} "
+        f"duplicates dropped, layout {model.last_layout_stats['layout']}")
+    flag, k64, gemm = spd_phases(state, cfg)
+    del state
+    fit = als_flagship(data, cfg)
+    log(f"  kernel {flag['ms']:.4f} ms per solve (two an iteration) against "
+        f"a bound of {flag['bound_ms']:.4f} ms ({flag['bound_by']}); fit "
+        f"{fit['per_iter_ms']:.4f} ms an iteration")
+    exp = als_explicit()
+    als_variants()
+    return {
+        "name": "spd_solve", "route": "cuda",
+        "source": "harp_tpu_torch/csrc/spd_solve.cu",
+        "replaces": "harp_tpu/ops/pallas_kernels.py:829",
+        "launches": fit["launches"]["spd_solve"],
+        "max_abs_err": flag["max_abs_err"], "ms": flag["ms"],
+        "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+        "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
+        "rel_vs_float64": flag["rel_vs_float64"],
+        "plain_rel_vs_float64": flag["plain_rel_vs_float64"],
+        "k64_ms": k64["ms"], "k64_plain_ms": k64["plain_ms"],
+        "k64_bound_ms": k64["bound_ms"], "k64_bound_by": k64["bound_by"],
+        "k64_library_ms": k64["library_ms"],
+        "gemm_bf16_out_f32_ms": gemm["bf16_out_f32_ms"],
+        "gemm_f32_ms": gemm["f32_ms"],
+        "fit_iters_per_s": fit["iters_per_s"],
+        "fit_per_iter_ms": fit["per_iter_ms"],
+        "fit_solve_ablated_per_iter_ms": fit["ablated_per_iter_ms"],
+        "solve_share": fit["solve_share"],
+        "fit_solve_kernel_ms": fit["solve_kernel_ms"],
+        "fit_gemm_ms": fit["gemm_ms"], "fit_other_ms": fit["other_ms"],
+        "fit_device_busy_share": fit["busy_share"],
+        "fit_rmse_rel_vs_cholesky": fit["rmse_rel_vs_cholesky"],
+        "fit_factor_rel_vs_cholesky": fit["factor_rel_vs_cholesky"],
+        "explicit_fit_iters_per_s": exp["iters_per_s"],
+        "explicit_fit_per_iter_ms": exp["per_iter_ms"],
+        "explicit_launches": exp["launches"]["spd_solve"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -730,6 +1158,8 @@ def main() -> int:
     small_fit_vs_numpy()
     variants_bitwise()
     mf = mf_phases()
+    torch.cuda.empty_cache()
+    spd = als_phases()
     log(f"[done] {time.perf_counter() - t_start:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -745,7 +1175,7 @@ def main() -> int:
         "fit_iters_per_s": fit["iters_per_s"],
         "fit_per_iter_ms": fit["per_iter_ms"],
         "fit_centroid_rel_vs_plain": fit["centroid_rel_vs_plain"],
-    }, mf]
+    }, mf, spd]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@
   the port's config and a prepared state whose factor blocks hold those
   factors (:func:`sgd_mf_state_from_jax`, the inverse of
   ``SGDMF._finalize``).
+* ALS: factors in original id order plus the ``ALSConfig`` fields -> the
+  port's config and a prepared state whose replicated initial factors hold
+  those factors (:func:`als_state_from_jax`, the inverse of
+  ``ALS.fit_prepared``'s read-back).
 
 So the two packages fit the same problem from the same start.
 """
@@ -19,6 +23,7 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
+from harp_tpu_torch.models.als import ALS, ALSConfig
 from harp_tpu_torch.models.kmeans import KMeansConfig
 from harp_tpu_torch.models.sgd_mf import SGDMF, SGDMFConfig
 from harp_tpu_torch.parallel.mesh import fetch
@@ -104,3 +109,43 @@ def sgd_mf_state_from_jax(model: SGDMF, state: tuple, w_np: np.ndarray,
     sess = model.session
     return cfg, (layout, data, sess.scatter(w_flat),
                  sess.scatter(h_flat.reshape(h_dev.shape)), meta)
+
+
+def als_state_from_jax(model: ALS, state: tuple, u_np: np.ndarray,
+                       v_np: np.ndarray, config_dict: Mapping
+                       ) -> Tuple[ALSConfig, tuple]:
+    """(port ALSConfig, prepared state) from the JAX model's factors in
+    original id order — U (num_users, K) and V (num_items, K), numpy — and
+    ``dataclasses.asdict`` of its ALSConfig.
+
+    ``state`` is the port model's own :meth:`ALS.prepare` result for the
+    same data; it supplies the layout (the slot of every user and item).
+    The returned state is that state with its replicated initial factors
+    replaced: every id's row placed in the slot :meth:`ALS.fit_prepared`
+    reads it back from; padded slots keep the state's zeros. Unknown fields
+    and a config other than the model's raise ``ValueError``."""
+    fields = dict(config_dict)
+    known = {f.name for f in dataclasses.fields(ALSConfig)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"unknown ALSConfig fields {unknown}")
+    cfg = ALSConfig(**fields)
+    if cfg != model.config:
+        raise ValueError(f"the JAX config {cfg} does not match the port "
+                         f"model's {model.config}")
+    key, placed, u_slots, v_slots = state
+    k = cfg.rank
+    u_np = np.asarray(u_np, dtype=np.float32)
+    v_np = np.asarray(v_np, dtype=np.float32)
+    if u_np.shape != (len(u_slots), k) or v_np.shape != (len(v_slots), k):
+        raise ValueError(f"factors of shape {u_np.shape} and {v_np.shape} "
+                         f"do not match ({len(u_slots)}, {k}) and "
+                         f"({len(v_slots)}, {k})")
+    *data, u0, v0 = placed
+    u_flat = fetch(u0).copy()
+    u_flat[u_slots] = u_np
+    v_flat = fetch(v0).copy()
+    v_flat[v_slots] = v_np
+    sess = model.session
+    return cfg, (key, (*data, sess.replicate_put(u_flat),
+                       sess.replicate_put(v_flat)), u_slots, v_slots)

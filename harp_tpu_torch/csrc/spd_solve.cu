@@ -1,0 +1,215 @@
+// Batched small SPD solve for Hopper (sm_90a): for each of N independent
+// systems A x = b with A (K, K) symmetric positive definite, K <= 64, factor
+// A = L L^T by the outer-product Cholesky, then solve L y = b and L^T x = y.
+// All in float32.
+//
+// Replaces: harp_tpu/ops/pallas_kernels.py::_chol_solve_kernel (the TPU
+// kernel behind spd_solve_pallas). It computes the same function in the same
+// order of steps: at step j the running Schur complement's column j, times
+// rsqrt of its pivot, is column j of L (rows >= j), and the rank-1 update
+// A <- A - l_j l_j^T follows; the forward substitution runs column by column
+// beside the factorization (y_j = r_j / L[j][j], r <- r - l_j y_j, the
+// kernel's order) and the back substitution row by row of L, from the last
+// unknown up. Like the TPU kernel it reads only the lower triangle of A. It
+// does not carry over the TPU layout move: the Pallas wrapper pads K to a
+// multiple of 8 and N to a multiple of 256 with identity systems and
+// transposes A to (K, K, N) so the batch lies on the 128 lanes, each a full
+// extra pass over A. Here A is read as it is, (N, K, K) row-major, and the
+// kernel masks K and the ragged end of N itself.
+//
+// What bounds it on this card: bytes. At the ALS flagship (N = 8192
+// systems, K = 32) A is 33.55 MB and b and x 1.05 MB each, 35.65 MB over
+// 3.35 TB/s = 10.6 us, against about (K^3 / 3 + 2 K^2) N = 1e8 multiply-adds
+// (3.2 us of float32 operations at 67 TFLOP/s). At K = 64 the bytes are 4x
+// (40 us) and the operations 8x.
+//
+// Design: one warp per system, several warps a block, a grid over N; no
+// shared memory, no atomics, no sum across blocks, so two runs are bitwise
+// equal. Lane r holds column r of the system in registers (K <= 32; lanes
+// r and r + 32 for 33 <= K <= 64), so the warp reads A row by row, 32
+// consecutive floats a load. Each lane keeps the symmetric mirror of the
+// lower triangle: entry i of column r is A[i][r] for i >= r and A[r][i]
+// above. The symmetric updates keep the running complement bitwise
+// symmetric (fma(-l_i, l_r, a) is fma(-l_r, l_i, a)), so at step j every
+// lane finds l_j at its own row, A[j][r] / sqrt(pivot), in its own
+// registers; only l_j's other entries travel, one __shfl_sync each from the
+// lane that owns column j. That is K (K + 1) / 2 shuffles a system for the
+// factorization and K for each substitution. After step j lane j's column
+// holds column j of L, and lane r's right-hand side holds y_r and then x_r.
+// Rows are indexed at compile time only (registers, not local memory): at
+// K <= 32 the steps are unrolled and only the lower triangle is computed;
+// at K <= 64 the steps are a runtime loop that sweeps all rows under a
+// predicate, twice the shuffles of the triangle but a small body (a full
+// unroll there took nvcc over 100 s and still spilled the array to local
+// memory). Making it fast (several systems a warp at small K, staging A
+// through shared memory with cp.async) is later work.
+//
+// The host binding is a plain C interface loaded with ctypes
+// (harp_tpu_torch/ops/_cuda_build.py).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// v[p] for a part index p (0 or 1) that may be a runtime value: a register
+// select, never an indexed load from local memory.
+template <int NC>
+__device__ __forceinline__ float pick(const float (&v)[NC], int p) {
+  return (NC == 1 || p == 0) ? v[0] : v[NC - 1];
+}
+
+// Row j of each of the lane's columns, for a row index j that may be a
+// runtime value: a chain of selects over the compile-time rows, which folds
+// to register reads when j is a compile-time constant.
+template <int NC>
+__device__ __forceinline__ void row_of(const float (&c)[NC][32 * NC], int j,
+                                       float (&out)[NC]) {
+#pragma unroll
+  for (int q = 0; q < NC; ++q) out[q] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) {
+    if (i == j) {
+#pragma unroll
+      for (int q = 0; q < NC; ++q) out[q] = c[q][i];
+    }
+  }
+}
+
+// Step j of the factorization, with the forward substitution beside it.
+template <int NC>
+__device__ __forceinline__ void factor_step(float (&c)[NC][32 * NC],
+                                            float (&r)[NC], int j, int k,
+                                            int lane) {
+  const int src = j & 31, part = j >> 5;   // column j: lane src, part part
+  float cj[NC];
+  row_of<NC>(c, j, cj);
+  const float d = __shfl_sync(kFull, pick<NC>(cj, part), src);  // pivot
+  const float dinv = 1.0f / sqrtf(d);
+  const float ljj = d * dinv;                                   // L[j][j]
+  const float yj = __shfl_sync(kFull, pick<NC>(r, part), src) / ljj;
+  float mine[NC];                                               // l_j[col]
+#pragma unroll
+  for (int q = 0; q < NC; ++q) mine[q] = cj[q] * dinv;
+#pragma unroll
+  for (int i = 1; i < 32 * NC; ++i) {
+    if (i > j && i < k) {
+      float own[NC];
+#pragma unroll
+      for (int q = 0; q < NC; ++q) own[q] = c[q][i];
+      const float t = __shfl_sync(kFull, pick<NC>(own, part), src) * dinv;
+#pragma unroll
+      for (int q = 0; q < NC; ++q)
+        if (lane + 32 * q > j) c[q][i] = fmaf(-t, mine[q], c[q][i]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const int col = lane + 32 * q;
+    if (col == j) {                        // becomes column j of L
+#pragma unroll
+      for (int i = 0; i < 32 * NC; ++i)
+        if (i >= j && i < k) c[q][i] *= dinv;
+      r[q] = yj;
+    } else if (col > j) {
+      r[q] = fmaf(-mine[q], yj, r[q]);
+    }
+  }
+}
+
+// Step p of the back substitution L^T x = y: lane col holds L[p][col] for
+// p >= col, and the owner of column p holds L[p][p].
+template <int NC>
+__device__ __forceinline__ void back_step(const float (&c)[NC][32 * NC],
+                                          float (&r)[NC], int p, int lane) {
+  const int src = p & 31, part = p >> 5;
+  float cp[NC];
+  row_of<NC>(c, p, cp);
+  const float xp =
+      __shfl_sync(kFull, pick<NC>(r, part) / pick<NC>(cp, part), src);
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const int col = lane + 32 * q;
+    if (col < p) r[q] = fmaf(-cp[q], xp, r[q]);
+    else if (col == p) r[q] = xp;
+  }
+}
+
+// NC columns a lane: K <= 32 * NC. At NC = 1 the steps are unrolled, so
+// every row index is a compile-time constant and the loops over rows keep
+// only the lower triangle; at NC = 2 the steps are a runtime loop over
+// rows indexed through selects, which keeps the 128-entry register array in
+// registers and the code small.
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+spd_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 float* __restrict__ x, long long n, int k) {
+  constexpr int kMax = 32 * NC;
+  const int lane = threadIdx.x & 31;
+  const long long sys = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (sys >= n) return;                    // the whole warp leaves together
+  const float* as = a + sys * k * k;
+  const float* bs = b + sys * k;
+
+  float c[NC][kMax];   // c[q][i]: row i of the lane's column lane + 32 q
+  float r[NC];         // the lane's entry of the right-hand side
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const int col = lane + 32 * q;
+    r[q] = col < k ? bs[col] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < kMax; ++i) {
+      float v = 0.0f;
+      if (i < k && col < k) v = as[i >= col ? i * k + col : col * k + i];
+      c[q][i] = v;
+    }
+  }
+
+  if constexpr (NC == 1) {
+#pragma unroll
+    for (int j = 0; j < kMax; ++j)
+      if (j < k) factor_step<NC>(c, r, j, k, lane);
+#pragma unroll
+    for (int p = kMax - 1; p >= 0; --p)
+      if (p < k) back_step<NC>(c, r, p, lane);
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < k; ++j) factor_step<NC>(c, r, j, k, lane);
+#pragma unroll 1
+    for (int p = k - 1; p >= 0; --p) back_step<NC>(c, r, p, lane);
+  }
+#pragma unroll
+  for (int q = 0; q < NC; ++q) {
+    const int col = lane + 32 * q;
+    if (col < k) x[sys * k + col] = r[q];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Solve the n systems on `stream`: a (n, k, k), b (n, k), x (n, k), float32,
+// contiguous, 1 <= k <= 64 (checked by the caller). Returns
+// cudaGetLastError() after the launch (0 on success).
+int spd_solve_launch(const void* a, const void* b, void* x, long long n,
+                     int k, void* stream) {
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long grid = (n + kWarps - 1) / kWarps;
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  float* xf = static_cast<float*>(x);
+  if (k <= 32)
+    spd_solve_kernel<1><<<(unsigned)grid, kThreads, 0, s>>>(af, bf, xf, n, k);
+  else
+    spd_solve_kernel<2><<<(unsigned)grid, kThreads, 0, s>>>(af, bf, xf, n, k);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

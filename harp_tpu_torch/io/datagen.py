@@ -1,9 +1,9 @@
 """Synthetic data generators (numpy on the host).
 
-Port of ``dense_points``, ``initial_centroids`` and ``sparse_ratings`` from
-``harp_tpu/io/datagen.py`` (reference: KMUtil.generatePoints /
-generateCentroids and the SGD-MF rating generators). The same seed gives the
-same arrays as the JAX package.
+Port of ``dense_points``, ``initial_centroids``, ``sparse_ratings`` and
+``zipf_ratings`` from ``harp_tpu/io/datagen.py`` (reference:
+KMUtil.generatePoints / generateCentroids and the SGD-MF and ALS rating
+generators). The same seed gives the same arrays as the JAX package.
 """
 
 from __future__ import annotations
@@ -46,4 +46,34 @@ def sparse_ratings(num_users: int, num_items: int, rank: int,
     u = rng.standard_normal((num_users, rank)).astype(np.float32) / np.sqrt(rank)
     v = rng.standard_normal((num_items, rank)).astype(np.float32) / np.sqrt(rank)
     vals = np.einsum("ij,ij->i", u[rows], v[cols]) + noise * rng.standard_normal(nnz)
+    return rows, cols, vals.astype(np.float32)
+
+
+def zipf_ratings(num_users: int, num_items: int, rank: int,
+                 alpha: float = 1.3, density: float = 0.05, seed: int = 0,
+                 noise: float = 0.01
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Power-law rating sample: user and item popularity are Zipf(alpha)
+    distributed, the skew of the reference's large datasets. (row, col)
+    pairs are unique: drawn with replacement, deduplicated and topped up,
+    so the sample may fall short of ``density`` when it is high."""
+    rng = np.random.default_rng(seed)
+    nnz = int(num_users * num_items * density)
+    pu = (np.arange(1, num_users + 1, dtype=np.float64)) ** -alpha
+    pi = (np.arange(1, num_items + 1, dtype=np.float64)) ** -alpha
+    seen: np.ndarray = np.empty(0, np.int64)
+    for _ in range(8):
+        need = nnz - len(seen)
+        if need <= 0:
+            break
+        r = rng.choice(num_users, size=2 * need, p=pu / pu.sum())
+        c = rng.choice(num_items, size=2 * need, p=pi / pi.sum())
+        seen = np.unique(np.concatenate([seen, r * num_items + c]))
+    seen = rng.permutation(seen)[:nnz]
+    rows = (seen // num_items).astype(np.int32)
+    cols = (seen % num_items).astype(np.int32)
+    u = rng.standard_normal((num_users, rank)).astype(np.float32) / np.sqrt(rank)
+    v = rng.standard_normal((num_items, rank)).astype(np.float32) / np.sqrt(rank)
+    vals = (np.einsum("ij,ij->i", u[rows], v[cols])
+            + noise * rng.standard_normal(len(rows)))
     return rows, cols, vals.astype(np.float32)

@@ -21,7 +21,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "harp_tpu_torch_kernels"
-SOURCES = {"kmeans_stats": "kmeans_stats.cu", "dense_mf_hop": "dense_mf_hop.cu"}
+SOURCES = {"kmeans_stats": "kmeans_stats.cu", "dense_mf_hop": "dense_mf_hop.cu",
+           "spd_solve": "spd_solve.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

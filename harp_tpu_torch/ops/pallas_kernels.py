@@ -11,11 +11,15 @@ Ported:
 * the dense SGD-MF hop. ``dense_mf_hop_cuda`` launches ``csrc/
   dense_mf_hop.cu`` (the masked stripe-GEMM update of every stacked
   worker's H block against its slab bucket, pred and G kept on chip);
-  ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch.
+  ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch;
+* the batched SPD solve of ALS. ``spd_solve_cuda`` launches ``csrc/
+  spd_solve.cu`` (one warp a system, the factor in registers);
+  ``spd_solve_plain`` is the TPU kernel's Cholesky and substitutions,
+  vectorized over the batch.
 
-Each dispatcher (``kmeans_stats``, ``dense_mf_hop``) sends a CPU tensor to
-the plain version and a CUDA tensor to the kernel; there is no fallback
-from one to the other, and a shape the kernel cannot take raises.
+Each dispatcher (``kmeans_stats``, ``dense_mf_hop``, ``spd_solve``) sends a
+CPU tensor to the plain version and a CUDA tensor to the kernel; there is no
+fallback from one to the other, and a shape the kernel cannot take raises.
 
 ``launches`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
@@ -32,7 +36,8 @@ import torch.nn.functional as F
 
 from harp_tpu_torch.ops import distance
 
-launches: Dict[str, int] = {"kmeans_stats": 0, "dense_mf_hop": 0}
+launches: Dict[str, int] = {"kmeans_stats": 0, "dense_mf_hop": 0,
+                             "spd_solve": 0}
 
 # shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -319,3 +324,117 @@ def dense_mf_hop(slab: torch.Tensor, buckets: torch.Tensor, w: torch.Tensor,
         return dense_mf_hop_plain(slab, buckets, w, h, row_cnt, col_cnt, nmb,
                                   lr, lam)
     raise ValueError(f"dense_mf_hop runs on cuda or cpu, not {slab.device}")
+
+
+# --------------------------------------------------------------------------- #
+# Batched small SPD solve (the ALS normal equations)
+# --------------------------------------------------------------------------- #
+
+# the largest K the kernel takes: two columns of the system a lane
+SPD_MAX_K = 64
+
+
+def _spd_shapes(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int]:
+    if b.dim() != 2 or tuple(a.shape) != (b.shape[0], b.shape[1], b.shape[1]):
+        raise ValueError(f"spd_solve: a must be (N, K, K) and b (N, K), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    return b.shape[0], b.shape[1]
+
+
+def spd_solve_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve ``a @ x = b`` in plain PyTorch: a (N, K, K), b (N,
+    K) -> x (N, K), in the inputs' type.
+
+    The JAX package's ``_chol_solve_kernel`` step for step, vectorized over
+    the batch: at step j the running Schur complement's column j, scaled by
+    the rsqrt of its pivot and masked to rows >= j, is column j of L, and
+    the rank-1 update follows; then forward substitution L y = b and back
+    substitution Lᵀ x = y in the kernel's order. Reads only the lower
+    triangle of ``a``; any K, no padding."""
+    _, k = _spd_shapes(a, b)
+    rows = torch.arange(k, device=a.device)
+    cols = []
+    for j in range(k):
+        col = a[:, :, j]
+        dinv = torch.rsqrt(col[:, j:j + 1])
+        lj = torch.where(rows >= j, col * dinv, 0.0)
+        cols.append(lj)
+        if j + 1 < k:
+            a = a - lj[:, :, None] * lj[:, None, :]
+    r, ys = b, []
+    for j in range(k):
+        yj = r[:, j:j + 1] / cols[j][:, j:j + 1]
+        ys.append(yj)
+        if j + 1 < k:
+            r = r - cols[j] * yj
+    lfull = torch.stack(cols, dim=2)        # (N, row, col)
+    r = torch.cat(ys, dim=1)
+    xs = [None] * k
+    for p in range(k - 1, -1, -1):
+        xp = r[:, p:p + 1] / cols[p][:, p:p + 1]
+        xs[p] = xp
+        if p:
+            r = r - lfull[:, p, :] * xp
+    return torch.cat(xs, dim=1)
+
+
+def _spd_lib() -> ctypes.CDLL:
+    lib = _LIB.get("spd_solve")
+    if lib is None:
+        from harp_tpu_torch.ops import _cuda_build
+
+        lib = _cuda_build.library("spd_solve")
+        vp = ctypes.c_void_p
+        lib.spd_solve_launch.argtypes = [vp, vp, vp, ctypes.c_longlong,
+                                         ctypes.c_int, vp]
+        lib.spd_solve_launch.restype = ctypes.c_int
+        _LIB["spd_solve"] = lib
+    return lib
+
+
+def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve on the card: x (N, K) with ``a[n] @ x[n] = b[n]``.
+
+    ``a``: (N, K, K) and ``b``: (N, K) float32, contiguous, on one CUDA
+    device; 1 <= K <= 64, any N. Like the plain version it reads only the
+    lower triangle of each system; a system that is not positive definite
+    gives NaN, as the TPU kernel does."""
+    if not (a.is_cuda and b.is_cuda) or a.device != b.device:
+        raise ValueError(f"spd_solve_cuda needs both tensors on one CUDA "
+                         f"device, got {a.device} and {b.device}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"a and b must be float32, got {a.dtype} and "
+                        f"{b.dtype}")
+    n, k = _spd_shapes(a, b)
+    if not 1 <= k <= SPD_MAX_K:
+        raise ValueError(f"spd_solve_cuda takes 1 <= K <= {SPD_MAX_K}, got "
+                         f"K={k}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous")
+    lib = _spd_lib()
+    with torch.cuda.device(a.device):
+        x = torch.empty((n, k), dtype=torch.float32, device=a.device)
+        err = lib.spd_solve_launch(
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spd_solve kernel launch failed: CUDA error {err}")
+    launches["spd_solve"] += 1
+    return x
+
+
+def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched SPD solve ALS calls: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if a.device.type == "cuda":
+        return spd_solve_cuda(a, b)
+    if a.device.type == "cpu":
+        return spd_solve_plain(a, b)
+    raise ValueError(f"spd_solve runs on cuda or cpu, not {a.device}")
+
+
+def use_spd_solve_pallas(k: int, device) -> bool:
+    """Whether ALS's ``solver="auto"`` takes the hand-written solve: on a
+    CUDA device at K <= 64 (the JAX package's rule, with the card in the
+    TPU's place). There is no opt-out switch."""
+    return torch.device(device).type == "cuda" and k <= SPD_MAX_K

@@ -1,6 +1,7 @@
 """Command-line launcher: ``python -m harp_tpu_torch.run <algorithm> [flags]``.
 
-Port of ``harp_tpu/run.py``. Ported subcommands: ``kmeans`` and ``sgd_mf``.
+Port of ``harp_tpu/run.py``. Ported subcommands: ``kmeans``, ``sgd_mf`` and
+``als``.
 The run goes on CUDA unless ``--device cpu`` is given; without CUDA the
 default fails.
 """
@@ -164,7 +165,55 @@ def run_sgd_mf(argv) -> int:
     return 0
 
 
-COMMANDS = {"kmeans": run_kmeans, "sgd_mf": run_sgd_mf}
+def run_als(argv) -> int:
+    from harp_tpu_torch.io import datagen, loaders
+    from harp_tpu_torch.models import als
+    from harp_tpu_torch.session import HarpSession
+
+    p = argparse.ArgumentParser(prog="harp_tpu_torch.run als")
+    _common_flags(p)
+    p.add_argument("--num-users", type=int, default=2048)
+    p.add_argument("--num-items", type=int, default=2048)
+    p.add_argument("--density", type=float, default=0.01)
+    p.add_argument("--ratings-file", default="",
+                   help="COO 'row col value' file/dir/glob (e.g. "
+                        "datasets/als); overrides the synthetic data")
+    add_dataclass_args(p, als.ALSConfig)
+    args = p.parse_args(argv)
+    cfg = als.ALSConfig(**{f.name: getattr(args, f.name)
+                           for f in dataclasses.fields(als.ALSConfig)})
+    sess = HarpSession(num_workers=args.num_workers, device=args.device)
+    if args.ratings_file:
+        rows, cols, vals = loaders.load_coo(
+            loaders.list_files(args.ratings_file))
+        # shapes come from the data; --num-users/--num-items are ignored
+        nu, ni = int(rows.max()) + 1, int(cols.max()) + 1
+    else:
+        rows, cols, vals = datagen.sparse_ratings(
+            args.num_users, args.num_items, rank=min(cfg.rank, 16),
+            density=args.density, seed=args.seed)
+        nu, ni = args.num_users, args.num_items
+    if cfg.implicit:
+        vals = np.abs(vals)      # implicit mode consumes interaction counts
+    model = als.ALS(sess, cfg)
+    state = model.prepare(rows, cols, vals, nu, ni, seed=args.seed)
+    model.train_prepared(state)                   # warm-up (builds the kernel)
+    sess.barrier()
+    t0 = time.perf_counter()
+    u, v, rmse = model.fit_prepared(state)
+    dt = time.perf_counter() - t0
+    mode = "implicit" if cfg.implicit else "explicit"
+    print(f"als[{mode}] workers={sess.num_workers} nnz={len(vals)} "
+          f"rank={cfg.rank}: {cfg.iterations / dt:.2f} iters/s, "
+          f"rmse {rmse[0]:.4f} -> {rmse[-1]:.4f}")
+    if args.work_dir:
+        os.makedirs(args.work_dir, exist_ok=True)
+        np.savetxt(os.path.join(args.work_dir, "u.csv"), u, delimiter=",")
+        np.savetxt(os.path.join(args.work_dir, "v.csv"), v, delimiter=",")
+    return 0
+
+
+COMMANDS = {"kmeans": run_kmeans, "sgd_mf": run_sgd_mf, "als": run_als}
 
 
 def main(argv=None) -> int:

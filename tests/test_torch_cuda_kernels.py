@@ -17,6 +17,12 @@ is larger. A last-bit difference in pred can flip the bf16 rounding of an
 entry of G, and the flip moves H, so every later stripe's pred, and G's
 roundings there: one hop amplifies rounding by itself, by an amount that
 depends on the data, so the yardstick is measured on the same inputs.
+
+Batched SPD solve: the kernel and the plain version sum in different orders
+(the kernel's shuffles, fused multiply-adds), so both are held against a
+float64 ``torch.linalg.solve`` of the same systems: the kernel within
+max(1e-5, 4x the plain version's own distance from it), relative to max
+|x|.
 """
 
 import numpy as np
@@ -163,3 +169,47 @@ def test_dense_mf_hop_kernel_refuses_bad_inputs(cuda):
                              0.05, 0.01)
     with pytest.raises(ValueError, match="nmb"):
         pk.dense_mf_hop_cuda(v, b, w, h, rc, cc, 3, 0.05, 0.01)
+
+
+def spd_inputs(n, k, seed=0):
+    """ALS-shaped SPD systems (V'V over 4k rows plus 0.1 I) and right-hand
+    sides, made with numpy from a seed (CPU float32 tensors)."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((n, 4 * k, k)).astype(np.float32) / np.sqrt(k)
+    a = np.einsum("nek,nel->nkl", v, v) + 0.1 * np.eye(k, dtype=np.float32)
+    b = rng.standard_normal((n, k)).astype(np.float32)
+    return torch.from_numpy(a.astype(np.float32)), torch.from_numpy(b)
+
+
+@pytest.mark.parametrize("n,k", [
+    (8192, 32),       # the ALS flagship's systems
+    (8191, 10),       # odd N, K below a warp
+    (4096, 33),       # the first K with two columns a lane
+    (8192, 64),       # the largest K
+    (100, 1),         # one unknown
+])
+def test_spd_solve_kernel_matches_plain(cuda, n, k):
+    a, b = (t.to(cuda) for t in spd_inputs(n, k, seed=n + k))
+    before = pk.launches["spd_solve"]
+    x = pk.spd_solve_cuda(a, b)
+    torch.cuda.synchronize()
+    assert pk.launches["spd_solve"] == before + 1
+    assert x.shape == (n, k) and x.dtype == torch.float32
+    plain = pk.spd_solve_plain(a, b)
+    exact = torch.linalg.solve(a.double(), b.double())
+    tol = max(1e-5, 4 * max_rel(plain.double(), exact))
+    assert max_rel(x.double(), exact) <= tol
+    assert torch.equal(x, pk.spd_solve_cuda(a, b))
+
+
+def test_spd_solve_kernel_refuses_bad_inputs(cuda):
+    a, b = (t.to(cuda) for t in spd_inputs(4, 65))
+    with pytest.raises(ValueError, match="K <= 64"):
+        pk.spd_solve_cuda(a, b)
+    a, b = (t.to(cuda) for t in spd_inputs(4, 8))
+    with pytest.raises(ValueError, match="CUDA device"):
+        pk.spd_solve_cuda(a.cpu(), b.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        pk.spd_solve_cuda(a.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.spd_solve_cuda(a.transpose(1, 2), b)
