@@ -2,7 +2,7 @@
 
 Builds every CUDA kernel of the port from ``harp_tpu_torch/csrc/`` with nvcc
 (one nvcc per source, all at once), holds each kernel against its plain
-PyTorch version on the card, and drives the three main paths with the
+PyTorch version on the card, and drives the main paths with the
 launch counters set to 0 just before each and read just after:
 
   * K-means regroupallgather through ``HarpSession`` and ``KMeans.fit`` at
@@ -20,7 +20,16 @@ launch counters set to 0 just before each and read just after:
     2048 x 2048 against the "cholesky" fit and the port's CPU fit, each
     with a float64-solve fit as the yardstick. The SPD solve is held against
     its plain version and a float64 solve on the flagship's own normal
-    equations and at K = 10 (N odd), 33 and 64.
+    equations and at K = 10 (N odd), 33 and 64;
+  * attention: the flash kernel against its plain version and a float64
+    reference on sampled query rows at the flagship (causal L=16384, H=8,
+    Dh=64, f32), at H=4, Dh=128, ragged L=8209, Dv=96, bf16 and a stacked
+    W=4 input; ``blocked_attention`` at both flagship shapes (one launch a
+    call, tokens/s two-point), ``ring_attention_mha`` on 4 workers at
+    L=32768 causal and not (4 launches a call) and ``ulysses_attention``
+    on 4 workers at L=16384 (one stacked launch a call), held against
+    blocked attention and the float64 reference; the streamed torch loop
+    against the kernel at L = 2048, 4096 and 8192.
 
 It prints:
 
@@ -52,6 +61,7 @@ import torch
 # CUDA cores, bf16 on the tensor cores (dense) and device-memory bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_S = 3.35e12
 FLAGSHIP = dict(n=1_000_000, k=100, d=100, iterations=10)
 TIE_EPS = 1e-5        # near tie: best two scores within 1e-5 of the row's scale
@@ -73,6 +83,14 @@ ALS_EXPLICIT = dict(users=8192, items=8192, data_rank=16, density=0.005,
                     seed=9, rank=32, lam=0.05, iterations=10)
 # bench.py --small's ALS size (bench.py:1350), both layouts and modes, W=4
 ALS_VARIANTS = dict(n=2048, workers=4, density=0.01, rank=32, iterations=3)
+# bench.py:1455-1497 (tpu_attention, the shape behind README.md:126): blocked
+# causal attention on one card, L=16384, H=8, Dh=64, and H=4, Dh=128
+ATTN_FLAGSHIP = dict(l=16384, h=8, dh=64)
+ATTN_DH128 = dict(l=16384, h=4, dh=128)
+# the smallest ring whose local block (8192) meets the dispatch rule
+ATTN_RING = dict(l=32768, workers=4, h=8, dh=64)
+ATTN_ULYSSES = dict(l=16384, workers=4, h=8, dh=64)
+ATTN_CROSSOVER = (2048, 4096, 8192)
 
 
 def log(msg: str) -> None:
@@ -1118,6 +1136,455 @@ def als_phases():
     }
 
 
+# --------------------------------------------------------------------------- #
+# Flash attention: kernel against plain and a float64 reference
+# --------------------------------------------------------------------------- #
+
+def attn_inputs(shape_qk, dv, dtype=torch.float32, seed=0):
+    """q, k (shape_qk) and v (shape_qk[:-1] + (dv,)) made on the card from a
+    seed, standard normal, in ``dtype``."""
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    q, k = (torch.randn(shape_qk, generator=g, device=CARD) for _ in range(2))
+    v = torch.randn(shape_qk[:-1] + (dv,), generator=g, device=CARD)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def sample_rows(l, n=256, seed=0):
+    """n query rows drawn from a seed, with the first and the last, sorted."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.cat([torch.tensor([0, l - 1]),
+                      torch.randint(0, l, (n,), generator=g)])
+    return torch.unique(rows).to(CARD)
+
+
+def attention_rows(q, k, v, causal, rows, dtype=torch.float64):
+    """Full-row softmax attention of the query rows ``rows`` of every
+    stacked worker and head against all keys, in ``dtype``: (out (W, R, H,
+    Dv), m (W, R, H), den (W, R, H)). In float64 it is the reference; in
+    float32 it is the plain version's arithmetic on those rows."""
+    q, k, v = (x if x.dim() == 4 else x[None] for x in (q, k, v))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = torch.einsum("wqhd,wkhd->whqk", q[:, rows].to(dtype),
+                     k.to(dtype)) * scale
+    if causal:
+        keys = torch.arange(k.shape[1], device=k.device)
+        s.masked_fill_(rows[:, None] < keys[None, :], -1e30)
+    m = s.amax(dim=3)
+    p = torch.exp(s - m[..., None])
+    den = p.sum(dim=3)
+    out = torch.einsum("whqk,wkhd->wqhd", p, v.to(dtype))
+    return (out / den.transpose(1, 2)[..., None], m.transpose(1, 2),
+            den.transpose(1, 2))
+
+
+def flash_bound(w, l, h, dh, dv, causal, in_bytes):
+    """Least time for attention over (W, L, H): q, k, v read once and out
+    written once, against (2 Dh + 2 Dv) H operations a live (query, key)
+    pair, L (L + 1) / 2 pairs causal. The float32 path's operations take
+    three TF32 passes (the fastest route to float32 accuracy); with bf16
+    inputs the q k half runs at the bf16 rate, p v still as three TF32
+    passes (p stays float32). Returns (ms, what bounds it, the same
+    operations on the float32 CUDA cores in ms)."""
+    pairs = w * h * (l * (l + 1) // 2 if causal else l * l)
+    moved = w * l * h * ((2 * dh + dv) * in_bytes + dv * 4)
+    qk, pv = 2 * dh * pairs, 2 * dv * pairs
+    t_qk = qk / PEAK_BF16_FLOPS if in_bytes == 2 else 3 * qk / PEAK_TF32_FLOPS
+    t_ops = t_qk + 3 * pv / PEAK_TF32_FLOPS
+    t_bytes = moved / PEAK_BYTES_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            (qk + pv) / PEAK_F32_FLOPS * 1e3)
+
+
+def library_attention(q, k, v, causal):
+    """Yardstick only (never called by the port): PyTorch's
+    scaled_dot_product_attention on the same (L, H, D) tensors, viewed (1,
+    H, L, D) (a 3-D input would send it to its math backend, which holds
+    the whole (H, L, L) score tensor)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(0, 1)[None] for x in (q, k, v)),
+        is_causal=causal)[0].transpose(0, 1)
+
+
+def hold(name, got, yard, exact):
+    """``got`` (on the sampled rows) within max(1e-5, 4x the yardstick's
+    distance) of the float64 reference, relative to its largest entry.
+    Returns the distance."""
+    err, ref = max_rel(got, exact), max_rel(yard, exact)
+    tol = max(1e-5, 4 * ref)
+    check(bool(torch.isfinite(got).all()) and err <= tol,
+          f"{name} within {tol:.3g} of the float64 reference ({err:.3g}; "
+          f"the plain arithmetic {ref:.3g})")
+    return err
+
+
+def flash_case(name, w, l, h, dh, dv, causal, dtype, timed, seed=0):
+    """The kernel against a float64 reference on 256 sampled query rows of
+    every worker and head, and against its plain version on every row: out,
+    m and den. Reports the KV tiles the kernel counted as loaded."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    shape = (l, h, dh) if w is None else (w, l, h, dh)
+    log(f"[flash:{name}] W={w or 1} L={l} H={h} Dh={dh} Dv={dv} "
+        f"{'causal' if causal else 'full'} {str(dtype).split('.')[-1]}")
+    q, k, v = attn_inputs(shape, dv, dtype, seed)
+    with pk.count_flash_tiles() as counted_tiles:
+        got = pk.flash_attention_cuda(q, k, v, causal, return_stats=True)
+        tiles = counted_tiles()
+    plain = pk.flash_attention_plain(q, k, v, causal, return_stats=True)
+    rows = sample_rows(l, seed=seed)
+    exact = attention_rows(q, k, v, causal, rows)
+    lift = (lambda t: t) if w is not None else (lambda t: t[None])
+    errs = {}
+    for tag, a, b, c in zip(("out", "m", "den"), got, plain, exact):
+        errs[tag] = hold(f"{tag}", lift(a)[:, rows], lift(b)[:, rows], c)
+        # every row: the kernel and the plain version each lie within tol
+        # of the exact values, so within 2 tol of each other
+        tol = 2 * max(1e-5, 4 * max_rel(lift(b)[:, rows], c))
+        rel = max_rel(a, b)
+        check(rel <= tol, f"{tag} on every row within {tol:.3g} of the "
+              f"plain version ({rel:.3g})")
+    again = pk.flash_attention_cuda(q, k, v, causal, return_stats=True)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "two kernel runs bitwise equal")
+    out = {"max_abs_err": float((got[0] - plain[0]).abs().max()),
+           "rel_vs_float64": errs["out"], "tiles": tiles, "out": got[0],
+           "inputs": (q, k, v)}
+    log(f"  KV tiles the kernel loaded: {tiles}; kernel vs plain max abs "
+        f"{out['max_abs_err']:.3g}")
+    if timed:
+        out["ms"] = cuda_time_ms(lambda: pk.flash_attention_cuda(q, k, v,
+                                                                 causal),
+                                 reps=10, warmup=2)
+        out["plain_ms"] = cuda_time_ms(
+            lambda: pk.flash_attention_plain(q, k, v, causal), reps=2,
+            warmup=1)
+        lib = library_attention(q, k, v, causal)
+        out["library_rel_vs_float64"] = max_rel(lib[None][:, rows],
+                                                exact[0])
+        out["library_ms"] = cuda_time_ms(
+            lambda: library_attention(q, k, v, causal), reps=10, warmup=2)
+        out["bound_ms"], out["bound_by"], core = flash_bound(
+            w or 1, l, h, dh, dv, causal, q.element_size())
+        log(f"  kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+            f"library (SDPA, {out['library_rel_vs_float64']:.3g} from "
+            f"float64) {out['library_ms']:.4f} ms, bound "
+            f"{out['bound_ms']:.4f} ms ({out['bound_by']}; {core:.4f} ms on "
+            f"the float32 CUDA cores); {l / out['ms'] * 1e3:.6g} tokens/s")
+    return out
+
+
+def flash_cases():
+    """The kernel's phases; returns the timed flagship and dh128 cases."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    f, d = ATTN_FLAGSHIP, ATTN_DH128
+    flag = flash_case("flagship", None, f["l"], f["h"], f["dh"], f["dh"],
+                      True, torch.float32, timed=True)
+    d128 = flash_case("dh128", None, d["l"], d["h"], d["dh"], d["dh"], True,
+                      torch.float32, timed=True, seed=1)
+    flash_case("ragged", None, 8209, 8, 64, 64, False, torch.float32, False,
+               seed=2)
+    flash_case("dv96", None, 4096, 8, 64, 96, True, torch.float32, False,
+               seed=3)
+    flash_case("bf16", None, f["l"], f["h"], f["dh"], f["dh"], True,
+               torch.bfloat16, False, seed=4)
+    # the ring's hops: W=4 stacked at the local length 8192, hop 0 causal,
+    # hops 1-3 not
+    r = ATTN_RING
+    st = flash_case("stacked", r["workers"], r["l"] // r["workers"], r["h"],
+                    r["dh"], r["dh"], True, torch.float32, False, seed=5)
+    q, k, v = st["inputs"]
+    one = [pk.flash_attention_cuda(q[i], k[i], v[i], True) for i in range(4)]
+    check(all(torch.equal(st["out"][i], one[i]) for i in range(4)),
+          "a stacked W=4 launch is bitwise 4 separate launches")
+    del st
+    flash_case("stacked_full", r["workers"], r["l"] // r["workers"], r["h"],
+               r["dh"], r["dh"], False, torch.float32, False, seed=8)
+    return flag, d128
+
+
+# --------------------------------------------------------------------------- #
+# Main path: blocked, ring and Ulysses attention
+# --------------------------------------------------------------------------- #
+
+def counted(fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after; returns (result, counts, the KV tiles the flash kernel counted as
+    loaded in the run)."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    for name in pk.launches:
+        pk.launches[name] = 0
+    with pk.count_flash_tiles() as tiles:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(pk.launches), tiles()
+
+
+def tokens_two_point(fn, l):
+    """Tokens/s two-point, as bench.py's tpu_attention defines them: L over
+    the seconds of one call."""
+    from harp_tpu_torch.benchmark import timing
+
+    def build(n):
+        def run():
+            for _ in range(n):
+                fn()
+        run()
+        return run
+
+    return timing.two_point(build, 2, 8, float(l))
+
+
+def blocked_phase(name, case, cfg):
+    """``blocked_attention`` through the public function: one launch a
+    call, bitwise the kernel case's output; tokens/s two-point."""
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    q, k, v = case["inputs"]
+    log(f"[attention:blocked] {name}: L={cfg['l']} H={cfg['h']} "
+        f"Dh={cfg['dh']} causal, f32")
+    out, counts, tiles = counted(
+        lambda: ra.blocked_attention(q, k, v, causal=True))
+    check(counts["flash_attention"] == 1,
+          f"one flash_attention launch a call ({counts['flash_attention']})")
+    check(tiles == case["tiles"], f"the kernel case's {case['tiles']} KV "
+          f"tiles loaded ({tiles})")
+    check(torch.equal(out, case["out"]), "bitwise the kernel's output")
+    tp = tokens_two_point(lambda: ra.blocked_attention(q, k, v, causal=True),
+                          cfg["l"])
+    log(f"  two-point: {tp['rate']:.6g} tokens/s, {tp['per_iter_ms']:.4f} ms "
+        f"a call, spread {tp['spread_pct']:.1f}%")
+    return {"launches": counts["flash_attention"], "tokens_per_s": tp["rate"],
+            "per_call_ms": tp["per_iter_ms"], "tiles": tiles}
+
+
+def sharded(sess, fn, q, k, v):
+    return sess.run(fn, q, k, v, in_specs=(sess.shard(),) * 3,
+                    out_specs=sess.shard())
+
+
+def ring_phase():
+    """``ring_attention_mha`` on 4 stacked workers at L=32768 (local 8192),
+    causal and not: 4 launches a call, held against blocked attention of
+    the whole sequence through the kernel and a float64 reference."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    c = ATTN_RING
+    sess = HarpSession(num_workers=c["workers"])
+    q, k, v = attn_inputs((c["l"], c["h"], c["dh"]), c["dh"], seed=6)
+    rows = sample_rows(c["l"], seed=6)
+    res = {}
+    for causal in (True, False):
+        tag = "causal" if causal else "full"
+        log(f"[attention:ring] {tag}: W={c['workers']} L={c['l']} (local "
+            f"{c['l'] // c['workers']}) H={c['h']} Dh={c['dh']} f32, "
+            f"use_flash=None")
+
+        def ring(flash=None, causal=causal):
+            return sharded(sess, lambda a, b, d: ra.ring_attention_mha(
+                a, b, d, causal, use_flash=flash), q, k, v)
+
+        out, counts, tiles = counted(ring)
+        check(counts["flash_attention"] == c["workers"],
+              f"{c['workers']} flash_attention launches a call, one a hop "
+              f"({counts['flash_attention']})")
+        exact = attention_rows(q, k, v, causal, rows)[0]
+        yard = attention_rows(q, k, v, causal, rows, torch.float32)[0]
+        err = hold("ring out", out[None][:, rows], yard, exact)
+        whole = ra.blocked_attention(q, k, v, causal)
+        rel = max_rel(out, whole)
+        check(rel <= max(1e-5, 4 * max_rel(yard, exact)),
+              f"within the same bound of blocked attention of the whole "
+              f"sequence through the kernel ({rel:.3g})")
+        ms = cuda_time_ms(ring, reps=3, warmup=1)
+        with mock.patch.object(pk, "flash_attention_cuda",
+                               pk.flash_attention_plain):
+            plain_ms = cuda_time_ms(ring, reps=1, warmup=1)
+        einsum_ms = cuda_time_ms(lambda: ring(False), reps=1, warmup=1)
+        lib_ms = cuda_time_ms(lambda: library_attention(q, k, v, causal),
+                              reps=3, warmup=1)
+        bound, by, core = flash_bound(1, c["l"], c["h"], c["dh"], c["dh"],
+                                      causal, 4)
+        log(f"  ring {ms:.4f} ms a call ({c['l'] / ms * 1e3:.6g} tokens/s), "
+            f"through the plain version {plain_ms:.4f} ms, einsum hops "
+            f"{einsum_ms:.4f} ms, SDPA over the whole sequence "
+            f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {core:.4f} ms on "
+            f"the float32 CUDA cores)")
+        res[tag] = {"launches": counts["flash_attention"], "ms": ms,
+                    "plain_ms": plain_ms, "einsum_ms": einsum_ms,
+                    "library_ms": lib_ms,
+                    "max_abs_err": float((out - whole).abs().max()),
+                    "bound_ms": bound, "bound_by": by, "rel_vs_float64": err,
+                    "tiles": tiles}
+        log(f"  KV tiles the kernel loaded in the call: {tiles}")
+    # hops 1-3 of the causal call and all 4 of the full one load the whole
+    # square of their block; hop 0 (causal) must load only the trapezoid,
+    # n (n + 1) / 2 of the n x n tiles of each (worker, head)
+    w, h = c["workers"], c["h"]
+    hop_full = res["full"]["tiles"] // w
+    hop0 = res["causal"]["tiles"] - (w - 1) * hop_full
+    n = round((hop_full / (w * h)) ** 0.5)
+    check(res["full"]["tiles"] == w * w * h * n * n
+          and hop0 == w * h * n * (n + 1) // 2,
+          f"the causal hop loads the trapezoid ({hop0} KV tiles; a full hop "
+          f"{hop_full}, {n} x {n} tiles a worker and head)")
+    per, busy = device_profile(lambda: sharded(
+        sess, lambda a, b, d: ra.ring_attention_mha(a, b, d, True), q, k, v))
+    if busy is None:
+        log("  profile: the profiler saw no device activity (not measured)")
+    else:
+        for name, ms in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"  profile, one causal call: {name} {ms:.4f} ms")
+        log(f"  profile: device busy {100 * busy:.2f}% of the span")
+    res["profile_busy_share"] = busy
+    res["profile_ms"] = per
+    return res
+
+
+def ulysses_phase(flag):
+    """``ulysses_attention`` on 4 stacked workers at the flagship's inputs:
+    one stacked launch a call (each worker's 2 heads over the full
+    sequence), held against blocked attention (the flagship kernel case)
+    and a float64 reference."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    c = ATTN_ULYSSES
+    log(f"[attention:ulysses] W={c['workers']} L={c['l']} H={c['h']} "
+        f"Dh={c['dh']} causal, f32")
+    sess = HarpSession(num_workers=c["workers"])
+    q, k, v = flag["inputs"]
+
+    def uly():
+        return sharded(sess, lambda a, b, d: ra.ulysses_attention(
+            a, b, d, c["h"], True), q, k, v)
+
+    out, counts, tiles = counted(uly)
+    check(counts["flash_attention"] == 1,
+          f"one stacked flash_attention launch a call "
+          f"({counts['flash_attention']})")
+    check(tiles == flag["tiles"], f"the blocked flagship's {flag['tiles']} "
+          f"KV tiles loaded ({tiles}): 4 workers x 2 heads over the whole "
+          f"sequence")
+    rows = sample_rows(c["l"], seed=7)
+    exact = attention_rows(q, k, v, True, rows)[0]
+    yard = attention_rows(q, k, v, True, rows, torch.float32)[0]
+    err = hold("ulysses out", out[None][:, rows], yard, exact)
+    rel = max_rel(out, flag["out"])
+    check(rel <= max(1e-5, 4 * max_rel(yard, exact)),
+          f"within the same bound of blocked attention ({rel:.3g})")
+    tp = tokens_two_point(uly, c["l"])
+    ms = cuda_time_ms(uly, reps=5, warmup=1)
+    with mock.patch.object(pk, "flash_attention_cuda",
+                           pk.flash_attention_plain):
+        plain_ms = cuda_time_ms(uly, reps=1, warmup=1)
+    lib_ms = cuda_time_ms(lambda: library_attention(q, k, v, True), reps=5,
+                          warmup=1)
+    bound, by, _ = flash_bound(1, c["l"], c["h"], c["dh"], c["dh"], True, 4)
+    log(f"  two-point: {tp['rate']:.6g} tokens/s, {tp['per_iter_ms']:.4f} ms "
+        f"a call, spread {tp['spread_pct']:.1f}%; {ms:.4f} ms a call by CUDA "
+        f"events, {plain_ms:.4f} ms through the plain version, SDPA over "
+        f"the whole sequence {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return {"launches": counts["flash_attention"], "rel_vs_float64": err,
+            "tokens_per_s": tp["rate"], "per_call_ms": tp["per_iter_ms"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": float((out - flag["out"]).abs().max()),
+            "library_ms": lib_ms, "tiles": tiles}
+
+
+def crossover_phase():
+    """blocked_attention's streamed torch loop against the kernel, causal,
+    H=8, Dh=64, below and at the dispatch threshold."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    log("[attention:crossover] streamed torch loop (kv_block 512) against "
+        "the kernel, causal, H=8, Dh=64, f32")
+    res = {}
+    for l in ATTN_CROSSOVER:
+        q, k, v = attn_inputs((l, 8, 64), 64, seed=l)
+        loop = cuda_time_ms(lambda: ra._streamed_attention(q, k, v, True),
+                            reps=5, warmup=1)
+        kern = cuda_time_ms(lambda: pk.flash_attention_cuda(q, k, v, True),
+                            reps=10, warmup=2)
+        log(f"  L={l}: loop {loop:.4f} ms, kernel {kern:.4f} ms, kernel "
+            f"{loop / kern:.3f}x faster")
+        res[str(l)] = {"loop_ms": loop, "kernel_ms": kern}
+    return res
+
+
+def attention_phases():
+    """Every flash-attention phase; returns the kernels-line entry of
+    flash_attention."""
+    flag, d128 = flash_cases()
+    blocked = blocked_phase("flagship", flag, ATTN_FLAGSHIP)
+    blocked128 = blocked_phase("dh128", d128, ATTN_DH128)
+    del d128["out"], d128["inputs"]
+    torch.cuda.empty_cache()
+    uly = ulysses_phase(flag)
+    del flag["out"], flag["inputs"]
+    torch.cuda.empty_cache()
+    ring = ring_phase()
+    torch.cuda.empty_cache()
+    cross = crossover_phase()
+    log(f"  kernel {flag['ms']:.4f} ms per flagship call against a bound of "
+        f"{flag['bound_ms']:.4f} ms ({flag['bound_by']}); blocked "
+        f"{blocked['tokens_per_s']:.6g} tokens/s")
+    rc, rf = ring["causal"], ring["full"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "harp_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "harp_tpu/ops/pallas_kernels.py:542",
+        "launches": blocked["launches"],
+        "max_abs_err": flag["max_abs_err"], "ms": flag["ms"],
+        "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
+        "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
+        "rel_vs_float64": flag["rel_vs_float64"],
+        "library_rel_vs_float64": flag["library_rel_vs_float64"],
+        "tiles": blocked["tiles"], "tokens_per_s": blocked["tokens_per_s"],
+        "dh128_ms": d128["ms"], "dh128_plain_ms": d128["plain_ms"],
+        "dh128_bound_ms": d128["bound_ms"], "dh128_bound_by": d128["bound_by"],
+        "dh128_library_ms": d128["library_ms"],
+        "dh128_max_abs_err": d128["max_abs_err"],
+        "dh128_tiles": blocked128["tiles"],
+        "dh128_launches": blocked128["launches"],
+        "dh128_tokens_per_s": blocked128["tokens_per_s"],
+        "ring_causal_launches": rc["launches"], "ring_causal_ms": rc["ms"],
+        "ring_causal_plain_ms": rc["plain_ms"],
+        "ring_causal_library_ms": rc["library_ms"],
+        "ring_causal_bound_ms": rc["bound_ms"],
+        "ring_causal_bound_by": rc["bound_by"],
+        "ring_causal_rel_vs_float64": rc["rel_vs_float64"],
+        "ring_causal_max_abs_err": rc["max_abs_err"],
+        "ring_causal_einsum_ms": rc["einsum_ms"],
+        "ring_causal_tiles": rc["tiles"],
+        "ring_launches": rf["launches"], "ring_ms": rf["ms"],
+        "ring_plain_ms": rf["plain_ms"], "ring_library_ms": rf["library_ms"],
+        "ring_bound_ms": rf["bound_ms"], "ring_bound_by": rf["bound_by"],
+        "ring_rel_vs_float64": rf["rel_vs_float64"],
+        "ring_max_abs_err": rf["max_abs_err"],
+        "ring_einsum_ms": rf["einsum_ms"],
+        "ring_tiles": rf["tiles"],
+        "ring_device_busy_share": ring["profile_busy_share"],
+        "ulysses_launches": uly["launches"],
+        "ulysses_rel_vs_float64": uly["rel_vs_float64"],
+        "ulysses_tokens_per_s": uly["tokens_per_s"],
+        "ulysses_per_call_ms": uly["per_call_ms"], "ulysses_ms": uly["ms"],
+        "ulysses_plain_ms": uly["plain_ms"],
+        "ulysses_bound_ms": uly["bound_ms"],
+        "ulysses_bound_by": uly["bound_by"],
+        "ulysses_library_ms": uly["library_ms"],
+        "ulysses_max_abs_err": uly["max_abs_err"],
+        "ulysses_tiles": uly["tiles"],
+        "crossover": cross,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1160,6 +1627,8 @@ def main() -> int:
     mf = mf_phases()
     torch.cuda.empty_cache()
     spd = als_phases()
+    torch.cuda.empty_cache()
+    attn = attention_phases()
     log(f"[done] {time.perf_counter() - t_start:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -1175,7 +1644,7 @@ def main() -> int:
         "fit_iters_per_s": fit["iters_per_s"],
         "fit_per_iter_ms": fit["per_iter_ms"],
         "fit_centroid_rel_vs_plain": fit["centroid_rel_vs_plain"],
-    }, mf, spd]
+    }, mf, spd, attn]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ held once, and every collective is an exact tensor op over the worker axis
 (:mod:`harp_tpu_torch.collectives.lax_ops`). Entry points run on CUDA unless
 the caller passes ``device="cpu"``.
 
-Ported so far: the K-means regroupallgather path (``python -m
-harp_tpu_torch.run kmeans``) with its fused E-step kernel
-(``csrc/kmeans_stats.cu``).
+Ported so far: K-means regroupallgather, SGD-MF rotation and ALS (``python
+-m harp_tpu_torch.run kmeans|sgd_mf|als``) and blocked, ring and Ulysses
+attention (``parallel/ring_attention.py``), through the hand-written
+kernels in ``csrc/`` (E-step, SGD-MF hop, SPD solve, flash attention).
 """
 
 from harp_tpu_torch import combiner, partitioner

@@ -8,6 +8,7 @@ an exact tensor op over the worker axis:
   * reduce_scatter — combine, then split the partition axis into W blocks
   * allgather      — concatenate the W blocks
   * rotate         — ``torch.roll`` over axis 0
+  * all_to_all     — a swap of the worker axis and the chunk axis
   * broadcast / reduce with a root — index the root's slice
 
 Replicated results are held once (no worker axis). Every op must run inside
@@ -99,6 +100,17 @@ def reduce_scatter(x: torch.Tensor,
         raise ValueError(f"partition axis of shape {tuple(x.shape)} does not "
                          f"split over {w} workers")
     return combiner.tree_combine(x, axis=0).unflatten(0, (w, -1))
+
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """Block transpose across workers: chunk j of worker i goes to slot i
+    of worker j. ``x`` is stacked ``(W, W*block, ...)``; so is the result.
+    The substrate of Ulysses sequence parallelism."""
+    w = _stacked(x)
+    if x.dim() < 2 or x.shape[1] % w:
+        raise ValueError(f"axis 1 of shape {tuple(x.shape)} does not split "
+                         f"into {w} chunks")
+    return x.unflatten(1, (w, -1)).transpose(0, 1).flatten(1, 2)
 
 
 def rotate(x: torch.Tensor, steps: int = 1, comm=None) -> torch.Tensor:

@@ -6,7 +6,8 @@ with ``numModelSlices`` 1 or 2). A model slice is a stacked tensor ``(W,
 ``torch.roll`` over the worker axis): worker i receives the block of worker
 i - shift.
 
-* :func:`rotate_scan` — compute on the block, then shift it.
+* :func:`rotate_scan` — compute on the block (a tensor or a tuple of
+  tensors), then shift it.
 * :func:`pipelined_rotation` — two slices: compute on the resident slice
   while the other is "in flight". On one device the two hops are plain
   tensor ops, so nothing overlaps; the schedule (which block each worker
@@ -24,13 +25,14 @@ into chunks; :func:`chunks_for_link` reports the JAX package's chunk count.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Tuple, Union
 
 import torch
 
 from harp_tpu_torch.collectives import lax_ops
 
-Body = Callable[[Any, torch.Tensor, int], Tuple[Any, torch.Tensor]]
+Block = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+Body = Callable[[Any, Block, int], Tuple[Any, Block]]
 
 # a DCN hop would be cut into ~1 MiB pieces, at most 8 (JAX package)
 DCN_CHUNK_BYTES = 1 << 20
@@ -56,21 +58,25 @@ def _not_ported(comm=None, fused_dma: bool = False, ef_state=None) -> None:
                                   "is not ported yet")
 
 
-def rotate_scan(body: Body, carry: Any, model_block: torch.Tensor,
+def rotate_scan(body: Body, carry: Any, model_block: Block,
                 num_steps: int, shift: int = 1, comm=None,
                 fused_dma: bool = False, ef_state=None
-                ) -> Tuple[Any, torch.Tensor]:
+                ) -> Tuple[Any, Block]:
     """Unpipelined rotation loop: compute on the block, then shift it.
 
     ``body(carry, block, step) -> (carry, updated_block)``, with ``block``
-    stacked ``(W, ...)``. After ``num_steps`` = num_workers every worker has
-    seen every model block once and each block is home again
-    (LocalGlobalSyncCollective.rotate:710 called per iteration)."""
+    stacked ``(W, ...)``, or a tuple of stacked tensors that rotate together
+    (ring attention's (k, v), whose widths may differ). After ``num_steps``
+    = num_workers every worker has seen every model block once and each
+    block is home again (LocalGlobalSyncCollective.rotate:710 called per
+    iteration)."""
     _not_ported(comm, fused_dma, ef_state)
     for t in range(num_steps):
         carry, model_block = body(carry, model_block, t)
         if shift:
-            model_block = lax_ops.rotate(model_block, shift)
+            model_block = (tuple(lax_ops.rotate(b, shift) for b in model_block)
+                           if isinstance(model_block, tuple)
+                           else lax_ops.rotate(model_block, shift))
     return carry, model_block
 
 

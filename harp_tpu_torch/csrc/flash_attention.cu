@@ -1,0 +1,305 @@
+// Flash attention for Hopper (sm_90a): for every stacked worker w, head h and
+// query row i, out[w, i, h] = sum_j p_ij v[w, j, h] / sum_j p_ij with
+// p_ij = exp(s_ij - m_i), s_ij = (q[w, i, h] . k[w, j, h]) / sqrt(Dh), keys
+// j > i masked when causal, and m_i the row's running maximum. Optionally it
+// also writes m_i and the denominator sum_j p_ij (the streaming-softmax
+// stats a ring hop merges). q, k (W, L, H, Dh), v (W, L, H, Dv), float32 or
+// bfloat16; out (W, L, H, Dv) float32 whatever the input type, m and den
+// (W, L, H) float32.
+//
+// Replaces: harp_tpu/ops/pallas_kernels.py::_flash_kernel (the TPU kernel
+// behind flash_attention_pallas, without its ring_hop epilogue). It computes
+// the same function with the same update rule: running max m (starting at
+// -1e30), denominator d and accumulator acc on chip; per KV tile
+// m' = max(m, rowmax s), alpha = exp(m - m'), p = exp(s - m'),
+// d = d alpha + rowsum p, acc = acc alpha + p v; at the end
+// out = acc / max(d, 1e-30). Masked scores are -1e30, not -inf, so a masked
+// key gives exp(-1e30 - m) = 0 for any finite m. Padded keys (the ragged
+// last tile) are masked; padded query rows are computed and never written.
+// The causal grid is the TPU kernel's trapezoid: query tile iq visits only
+// the min(n_kv, ceil((iq + 1) BQ / BK)) KV tiles at or below the diagonal,
+// so a tile above it is never loaded. Given a counter, every block adds the
+// KV tiles it loaded, so a caller reads what the kernel walked, not what it
+// should have walked. It does not carry over the TPU
+// wrapper's transpose, pad and head-pack passes: q, k and v are read in
+// their (W, L, H, D) layout, and D is zero-padded in shared memory only.
+//
+// Precision: the TPU kernel's. Scores are float32 products of the inputs
+// (a bf16 input is widened exactly to float32 on load), and p stays float32
+// in the p v product (the TPU kernel widens v to float32). Every product is
+// a float32 FMA on the CUDA cores: one TF32 pass would move scores by about
+// 1e-3, and rounding p to bf16, as FlashAttention does, is another function.
+//
+// What bounds it on this card: operations. At causal L = 16384, H = 8,
+// Dh = Dv = 64 the work is (2 Dh + 2 Dv) H L (L + 1) / 2 = 2.75e11
+// operations, 4.1 ms on the float32 CUDA cores (67 TFLOP/s) and 1.67 ms as
+// three TF32 passes (the fastest route to float32 accuracy), against 134 MB
+// of q, k, v and out (0.04 ms at 3.35 TB/s).
+//
+// Design (simple first): one block of 256 threads a (worker, head, 64-row
+// query tile); a loop over 64-key tiles. The q tile and each k tile sit
+// transposed in shared memory, the v tile and p as they are; a 16 x 16
+// thread grid keeps a 4 x 4 register tile of scores (4 query rows x 4 keys)
+// and a 4 x Dv/16 tile of the accumulator, the row max and sum travel by
+// warp shuffles among the 16 threads of a row. Blocks are issued heaviest
+// causal tile first. No atomics, no sum across blocks: two runs are bitwise
+// equal, and a stacked launch is bitwise W separate ones (the optional tile
+// counter is the only atomic, and no output reads it). Two TF32x3
+// versions on mma.sync were measured and not kept: with cvt splits and the
+// tensor core's truncating sums over all keys it broke the tolerance, and
+// with exact sums it was slower than this kernel (PERF.md). wgmma on
+// pre-split tiles, TMA and warp specialisation are later work.
+//
+// The host binding is a plain C interface loaded with ctypes
+// (harp_tpu_torch/ops/_cuda_build.py).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBQ = 64;            // query rows a block
+constexpr int kBK = 64;            // keys a KV tile
+constexpr int kThreads = 256;      // 16 x 16: 4 rows x 4 keys each
+constexpr int kPad = 4;            // keeps float4 rows aligned
+constexpr int kLd = kBQ + kPad;    // row length of the transposed tiles
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kMasked = -1e30f;
+static_assert(kBQ == kBK, "the transposed q, k and p tiles share kLd");
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  float* out;
+  float* m_out;      // null unless the stats are asked for
+  float* d_out;
+  unsigned long long* tiles;  // null unless the loaded KV tiles are counted
+  long long w_h;     // W * H
+  int n_q;           // query tiles of one (worker, head)
+  int seq;           // L
+  int heads;         // H
+  int dh;
+  int dv;
+  float scale;
+  int causal;
+  int bf16;
+};
+
+__device__ __forceinline__ float load_in(const void* p, long long i,
+                                         int bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+template <int DK, int DV>
+constexpr size_t smem_floats() {
+  // q and k tiles transposed, the v tile, p transposed
+  return (size_t)2 * DK * kLd + (size_t)kBK * (DV + kPad) + (size_t)kBK * kLd;
+}
+
+// out[w, l, h, :] lies at row (w L + l) H + h of a (rows, D) matrix.
+template <int DK, int DV>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  constexpr int kLv = DV + kPad;
+  constexpr int kNg = DV / 64;     // groups of 4 value columns a thread
+  float* qs = reinterpret_cast<float*>(smem4);   // [DK][kLd]
+  float* ks = qs + DK * kLd;                     // [DK][kLd]
+  float* vs = ks + DK * kLd;                     // [kBK][kLv]
+  float* ps = vs + kBK * kLv;                    // [kBK][kLd]
+
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const long long blk = blockIdx.x;
+  const int iq = a.n_q - 1 - (int)(blk / a.w_h);   // heaviest tiles first
+  const long long pair = blk % a.w_h;              // w H + h
+  const long long w = pair / a.heads;
+  const long long row0 = w * a.seq * a.heads + pair % a.heads;  // l = 0
+  const int q0 = iq * kBQ;
+
+  for (int i = t; i < kBQ * DK; i += kThreads) {
+    const int r = i / DK, d = i % DK, l = q0 + r;
+    qs[d * kLd + r] = (l < a.seq && d < a.dh)
+        ? load_in(a.q, (row0 + (long long)l * a.heads) * a.dh + d, a.bf16)
+        : 0.f;
+  }
+
+  float m[4], den[4], acc[4][kNg * 4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kMasked;
+    den[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kNg * 4; ++c) acc[i][c] = 0.f;
+  }
+
+  const int n_kv = (a.seq + kBK - 1) / kBK;
+  const int n_vis = a.causal ? min(n_kv, (q0 + kBQ + kBK - 1) / kBK) : n_kv;
+  unsigned long long loaded = 0;
+  for (int j = 0; j < n_vis; ++j) {
+    const int k0 = j * kBK;
+    __syncthreads();               // the last tile's k, v and p are read
+    ++loaded;
+    for (int i = t; i < kBK * DK; i += kThreads) {
+      const int c = i / DK, d = i % DK, l = k0 + c;
+      ks[d * kLd + c] = (l < a.seq && d < a.dh)
+          ? load_in(a.k, (row0 + (long long)l * a.heads) * a.dh + d, a.bf16)
+          : 0.f;
+    }
+    for (int i = t; i < kBK * DV; i += kThreads) {
+      const int c = i / DV, d = i % DV, l = k0 + c;
+      vs[c * kLv + d] = (l < a.seq && d < a.dv)
+          ? load_in(a.v, (row0 + (long long)l * a.heads) * a.dv + d, a.bf16)
+          : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DK; ++d) {
+      const float4 qv = *reinterpret_cast<const float4*>(qs + d * kLd + ty * 4);
+      const float4 kv = *reinterpret_cast<const float4*>(ks + d * kLd + tx * 4);
+      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qa[i], ka[c], s[i][c]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty * 4 + i;
+      float mx = kMasked;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kpos = k0 + tx * 4 + c;
+        const bool live = kpos < a.seq && (!a.causal || qpos >= kpos);
+        s[i][c] = live ? s[i][c] * a.scale : kMasked;
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = expf(s[i][c] - m_new);
+        sum += s[i][c];
+      }
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1) sum += __shfl_xor_sync(kFull, sum, o);
+      den[i] = den[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kNg * 4; ++c) acc[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(ps + (tx * 4 + c) * kLd + ty * 4) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      const float4 pv = *reinterpret_cast<const float4*>(ps + c * kLd + ty * 4);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int g = 0; g < kNg; ++g) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(vs + c * kLv + g * 64 + tx * 4);
+        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][g * 4 + e] = fmaf(pa[i], va[e], acc[i][g * 4 + e]);
+      }
+    }
+  }
+  if (a.tiles != nullptr && t == 0) atomicAdd(a.tiles, loaded);
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    if (qpos >= a.seq) continue;   // a padded query row is never written
+    const long long row = row0 + (long long)qpos * a.heads;
+    const float dd = fmaxf(den[i], 1e-30f);
+#pragma unroll
+    for (int g = 0; g < kNg; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = g * 64 + tx * 4 + e;
+        if (d < a.dv) a.out[row * a.dv + d] = acc[i][g * 4 + e] / dd;
+      }
+    if (a.m_out != nullptr && tx == 0) {
+      a.m_out[row] = m[i];
+      a.d_out[row] = den[i];
+    }
+  }
+}
+
+template <int DK, int DV>
+int launch(const Args& a, unsigned grid, cudaStream_t s) {
+  const size_t bytes = smem_floats<DK, DV>() * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_attention_kernel<DK, DV><<<grid, kThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Attention of the n_wh = W H (worker, head) pairs on `stream`: q, k
+// (W, L, H, dh), v (W, L, H, dv), float32 (bf16 = 0) or bfloat16 (bf16 = 1),
+// out (W, L, H, dv) float32, m_out and d_out (W, L, H) float32 or both null;
+// all contiguous, 1 <= dh, dv <= 128 (checked by the caller). A non-null
+// `tiles` (one uint64 on the device) gains the KV tiles the blocks loaded.
+// Returns cudaGetLastError() after the launch (0 on success).
+int flash_attention_launch(const void* q, const void* k, const void* v,
+                           void* out, void* m_out, void* d_out, void* tiles,
+                           int w, int seq, int heads, int dh, int dv,
+                           float scale, int causal, int bf16, void* stream) {
+  if (w < 1 || seq < 1 || heads < 1 || dh < 1 || dh > 128 || dv < 1 ||
+      dv > 128)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.out = static_cast<float*>(out);
+  a.m_out = static_cast<float*>(m_out);
+  a.d_out = static_cast<float*>(d_out);
+  a.tiles = static_cast<unsigned long long*>(tiles);
+  a.w_h = (long long)w * heads;
+  a.n_q = (seq + kBQ - 1) / kBQ;
+  a.seq = seq;
+  a.heads = heads;
+  a.dh = dh;
+  a.dv = dv;
+  a.scale = scale;
+  a.causal = causal;
+  a.bf16 = bf16;
+  const long long grid = a.w_h * a.n_q;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned g = (unsigned)grid;
+  if (dh <= 64)
+    return dv <= 64 ? launch<64, 64>(a, g, s) : launch<64, 128>(a, g, s);
+  return dv <= 64 ? launch<128, 64>(a, g, s) : launch<128, 128>(a, g, s);
+}
+
+}  // extern "C"

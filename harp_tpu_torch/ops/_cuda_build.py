@@ -22,7 +22,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "harp_tpu_torch_kernels"
 SOURCES = {"kmeans_stats": "kmeans_stats.cu", "dense_mf_hop": "dense_mf_hop.cu",
-           "spd_solve": "spd_solve.cu"}
+           "spd_solve": "spd_solve.cu", "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

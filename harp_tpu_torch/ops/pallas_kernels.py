@@ -15,11 +15,16 @@ Ported:
 * the batched SPD solve of ALS. ``spd_solve_cuda`` launches ``csrc/
   spd_solve.cu`` (one warp a system, the factor in registers);
   ``spd_solve_plain`` is the TPU kernel's Cholesky and substitutions,
-  vectorized over the batch.
+  vectorized over the batch;
+* flash attention. ``flash_attention_cuda`` launches ``csrc/
+  flash_attention.cu`` (running max, denominator and accumulator on chip,
+  the causal trapezoid of KV tiles, any L, Dv != Dh, optional stats);
+  ``flash_attention_plain`` is a full-row softmax in plain PyTorch.
 
-Each dispatcher (``kmeans_stats``, ``dense_mf_hop``, ``spd_solve``) sends a
-CPU tensor to the plain version and a CUDA tensor to the kernel; there is no
-fallback from one to the other, and a shape the kernel cannot take raises.
+Each dispatcher (``kmeans_stats``, ``dense_mf_hop``, ``spd_solve``,
+``flash_attention``) sends a CPU tensor to the plain version and a CUDA
+tensor to the kernel; there is no fallback from one to the other, and a
+shape the kernel cannot take raises.
 
 ``launches`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
@@ -28,6 +33,7 @@ path went through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional, Tuple
 
@@ -37,7 +43,7 @@ import torch.nn.functional as F
 from harp_tpu_torch.ops import distance
 
 launches: Dict[str, int] = {"kmeans_stats": 0, "dense_mf_hop": 0,
-                             "spd_solve": 0}
+                             "spd_solve": 0, "flash_attention": 0}
 
 # shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -438,3 +444,205 @@ def use_spd_solve_pallas(k: int, device) -> bool:
     CUDA device at K <= 64 (the JAX package's rule, with the card in the
     TPU's place). There is no opt-out switch."""
     return torch.device(device).type == "cuda" and k <= SPD_MAX_K
+
+
+# --------------------------------------------------------------------------- #
+# Flash attention
+# --------------------------------------------------------------------------- #
+
+# the widest head the kernel takes (Dh and Dv are zero-padded to 64 or 128)
+FLASH_MAX_D = 128
+# the JAX package's dispatch threshold (a TPU crossover, kept as it is)
+FLASH_MIN_L = 8192
+# head packing is a TPU lane layout: two heads share a 128-lane tile when
+# H is even and both widths fit 64 lanes; the port keeps only its check
+_PACK_LANES = 64
+# the plain version takes its scores in chunks of query rows, at most this
+# many scores a chunk (one head at L=16384 would be 1.07 GB)
+_PLAIN_CHUNK_SCORES = 1 << 26
+# inside count_flash_tiles: one uint64 device counter a device, to which
+# every kernel launch adds the KV tiles its blocks loaded
+_flash_tile_counters: Optional[dict] = None
+
+
+@contextlib.contextmanager
+def count_flash_tiles():
+    """Within the block, every ``flash_attention_cuda`` launch has its
+    kernel count the KV tiles it loads (one atomic add a block). Yields a
+    function that returns the count so far (it reads the device, so it
+    waits for the launches). The plain version loads no tiles."""
+    global _flash_tile_counters
+    counters = _flash_tile_counters = {}
+    try:
+        yield lambda: sum(int(c) for c in counters.values())
+    finally:
+        _flash_tile_counters = None
+
+
+def _flash_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v viewed stacked (W, L, H, D), checked, and whether they came
+    stacked."""
+    if q.dim() not in (3, 4) or k.dim() != q.dim() or v.dim() != q.dim():
+        raise ValueError(f"flash_attention takes q, k, v as (L, H, D) or "
+                         f"stacked (W, L, H, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    stacked = q.dim() == 4
+    q4, k4, v4 = (x if stacked else x.unsqueeze(0) for x in (q, k, v))
+    w, l, h, dh = q4.shape
+    if (tuple(k4.shape) != (w, l, h, dh) or tuple(v4.shape[:3]) != (w, l, h)
+            or min(w, l, h, dh, v4.shape[3]) < 1):
+        raise ValueError(f"flash_attention: q and k must be (W, L, H, Dh) "
+                         f"and v (W, L, H, Dv), non-empty, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    return q4, k4, v4, stacked
+
+
+def _flash_result(out, m, den, stacked: bool, return_stats: bool):
+    res = (out, m, den) if return_stats else (out,)
+    if not stacked:
+        res = tuple(x[0] for x in res)
+    return res if return_stats else res[0]
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False, return_stats: bool = False):
+    """Attention in plain PyTorch, the same function as
+    :func:`flash_attention_cuda`: float32 scores of the inputs scaled by
+    1/sqrt(Dh), causal keys masked with -1e30, a full-row softmax, out =
+    (p @ v) / max(den, 1e-30) in float32 (v widened to float32). At the end
+    of the kernel's KV walk its running max is the row max, so m and den are
+    the kernel's. Loops over stacked workers and over chunks of query rows
+    to bound the scores' memory."""
+    q4, k4, v4, stacked = _flash_operands(q, k, v)
+    w, l, h, dh = q4.shape
+    dv = v4.shape[3]
+    scale = 1.0 / float(dh) ** 0.5
+    dev = q.device
+    out = torch.empty((w, l, h, dv), dtype=torch.float32, device=dev)
+    m = torch.empty((w, l, h), dtype=torch.float32, device=dev)
+    den = torch.empty((w, l, h), dtype=torch.float32, device=dev)
+    rows = max(1, _PLAIN_CHUNK_SCORES // (h * l))
+    k_pos = torch.arange(l, device=dev)
+    for wi in range(w):
+        kf, vf = k4[wi].float(), v4[wi].float()
+        for r0 in range(0, l, rows):
+            qf = q4[wi, r0:r0 + rows].float()
+            s = torch.einsum("qhd,khd->hqk", qf, kf) * scale
+            if causal:
+                q_pos = torch.arange(r0, r0 + qf.shape[0], device=dev)
+                s.masked_fill_(q_pos[:, None] < k_pos[None, :], -1e30)
+            mx = s.amax(dim=2)                                # (H, rows)
+            p = torch.exp(s - mx[..., None])
+            d = p.sum(dim=2)
+            o = torch.einsum("hqk,khd->qhd", p, vf)
+            den_t = torch.clamp(d, min=1e-30).t()
+            out[wi, r0:r0 + rows] = o / den_t[..., None]
+            m[wi, r0:r0 + rows] = mx.t()
+            den[wi, r0:r0 + rows] = d.t()
+    return _flash_result(out, m, den, stacked, return_stats)
+
+
+def _flash_lib() -> ctypes.CDLL:
+    lib = _LIB.get("flash_attention")
+    if lib is None:
+        from harp_tpu_torch.ops import _cuda_build
+
+        lib = _cuda_build.library("flash_attention")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = ([vp] * 7 + [i] * 5
+                                               + [ctypes.c_float, i, i, vp])
+        lib.flash_attention_launch.restype = i
+        _LIB["flash_attention"] = lib
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = False, return_stats: bool = False):
+    """Flash attention on the card: out (L, H, Dv), or (out, m (L, H), den
+    (L, H)) with ``return_stats``; stacked inputs give stacked outputs.
+
+    ``q``, ``k``: (L, H, Dh) or stacked (W, L, H, Dh); ``v``: (L, H, Dv) or
+    (W, L, H, Dv); one type, float32 or bfloat16, contiguous, on one CUDA
+    device; 1 <= Dh, Dv <= 128; any L. A stacked input is one launch for
+    all workers. Outputs are float32 whatever the input type."""
+    args = (q, k, v)
+    if not all(t.is_cuda and t.device == q.device for t in args):
+        raise ValueError("flash_attention_cuda needs q, k and v on one CUDA "
+                         "device, got " + ", ".join(str(t.device)
+                                                    for t in args))
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != q.dtype for t in args):
+        raise TypeError(f"q, k and v must share one type, float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("q, k and v must be contiguous")
+    q4, k4, v4, stacked = _flash_operands(q, k, v)
+    w, l, h, dh = q4.shape
+    dv = v4.shape[3]
+    if dh > FLASH_MAX_D or dv > FLASH_MAX_D:
+        raise ValueError(f"flash_attention_cuda takes Dh, Dv <= "
+                         f"{FLASH_MAX_D}, got Dh={dh}, Dv={dv}")
+    lib = _flash_lib()
+    dev = q.device
+    with torch.cuda.device(dev):
+        out = torch.empty((w, l, h, dv), dtype=torch.float32, device=dev)
+        m = den = None
+        if return_stats:
+            m = torch.empty((w, l, h), dtype=torch.float32, device=dev)
+            den = torch.empty((w, l, h), dtype=torch.float32, device=dev)
+        tiles = None
+        if _flash_tile_counters is not None:
+            if dev not in _flash_tile_counters:
+                _flash_tile_counters[dev] = torch.zeros((), dtype=torch.int64,
+                                                        device=dev)
+            tiles = _flash_tile_counters[dev].data_ptr()
+        err = lib.flash_attention_launch(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
+            None if m is None else m.data_ptr(),
+            None if den is None else den.data_ptr(), tiles, w, l, h, dh, dv,
+            1.0 / float(dh) ** 0.5, int(causal),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launches["flash_attention"] += 1
+    return _flash_result(out, m, den, stacked, return_stats)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, head_pack: Optional[bool] = None,
+                    return_stats: bool = False, ring_hop: bool = False):
+    """Flash attention as the JAX package's ``flash_attention_pallas``
+    takes it: q, k (L, H, Dh), v (L, H, Dv), or stacked (W, L, H, D) -> out
+    (L, H, Dv) float32, plus m and den (L, H) with ``return_stats``. The
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+
+    ``head_pack`` (the TPU's two-heads-per-lane-tile layout) never changes
+    the output; True raises where the TPU could not pack (odd H, Dh or Dv
+    above 64). ``ring_hop`` (the in-kernel KV ring send) is not ported."""
+    if ring_hop and not return_stats:
+        raise ValueError("ring_hop=True requires return_stats=True (the "
+                         "ring merge needs the streaming-softmax stats)")
+    if ring_hop:
+        raise NotImplementedError("ring_hop=True (the in-kernel KV ring "
+                                  "send) is not ported yet")
+    h, dh, dv = q.shape[-2], q.shape[-1], v.shape[-1]
+    if head_pack and not (h % 2 == 0 and dh <= _PACK_LANES
+                          and dv <= _PACK_LANES):
+        raise ValueError(
+            f"head_pack=True needs even H and Dh/Dv <= {_PACK_LANES}, "
+            f"got H={h} Dh={dh} Dv={dv}")
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, causal, return_stats)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, return_stats)
+    raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+
+
+def use_flash_pallas(l: int, device) -> bool:
+    """Whether attention takes the flash kernel: on a CUDA device at
+    L >= 8192 (the JAX package's rule, with the card in the TPU's place).
+    There is no opt-out switch."""
+    return torch.device(device).type == "cuda" and l >= FLASH_MIN_L

@@ -23,7 +23,18 @@ Batched SPD solve: the kernel and the plain version sum in different orders
 float64 ``torch.linalg.solve`` of the same systems: the kernel within
 max(1e-5, 4x the plain version's own distance from it), relative to max
 |x|.
+
+Flash attention: the kernel and the plain version (a full-row softmax) sum
+in different orders, so both are held against a float64 attention of the
+same inputs over sampled query rows of every head: out, m and den within
+max(1e-5, 4x the plain version's own distance), relative to their largest
+entry. A stacked launch is bitwise the separate ones, and two runs are
+bitwise equal. The KV tiles the kernel counts as loaded are exactly the
+causal trapezoid of its 64 x 64 tiles (``trapezoid_tiles``, which
+tests/test_torch_attention.py holds against the JAX package's grid).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -213,3 +224,103 @@ def test_spd_solve_kernel_refuses_bad_inputs(cuda):
         pk.spd_solve_cuda(a.double(), b.double())
     with pytest.raises(ValueError, match="contiguous"):
         pk.spd_solve_cuda(a.transpose(1, 2), b)
+
+
+def attention64(q, k, v, causal, rows):
+    """float64 attention of the query rows ``rows`` of every stacked worker
+    and head against all keys: (out (W, R, H, Dv), m (W, R, H), den)."""
+    q, k, v = (x if x.dim() == 4 else x[None] for x in (q, k, v))
+    s = torch.einsum("wqhd,wkhd->whqk", q[:, rows].double(), k.double())
+    s = s / math.sqrt(q.shape[-1])
+    if causal:
+        keys = torch.arange(k.shape[1], device=k.device)
+        s = s.masked_fill(rows[:, None] < keys[None, :], -math.inf)
+    m = s.amax(dim=3)
+    p = torch.exp(s - m[..., None])
+    den = p.sum(dim=3)
+    out = torch.einsum("whqk,wkhd->wqhd", p, v.double())
+    return (out / den.transpose(1, 2)[..., None], m.transpose(1, 2),
+            den.transpose(1, 2))
+
+
+def sample_rows(l, n=256, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.cat([torch.tensor([0, l - 1]), torch.randint(0, l, (n,),
+                                                              generator=g)])
+    return torch.unique(rows)
+
+
+@pytest.mark.parametrize("w,l,h,dh,dv,causal,dtype", [
+    (1, 4096, 8, 64, 64, True, torch.float32),      # the flagship's shape, cut
+    (1, 1000, 4, 64, 64, False, torch.float32),     # ragged L, not causal
+    (1, 97, 1, 8, 8, True, torch.float32),          # prime L, narrow head
+    (1, 2048, 4, 128, 128, True, torch.float32),    # Dh = 128
+    (1, 1031, 2, 64, 96, True, torch.float32),      # Dv != Dh, ragged
+    (1, 2048, 8, 64, 64, True, torch.bfloat16),     # bf16 inputs
+    (3, 700, 3, 32, 48, False, torch.float32),      # stacked, odd W H
+    (1, 130, 2, 100, 20, True, torch.float32),      # odd widths
+])
+def test_flash_attention_kernel_matches_plain(cuda, w, l, h, dh, dv, causal,
+                                              dtype):
+    g = torch.Generator().manual_seed(l + dh + dv)
+    q, k = (torch.randn(w, l, h, dh, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    v = torch.randn(w, l, h, dv, generator=g).to(cuda, dtype)
+    before = pk.launches["flash_attention"]
+    out, m, den = pk.flash_attention_cuda(q, k, v, causal, return_stats=True)
+    torch.cuda.synchronize()
+    assert pk.launches["flash_attention"] == before + 1
+    assert out.shape == (w, l, h, dv) and m.shape == den.shape == (w, l, h)
+    assert out.dtype == m.dtype == den.dtype == torch.float32
+    plain = pk.flash_attention_plain(q, k, v, causal, return_stats=True)
+    rows = sample_rows(l).to(cuda)
+    exact = attention64(q, k, v, causal, rows)
+    for got, ref, ex in zip((out, m, den), plain, exact):
+        tol = max(1e-5, 4 * max_rel(ref[:, rows].double(), ex))
+        assert max_rel(got[:, rows].double(), ex) <= tol
+    assert torch.equal(out, pk.flash_attention_cuda(q, k, v, causal))
+    for wi in range(w):
+        one = pk.flash_attention_cuda(q[wi], k[wi], v[wi], causal,
+                                      return_stats=True)
+        assert all(torch.equal(a[wi], b) for a, b in zip((out, m, den), one))
+
+
+FLASH_TILE = 64   # the kernel's query and key tile
+
+
+def trapezoid_tiles(l, causal, tile=FLASH_TILE):
+    """KV tiles one (worker, head) loads at length ``l``: causal, query
+    tile iq walks the min(n, iq + 1) tiles at or below the diagonal (none
+    above it); otherwise all n of the n x n square."""
+    n = -(-l // tile)
+    return sum(min(n, iq + 1) for iq in range(n)) if causal else n * n
+
+
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 200, 8209])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_kernel_loads_the_trapezoid(cuda, l, causal):
+    w, h = 2, 3
+    g = torch.Generator().manual_seed(l)
+    q, k, v = (torch.randn(w, l, h, 16, generator=g).to(cuda)
+               for _ in range(3))
+    with pk.count_flash_tiles() as tiles:
+        pk.flash_attention_cuda(q, k, v, causal)
+        assert tiles() == w * h * trapezoid_tiles(l, causal)
+        pk.flash_attention_cuda(q, k, v, causal)
+        assert tiles() == 2 * w * h * trapezoid_tiles(l, causal)
+
+
+def test_flash_attention_kernel_refuses_bad_inputs(cuda):
+    x = torch.zeros(64, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="Dh, Dv <= 128"):
+        wide = torch.zeros(64, 2, 130, device=cuda)
+        pk.flash_attention_cuda(wide, wide, wide)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pk.flash_attention_cuda(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError, match="share one type"):
+        pk.flash_attention_cuda(x, x, x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(2, 64, 16, device=cuda).transpose(0, 1)
+        pk.flash_attention_cuda(t, t, t)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pk.flash_attention_cuda(x, x.cpu(), x)
