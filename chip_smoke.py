@@ -29,12 +29,23 @@ launch counters set to 0 just before each and read just after:
     L=32768 causal and not (4 launches a call) and ``ulysses_attention``
     on 4 workers at L=16384 (one stacked launch a call), held against
     blocked attention and the float64 reference; the streamed torch loop
-    against the kernel at L = 2048, 4096 and 8192.
+    against the kernel at L = 2048, 4096 and 8192;
+  * ring DMA: the hop (shifts 1, -1, 3; f32, bf16, int32 and a ragged
+    uint8 block), ``hop_tree`` and ``ring_allgather`` on 4 stacked workers
+    against their plain versions; the SGD-MF flagship at W=4 with
+    ``fused_dma=True``, bitwise the unfused fit; ring attention with fused
+    hops; then, through the port's launcher, 4 processes on the card
+    (``chip_smoke.py --mp-child``): hop and allgather between processes
+    against the gloo plain version, 200 hops with one rank held back, and
+    the fused SGD-MF flagship bitwise the stacked fit, its factors pulled
+    with ``table_ops.pull(fused=True)`` (the allgather kernel's path; the
+    fit itself launches no allgather); and ``parallel/mp_smoke.py`` as 2
+    processes x 2 workers.
 
 It prints:
 
   * the card's name and power limit (nvidia-smi);
-  * a ``{"kernels": [...]}`` line: per kernel its launches on the main path,
+  * a ``{"kernels": [...]}`` line: per kernel its launches on its path,
     its error against the plain version, its time, the plain version's
     time, the bound for the same work and a PyTorch yardstick's time;
   * last, ``{"ok": true, "device": {...}}``.
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -91,6 +103,15 @@ ATTN_DH128 = dict(l=16384, h=4, dh=128)
 ATTN_RING = dict(l=32768, workers=4, h=8, dh=64)
 ATTN_ULYSSES = dict(l=16384, workers=4, h=8, dh=64)
 ATTN_CROSSOVER = (2048, 4096, 8192)
+# ring DMA: W=4 workers, the SGD-MF flagship's H block at W=4 (rank 32 x
+# 8192 columns, f32: 1 MiB a worker); across 4 processes at 4 KiB, 1 MiB and
+# 64 MiB a worker; 200 hops of the credit test; two-point epochs of the
+# fused SGD-MF flagship at W=4
+RING_W = 4
+RING_BLOCK = (32, 8192)
+RING_MP_BYTES = (4096, 1 << 20, 64 << 20)
+CREDIT_HOPS = 200
+MF_FUSED_EPOCHS = (5, 20)
 
 
 def log(msg: str) -> None:
@@ -1585,6 +1606,493 @@ def attention_phases():
     }
 
 
+# --------------------------------------------------------------------------- #
+# Ring DMA: the hop and the allgather, stacked and across processes
+# --------------------------------------------------------------------------- #
+
+def ringdma_bound(nbytes):
+    """Least time to move a payload: read once and written once at the
+    card's memory rate (the engine does no arithmetic)."""
+    return 2 * nbytes / PEAK_BYTES_S * 1e3
+
+
+def zero_counts():
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.ops import ring_dma
+
+    for counts in (pk.launches, ring_dma.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_counts():
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.ops import ring_dma
+
+    torch.cuda.synchronize()
+    return {**pk.launches, **ring_dma.launches}
+
+
+def ring_inputs(w, seed):
+    """The stacked payloads of the ring phases, (W, ...) on the card: the
+    SGD-MF flagship's H block (32 x 8192 f32, 1 MiB a worker) and its bf16
+    and int32 twins, and a ragged uint8 block of 1 MiB + 6 bytes."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    f32 = torch.randn((w,) + RING_BLOCK, device=CARD, generator=gen)
+    return {
+        "f32": f32, "bf16": f32.bfloat16(),
+        "int32": torch.randint(-2 ** 31, 2 ** 31 - 1, (w,) + RING_BLOCK,
+                               dtype=torch.int32, device=CARD, generator=gen),
+        "uint8 (1 MiB + 6 B)": torch.randint(
+            0, 256, (w, (1 << 20) + 6), dtype=torch.uint8, device=CARD,
+            generator=gen)}
+
+
+def as_is(sess, fn, *xs, outs=1):
+    """``fn`` through ``sess.run`` on stacked tensors passed as they are."""
+    rep = sess.replicate()
+    return sess.run(fn, *xs, in_specs=(rep,) * len(xs),
+                    out_specs=rep if outs == 1 else (rep,) * outs)
+
+
+def ringdma_stacked():
+    """[ringdma:stacked]: W=4 in one process, every result bitwise the
+    plain version's; kernel times against the bound and torch.roll."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.ops import ring_dma
+
+    w = RING_W
+    sess = HarpSession(num_workers=w)
+    g = sess.workers
+    cases = ring_inputs(w, seed=11)
+    log(f"[ringdma:stacked] W={w}, one process: hop at shifts 1, -1, 3 and "
+        f"ring_allgather against their plain versions")
+    for name, x in cases.items():
+        for shift in (1, -1, 3):
+            got = as_is(sess, lambda a: ring_dma.hop(a, shift), x)
+            check(torch.equal(got, ring_dma.hop_plain(x, shift, g)),
+                  f"hop {name} {tuple(x.shape)}, shift {shift}: bitwise "
+                  f"torch.roll")
+    tree = (cases["f32"], cases["bf16"], cases["int32"])
+    got = as_is(sess, lambda *t: ring_dma.hop_tree(t, 3), *tree, outs=3)
+    check(all(torch.equal(a, ring_dma.hop_plain(b, 3, g))
+              for a, b in zip(got, tree)),
+          "hop_tree of (f32, bf16, int32), shift 3: bitwise")
+    for name in ("f32", "uint8 (1 MiB + 6 B)"):
+        x = cases[name]
+        got = as_is(sess, ring_dma.ring_allgather, x)
+        check(torch.equal(got, ring_dma.ring_allgather_plain(x, g)),
+              f"ring_allgather {name}: bitwise the plain gather")
+    f32 = cases["f32"]
+    nbytes = f32.numel() * 4
+    hop = {"ms": cuda_time_ms(lambda: ring_dma.hop_cuda(f32, 1, g), 50, 5),
+           "plain_ms": cuda_time_ms(
+               lambda: ring_dma.hop_plain(f32, 1, g), 50, 5),
+           "library_ms": cuda_time_ms(lambda: torch.roll(f32, 1, 0), 50, 5),
+           "bound_ms": ringdma_bound(nbytes)}
+    small = f32.reshape(w, -1)[:, :1024].contiguous()       # 4 KiB a worker
+    hop["ms_4kib"] = cuda_time_ms(
+        lambda: ring_dma.hop_cuda(small, 1, g), 200, 10)
+    hop["library_ms_4kib"] = cuda_time_ms(
+        lambda: torch.roll(small, 1, 0), 200, 10)
+    ag = {"ms": cuda_time_ms(lambda: ring_dma.ring_allgather_cuda(f32, g),
+                             50, 5),
+          "plain_ms": cuda_time_ms(
+              lambda: ring_dma.ring_allgather_plain(f32, g), 50, 5),
+          "library_ms": cuda_time_ms(lambda: f32.flatten(0, 1).clone(), 50,
+                                     5),
+          "bound_ms": ringdma_bound(nbytes)}
+    # the kernels' own device time (the events above time back-to-back
+    # calls, which the host's launch path can hold)
+    for tag, fn, name in (
+            ("device_ms", lambda: ring_dma.hop_cuda(f32, 1, g), "ring_hop"),
+            ("device_ms_4kib", lambda: ring_dma.hop_cuda(small, 1, g),
+             "ring_hop"),
+            ("ag_device_ms", lambda: ring_dma.ring_allgather_cuda(f32, g),
+             "ring_allgather")):
+        per, _ = device_profile(lambda: [fn() for _ in range(20)])
+        ms = sum(v for k, v in per.items() if k.startswith(name)) / 20
+        (ag if tag.startswith("ag_") else hop)[tag.replace("ag_", "")] = (
+            ms if per else None)
+    log(f"  device time a launch (profiler): hop {hop['device_ms']} ms, "
+        f"4 KiB hop {hop['device_ms_4kib']} ms, allgather "
+        f"{ag['device_ms']} ms")
+    log(f"  hop, 1 MiB a worker: kernel {hop['ms']:.6f} ms, torch.roll "
+        f"{hop['library_ms']:.6f} ms, bound {hop['bound_ms']:.6f} ms "
+        f"(bytes); 4 KiB a worker: kernel {hop['ms_4kib']:.6f} ms, "
+        f"torch.roll {hop['library_ms_4kib']:.6f} ms")
+    log(f"  ring_allgather, 1 MiB a worker: kernel {ag['ms']:.6f} ms, "
+        f"flatten-and-copy {ag['library_ms']:.6f} ms, bound "
+        f"{ag['bound_ms']:.6f} ms (bytes)")
+    return hop, ag
+
+
+def mf_fused_config(**kw):
+    from harp_tpu_torch.models import sgd_mf
+
+    f = MF_FLAGSHIP
+    return sgd_mf.SGDMFConfig(**{
+        "rank": f["rank"], "lam": f["lam"], "lr": f["lr"],
+        "epochs": f["epochs"], "minibatches_per_hop": f["nmb"],
+        "layout": "dense", **kw})
+
+
+def mf_fused_data():
+    from harp_tpu_torch.io import datagen
+
+    f = MF_FLAGSHIP
+    return datagen.sparse_ratings(f["users"], f["items"], rank=f["data_rank"],
+                                  density=f["density"], seed=f["seed"])
+
+
+def pull_factors(sess, out_w, out_h):
+    """The trained W and H factor tables pulled to every process with
+    ``table_ops.pull(fused=True)``: the ring_allgather kernel's path."""
+    from harp_tpu_torch.collectives import table_ops
+    from harp_tpu_torch.table import Table
+
+    def pull(blocks):
+        t = Table.sharded(blocks, num_workers=sess.workers.num_workers)
+        return table_ops.pull(t, fused=True).data
+
+    return [sess.run(pull, t, in_specs=(sess.shard(),),
+                     out_specs=sess.replicate()) for t in (out_w, out_h)]
+
+
+def factor_digest(tables, rmse) -> str:
+    """sha256 of the pulled factor tables and of the RMSEs."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for full in tables:
+        h.update(full.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    h.update(np.ascontiguousarray(rmse).tobytes())
+    return h.hexdigest()
+
+
+def mf_rates(model_for, state, nnz):
+    """Ratings/s two-point (MF_FUSED_EPOCHS) of ``model_for(epochs)``."""
+    from harp_tpu_torch.benchmark import timing
+
+    def build(epochs):
+        m = model_for(epochs)
+        m.train_prepared(state)
+        return lambda: m.train_prepared(state)
+
+    lo, hi = MF_FUSED_EPOCHS
+    return timing.two_point(build, lo, hi, float(nnz))
+
+
+def mf_fused_stacked():
+    """[sgd_mf:fused] stacked: the flagship at W=4 with fused_dma=True
+    against fused_dma=False, bitwise; one hop launch a rotation step."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.models import sgd_mf
+
+    f = MF_FLAGSHIP
+    rows, cols, vals = mf_fused_data()
+    sess = HarpSession(num_workers=RING_W)
+    cfg = mf_fused_config(fused_dma=True)
+    model = sgd_mf.SGDMF(sess, cfg)
+    state = model.prepare(rows, cols, vals, f["users"], f["items"], seed=0)
+    nnz = model.last_layout_stats["nnz"]
+    log(f"[sgd_mf:fused] stacked W={RING_W}: {f['users']}x{f['items']}, "
+        f"{f['density']:g}, rank {f['rank']}, {f['nmb']} minibatches a hop, "
+        f"{f['epochs']} epochs, dense, nnz={nnz}")
+    zero_counts()
+    out_w, out_h, rmse = model.train_prepared(state)
+    counts = read_counts()
+    steps = f["epochs"] * RING_W
+    check(counts["ring_dma_hop"] == steps and counts["dense_mf_hop"] == steps,
+          f"one ring_dma_hop and one dense_mf_hop launch a rotation step "
+          f"({counts['ring_dma_hop']}, {counts['dense_mf_hop']} = {steps})")
+    plain = sgd_mf.SGDMF(sess, mf_fused_config(fused_dma=False))
+    p_w, p_h, p_rmse = plain.train_prepared(state)
+    check(torch.equal(out_w, p_w) and torch.equal(out_h, p_h)
+          and np.array_equal(rmse, p_rmse),
+          "factors and RMSEs bitwise the fused_dma=False fit")
+    check(bool(np.all(np.isfinite(rmse))) and rmse[-1] < rmse[0],
+          f"finite, falling RMSEs ({rmse[0]:.5f} -> {rmse[-1]:.5f})")
+    digest = factor_digest(pull_factors(sess, out_w, out_h), rmse)
+    fused_tp = mf_rates(lambda e: sgd_mf.SGDMF(sess, mf_fused_config(
+        fused_dma=True, epochs=e)), state, nnz)
+    plain_tp = mf_rates(lambda e: sgd_mf.SGDMF(sess, mf_fused_config(
+        fused_dma=False, epochs=e)), state, nnz)
+    log(f"  two-point: fused {fused_tp['rate']:.6g} ratings/s "
+        f"({fused_tp['per_iter_ms']:.4f} ms an epoch), unfused "
+        f"{plain_tp['rate']:.6g} ({plain_tp['per_iter_ms']:.4f} ms)")
+    return {"launches": counts, "digest": digest,
+            "rmse": [float(r) for r in rmse], "nnz": nnz,
+            "ratings_per_s": fused_tp["rate"],
+            "per_epoch_ms": fused_tp["per_iter_ms"],
+            "unfused_ratings_per_s": plain_tp["rate"],
+            "unfused_per_epoch_ms": plain_tp["per_iter_ms"]}
+
+
+def ring_fused_phase():
+    """[attention:ring fused]: ring attention at W=4, L=32768, causal, with
+    the (k, v) hops through the ring-DMA kernel, bitwise the unfused ring."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    c = ATTN_RING
+    sess = HarpSession(num_workers=c["workers"])
+    q, k, v = attn_inputs((c["l"], c["h"], c["dh"]), c["dh"], seed=6)
+    log(f"[attention:ring fused] W={c['workers']} L={c['l']} H={c['h']} "
+        f"Dh={c['dh']} causal, fused_dma=True")
+
+    def ring(fused):
+        return sharded(sess, lambda a, b, d: ra.ring_attention_mha(
+            a, b, d, True, fused_dma=fused), q, k, v)
+
+    zero_counts()
+    out = ring(True)
+    counts = read_counts()
+    hops = 2 * c["workers"]
+    check(counts["ring_dma_hop"] == hops
+          and counts["flash_attention"] == c["workers"],
+          f"{hops} ring_dma_hop launches a call (k and v, W hops) and "
+          f"{c['workers']} flash_attention ({counts['ring_dma_hop']}, "
+          f"{counts['flash_attention']})")
+    check(torch.equal(out, ring(False)), "bitwise the unfused ring call")
+    ms, plain_ms = (cuda_time_ms(lambda: ring(f), reps=3, warmup=1)
+                    for f in (True, False))
+    log(f"  fused {ms:.4f} ms a call, unfused {plain_ms:.4f} ms")
+    return {"launches": counts["ring_dma_hop"], "ms": ms,
+            "unfused_ms": plain_ms}
+
+
+def mp_child() -> int:
+    """One process of the [ringdma:mp] gang (4 processes x 1 worker on the
+    card, under the port's launcher): hops and allgathers against the gloo
+    plain version, the credit test and the fused SGD-MF flagship. Prints
+    one ``MP_CHILD {json}`` line."""
+    import torch.distributed as dist
+
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.models import sgd_mf
+    from harp_tpu_torch.ops import ring_dma
+    from harp_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sess = HarpSession(num_workers=RING_W, distributed=True)
+    g, rank = sess.workers, sess.workers.rank
+    out = {"rank": rank, "sizes": {}}
+    gen = torch.Generator(device=CARD)
+    call = 0
+
+    def payload(n):
+        # random float32, drawn anew for every call from (rank, call): a
+        # block from the wrong peer or a stale slot differs everywhere
+        nonlocal call
+        call += 1
+        gen.manual_seed(1_000_003 * call + rank)
+        return torch.randn((1, n), device=CARD, generator=gen)
+
+    for nbytes in RING_MP_BYTES:
+        n = nbytes // 4
+        ok = True
+        for shift in (1, -1, 3):
+            x = payload(n)
+            ok &= torch.equal(ring_dma.hop_cuda(x, shift, g),
+                              ring_dma.hop_plain(x, shift, g))
+        x = payload(n)
+        ok &= torch.equal(ring_dma.ring_allgather_cuda(x, g),
+                          ring_dma.ring_allgather_plain(x, g))
+        reps = 20 if nbytes <= (1 << 20) else 5
+        row = {"bitwise": bool(ok)}
+        for name, fn, r in (
+                ("hop_ms", lambda: ring_dma.hop_cuda(x, 1, g), reps),
+                ("allgather_ms", lambda: ring_dma.ring_allgather_cuda(x, g),
+                 reps),
+                ("gloo_rotate_ms", lambda: ring_dma.hop_plain(x, 1, g), 3)):
+            torch.cuda.synchronize()
+            dist.barrier()
+            row[name] = cuda_time_ms(fn, reps=r, warmup=1)
+        out["sizes"][nbytes] = row
+    ring_dma.check_errors()
+    # credit test: rank 1 is held back before each hop by a busy kernel of
+    # varying length; every hop must still deliver its iteration's block
+    x = torch.empty((1, (1 << 20) // 4), device=CARD)
+    bad = torch.zeros((), dtype=torch.int64, device=CARD)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for it in range(CREDIT_HOPS):
+        if rank == 1:
+            torch.cuda._sleep(20_000 * (it % 13))
+        x.fill_(rank * 1000 + it)
+        got = ring_dma.hop_cuda(x, 1, g)
+        bad += (got != ((rank - 1) % RING_W) * 1000 + it).sum()
+    torch.cuda.synchronize()
+    out["credit_hops"] = CREDIT_HOPS
+    out["credit_mismatches"] = int(bad)
+    out["credit_s"] = time.perf_counter() - t0
+    ring_dma.check_errors()
+
+    # the SGD-MF flagship, 4 processes x 1 worker, fused_dma=True
+    f = MF_FLAGSHIP
+    rows, cols, vals = mf_fused_data()
+    model = sgd_mf.SGDMF(sess, mf_fused_config(fused_dma=True))
+    state = model.prepare(rows, cols, vals, f["users"], f["items"], seed=0)
+    nnz = model.last_layout_stats["nnz"]
+    zero_counts()
+    out_w, out_h, rmse = model.train_prepared(state)
+    out["launches"] = read_counts()
+    zero_counts()
+    tables = pull_factors(sess, out_w, out_h)
+    out["pull_launches"] = read_counts()
+    out["digest"] = factor_digest(tables, rmse)
+    out["rmse"] = [float(r) for r in rmse]
+    tp = mf_rates(lambda e: sgd_mf.SGDMF(sess, mf_fused_config(
+        fused_dma=True, epochs=e)), state, nnz)
+    staged = mf_rates(lambda e: sgd_mf.SGDMF(sess, mf_fused_config(
+        fused_dma=False, epochs=e)), state, nnz)
+    out.update(ratings_per_s=tp["rate"], per_epoch_ms=tp["per_iter_ms"],
+               staged_ratings_per_s=staged["rate"],
+               staged_per_epoch_ms=staged["per_iter_ms"])
+    ring_dma.check_errors()
+    distributed.shutdown()
+    print("MP_CHILD " + json.dumps(out), flush=True)
+    return 0
+
+
+def ringdma_mp(stacked_mf):
+    """[ringdma:mp] and [sgd_mf:fused] across 4 processes on the card,
+    through the port's launcher; any child's failure fails the run."""
+    from harp_tpu_torch.parallel import launch
+
+    log(f"[ringdma:mp] {RING_W} processes x 1 worker on the card (the "
+        f"port's launcher): hop and ring_allgather against the gloo plain "
+        f"version at {', '.join(str(b) for b in RING_MP_BYTES)} bytes a "
+        f"worker, {CREDIT_HOPS} credit hops, the SGD-MF flagship fused")
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = launch.launch(RING_W, [sys.executable, os.path.abspath(__file__),
+                                 "--mp-child"], timeout=600, cwd=here)
+    wall = time.perf_counter() - t0
+    outs = {}
+    for i, (rc, text) in enumerate(res):
+        line = [ln for ln in text.splitlines() if ln.startswith("MP_CHILD ")]
+        if rc != 0 or not line:
+            log(text[-6000:])
+            check(False, f"process {i} of the gang ran to its end (exit {rc})")
+        outs[i] = json.loads(line[-1][len("MP_CHILD "):])
+    log(f"  gang wall {wall:.2f} s")
+    for nbytes in RING_MP_BYTES:
+        rows = [outs[i]["sizes"][str(nbytes)] for i in outs]
+        check(all(r["bitwise"] for r in rows),
+              f"{nbytes} B a worker: hop (shifts 1, -1, 3) and "
+              f"ring_allgather bitwise the gloo plain version on every rank")
+        log(f"  {nbytes} B: hop {[round(r['hop_ms'], 6) for r in rows]} ms, "
+            f"allgather {[round(r['allgather_ms'], 6) for r in rows]} ms, "
+            f"gloo rotate (host-staged) "
+            f"{[round(r['gloo_rotate_ms'], 6) for r in rows]} ms (ranks 0-3)")
+    check(all(o["credit_mismatches"] == 0 for o in outs.values()),
+          f"{CREDIT_HOPS} back-to-back hops with rank 1 held back: every "
+          f"hop bitwise on every rank ({[round(o['credit_s'], 3) for o in outs.values()]} s)")
+    steps = MF_FLAGSHIP["epochs"] * RING_W
+    for i, o in outs.items():
+        c, p = o["launches"], o["pull_launches"]
+        check(c["ring_dma_hop"] == steps and c["dense_mf_hop"] == steps
+              and c["ring_allgather"] == 0,
+              f"rank {i}, the fit: {steps} ring_dma_hop and dense_mf_hop "
+              f"launches, no ring_allgather ({c['ring_dma_hop']}, "
+              f"{c['dense_mf_hop']}, {c['ring_allgather']})")
+        check(p["ring_allgather"] == 2 and p["ring_dma_hop"] == 0,
+              f"rank {i}, table_ops.pull(fused=True) of W and H: 2 "
+              f"ring_allgather launches ({p['ring_allgather']})")
+    check(all(o["digest"] == stacked_mf["digest"] for o in outs.values()),
+          "SGD-MF fused, 4 processes: factors (pulled through the fused "
+          "allgather) and RMSEs bitwise the stacked fit")
+    o = outs[0]
+    log(f"  SGD-MF 4 processes: fused {o['ratings_per_s']:.6g} ratings/s "
+        f"({o['per_epoch_ms']:.4f} ms an epoch), host-staged fused_dma=False "
+        f"{o['staged_ratings_per_s']:.6g} ({o['staged_per_epoch_ms']:.4f} ms)")
+    return outs
+
+
+def mp_smoke_phase():
+    """[mp_smoke]: parallel/mp_smoke.py as 2 processes x 2 workers."""
+    from harp_tpu_torch.parallel import launch
+
+    log("[mp_smoke] 2 processes x 2 workers on the card")
+    t0 = time.perf_counter()
+    res = launch.launch(2, [sys.executable, "-m",
+                            "harp_tpu_torch.parallel.mp_smoke"], 2,
+                        timeout=300,
+                        cwd=os.path.dirname(os.path.abspath(__file__)))
+    for i, (rc, text) in enumerate(res):
+        if rc != 0 or f"MP_SMOKE OK p{i}/2" not in text:
+            log(text[-6000:])
+        check(rc == 0 and f"MP_SMOKE OK p{i}/2" in text,
+              f"process {i}: MP_SMOKE OK")
+    log(f"  {time.perf_counter() - t0:.2f} s")
+
+
+def ringdma_phases():
+    """Every ring-DMA phase; returns the kernels-line entries of the hop and
+    the allgather."""
+    from harp_tpu_torch.ops import ring_dma
+
+    hop, ag = ringdma_stacked()
+    ring_dma.check_errors()
+    torch.cuda.empty_cache()
+    mf = mf_fused_stacked()
+    ring_dma.check_errors()
+    torch.cuda.empty_cache()
+    attn = ring_fused_phase()
+    ring_dma.check_errors()
+    torch.cuda.empty_cache()
+    mp = ringdma_mp(mf)          # each child checks after each of its parts
+    mp_smoke_phase()
+    mb = str(1 << 20)
+    return [{
+        "name": "ring_dma_hop", "route": "cuda",
+        "source": "harp_tpu_torch/csrc/ring_dma.cu",
+        "replaces": "harp_tpu/ops/ring_dma.py:224",
+        "launches": mf["launches"]["ring_dma_hop"], "max_abs_err": 0.0,
+        "ms": hop["ms"], "plain_ms": hop["plain_ms"],
+        "bound_ms": hop["bound_ms"], "bound_by": "bytes",
+        "library_ms": hop["library_ms"], "ms_4kib": hop["ms_4kib"],
+        "library_ms_4kib": hop["library_ms_4kib"],
+        "device_ms": hop["device_ms"], "device_ms_4kib": hop["device_ms_4kib"],
+        "mp_launches": mp[0]["launches"]["ring_dma_hop"],
+        "mp_ms_by_bytes": {b: [mp[i]["sizes"][str(b)]["hop_ms"] for i in mp]
+                           for b in RING_MP_BYTES},
+        "mp_gloo_rotate_ms_by_bytes": {
+            b: [mp[i]["sizes"][str(b)]["gloo_rotate_ms"] for i in mp]
+            for b in RING_MP_BYTES},
+        "mp_library_ms": None,
+        "mp_credit_s": [mp[i]["credit_s"] for i in mp],
+        "fit_ratings_per_s": mf["ratings_per_s"],
+        "fit_per_epoch_ms": mf["per_epoch_ms"],
+        "fit_unfused_ratings_per_s": mf["unfused_ratings_per_s"],
+        "mp_fit_ratings_per_s": mp[0]["ratings_per_s"],
+        "mp_fit_per_epoch_ms": mp[0]["per_epoch_ms"],
+        "mp_fit_staged_ratings_per_s": mp[0]["staged_ratings_per_s"],
+        "ring_attention_launches": attn["launches"],
+        "ring_attention_fused_ms": attn["ms"],
+        "ring_attention_unfused_ms": attn["unfused_ms"],
+    }, {
+        "name": "ring_allgather", "route": "cuda",
+        "source": "harp_tpu_torch/csrc/ring_dma.cu",
+        "replaces": "harp_tpu/ops/ring_dma.py:295",
+        "launches": mp[0]["pull_launches"]["ring_allgather"],
+        "launches_path": "table_ops.pull(fused=True) of the trained W and H "
+                         "factor tables, 4 processes x 1 worker",
+        "fit_launches": mp[0]["launches"]["ring_allgather"],
+        "max_abs_err": 0.0,
+        "ms": ag["ms"], "plain_ms": ag["plain_ms"],
+        "bound_ms": ag["bound_ms"], "bound_by": "bytes",
+        "library_ms": ag["library_ms"], "device_ms": ag["device_ms"],
+        "mp_ms_by_bytes": {b: [mp[i]["sizes"][str(b)]["allgather_ms"]
+                               for i in mp] for b in RING_MP_BYTES},
+        "mp_ms_1mib": mp[0]["sizes"][mb]["allgather_ms"],
+        "mp_library_ms": None,
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1629,6 +2137,8 @@ def main() -> int:
     spd = als_phases()
     torch.cuda.empty_cache()
     attn = attention_phases()
+    torch.cuda.empty_cache()
+    ring = ringdma_phases()
     log(f"[done] {time.perf_counter() - t_start:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -1644,7 +2154,7 @@ def main() -> int:
         "fit_iters_per_s": fit["iters_per_s"],
         "fit_per_iter_ms": fit["per_iter_ms"],
         "fit_centroid_rel_vs_plain": fit["centroid_rel_vs_plain"],
-    }, mf, spd, attn]
+    }, mf, spd, attn, *ring]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1654,4 +2164,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mp_child() if sys.argv[1:] == ["--mp-child"] else main())

@@ -8,13 +8,17 @@ numpy, never ``jax`` and nothing of ``harp_tpu``.
 Worker model: a *stacked worker group*. A sharded array is one tensor with a
 leading worker axis ``(W, rows/W, ...)`` on one device, a replicated array is
 held once, and every collective is an exact tensor op over the worker axis
-(:mod:`harp_tpu_torch.collectives.lax_ops`). Entry points run on CUDA unless
-the caller passes ``device="cpu"``.
+(:mod:`harp_tpu_torch.collectives.lax_ops`). A process group
+(``HarpSession(distributed=True)``, ``parallel/distributed.py``) splits the
+workers over several processes, each holding its workers stacked. Entry
+points run on CUDA unless the caller passes ``device="cpu"``.
 
 Ported so far: K-means regroupallgather, SGD-MF rotation and ALS (``python
--m harp_tpu_torch.run kmeans|sgd_mf|als``) and blocked, ring and Ulysses
-attention (``parallel/ring_attention.py``), through the hand-written
-kernels in ``csrc/`` (E-step, SGD-MF hop, SPD solve, flash attention).
+-m harp_tpu_torch.run kmeans|sgd_mf|als``), blocked, ring and Ulysses
+attention (``parallel/ring_attention.py``) and the process group with the
+fused ring-DMA engine (``ops/ring_dma.py``), through the hand-written
+kernels in ``csrc/`` (E-step, SGD-MF hop, SPD solve, flash attention, ring
+hop and ring allgather).
 """
 
 from harp_tpu_torch import combiner, partitioner

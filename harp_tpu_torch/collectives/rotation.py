@@ -3,8 +3,8 @@
 Port of ``harp_tpu/collectives/rotation.py`` (reference: dymoro/Rotator.java
 with ``numModelSlices`` 1 or 2). A model slice is a stacked tensor ``(W,
 ...)``, one block per worker, and a hop is ``lax_ops.rotate`` (a
-``torch.roll`` over the worker axis): worker i receives the block of worker
-i - shift.
+``torch.roll`` over the worker axis, a gloo ring in a process group): worker
+i receives the block of worker i - shift.
 
 * :func:`rotate_scan` — compute on the block (a tensor or a tuple of
   tensors), then shift it.
@@ -16,11 +16,16 @@ i - shift.
 
 The loops are Python loops over eager tensor ops (the JAX package's
 ``lax.scan``). ``shift=0`` keeps the schedule without moving blocks (a
-timing ablation; the result is wrong). The wire-format options ``comm=``
-(quantized hops with error feedback), ``ef_state=`` and ``fused_dma=True``
-(the in-kernel ring DMA engine) are not ported and raise
-``NotImplementedError``. One device has no slow link, so a hop is never cut
-into chunks; :func:`chunks_for_link` reports the JAX package's chunk count.
+timing ablation; the result is wrong). ``fused_dma=True`` hops every float
+leaf through the ring-DMA engine (``ops/ring_dma.hop``: the hand-written
+kernel on the card) and every other leaf through ``lax_ops.rotate``, as the
+JAX package does; the engine moves bytes, so the trajectory is bitwise the
+unfused one. The wire-format options ``comm=`` (quantized hops with error
+feedback) and ``ef_state=`` are not ported and raise
+``NotImplementedError``; in the JAX package a quantized wire takes
+precedence over ``fused_dma``. One card has no slow link, so a hop is never
+cut into chunks; :func:`chunks_for_link` reports the JAX package's chunk
+count.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Any, Callable, Tuple, Union
 import torch
 
 from harp_tpu_torch.collectives import lax_ops
+from harp_tpu_torch.ops import ring_dma
 
 Block = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 Body = Callable[[Any, Block, int], Tuple[Any, Block]]
@@ -46,16 +52,24 @@ def chunks_for_link(nbytes: int, link_class: str) -> int:
     return 1
 
 
-def _not_ported(comm=None, fused_dma: bool = False, ef_state=None) -> None:
+def _not_ported(comm=None, ef_state=None) -> None:
     if comm is not None:
         raise NotImplementedError("quantized rotation hops (comm=) are not "
-                                  "ported yet")
-    if fused_dma:
-        raise NotImplementedError("fused_dma=True (the ring-DMA hop) is not "
                                   "ported yet")
     if ef_state is not None:
         raise NotImplementedError("ef_state= (quantization error feedback) "
                                   "is not ported yet")
+
+
+def _shift_block(block: Block, shift: int, fused: bool) -> Block:
+    """One hop of a block (a tensor or a tuple of tensors): float leaves
+    through the ring-DMA engine when ``fused``, the rest through
+    ``lax_ops.rotate``."""
+    if isinstance(block, tuple):
+        return tuple(_shift_block(b, shift, fused) for b in block)
+    if fused and block.is_floating_point():
+        return ring_dma.hop(block, shift)
+    return lax_ops.rotate(block, shift)
 
 
 def rotate_scan(body: Body, carry: Any, model_block: Block,
@@ -70,13 +84,11 @@ def rotate_scan(body: Body, carry: Any, model_block: Block,
     = num_workers every worker has seen every model block once and each
     block is home again (LocalGlobalSyncCollective.rotate:710 called per
     iteration)."""
-    _not_ported(comm, fused_dma, ef_state)
+    _not_ported(comm, ef_state)
     for t in range(num_steps):
         carry, model_block = body(carry, model_block, t)
         if shift:
-            model_block = (tuple(lax_ops.rotate(b, shift) for b in model_block)
-                           if isinstance(model_block, tuple)
-                           else lax_ops.rotate(model_block, shift))
+            model_block = _shift_block(model_block, shift, fused_dma)
     return carry, model_block
 
 
@@ -91,11 +103,12 @@ def pipelined_rotation(body: Body, carry: Any, slice_a: torch.Tensor,
     With ``num_micro_steps = 2 * num_workers`` every block of both slices
     visits every worker once and both slices end on their home workers.
     Returns ``(carry, slice_a', slice_b')``."""
-    _not_ported(comm, fused_dma, ef_state)
+    _not_ported(comm, ef_state)
     resident, inflight = slice_a, slice_b
     for t in range(num_micro_steps):
         carry, updated = body(carry, resident, t)
-        outgoing = lax_ops.rotate(updated, shift) if shift else updated
+        outgoing = (_shift_block(updated, shift, fused_dma) if shift
+                    else updated)
         resident, inflight = inflight, outgoing
     return carry, resident, inflight
 
@@ -109,9 +122,10 @@ class Rotator:
         if num_slices not in (1, 2):
             raise ValueError("num_slices must be 1 (plain) or 2 "
                              "(double-buffered)")
-        _not_ported(comm, fused_dma)
+        _not_ported(comm)
         self.num_workers = num_workers
         self.num_slices = num_slices
+        self.fused_dma = fused_dma
         self.shift = shift
 
     def run(self, body: Body, carry: Any, slices: Tuple[torch.Tensor, ...],
@@ -122,10 +136,12 @@ class Rotator:
             (slice_a,) = slices
             carry, out = rotate_scan(body, carry, slice_a,
                                      epochs * self.num_workers,
-                                     shift=self.shift)
+                                     shift=self.shift,
+                                     fused_dma=self.fused_dma)
             return carry, (out,)
         sa, sb = slices
         carry, sa, sb = pipelined_rotation(body, carry, sa, sb,
                                            epochs * 2 * self.num_workers,
-                                           shift=self.shift)
+                                           shift=self.shift,
+                                           fused_dma=self.fused_dma)
         return carry, (sa, sb)

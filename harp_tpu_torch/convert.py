@@ -64,15 +64,12 @@ def sgd_mf_state_from_jax(model: SGDMF, state: tuple, w_np: np.ndarray,
     worker, columns per block, 1 or 2 slices). The returned state is that
     state with its factor blocks replaced: every id's row placed where
     ``SGDMF._finalize`` reads it back (2-slice H worker-major (W, 2, cpb,
-    K)); padded slots keep the state's values. Fields the port does not
-    have yet raise ``NotImplementedError``: ``quant`` other than None and
-    ``fused_dma=True``."""
+    K)); padded slots keep the state's values. A field the port does not
+    have yet raises ``NotImplementedError``: ``quant`` other than None."""
     fields = dict(config_dict)
     if fields.get("quant") is not None:
         raise NotImplementedError(f"quant={fields['quant']!r} is not ported "
                                   f"yet")
-    if fields.get("fused_dma"):
-        raise NotImplementedError("fused_dma=True is not ported yet")
     known = {f.name for f in dataclasses.fields(SGDMFConfig)}
     unknown = sorted(set(fields) - known)
     if unknown:
@@ -90,10 +87,11 @@ def sgd_mf_state_from_jax(model: SGDMF, state: tuple, w_np: np.ndarray,
         raise ValueError(f"factors of shape {w_np.shape} and {h_np.shape} "
                          f"do not match ({num_rows}, {k}) and "
                          f"({num_cols}, {k})")
-    w_flat = fetch(w0).reshape(-1, k).copy()
+    group = model.session.workers
+    w_flat = fetch(w0, group).reshape(-1, k).copy()
     rb, rl = row_assign
     w_flat[rb[:num_rows].astype(np.int64) * rpw + rl[:num_rows]] = w_np
-    h_dev = fetch(h0)
+    h_dev = fetch(h0, group)
     two_slice = cfg.num_slices == 2
     if two_slice:
         # (W, 2, cpb, K) worker-major -> block-id-major (2W*cpb, K)

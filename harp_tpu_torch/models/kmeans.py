@@ -112,7 +112,8 @@ class KMeans:
             new_c = _average(table_ops.allreduce(local).data)
         elif cfg.comm == "pushpull":
             zero = Table.sharded(
-                stats.new_zeros((w, self._k_pad // w, stats.shape[-1])),
+                stats.new_zeros((stats.shape[0], self._k_pad // w,
+                                 stats.shape[-1])),
                 num_workers=w)
             pulled = table_ops.pull(table_ops.push(local, zero))
             new_c = _average(pulled.data)
@@ -129,8 +130,9 @@ class KMeans:
         table (stacked (W, K, D)) holds every block."""
         w = self.session.num_workers
         block = self._k_pad // w
-        owned = cen.unflatten(0, (w, block))                 # SHARDED blocks
-        workers = torch.arange(w, device=cen.device)[:, None]
+        wid = lax_ops.worker_id()
+        owned = cen.unflatten(0, (w, block))[wid]            # SHARDED blocks
+        workers = torch.arange(len(wid), device=cen.device)[:, None]
         cols = torch.arange(block, device=cen.device)
 
         def body(table, blk, t):
@@ -138,8 +140,8 @@ class KMeans:
             table[workers, src[:, None] * block + cols] = blk
             return table, blk
 
-        tables, _ = rotation.rotate_scan(body, cen.new_zeros((w,) + cen.shape),
-                                         owned, w)
+        tables, _ = rotation.rotate_scan(
+            body, cen.new_zeros((len(wid),) + cen.shape), owned, w)
         return tables
 
     def prepare(self, points, centroids0) -> Tuple[torch.Tensor, torch.Tensor]:

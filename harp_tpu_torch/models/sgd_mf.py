@@ -34,9 +34,20 @@ Python loop over eager tensor ops. The SSE and rating count stay device
 tensors, are summed over the worker axis once per epoch, and the per-epoch
 RMSEs are fetched once at the end of a fit.
 
+``fused_dma=True`` hops the H blocks through the ring-DMA engine
+(``ops/ring_dma.hop``: one launch of its kernel a rotation step on the
+card), bitwise the unfused fit. The JAX package can fuse the hop into its
+dense kernel (``ring_hop``) on the 1-slice schedule; that epilogue is not
+ported yet, so both schedules take the out-of-kernel hop, the branch the JAX
+package takes wherever its in-kernel hop is off.
+
+On a process group (``HarpSession(distributed=True)``) each process lays
+out and trains the rows of its own workers; the SSE and rating counts are
+summed with the deterministic allreduce, so a P-process fit is bitwise the
+stacked fit at the same W.
+
 Not ported yet, each raising ``NotImplementedError``: ``quant`` (quantized
-rotation hops), ``fused_dma=True`` (the ring-DMA hop and the kernel's
-in-kernel ring send), ``fit_checkpointed`` (and with it the
+rotation hops), ``fit_checkpointed`` (and with it the
 ``_reshard_mode``/``_repartition_saved`` resume paths: ``reshard`` and
 ``reshard_chunk_bytes`` are accepted and unused) and the telemetry events
 of ``train_prepared``. The TPU kernel's lane tiling (``col_tile``,
@@ -75,7 +86,7 @@ class SGDMFConfig:
     balance: bool = True       # serpentine-LPT id balancing (sparse layout)
     reshard: str = "auto"      # resume resharding: unused until checkpoints
     reshard_chunk_bytes: int = 0   # are ported
-    fused_dma: bool = False    # ring-DMA hops: not ported yet
+    fused_dma: bool = False    # H-block hops through the ring-DMA engine
 
 
 # --------------------------------------------------------------------------- #
@@ -197,9 +208,6 @@ class SGDMF:
             raise NotImplementedError(
                 f"SGDMFConfig.quant={config.quant!r} (quantized rotation "
                 f"hops) is not ported yet")
-        if config.fused_dma:
-            raise NotImplementedError("SGDMFConfig.fused_dma=True (ring-DMA "
-                                      "hops) is not ported yet")
         self.session = session
         self.config = config
         self.dense_hop: Callable = pallas_kernels.dense_mf_hop
@@ -232,8 +240,9 @@ class SGDMF:
 
         ``make_update_bucket(local_data)`` receives the stacked data (W,
         ...) and returns ``(update_bucket, cnt)``: ``update_bucket(w_local,
-        h_block, sse, bucket_ids)`` runs one hop of every worker, and
-        ``cnt`` is the number of ratings one epoch visits."""
+        h_block, sse, bucket_ids)`` runs one hop of every stacked worker,
+        and ``cnt`` (W,) holds the number of ratings each worker visits in
+        an epoch."""
         cfg = self.config
         two_slice = cfg.num_slices == 2
 
@@ -241,7 +250,8 @@ class SGDMF:
             data, (w0, h0) = args[:num_data_args], args[num_data_args:]
             update_bucket, cnt = make_update_bucket(
                 tuple(d[:, 0] for d in data))
-            table = self._bucket_table(w, w0.device)
+            cnt = lax_ops.allreduce(cnt)
+            table = self._bucket_table(w, w0.device)[:, lax_ops.worker_id()]
 
             def hop_body(carry, h_block, t):
                 w_local, sse = carry
@@ -249,15 +259,16 @@ class SGDMF:
                                                       table[t])
                 return (w_local, sse), h_block
 
-            rotator = rotation.Rotator(w, cfg.num_slices)
+            rotator = rotation.Rotator(w, cfg.num_slices,
+                                       fused_dma=cfg.fused_dma)
             # two-slice h0 arrives stacked (W, 1, 2, cpb, K): slice A block
             # w and slice B block W + w on worker w
             h = ((h0[:, 0, 0].contiguous(), h0[:, 0, 1].contiguous())
                  if two_slice else (h0,))
             w_local, rmse = w0, []
             for _ in range(epochs):
-                (w_local, sse), h = rotator.run(hop_body,
-                                                (w_local, w0.new_zeros(w)), h)
+                (w_local, sse), h = rotator.run(
+                    hop_body, (w_local, w0.new_zeros(w0.shape[0])), h)
                 sse = lax_ops.allreduce(sse)
                 rmse.append(torch.sqrt(sse / torch.clamp(cnt, min=1.0)))
             h_fin = torch.stack(h, dim=1)[:, None] if two_slice else h[0]
@@ -277,7 +288,8 @@ class SGDMF:
 
         def make_update_bucket(data):
             r_idx, c_idx, val, mask = data               # (W, B, M) each
-            wids = torch.arange(w, device=r_idx.device)
+            nw = r_idx.shape[0]
+            wids = torch.arange(nw, device=r_idx.device)
 
             def update_bucket(w_local, h_block, sse, bucket_ids):
                 """The minibatched SGD updates of every worker's bucket
@@ -286,8 +298,8 @@ class SGDMF:
                 _, rpw, k = w_local.shape
                 cpb = h_block.shape[1]
                 b = bucket_ids.long()
-                wl = w_local.reshape(w * rpw, k).clone()
-                hb = h_block.reshape(w * cpb, k).clone()
+                wl = w_local.reshape(nw * rpw, k).clone()
+                hb = h_block.reshape(nw * cpb, k).clone()
                 for j in range(nmb):
                     sl = slice(j * mbs, (j + 1) * mbs)
                     rm = r_idx[wids, b, sl] + (wids * rpw)[:, None]
@@ -303,9 +315,9 @@ class SGDMF:
                         err[..., None] * wr - lam * hc * mm[..., None])
                     ).reshape(-1, k))
                     sse = sse + torch.sum(err * err, dim=-1)
-                return (wl.reshape(w, rpw, k), hb.reshape(w, cpb, k), sse)
+                return (wl.reshape(nw, rpw, k), hb.reshape(nw, cpb, k), sse)
 
-            return update_bucket, mask.sum()
+            return update_bucket, mask.flatten(1).sum(1)
 
         return self._build(w, 4, make_update_bucket, epochs)
 
@@ -326,7 +338,7 @@ class SGDMF:
                     nmb, lr, lam)
                 return w_local, h_block, sse + hop_sse
 
-            return update_bucket, col_cnt.sum()
+            return update_bucket, col_cnt.flatten(1).sum(1)
 
         return self._build(w, 3, make_update_bucket, epochs)
 
@@ -471,15 +483,17 @@ class SGDMF:
                 "use layout='sparse' or more workers")
         # densify on the device: indices are unique (deduped in prepare), so
         # writing the bf16 values into a NaN-filled slab gives the JAX
-        # package's add-then-where slab
-        flat = ((owner.astype(np.int64) * n_blocks + block) * rpw
-                + r_loc) * cpb + c_loc
-        v_slab = torch.full((w * slab_elems,), float("nan"),
+        # package's add-then-where slab; a process builds its workers' rows
+        first, nloc = sess.workers.first_worker, sess.workers_per_process
+        mine = (owner >= first) & (owner < first + nloc)
+        flat = (((owner[mine].astype(np.int64) - first) * n_blocks
+                 + block[mine]) * rpw + r_loc[mine]) * cpb + c_loc[mine]
+        v_slab = torch.full((nloc * slab_elems,), float("nan"),
                             dtype=torch.bfloat16, device=sess.device)
         v_slab[torch.from_numpy(flat).to(sess.device)] = torch.from_numpy(
-            np.ascontiguousarray(vals, dtype=np.float32)).to(
+            np.ascontiguousarray(vals[mine], dtype=np.float32)).to(
             sess.device).to(torch.bfloat16)
-        v_slab = v_slab.view(w, n_blocks, rpw, cpb)
+        v_slab = v_slab.view(nloc, n_blocks, rpw, cpb)
 
         # regularizer counts (host): per-(worker, block, row) and
         # per-(worker, block, stripe, col)
@@ -512,8 +526,8 @@ class SGDMF:
         """Device factor blocks -> (num_rows, K)/(num_cols, K) numpy arrays
         in original id order (undo the worker/block permutation)."""
         num_rows, num_cols, row_assign, col_assign, rpw, cpb = meta[:6]
-        out_w = fetch(out_w)
-        out_h = fetch(out_h)
+        out_w = fetch(out_w, self.session.workers)
+        out_h = fetch(out_h, self.session.workers)
         if self.config.num_slices == 2:
             # (W, 2, cpb, K) worker-major -> block-id-major (2W*cpb, K)
             w_, _, cpb_, k = out_h.shape

@@ -3,8 +3,9 @@ plain C interface, loaded with ctypes.
 
 Each source under ``harp_tpu_torch/csrc/`` is compiled at first use for
 ``sm_90a`` into ``build/harp_tpu_torch_kernels/`` at the repository root,
-under a name keyed by the source's hash, so an edited source is rebuilt and
-an unchanged one is reused. :func:`build_all` starts one ``nvcc`` per source
+under a name keyed by the hash of the source and of the headers it
+includes from ``csrc/``, so an edited source or header is rebuilt and an
+unchanged one is reused. :func:`build_all` starts one ``nvcc`` per source
 at once and waits for all of them. Nothing here runs at import time.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,7 +24,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "harp_tpu_torch_kernels"
 SOURCES = {"kmeans_stats": "kmeans_stats.cu", "dense_mf_hop": "dense_mf_hop.cu",
-           "spd_solve": "spd_solve.cu", "flash_attention": "flash_attention.cu"}
+           "spd_solve": "spd_solve.cu", "flash_attention": "flash_attention.cu",
+           "ring_dma": "ring_dma.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,8 +43,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = (CSRC / SOURCES[name]).read_bytes()
+    headers = sorted(set(re.findall(rb'#include "([\w.]+)"', text)))
+    for h in headers:
+        text += (CSRC / h.decode()).read_bytes()
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()
                           ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

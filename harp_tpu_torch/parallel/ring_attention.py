@@ -18,8 +18,10 @@ block is a slice of a (W, L/W, H, D) tensor, and ``lax_ops.worker_id()`` is
 local length of at least 8192 (``pallas_kernels.use_flash_pallas``) a hop
 or a blocked call is one launch of the flash-attention kernel for every
 stacked worker; otherwise it is plain tensor code, as the JAX package
-leaves it to XLA. The fused ring-DMA hop (``fused_dma=True``) is not ported
-and raises ``NotImplementedError``.
+leaves it to XLA. ``fused_dma=True`` hops the (k, v) blocks through the
+ring-DMA engine (``ops/ring_dma.hop_tree``), bitwise the unfused ring; the
+JAX package's in-kernel KV send (``flash_attention_pallas(ring_hop=True)``)
+is not ported yet, so the port takes the JAX package's out-of-kernel branch.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from harp_tpu_torch.collectives import lax_ops, rotation
 from harp_tpu_torch.ops import pallas_kernels as pk
+from harp_tpu_torch.ops import ring_dma
 
 
 def _scale(d: int) -> torch.Tensor:
@@ -145,13 +148,11 @@ def ring_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the local block length: W launches a call, one a hop, each for all
     workers.
 
-    ``fused_dma``: None means False (the ring-DMA engine is not ported);
-    True raises ``NotImplementedError``. ``ablate_rotation``: timing ablation
-    only: keeps the per-hop compute but never moves the KV block (the result
-    is wrong)."""
-    if fused_dma:
-        raise NotImplementedError("fused_dma=True (the ring-DMA hop) is not "
-                                  "ported yet")
+    ``fused_dma``: True hops (k, v) through the ring-DMA engine
+    (``ring_dma.hop_tree``: two launches of its kernel a hop on the card);
+    None means False (the JAX package's None turns it on for a TPU only).
+    ``ablate_rotation``: timing ablation only: keeps the per-hop compute but
+    never moves the KV block (the result is wrong)."""
     w = lax_ops.num_workers()
     wid = lax_ops.worker_id()
     lq = q.shape[1]
@@ -170,8 +171,12 @@ def ring_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m_run, num, den = _hop_stats(q, k, v, scale, causal, use_flash)
     if w > 1:
         shift = 0 if ablate_rotation else 1
-        kv = ((k, v) if ablate_rotation
-              else (lax_ops.rotate(k, 1), lax_ops.rotate(v, 1)))
+        if ablate_rotation:
+            kv = (k, v)
+        elif fused_dma:
+            kv = ring_dma.hop_tree((k, v), 1)
+        else:
+            kv = (lax_ops.rotate(k, 1), lax_ops.rotate(v, 1))
 
         def body(carry, kv_block, tm1):
             m_r, nu, de = carry
@@ -183,7 +188,8 @@ def ring_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return (m_r, nu, de), (kb, vb)
 
         (m_run, num, den), _ = rotation.rotate_scan(
-            body, (m_run, num, den), kv, w - 1, shift=shift)
+            body, (m_run, num, den), kv, w - 1, shift=shift,
+            fused_dma=bool(fused_dma))
     return num / torch.clamp(den, min=1e-30)[..., None]
 
 

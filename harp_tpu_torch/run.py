@@ -4,6 +4,12 @@ Port of ``harp_tpu/run.py``. Ported subcommands: ``kmeans``, ``sgd_mf`` and
 ``als``.
 The run goes on CUDA unless ``--device cpu`` is given; without CUDA the
 default fails.
+
+Under the launcher (``python -m harp_tpu_torch.parallel.launch --nproc P
+[--workers-per-process W_local] -- python -m harp_tpu_torch.run sgd_mf
+...``), ``run sgd_mf`` joins the gang when ``HARP_NUM_PROCESSES`` is set:
+its session spans the P processes, with ``--num-workers`` (default P times
+``HARP_WORKERS_PER_PROCESS``) workers, and process 0 prints the result.
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ NOT_PORTED = {"--stream": dict(action="store_true"),
 
 
 def _common_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--num-workers", type=int, default=1,
-                   help="workers of the stacked group (reference: map tasks)")
+    p.add_argument("--num-workers", type=int, default=None,
+                   help="workers of the group (reference: map tasks); default "
+                        "1, or every process's workers under the launcher")
     p.add_argument("--device", default="cuda",
                    help="device to run on (default cuda; cpu runs the plain "
                         "PyTorch path)")
@@ -69,7 +76,7 @@ def run_kmeans(argv) -> int:
                 f"(dense only)")
     cfg = km.KMeansConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(km.KMeansConfig)})
-    sess = HarpSession(num_workers=args.num_workers, device=args.device)
+    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
     if args.points_file:
         pts = _load_points(args.points_file)
         cfg = dataclasses.replace(cfg, dim=pts.shape[1])
@@ -121,12 +128,17 @@ def run_sgd_mf(argv) -> int:
         p.error("--save-every is not yet ported to harp_tpu_torch")
     if args.quant not in (None, "", "none"):
         p.error("--quant is not yet ported to harp_tpu_torch")
-    if args.fused_dma:
-        p.error("--fused-dma is not yet ported to harp_tpu_torch")
     cfg = sgd_mf.SGDMFConfig(**{
         f.name: getattr(args, f.name)
         for f in dataclasses.fields(sgd_mf.SGDMFConfig) if f.name != "quant"})
-    sess = HarpSession(num_workers=args.num_workers, device=args.device)
+    gang = "HARP_NUM_PROCESSES" in os.environ
+    workers = args.num_workers
+    if workers is None:
+        workers = (int(os.environ["HARP_NUM_PROCESSES"]) * int(
+            os.environ.get("HARP_WORKERS_PER_PROCESS", "1")) if gang else 1)
+    sess = HarpSession(num_workers=workers, device=args.device,
+                       distributed=gang)
+    lead = sess.workers.rank == 0
     if args.ratings_file:
         rows, cols, vals = loaders.load_coo(
             loaders.list_files(args.ratings_file))
@@ -141,8 +153,9 @@ def run_sgd_mf(argv) -> int:
     state = model.prepare(rows, cols, vals, nu, ni, seed=args.seed)
     if args.adaptive:
         w, h, rmse, tuner = model.fit_adaptive(state)
-        print(f"tuned budget: {tuner.chosen} "
-              f"(times {dict(sorted(tuner.times.items()))})")
+        if lead:
+            print(f"tuned budget: {tuner.chosen} "
+                  f"(times {dict(sorted(tuner.times.items()))})")
         # the tuner's steady-state epoch times, not the warm-up calls
         dt = tuner.times[tuner.chosen] * cfg.epochs
     else:
@@ -154,6 +167,14 @@ def run_sgd_mf(argv) -> int:
     nnz = len(vals) - model.last_layout_stats.get("duplicates_dropped", 0)
     sps = nnz * cfg.epochs / dt
     steady = " (tuner steady-state)" if args.adaptive else ""
+    if gang:
+        from harp_tpu_torch.ops import ring_dma
+        from harp_tpu_torch.parallel import distributed
+
+        ring_dma.check_errors()
+        distributed.shutdown()
+    if not lead:
+        return 0
     print(f"sgd_mf[{model.last_layout_stats['layout']}] "
           f"workers={sess.num_workers} nnz={nnz} rank={cfg.rank}: "
           f"{sps / 1e6:.2f} M samples/s{steady}, rmse {rmse[0]:.4f} -> "
@@ -182,7 +203,7 @@ def run_als(argv) -> int:
     args = p.parse_args(argv)
     cfg = als.ALSConfig(**{f.name: getattr(args, f.name)
                            for f in dataclasses.fields(als.ALSConfig)})
-    sess = HarpSession(num_workers=args.num_workers, device=args.device)
+    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
     if args.ratings_file:
         rows, cols, vals = loaders.load_coo(
             loaders.list_files(args.ratings_file))

@@ -9,6 +9,13 @@ stacked ``(W, rows/W, ...)`` views, replicated ones as they are.
 The session runs on CUDA unless the caller passes ``device="cpu"``; with no
 device named and no CUDA present it raises rather than carry on on the CPU.
 
+``HarpSession(num_workers=W, distributed=True)`` binds a process group
+(``parallel/distributed.py``; every process of the gang builds the same
+session): each of the P processes holds ``W / P`` workers stacked, sharded
+arguments arrive as this process's rows ``(W/P, rows/W, ...)``, sharded
+results are this process's piece of the global layout, and the collectives
+reach the other processes. Several processes may share one card.
+
 Typical usage::
 
     sess = HarpSession(num_workers=4)
@@ -59,9 +66,22 @@ def resolve_device(device=None) -> torch.device:
 class HarpSession:
     """Owns the stacked worker group and runs SPMD map-collective functions."""
 
-    def __init__(self, num_workers: int = 1, device=None, name: str = "harp"):
+    def __init__(self, num_workers: int = 1, device=None, name: str = "harp",
+                 distributed: bool = False):
         self.name = name
-        self.workers = mesh_lib.WorkerGroup(num_workers, resolve_device(device))
+        nproc, rank = 1, 0
+        if distributed:
+            from harp_tpu_torch.parallel import distributed as dist_lib
+
+            dist_lib.initialize()           # joins from the gang environment
+            if not dist_lib.is_initialized():
+                raise RuntimeError(
+                    "distributed=True needs a process group: call "
+                    "parallel.distributed.initialize() or run under "
+                    "python -m harp_tpu_torch.parallel.launch")
+            nproc, rank = dist_lib.process_count(), dist_lib.process_index()
+        self.workers = mesh_lib.WorkerGroup(
+            num_workers, resolve_device(device), nproc, rank)
 
     @property
     def num_workers(self) -> int:
@@ -74,6 +94,10 @@ class HarpSession:
     @property
     def device(self) -> torch.device:
         return self.workers.device
+
+    @property
+    def workers_per_process(self) -> int:
+        return self.workers.workers_per_process
 
     # -- specs -------------------------------------------------------------
     def shard(self, axis: int = 0) -> Shard:
@@ -91,13 +115,21 @@ class HarpSession:
     def scatter(self, array, axis: int = 0, dtype=None) -> torch.Tensor:
         """Place a host array on the device for sharding along ``axis`` (its
         global layout; ``spmd`` views it stacked). The axis must divide
-        evenly over the workers."""
-        t = self._put(array, dtype)
-        if t.shape[axis] % self.num_workers:
+        evenly over the workers. In a process group only this process's
+        rows are placed."""
+        n = array.shape[axis]
+        if n % self.num_workers:
             raise ValueError(
-                f"axis {axis} of length {t.shape[axis]} must divide over "
+                f"axis {axis} of length {n} must divide over "
                 f"{self.num_workers} workers (pad first)")
-        return t.contiguous()
+        g = self.workers
+        if g.process_group:
+            per = n // self.num_workers
+            idx = [slice(None)] * array.ndim
+            idx[axis] = slice(g.first_worker * per,
+                              (g.first_worker + g.workers_per_process) * per)
+            array = array[tuple(idx)]
+        return self._put(array, dtype).contiguous()
 
     def replicate_put(self, array, dtype=None) -> torch.Tensor:
         return self._put(array, dtype)
@@ -106,7 +138,7 @@ class HarpSession:
     def _stack(self, x: torch.Tensor, spec) -> torch.Tensor:
         if isinstance(spec, Replicate):
             return x
-        w = self.num_workers
+        w = self.workers_per_process
         if x.shape[spec.axis] % w:
             raise ValueError(
                 f"sharded argument axis {spec.axis} of length "
@@ -116,10 +148,11 @@ class HarpSession:
     def _unstack(self, y: torch.Tensor, spec) -> torch.Tensor:
         if isinstance(spec, Replicate):
             return y
-        if y.shape[0] != self.num_workers:
+        if y.shape[0] != self.workers_per_process:
             raise ValueError(
-                f"a sharded output must be stacked over {self.num_workers} "
-                f"workers, got shape {tuple(y.shape)}")
+                f"a sharded output must be stacked over "
+                f"{self.workers_per_process} workers, got shape "
+                f"{tuple(y.shape)}")
         return y.movedim(0, spec.axis).flatten(spec.axis, spec.axis + 1)
 
     def spmd(self, fn: Callable, *, in_specs: Any, out_specs: Any) -> Callable:
@@ -150,6 +183,11 @@ class HarpSession:
         return self.spmd(fn, in_specs=in_specs, out_specs=out_specs)(*args)
 
     def barrier(self) -> None:
-        """Wait for the device (one process: a device sync)."""
+        """Wait for the device, and in a process group for every process
+        (a gloo barrier after the device sync)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.workers.process_group:
+            import torch.distributed as dist
+
+            dist.barrier()

@@ -14,7 +14,8 @@ transition between them (``collectives/table_ops.py``):
 The JAX package sees one worker's block inside ``shard_map``; here one
 tensor holds every worker's block along a leading worker axis (the stacked
 worker group, ``parallel/mesh.py``), so LOCAL and SHARDED data carry that
-axis and REPLICATED data does not. Ragged partition counts are padded with
+axis and REPLICATED data does not (in a process group that axis holds
+this process's workers). Ragged partition counts are padded with
 the combiner's identity so padding never perturbs a reduction. A Table is a
 plain frozen dataclass.
 """
@@ -28,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from harp_tpu_torch import combiner as combiner_lib
+from harp_tpu_torch.parallel import mesh as mesh_lib
 
 
 class Dist(enum.Enum):
@@ -80,10 +82,11 @@ class Table:
         """Wrap stacked per-worker contributions ``(W, P, ...)`` as a LOCAL
         table, padding the partition axis up to a multiple of
         ``num_workers`` with the combiner's identity element."""
-        if data.dim() < 2 or data.shape[0] != num_workers:
+        rows = mesh_lib.stacked_rows(num_workers)
+        if data.dim() < 2 or data.shape[0] != rows:
             raise ValueError(
                 f"a LOCAL table holds one contribution per worker: expected "
-                f"a stacked (W={num_workers}, P, ...) tensor, got shape "
+                f"a stacked (W={rows}, P, ...) tensor, got shape "
                 f"{tuple(data.shape)}")
         p = data.shape[1]
         data = _pad_partitions(data, 1, num_workers, combiner.identity)
@@ -108,10 +111,11 @@ class Table:
                 name: str = "table") -> "Table":
         """Wrap every worker's owned block, stacked ``(W, P/W, ...)``, as a
         SHARDED table."""
-        if blocks.dim() < 2 or blocks.shape[0] != num_workers:
+        rows = mesh_lib.stacked_rows(num_workers)
+        if blocks.dim() < 2 or blocks.shape[0] != rows:
             raise ValueError(
                 f"a SHARDED table holds one block per worker: expected a "
-                f"stacked (W={num_workers}, P/W, ...) tensor, got shape "
+                f"stacked (W={rows}, P/W, ...) tensor, got shape "
                 f"{tuple(blocks.shape)}")
         p = blocks.shape[1] * num_workers
         return cls(blocks, combiner, Dist.SHARDED, p,

@@ -301,12 +301,17 @@ def test_ring_attention_mha_ablation_matches_jax(session):
 
 
 def test_ring_attention_mha_refuses_fused_dma():
+    """fused_dma=True is ported (it refused before): the ring-DMA hops give
+    the unfused ring's attention bitwise, and fused_dma=None is the unfused
+    ring (tests/test_torch_ring_dma.py holds fused_dma=True to the JAX
+    package)."""
     ts = TorchSession(num_workers=2, device="cpu")
-    x = torch.zeros(8, 2, 4)
-    with pytest.raises(NotImplementedError, match="fused_dma"):
-        ts.run(lambda a, b, c: tra.ring_attention_mha(a, b, c,
-                                                      fused_dma=True),
-               x, x, x, in_specs=(ts.shard(),) * 3, out_specs=ts.shard())
+    q, k, v = map(torch.from_numpy, qkv((8, 2, 4), 4, seed=5))
+    outs = [ts.run(lambda a, b, c: tra.ring_attention_mha(
+        a, b, c, True, fused_dma=fused), q, k, v,
+        in_specs=(ts.shard(),) * 3, out_specs=ts.shard())
+        for fused in (True, False, None)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
 
 
 # --------------------------------------------------------------------------- #

@@ -225,9 +225,11 @@ def test_misuse_is_loud():
     with pytest.raises(ValueError, match="expects a sharded table"):
         ts.run(lambda a: ttops.allgather(TTable.local(a, num_workers=w)), x,
                in_specs=(ts.shard(),), out_specs=ts.replicate())
-    with pytest.raises(NotImplementedError, match="fused"):
-        ts.run(lambda a: tlax.allgather(a, fused=True), x,
-               in_specs=(ts.shard(),), out_specs=ts.replicate())
+    # fused=True is ported: the ring relay gives the plain gather, bitwise
+    fused = ts.run(lambda a: tlax.allgather(a, fused=True), x,
+                   in_specs=(ts.shard(),), out_specs=ts.replicate())
+    assert torch.equal(fused, ts.run(tlax.allgather, x, in_specs=(ts.shard(),),
+                                     out_specs=ts.replicate()))
     with pytest.raises(NotImplementedError, match="comm="):
         ts.run(lambda a: tlax.allreduce(a, comm="int8"), x,
                in_specs=(ts.shard(),), out_specs=ts.replicate())

@@ -32,6 +32,11 @@ entry. A stacked launch is bitwise the separate ones, and two runs are
 bitwise equal. The KV tiles the kernel counts as loaded are exactly the
 causal trapezoid of its 64 x 64 tiles (``trapezoid_tiles``, which
 tests/test_torch_attention.py holds against the JAX package's grid).
+
+Ring DMA: the hop and the allgather are bitwise ``torch.roll`` and the
+stacked copy for every dtype and for a ragged byte count, one launch a
+call; ``parallel/mp_smoke.py`` as 2 processes x 2 workers on the card holds
+the kernels between processes bitwise to the stacked group.
 """
 
 import math
@@ -324,3 +329,96 @@ def test_flash_attention_kernel_refuses_bad_inputs(cuda):
         pk.flash_attention_cuda(t, t, t)
     with pytest.raises(ValueError, match="CUDA device"):
         pk.flash_attention_cuda(x, x.cpu(), x)
+
+
+# --------------------------------------------------------------------------- #
+# Ring DMA: the hop and the allgather (bitwise: the engine moves bytes)
+# --------------------------------------------------------------------------- #
+
+RING_DTYPES = [torch.float32, torch.bfloat16, torch.int32, torch.uint8]
+
+
+def _ring_block(cuda, dtype, w=4, n=4099, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-1000, 1000, (w, n), generator=g)
+    return (x % 256 if dtype == torch.uint8 else x).to(dtype).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+@pytest.mark.parametrize("shift", [1, -1, 3])
+def test_ring_dma_hop_kernel_matches_roll(cuda, dtype, shift):
+    from harp_tpu_torch.ops import ring_dma
+    from harp_tpu_torch.parallel.mesh import WorkerGroup
+
+    group = WorkerGroup(4, cuda)
+    for n in (4099, 1 << 18):           # a ragged byte count and 1 MiB a row
+        x = _ring_block(cuda, dtype, n=n, seed=n)
+        before = ring_dma.launches["ring_dma_hop"]
+        got = ring_dma.hop_cuda(x, shift, group)
+        assert ring_dma.launches["ring_dma_hop"] == before + 1
+        assert torch.equal(got, torch.roll(x, shift, 0))
+
+
+@pytest.mark.parametrize("dtype", RING_DTYPES)
+def test_ring_allgather_kernel_matches_the_copy(cuda, dtype):
+    from harp_tpu_torch.ops import ring_dma
+    from harp_tpu_torch.parallel.mesh import WorkerGroup
+
+    x = _ring_block(cuda, dtype).reshape(4, 1, -1)
+    before = ring_dma.launches["ring_allgather"]
+    got = ring_dma.ring_allgather_cuda(x, WorkerGroup(4, cuda))
+    assert ring_dma.launches["ring_allgather"] == before + 1
+    assert torch.equal(got, x.flatten(0, 1))
+
+
+def test_ring_dma_kernels_between_processes(cuda):
+    """parallel/mp_smoke.py as 2 processes x 2 workers on the card: the
+    kernels between processes (through CUDA IPC) and within one, bitwise
+    the stacked group."""
+    import os
+    import sys
+
+    from harp_tpu_torch.parallel import launch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    result = launch.launch(
+        2, [sys.executable, "-m", "harp_tpu_torch.parallel.mp_smoke"], 2,
+        timeout=300, cwd=root)
+    for i, (rc, out) in enumerate(result):
+        assert rc == 0 and f"MP_SMOKE OK p{i}/2" in out, out[-4000:]
+
+
+def test_ring_dma_hop_gives_up_on_a_hung_peer(cuda):
+    """Process 1 never enters the hop: process 0's kernel gives up after its
+    spin limit (about 10 s) and ``check_errors`` raises instead of the run
+    hanging."""
+    import os
+    import sys
+
+    from harp_tpu_torch.parallel import launch
+
+    code = (
+        "import sys, time, torch\n"
+        "from harp_tpu_torch import HarpSession\n"
+        "from harp_tpu_torch.ops import ring_dma\n"
+        "s = HarpSession(num_workers=2, distributed=True)\n"
+        "x = torch.ones(1, 1024, device='cuda')\n"
+        "assert torch.equal(ring_dma.hop_cuda(x, 1, s.workers), x)\n"
+        "ring_dma.check_errors()\n"
+        "s.barrier()\n"
+        "if s.workers.rank == 1:\n"
+        "    time.sleep(20)\n"
+        "    sys.exit(0)\n"
+        "t0 = time.time()\n"
+        "ring_dma.hop_cuda(x, 1, s.workers)\n"
+        "try:\n"
+        "    ring_dma.check_errors()\n"
+        "except RuntimeError as e:\n"
+        "    print('GAVE UP', round(time.time() - t0, 1), e, flush=True)\n"
+        "    sys.exit(0)\n"
+        "sys.exit(1)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    result = launch.launch(2, [sys.executable, "-c", code], timeout=120,
+                           cwd=root, extra_env={"PYTHONPATH": root})
+    assert result.ok, result
+    assert "GAVE UP" in result[0][1] and "credit" in result[0][1]

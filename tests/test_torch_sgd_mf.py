@@ -306,18 +306,29 @@ def test_what_is_not_ported_raises():
     sess = TorchSession(num_workers=2, device="cpu")
     with pytest.raises(NotImplementedError, match="quant"):
         tmf.SGDMF(sess, tmf.SGDMFConfig(quant="int8"))
-    with pytest.raises(NotImplementedError, match="fused_dma"):
-        tmf.SGDMF(sess, tmf.SGDMFConfig(fused_dma=True))
     with pytest.raises(NotImplementedError, match="comm"):
         trot.Rotator(2, 1, comm=object())
-    with pytest.raises(NotImplementedError, match="fused_dma"):
-        trot.Rotator(2, 1, fused_dma=True)
     with pytest.raises(NotImplementedError, match="not ported"):
         tmf.SGDMF(sess, tmf.SGDMFConfig()).fit_checkpointed(None, None)
-    for cfg in (jmf.SGDMFConfig(quant="int8"), jmf.SGDMFConfig(fused_dma=True)):
-        with pytest.raises(NotImplementedError):
-            convert.sgd_mf_state_from_jax(None, None, None, None,
-                                          dataclasses.asdict(cfg))
+    with pytest.raises(NotImplementedError):
+        convert.sgd_mf_state_from_jax(None, None, None, None,
+                                      dataclasses.asdict(
+                                          jmf.SGDMFConfig(quant="int8")))
+    # fused_dma=True is ported: the fused Rotator's trajectory is bitwise
+    # the unfused one (tests/test_torch_ring_dma.py holds it to the JAX one)
+    assert tmf.SGDMF(sess, tmf.SGDMFConfig(fused_dma=True)).config.fused_dma
+    blocks = torch.arange(12.0).reshape(4, 3)
+
+    def rotation(fused):
+        def fn(b):
+            c, (out,) = trot.Rotator(2, 1, fused_dma=fused).run(
+                lambda c, blk, t: (c * 1.5 + blk, blk + t), b * 0, (b,))
+            return c, out
+        return sess.run(fn, blocks, in_specs=(sess.shard(),),
+                        out_specs=(sess.shard(), sess.shard()))
+
+    for a, b in zip(rotation(True), rotation(False)):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------- #
@@ -355,8 +366,13 @@ def test_cli_sgd_mf_on_cpu(capsys, tmp_path):
     nnz = len(jmf.dedupe_coo(rows, cols, vals, int(cols.max()) + 1)[0])
     assert "tuned budget:" in out and f"nnz={nnz}" in out
     assert "sgd_mf[sparse] workers=1" in out
-    for flag in (["--save-every", "2"], ["--quant", "int8"],
-                 ["--fused-dma", "yes"]):
+    # --fused-dma yes is ported (tests/test_torch_ring_dma.py holds it to
+    # the JAX CLI)
+    assert trun.main(["sgd_mf", "--device", "cpu", "--num-users", "64",
+                      "--num-items", "64", "--epochs", "2", "--num-workers",
+                      "2", "--fused-dma", "yes"]) == 0
+    assert capsys.readouterr().out.startswith("sgd_mf[dense] workers=2 ")
+    for flag in (["--save-every", "2"], ["--quant", "int8"]):
         with pytest.raises(SystemExit):
             trun.main(["sgd_mf", "--device", "cpu", *flag])
         assert "not yet ported" in capsys.readouterr().err
