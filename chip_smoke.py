@@ -3,11 +3,14 @@
 Builds every CUDA kernel of the port from ``harp_tpu_torch/csrc/`` with nvcc
 (one nvcc per source, all at once), holds each kernel against its plain
 PyTorch version on the card, and drives the main paths with the
-launch counters set to 0 just before each and read just after:
+launch counters and the dispatchers' plain-call counters
+(``plain_on_card``) set to 0 just before each and read just after; every
+main path must make no plain call on the card:
 
   * K-means regroupallgather through ``HarpSession`` and ``KMeans.fit`` at
-    the flagship n=1,000,000, k=100, d=100, 10 iterations, and the five comm
-    variants bitwise equal;
+    the flagship n=1,000,000, k=100, d=100, 10 iterations (the E-step grid
+    and the ms an iteration printed beside the reading before the grid
+    fix), and the five comm variants bitwise equal;
   * dense SGD-MF rotation through ``SGDMF.prepare``/``fit_prepared`` at the
     flagship 32768 x 32768 ratings, 1%, rank 32, 8 minibatches a hop, 10
     epochs, against the same fit through the plain hop; then the stacked
@@ -18,15 +21,20 @@ launch counters set to 0 just before each and read just after:
     solver; explicit ALS (sparse layout) at the same size, ``run als``, and
     the stacked W=4 variants (dense and sparse, implicit and explicit) at
     2048 x 2048 against the "cholesky" fit and the port's CPU fit, each
-    with a float64-solve fit as the yardstick. The SPD solve is held against
-    its plain version and a float64 solve on the flagship's own normal
-    equations and at K = 10 (N odd), 33 and 64;
+    with a float64-solve fit as the yardstick; the flagship's data at rank 96
+    and 128 with an explicit ``solver="pallas"`` (the one-block solve, two
+    launches an iteration) against the "cholesky" fit. The SPD solve is held
+    against its plain version and a float64 solve on the flagship's own
+    normal equations and at K = 10 (N odd), 33, 64, 65, 96, 128 and 256
+    (K = 96 and 128 timed against cuSOLVER, the plain version and the
+    bound);
   * attention: the flash kernel against its plain version and a float64
     reference on sampled query rows at the flagship (causal L=16384, H=8,
     Dh=64, f32), at H=4, Dh=128, ragged L=8209, Dv=96, bf16 and a stacked
     W=4 input; ``blocked_attention`` at both flagship shapes (one launch a
     call, tokens/s two-point), ``ring_attention_mha`` on 4 workers at
-    L=32768 causal and not (4 launches a call) and ``ulysses_attention``
+    L=32768 causal and not, ``fused_dma=False`` (4 launches a call) and
+    ``ulysses_attention``
     on 4 workers at L=16384 (one stacked launch a call), held against
     blocked attention and the float64 reference; the streamed torch loop
     against the kernel at L = 2048, 4096 and 8192;
@@ -36,18 +44,27 @@ launch counters set to 0 just before each and read just after:
     ``fused_dma=True``, bitwise the unfused fit; ring attention with fused
     hops; then, through the port's launcher, 4 processes on the card
     (``chip_smoke.py --mp-child``): hop and allgather between processes
-    against the gloo plain version, 200 hops with one rank held back, and
-    the fused SGD-MF flagship bitwise the stacked fit, its factors pulled
+    against the gloo plain version, 200 hops with one rank held back, the
+    fused SGD-MF flagship bitwise the stacked fit, its factors pulled
     with ``table_ops.pull(fused=True)`` (the allgather kernel's path; the
-    fit itself launches no allgather); and ``parallel/mp_smoke.py`` as 2
-    processes x 2 workers.
+    fit itself launches no allgather), and K-means at n = 1,048,576
+    (262,144 a worker), k = 100, d = 100, 5 iterations, whose centroids,
+    counts and costs are bitwise the stacked W=4 fit; and
+    ``parallel/mp_smoke.py`` as 2 processes x 2 workers;
+  * dispatch: the plain-call counts of every main path (all 0); one call
+    where the JAX package takes XLA (K-means K=400, D=100; attention at
+    L=4096): no launch, one plain call, the plain version's answer; and one
+    call where the JAX package runs its kernel and the port's cannot
+    (dense-MF K=192; flash Dh=192 at L=8192): a ValueError before any
+    launch.
 
 It prints:
 
   * the card's name and power limit (nvidia-smi);
-  * a ``{"kernels": [...]}`` line: per kernel its launches on its path,
-    its error against the plain version, its time, the plain version's
-    time, the bound for the same work and a PyTorch yardstick's time;
+  * a ``{"kernels": [...]}`` line: per kernel (the SPD solve's two
+    variants apart) its launches on its path, its error against the plain
+    version, its time, the plain version's time, the bound for the same
+    work and a PyTorch yardstick's time;
   * last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It imports nothing of
@@ -112,6 +129,17 @@ RING_BLOCK = (32, 8192)
 RING_MP_BYTES = (4096, 1 << 20, 64 << 20)
 CREDIT_HOPS = 200
 MF_FUSED_EPOCHS = (5, 20)
+# the flagship's K-means at 4 workers: n = 1,048,576 (262,144 a worker, 4096
+# tiles, above the E-step's grid), k = 100, d = 100, regroupallgather, 5
+# iterations; 4 processes x 1 worker against the stacked W=4 fit
+KMEANS_MP = dict(n=1 << 20, k=100, d=100, iterations=5, seed=21)
+# the E-step's time an iteration at the W=1 flagship before the grid stopped
+# depending on W (PERF.md, H100 80GB HBM3, 700 W): printed beside this run's
+KMEANS_FLAGSHIP_MS_BEFORE = 0.9202
+# SPD solve past K = 64 (the one-block kernel): timed at the ALS flagship's
+# 8192 systems; explicit solver="pallas" fits at these ranks on its data
+SPD_WIDE = (96, 128)
+ALS_WIDE_ITERATIONS = 5
 
 
 def log(msg: str) -> None:
@@ -122,6 +150,47 @@ def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
     log(f"  ok: {what}")
+
+
+# main path -> the plain calls its dispatchers made on the card, read just
+# after the path ran (every one must be 0: the [dispatch] summary)
+PLAIN_SEEN = {}
+
+
+def zero_counts():
+    """Every kernel launch count and every plain-call count set to 0."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.ops import ring_dma
+
+    for counts in (pk.launches, ring_dma.launches, pk.plain_on_card):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_counts():
+    """The kernel launch counts since :func:`zero_counts`."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.ops import ring_dma
+
+    torch.cuda.synchronize()
+    return {**pk.launches, **ring_dma.launches}
+
+
+def plain_counts():
+    """The calls each dispatcher sent to the plain version on the card since
+    :func:`zero_counts`."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    return dict(pk.plain_on_card)
+
+
+def check_no_plain(path, plain=None):
+    """The main path just run went through its kernels only: no dispatcher
+    took the plain version on the card."""
+    plain = plain_counts() if plain is None else plain
+    PLAIN_SEEN[path] = plain
+    check(not any(plain.values()), f"{path}: plain_on_card is 0 for every "
+          f"dispatcher ({plain})")
 
 
 def ptxas_usage(build_log: str):
@@ -336,13 +405,13 @@ def flagship_fit():
     cfg = km.KMeansConfig(num_centroids=f["k"], dim=f["d"],
                           iterations=f["iterations"], comm="regroupallgather")
     model = km.KMeans(sess, cfg)
-    for name in pk.launches:
-        pk.launches[name] = 0
+    zero_counts()
     t0 = time.perf_counter()
     cen, costs = model.fit(pts, cen0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(pk.launches)
+    check_no_plain("[fit]")
     log(f"  fit wall {wall:.3f} s (incl. host->device copy), launches "
         f"{launches}")
     check(launches["kmeans_stats"] == f["iterations"],
@@ -376,8 +445,17 @@ def flagship_fit():
     log(f"  two-point: {tp['rate']:.2f} iters/s, {tp['per_iter_ms']:.4f} "
         f"ms/iter, fixed {tp['fixed_dispatch_s']:.4f} s, spread "
         f"{tp['spread_pct']:.1f}%")
+    grid = pk._kmeans_lib().kmeans_stats_grid(f["n"], f["d"], f["k"], f["k"],
+                                              0)
+    rise = tp["per_iter_ms"] / KMEANS_FLAGSHIP_MS_BEFORE - 1
+    log(f"  E-step grid {grid} blocks a worker, whatever W; "
+        f"{tp['per_iter_ms']:.4f} ms an iteration against "
+        f"{KMEANS_FLAGSHIP_MS_BEFORE} ms before the grid fix (PERF.md, H100 "
+        f"80GB HBM3, 700 W): {100 * rise:+.2f}% (not a claim; above +5% "
+        f"would say the fix moved the W=1 grid)")
     return {"launches": launches, "iters_per_s": tp["rate"],
-            "per_iter_ms": tp["per_iter_ms"], "centroid_rel_vs_plain": rel}
+            "per_iter_ms": tp["per_iter_ms"], "centroid_rel_vs_plain": rel,
+            "grid": grid}
 
 
 def small_fit_vs_numpy():
@@ -583,12 +661,12 @@ def mf_flagship(cfg, state, nnz):
     sess = HarpSession(num_workers=1)
     check(sess.device.type == "cuda", "HarpSession() runs on cuda")
     model = sgd_mf.SGDMF(sess, cfg)
-    for name in pk.launches:
-        pk.launches[name] = 0
+    zero_counts()
     t0 = time.perf_counter()
     fit = model.fit_prepared(state)
     wall = time.perf_counter() - t0
     launches = dict(pk.launches)
+    check_no_plain("[sgd_mf]")
     log(f"  fit wall {wall:.3f} s (first call, includes the factor fetch), "
         f"launches {launches}")
     check(state[0] == "dense", "auto layout picked dense")
@@ -651,10 +729,10 @@ def mf_variants():
                                  layout="dense")
         model = sgd_mf.SGDMF(sess, cfg)
         state = model.prepare(rows, cols, vals, n, n, seed=2)
-        for name in pk.launches:
-            pk.launches[name] = 0
+        zero_counts()
         fit = model.fit_prepared(state)
         got = pk.launches["dense_mf_hop"]
+        check_no_plain(f"[sgd_mf variants] dense, {ns} slice(s)")
         log(f"  dense, {ns} slice(s): rmse {fit[2].tolist()}")
         check(got == epochs * w * ns, f"dense, {ns} slice(s): one launch per "
               f"rotation step ({got} = {epochs} x {w} x {ns})")
@@ -768,10 +846,12 @@ def lower_triangle_sectors(n, k):
 
 def spd_bound(n, k):
     """Least time for n K×K solves: the sectors of A's lower triangle and b
-    read once and x written once, against (2K³/3 + 4K²) operations a system
-    (Cholesky and the two substitutions) at the float32 CUDA-core peak."""
+    read once and x written once, against (K³/3 + 2K²) floating-point
+    operations a system (the Cholesky's K³/6 multiply-adds and the two
+    substitutions' K², each multiply-add two operations) at the float32
+    CUDA-core peak."""
     moved = lower_triangle_sectors(n, k) * 32 + 2 * n * k * 4
-    ops = (2 * k ** 3 / 3 + 4 * k * k) * n
+    ops = (k ** 3 / 3 + 2 * k * k) * n
     t_bytes, t_ops = moved / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -797,18 +877,24 @@ def spd_case(name, a, b, timed):
     from harp_tpu_torch.ops import pallas_kernels as pk
 
     n, k = b.shape
-    log(f"[spd:{name}] N={n} K={k}")
+    variant = spd_counter(k)
+    log(f"[spd:{name}] N={n} K={k}, the {variant} kernel")
+    before = pk.launches[variant]
     x = pk.spd_solve_cuda(a, b)
     torch.cuda.synchronize()
+    check(pk.launches[variant] == before + 1, f"one {variant} launch")
     plain = pk.spd_solve_plain(a, b)
     exact = torch.linalg.solve(a.double(), b.double())
     err, ref = max_rel(x, exact), max_rel(plain, exact)
+    vs_plain = max_rel(x, plain)
     tol = max(1e-5, 4 * ref)
     log(f"  kernel vs float64 {err:.3g}, plain vs float64 {ref:.3g}, kernel "
-        f"vs plain {max_rel(x, plain):.3g}")
+        f"vs plain {vs_plain:.3g}")
     check(bool(torch.isfinite(x).all()) and err <= tol,
           f"x within {tol:.3g} of the float64 solve (1e-5 or 4x the plain "
           f"version's distance)")
+    check(vs_plain <= 1e-4, "x within 1e-4 of the plain version (relative "
+          "to max |x|)")
     check(torch.equal(x, pk.spd_solve_cuda(a, b)),
           "two kernel runs bitwise equal")
     out = {"max_abs_err": float((x - plain).abs().max()),
@@ -871,7 +957,12 @@ def spd_phases(state, cfg):
     spd_case("ragged", *random_spd(8191, 10, seed=10), timed=False)
     spd_case("k33", *random_spd(8192, 33, seed=33), timed=False)
     k64 = spd_case("k64", *random_spd(8192, 64, seed=64), timed=True)
-    return flag, k64, gemm
+    spd_case("K65", *random_spd(4097, 65, seed=65), timed=False)
+    wide = {k: spd_case(f"K{k}", *random_spd(8192, k, seed=k), timed=True)
+            for k in SPD_WIDE}
+    torch.cuda.empty_cache()
+    spd_case("K256", *random_spd(1024, 256, seed=256), timed=False)
+    return flag, k64, wide, gemm
 
 
 # --------------------------------------------------------------------------- #
@@ -937,7 +1028,14 @@ def check_als_fit(fit, other, yard, name):
     return r_rel, worst
 
 
-def als_fit_checked(sess, cfg, data, layout):
+def spd_counter(k):
+    """The launch counter of the SPD-solve variant that takes rank K."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    return "spd_solve" if k <= pk.SPD_MAX_K else "spd_solve_block"
+
+
+def als_fit_checked(sess, cfg, data, layout, path):
     """Fit ``data`` through the kernel, counting launches, and hold it
     against the cholesky and float64-solve fits. Returns (launches, fit,
     RMSE distance, factor distance)."""
@@ -948,16 +1046,19 @@ def als_fit_checked(sess, cfg, data, layout):
     state = model.prepare(*data)
     check(model.last_layout_stats["layout"] == layout,
           f"layout {model.last_layout_stats['layout']}")
-    for name in pk.launches:
-        pk.launches[name] = 0
+    zero_counts()
     t0 = time.perf_counter()
     fit = model.fit_prepared(state)
     wall = time.perf_counter() - t0
     launches = dict(pk.launches)
+    check_no_plain(path)
     log(f"  fit wall {wall:.3f} s (first call, includes the factor fetch), "
         f"launches {launches}")
-    check(launches["spd_solve"] == 2 * cfg.iterations,
-          f"spd_solve launched twice an iteration ({launches['spd_solve']})")
+    name = spd_counter(cfg.rank)
+    other = "spd_solve_block" if name == "spd_solve" else "spd_solve"
+    check(launches[name] == 2 * cfg.iterations and launches[other] == 0,
+          f"{name} launched twice an iteration ({launches[name]}), "
+          f"{other} never ({launches[other]})")
     log(f"  rmse {fit[2].tolist()}")
     check(bool(np.all(np.isfinite(fit[2]))) and np.isfinite(fit[0]).all()
           and np.isfinite(fit[1]).all(), "finite RMSEs and factors")
@@ -993,7 +1094,8 @@ def als_flagship(data, cfg):
         f"{f['alpha']}, {f['iterations']} iterations, W=1")
     sess = HarpSession(num_workers=1)
     check(sess.device.type == "cuda", "HarpSession() runs on cuda")
-    launches, fit, r_rel, f_rel = als_fit_checked(sess, cfg, data, "dense")
+    launches, fit, r_rel, f_rel = als_fit_checked(sess, cfg, data, "dense",
+                                                  "[als:flagship]")
     tp = als_two_point(sess, cfg, data)
     ab = als_two_point(sess, dataclasses.replace(cfg, ablate_solve=True),
                        data)
@@ -1028,6 +1130,32 @@ def als_flagship(data, cfg):
             "busy_share": busy, **split}
 
 
+def als_wide(data, cfg):
+    """[als:rank96], [als:rank128]: the implicit flagship's data with an
+    explicit solver="pallas" past K = 64, so the one-block solve, held
+    against the "cholesky" fit under the ALS rule (PERF.md section 2)."""
+    from harp_tpu_torch import HarpSession
+
+    out = {}
+    for rank in SPD_WIDE:
+        wcfg = dataclasses.replace(cfg, rank=rank, solver="pallas",
+                                   iterations=ALS_WIDE_ITERATIONS)
+        log(f"[als:rank{rank}] implicit, the flagship's data, rank {rank}, "
+            f"solver='pallas', {wcfg.iterations} iterations, W=1")
+        sess = HarpSession(num_workers=1)
+        launches, fit, r_rel, f_rel = als_fit_checked(
+            sess, wcfg, data, "dense", f"[als:rank{rank}]")
+        tp = als_two_point(sess, wcfg, data)
+        log(f"  two-point: {tp['rate']:.2f} iters/s, {tp['per_iter_ms']:.4f} "
+            f"ms/iter, spread {tp['spread_pct']:.1f}%")
+        out[rank] = {"launches": launches, "iters_per_s": tp["rate"],
+                     "per_iter_ms": tp["per_iter_ms"],
+                     "rmse_rel_vs_cholesky": r_rel,
+                     "factor_rel_vs_cholesky": f_rel}
+        torch.cuda.empty_cache()
+    return out
+
+
 def als_explicit():
     from harp_tpu_torch import HarpSession
     from harp_tpu_torch.io import datagen
@@ -1044,7 +1172,8 @@ def als_explicit():
     cfg = als.ALSConfig(rank=e["rank"], lam=e["lam"],
                         iterations=e["iterations"], implicit=False)
     sess = HarpSession(num_workers=1)
-    launches, fit, r_rel, f_rel = als_fit_checked(sess, cfg, data, "sparse")
+    launches, fit, r_rel, f_rel = als_fit_checked(sess, cfg, data, "sparse",
+                                                  "[als:explicit]")
     tp = als_two_point(sess, cfg, data)
     log(f"  two-point: {tp['rate']:.2f} iters/s, {tp['per_iter_ms']:.4f} "
         f"ms/iter, spread {tp['spread_pct']:.1f}%")
@@ -1084,11 +1213,11 @@ def als_variants():
                                 iterations=iters, implicit=implicit,
                                 layout=layout)
             data = (rows, cols, np.abs(vals) if implicit else vals, n, n, 1)
-            for name in pk.launches:
-                pk.launches[name] = 0
+            zero_counts()
             fit = als.ALS(sess, cfg).fit(*data)
             got = pk.launches["spd_solve"]
             mode = "implicit" if implicit else "explicit"
+            check_no_plain(f"[als variants] {layout} {mode}")
             log(f"  {layout} {mode}: rmse {fit[2].tolist()}")
             check(got == 2 * iters, f"{layout} {mode}: two launches an "
                   f"iteration ({got})")
@@ -1100,8 +1229,8 @@ def als_variants():
 
 
 def als_phases():
-    """Every SPD-solve and ALS phase; returns the kernels-line entry of
-    spd_solve."""
+    """Every SPD-solve and ALS phase; returns the kernels-line entries of
+    the SPD solve's two variants (one warp, one block a system)."""
     from harp_tpu_torch import HarpSession
     from harp_tpu_torch.io import datagen
     from harp_tpu_torch.models import als
@@ -1119,14 +1248,36 @@ def als_phases():
     log(f"[als:prepare] {time.perf_counter() - t0:.2f} s: {len(vals)} "
         f"ratings drawn, {model.last_layout_stats['duplicates_dropped']} "
         f"duplicates dropped, layout {model.last_layout_stats['layout']}")
-    flag, k64, gemm = spd_phases(state, cfg)
+    flag, k64, wide, gemm = spd_phases(state, cfg)
     del state
     fit = als_flagship(data, cfg)
     log(f"  kernel {flag['ms']:.4f} ms per solve (two an iteration) against "
         f"a bound of {flag['bound_ms']:.4f} ms ({flag['bound_by']}); fit "
         f"{fit['per_iter_ms']:.4f} ms an iteration")
+    wide_fits = als_wide(data, cfg)
     exp = als_explicit()
     als_variants()
+    top = max(SPD_WIDE)
+    block = {
+        "name": "spd_solve_block", "route": "cuda",
+        "source": "harp_tpu_torch/csrc/spd_solve.cu",
+        "replaces": "harp_tpu/ops/pallas_kernels.py:829",
+        "launches": wide_fits[top]["launches"]["spd_solve_block"],
+        "launches_path": f"ALS.fit_prepared, implicit, the flagship's data, "
+                         f"rank {top}, solver='pallas', "
+                         f"{ALS_WIDE_ITERATIONS} iterations",
+        "k": top,
+        **{key: wide[top][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "rel_vs_float64", "plain_rel_vs_float64")},
+    }
+    for rank in SPD_WIDE:
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err"):
+            block[f"k{rank}_{key}"] = wide[rank][key]
+        for key, val in wide_fits[rank].items():
+            block[f"fit_rank{rank}_{key}"] = (
+                val["spd_solve_block"] if key == "launches" else val)
     return {
         "name": "spd_solve", "route": "cuda",
         "source": "harp_tpu_torch/csrc/spd_solve.cu",
@@ -1154,7 +1305,7 @@ def als_phases():
         "explicit_fit_iters_per_s": exp["iters_per_s"],
         "explicit_fit_per_iter_ms": exp["per_iter_ms"],
         "explicit_launches": exp["launches"]["spd_solve"],
-    }
+    }, block
 
 
 # --------------------------------------------------------------------------- #
@@ -1329,17 +1480,17 @@ def flash_cases():
 # Main path: blocked, ring and Ulysses attention
 # --------------------------------------------------------------------------- #
 
-def counted(fn):
+def counted(fn, path):
     """Run ``fn`` with every launch count set to 0 just before and read just
-    after; returns (result, counts, the KV tiles the flash kernel counted as
-    loaded in the run)."""
+    after, and no plain call on the card; returns (result, counts, the KV
+    tiles the flash kernel counted as loaded in the run)."""
     from harp_tpu_torch.ops import pallas_kernels as pk
 
-    for name in pk.launches:
-        pk.launches[name] = 0
+    zero_counts()
     with pk.count_flash_tiles() as tiles:
         out = fn()
         torch.cuda.synchronize()
+        check_no_plain(path)
         return out, dict(pk.launches), tiles()
 
 
@@ -1367,7 +1518,8 @@ def blocked_phase(name, case, cfg):
     log(f"[attention:blocked] {name}: L={cfg['l']} H={cfg['h']} "
         f"Dh={cfg['dh']} causal, f32")
     out, counts, tiles = counted(
-        lambda: ra.blocked_attention(q, k, v, causal=True))
+        lambda: ra.blocked_attention(q, k, v, causal=True),
+        f"[attention:blocked] {name}")
     check(counts["flash_attention"] == 1,
           f"one flash_attention launch a call ({counts['flash_attention']})")
     check(tiles == case["tiles"], f"the kernel case's {case['tiles']} KV "
@@ -1407,9 +1559,9 @@ def ring_phase():
 
         def ring(flash=None, causal=causal):
             return sharded(sess, lambda a, b, d: ra.ring_attention_mha(
-                a, b, d, causal, use_flash=flash), q, k, v)
+                a, b, d, causal, use_flash=flash, fused_dma=False), q, k, v)
 
-        out, counts, tiles = counted(ring)
+        out, counts, tiles = counted(ring, f"[attention:ring] {tag}")
         check(counts["flash_attention"] == c["workers"],
               f"{c['workers']} flash_attention launches a call, one a hop "
               f"({counts['flash_attention']})")
@@ -1454,7 +1606,9 @@ def ring_phase():
           f"the causal hop loads the trapezoid ({hop0} KV tiles; a full hop "
           f"{hop_full}, {n} x {n} tiles a worker and head)")
     per, busy = device_profile(lambda: sharded(
-        sess, lambda a, b, d: ra.ring_attention_mha(a, b, d, True), q, k, v))
+        sess, lambda a, b, d: ra.ring_attention_mha(a, b, d, True,
+                                                    fused_dma=False),
+        q, k, v))
     if busy is None:
         log("  profile: the profiler saw no device activity (not measured)")
     else:
@@ -1485,7 +1639,7 @@ def ulysses_phase(flag):
         return sharded(sess, lambda a, b, d: ra.ulysses_attention(
             a, b, d, c["h"], True), q, k, v)
 
-    out, counts, tiles = counted(uly)
+    out, counts, tiles = counted(uly, "[attention:ulysses]")
     check(counts["flash_attention"] == 1,
           f"one stacked flash_attention launch a call "
           f"({counts['flash_attention']})")
@@ -1614,23 +1768,6 @@ def ringdma_bound(nbytes):
     """Least time to move a payload: read once and written once at the
     card's memory rate (the engine does no arithmetic)."""
     return 2 * nbytes / PEAK_BYTES_S * 1e3
-
-
-def zero_counts():
-    from harp_tpu_torch.ops import pallas_kernels as pk
-    from harp_tpu_torch.ops import ring_dma
-
-    for counts in (pk.launches, ring_dma.launches):
-        for name in counts:
-            counts[name] = 0
-
-
-def read_counts():
-    from harp_tpu_torch.ops import pallas_kernels as pk
-    from harp_tpu_torch.ops import ring_dma
-
-    torch.cuda.synchronize()
-    return {**pk.launches, **ring_dma.launches}
 
 
 def ring_inputs(w, seed):
@@ -1770,6 +1907,62 @@ def factor_digest(tables, rmse) -> str:
     return h.hexdigest()
 
 
+def kmeans_mp_fit(sess):
+    """The KMEANS_MP fit on ``sess`` (stacked W=4, or one process of the
+    4-process group): sha256 of its centroids, its per-iteration costs and
+    the counts of one more E-step from the final centroids (summed over
+    the workers), with the fit's launch and plain-call counts."""
+    import hashlib
+
+    from harp_tpu_torch.collectives import lax_ops
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import kmeans as km
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    c = KMEANS_MP
+    pts = datagen.dense_points(c["n"], c["d"], seed=c["seed"],
+                               num_clusters=c["k"])
+    cen0 = datagen.initial_centroids(pts, c["k"], seed=c["seed"] + 1)
+    model = km.KMeans(sess, km.KMeansConfig(c["k"], c["d"], c["iterations"],
+                                            "regroupallgather"))
+    p, c0 = model.prepare(pts, cen0)
+    del pts
+    zero_counts()
+    cen, costs = model.fit_prepared(p, c0)
+    launches, plain = read_counts(), plain_counts()
+    counts = sess.run(
+        lambda x, cc: lax_ops.allreduce(pk.kmeans_stats(x, cc)[1]), p,
+        cen.contiguous(), in_specs=(sess.shard(), sess.replicate()),
+        out_specs=sess.replicate())
+    h = hashlib.sha256()
+    for t in (cen, costs, counts):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return {"digest": h.hexdigest(), "launches": launches, "plain": plain,
+            "cost": float(costs[-1])}
+
+
+def kmeans_mp_stacked():
+    """The stacked W=4 side of [ringdma:mp]'s K-means fit, in this
+    process."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    c = KMEANS_MP
+    per = c["n"] // RING_W
+    grid = pk._kmeans_lib().kmeans_stats_grid(per, c["d"], c["k"], c["k"], 0)
+    log(f"[kmeans:stacked] W={RING_W} in one process: n={c['n']} ({per} a "
+        f"worker, {-(-per // 64)} tiles, grid {grid} blocks a worker), "
+        f"k={c['k']}, d={c['d']}, regroupallgather, {c['iterations']} "
+        f"iterations")
+    ref = kmeans_mp_fit(HarpSession(num_workers=RING_W))
+    check(ref["launches"]["kmeans_stats"] == c["iterations"],
+          f"one stacked kmeans_stats launch an iteration "
+          f"({ref['launches']['kmeans_stats']})")
+    check_no_plain("[kmeans:stacked]", ref["plain"])
+    log(f"  final cost {ref['cost']:.8g}, digest {ref['digest'][:16]}")
+    return ref
+
+
 def mf_rates(model_for, state, nnz):
     """Ratings/s two-point (MF_FUSED_EPOCHS) of ``model_for(epochs)``."""
     from harp_tpu_torch.benchmark import timing
@@ -1802,6 +1995,7 @@ def mf_fused_stacked():
     zero_counts()
     out_w, out_h, rmse = model.train_prepared(state)
     counts = read_counts()
+    check_no_plain("[sgd_mf:fused] stacked")
     steps = f["epochs"] * RING_W
     check(counts["ring_dma_hop"] == steps and counts["dense_mf_hop"] == steps,
           f"one ring_dma_hop and one dense_mf_hop launch a rotation step "
@@ -1848,6 +2042,7 @@ def ring_fused_phase():
     zero_counts()
     out = ring(True)
     counts = read_counts()
+    check_no_plain("[attention:ring fused]")
     hops = 2 * c["workers"]
     check(counts["ring_dma_hop"] == hops
           and counts["flash_attention"] == c["workers"],
@@ -1939,6 +2134,7 @@ def mp_child() -> int:
     zero_counts()
     out_w, out_h, rmse = model.train_prepared(state)
     out["launches"] = read_counts()
+    out["plain"] = plain_counts()
     zero_counts()
     tables = pull_factors(sess, out_w, out_h)
     out["pull_launches"] = read_counts()
@@ -1952,14 +2148,18 @@ def mp_child() -> int:
                staged_ratings_per_s=staged["rate"],
                staged_per_epoch_ms=staged["per_iter_ms"])
     ring_dma.check_errors()
+    del state, model
+    torch.cuda.empty_cache()
+    out["kmeans"] = kmeans_mp_fit(sess)
     distributed.shutdown()
     print("MP_CHILD " + json.dumps(out), flush=True)
     return 0
 
 
-def ringdma_mp(stacked_mf):
+def ringdma_mp(stacked_mf, stacked_km):
     """[ringdma:mp] and [sgd_mf:fused] across 4 processes on the card,
-    through the port's launcher; any child's failure fails the run."""
+    through the port's launcher, and the K-means fit at n = 1M across 4
+    processes; any child's failure fails the run."""
     from harp_tpu_torch.parallel import launch
 
     log(f"[ringdma:mp] {RING_W} processes x 1 worker on the card (the "
@@ -2002,9 +2202,19 @@ def ringdma_mp(stacked_mf):
         check(p["ring_allgather"] == 2 and p["ring_dma_hop"] == 0,
               f"rank {i}, table_ops.pull(fused=True) of W and H: 2 "
               f"ring_allgather launches ({p['ring_allgather']})")
+        check_no_plain(f"[ringdma:mp] SGD-MF fused, rank {i}", o["plain"])
+        kmo = o["kmeans"]
+        check(kmo["launches"]["kmeans_stats"] == KMEANS_MP["iterations"],
+              f"rank {i}, the K-means fit: one kmeans_stats launch an "
+              f"iteration ({kmo['launches']['kmeans_stats']})")
+        check_no_plain(f"[ringdma:mp] K-means, rank {i}", kmo["plain"])
     check(all(o["digest"] == stacked_mf["digest"] for o in outs.values()),
           "SGD-MF fused, 4 processes: factors (pulled through the fused "
           "allgather) and RMSEs bitwise the stacked fit")
+    check(all(o["kmeans"]["digest"] == stacked_km["digest"]
+              for o in outs.values()),
+          f"K-means, 4 processes x 1 worker, n={KMEANS_MP['n']}: centroids, "
+          f"counts and costs bitwise the stacked W={RING_W} fit")
     o = outs[0]
     log(f"  SGD-MF 4 processes: fused {o['ratings_per_s']:.6g} ratings/s "
         f"({o['per_epoch_ms']:.4f} ms an epoch), host-staged fused_dma=False "
@@ -2044,7 +2254,9 @@ def ringdma_phases():
     attn = ring_fused_phase()
     ring_dma.check_errors()
     torch.cuda.empty_cache()
-    mp = ringdma_mp(mf)          # each child checks after each of its parts
+    km = kmeans_mp_stacked()
+    torch.cuda.empty_cache()
+    mp = ringdma_mp(mf, km)      # each child checks after each of its parts
     mp_smoke_phase()
     mb = str(1 << 20)
     return [{
@@ -2093,6 +2305,86 @@ def ringdma_phases():
     }]
 
 
+# --------------------------------------------------------------------------- #
+# Dispatch: the plain calls of the main paths, and one shape outside each
+# kernel's predicate
+# --------------------------------------------------------------------------- #
+
+def dispatch_phase():
+    """[dispatch]: the plain_on_card counts read after every main path (all
+    0); one call on the card where the JAX package takes XLA: no launch, one
+    plain call, the plain version's answer; and one where the JAX package
+    runs its kernel and the port's cannot take the width: a ValueError
+    before any launch. Returns each dispatcher's plain calls summed over
+    the main paths."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    log(f"[dispatch] plain_on_card after each of the {len(PLAIN_SEEN)} main "
+        f"paths")
+    total = {}
+    for path, plain in PLAIN_SEEN.items():
+        log(f"  {path}: {plain}")
+        for name, n in plain.items():
+            total[name] = total.get(name, 0) + n
+    check(not any(total.values()), f"plain_on_card is 0 on every main path "
+          f"({total})")
+    g = torch.Generator(device=CARD).manual_seed(8)
+    x = torch.randn(4096, 100, device=CARD, generator=g)
+    c = torch.randn(400, 100, device=CARD, generator=g)
+    q, k, v = attn_inputs((4096, 8, 64), 64, seed=4)
+    plain_cases = (
+        ("kmeans_stats", "K=400, D=100 (beyond shared memory)",
+         lambda: pk.kmeans_stats(x, c), lambda: pk.kmeans_stats_plain(x, c)),
+        ("flash_attention", "L=4096, H=8, Dh=64, causal (below the length)",
+         lambda: ra.blocked_attention(q, k, v, True),
+         lambda: ra._streamed_attention(q, k, v, True)))
+    for name, shape, fn, plain in plain_cases:
+        zero_counts()
+        got = fn()
+        launched, calls = read_counts(), plain_counts()
+        want = plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        rel = max(max_rel(a, b) for a, b in zip(got, want))
+        log(f"  {name} at {shape}: launches {launched}, plain {calls}, "
+            f"relative distance from the plain version {rel:.3g}")
+        check(not any(launched.values()) and calls[name] == 1
+              and sum(calls.values()) == 1,
+              f"{name} outside its predicate: no launch, one plain call")
+        check(rel <= 1e-5, f"{name}: the plain version's answer (within 1e-5 "
+              f"of its largest entry; the E-step's index_add_ sums with "
+              f"atomics)")
+    slab = torch.randn(1, 1, 512, 1024, device=CARD, generator=g)
+    slab[torch.rand(slab.shape, device=CARD, generator=g) > 0.05] = np.nan
+    seen = ~torch.isnan(slab)
+    mf = (slab.bfloat16(), torch.zeros(1, dtype=torch.int32, device=CARD),
+          torch.randn(1, 512, 192, device=CARD, generator=g) / 192 ** 0.5,
+          torch.randn(1, 1024, 192, device=CARD, generator=g) / 192 ** 0.5,
+          seen.sum(3).float(), seen.reshape(1, 1, 4, 128, 1024).sum(3).float(),
+          4, 0.05, 0.01)
+    qw, kw, vw = attn_inputs((8192, 1, 192), 192, seed=8)
+    wide_cases = (
+        ("dense_mf_hop", "K=192", lambda: pk.dense_mf_hop(*mf)),
+        ("flash_attention", "L=8192, Dh=Dv=192, causal",
+         lambda: ra.blocked_attention(qw, kw, vw, True)))
+    for name, shape, fn in wide_cases:
+        zero_counts()
+        try:
+            fn()
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        launched, calls = read_counts(), plain_counts()
+        log(f"  {name} at {shape}: raised {raised!r}, launches {launched}, "
+            f"plain {calls}")
+        check(raised is not None and not any(launched.values())
+              and not any(calls.values()),
+              f"{name} beyond its kernel's width: a ValueError, no launch, "
+              f"no plain call")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2139,6 +2431,9 @@ def main() -> int:
     attn = attention_phases()
     torch.cuda.empty_cache()
     ring = ringdma_phases()
+    torch.cuda.empty_cache()
+    plain = dispatch_phase()
+    attn["plain_on_card"] = plain["flash_attention"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -2154,7 +2449,9 @@ def main() -> int:
         "fit_iters_per_s": fit["iters_per_s"],
         "fit_per_iter_ms": fit["per_iter_ms"],
         "fit_centroid_rel_vs_plain": fit["centroid_rel_vs_plain"],
-    }, mf, spd, attn, *ring]
+        "grid": fit["grid"],
+        "plain_on_card": plain["kmeans_stats"],
+    }, mf, *spd, attn, *ring]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

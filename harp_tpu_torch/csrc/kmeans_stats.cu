@@ -35,6 +35,13 @@
 // read and written together, and the two halves of the block take disjoint
 // runs. The partials go to a workspace (W, G, K, D+2) and a second kernel
 // reduces them over G in a fixed order, so repeated runs are bitwise equal.
+// G, the blocks a worker, is the resident blocks of the whole card, at most
+// one a tile: a function of (N, D, K, valid_k, type), never of W. So a
+// stacked launch of W workers (a (G, W) grid, run in waves) sums each
+// worker's points in exactly the order of a launch that holds that worker
+// alone, and a process holding 1 worker of a group is bitwise a stacked
+// group. The kernel never waits on another block, so it needs no cap on
+// the blocks resident at once.
 //
 // Layout: x is (W, N, D) row-major, c is (K, D) shared or (W, K, D) one table
 // per worker (c_per_worker), all contiguous. The host binding is a plain C
@@ -78,6 +85,7 @@ __device__ __forceinline__ float round_like<__nv_bfloat16>(float v) {
 // centroid row stride in shared memory: odd, so rows fall on distinct banks
 __host__ __device__ __forceinline__ int padded(int d) { return d | 1; }
 
+// (the twin on the host side: pallas_kernels.kmeans_smem_bytes)
 __host__ __device__ __forceinline__ size_t smem_floats(int d, int k) {
   return (size_t)(d + 2) * kXStride + (size_t)k * padded(d) + k +
          (size_t)k * (d + 2) + 4 * kTile + 1;
@@ -426,7 +434,7 @@ cudaError_t prepare(StatsKernel<T> kern, int d, int k, size_t* bytes) {
 }
 
 template <typename T>
-int grid_size(int n, int d, int k, int valid_k, int w) {
+int grid_size(int n, int d, int k, int valid_k) {
   const StatsKernel<T> kern = pick<T>(valid_k);
   size_t bytes = 0;
   cudaError_t err = prepare<T>(kern, d, k, &bytes);
@@ -440,7 +448,7 @@ int grid_size(int n, int d, int k, int valid_k, int w) {
   if (err != cudaSuccess) return -(int)err;
   if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
   const int tiles = (n + kTile - 1) / kTile;
-  int g = per_sm * sms / (w > 0 ? w : 1);
+  int g = per_sm * sms;
   if (g > tiles) g = tiles;
   return g < 1 ? 1 : g;
 }
@@ -475,11 +483,12 @@ long long kmeans_stats_smem_bytes(int d, int k) {
   return (long long)(smem_floats(d, k) * sizeof(float));
 }
 
-// Blocks per worker: resident blocks per SM times the SM count, split over
-// the w workers, at most one per tile. Negative: a CUDA error code.
-int kmeans_stats_grid(int n, int d, int k, int valid_k, int w, int bf16) {
-  return bf16 ? grid_size<__nv_bfloat16>(n, d, k, valid_k, w)
-              : grid_size<float>(n, d, k, valid_k, w);
+// Blocks per worker: resident blocks per SM times the SM count, at most
+// one per tile, whatever the number of workers a launch holds. Negative: a
+// CUDA error code.
+int kmeans_stats_grid(int n, int d, int k, int valid_k, int bf16) {
+  return bf16 ? grid_size<__nv_bfloat16>(n, d, k, valid_k)
+              : grid_size<float>(n, d, k, valid_k);
 }
 
 // Launch the E-step and its reduction on ``stream``. Returns

@@ -1,7 +1,9 @@
 // Batched small SPD solve for Hopper (sm_90a): for each of N independent
-// systems A x = b with A (K, K) symmetric positive definite, K <= 64, factor
-// A = L L^T by the outer-product Cholesky, then solve L y = b and L^T x = y.
-// All in float32.
+// systems A x = b with A (K, K) symmetric positive definite, factor A = L L^T
+// by the outer-product Cholesky, then solve L y = b and L^T x = y. All in
+// float32. Two kernels: one warp a system in registers for K <= 64
+// (spd_solve_kernel), one block a system in shared memory for 64 < K <= 338
+// (spd_solve_block_kernel, after the first).
 //
 // Replaces: harp_tpu/ops/pallas_kernels.py::_chol_solve_kernel (the TPU
 // kernel behind spd_solve_pallas). It computes the same function in the same
@@ -48,6 +50,7 @@
 // (harp_tpu_torch/ops/_cuda_build.py).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -190,13 +193,116 @@ spd_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// One block a system, 64 < K <= 338.
+//
+// Above K = 64 a system no longer fits one warp's registers, so a block holds
+// it in shared memory: the packed lower triangle of A (row i at i (i + 1) / 2,
+// K (K + 1) / 2 floats), the right-hand side and column j of L, which fit the
+// 232,448 bytes a block may use up to K = 338 (block_smem_floats; the host's
+// twin is pallas_kernels.spd_solve_block_smem_bytes). The steps are the TPU
+// kernel's, in its order, each ended by a __syncthreads():
+//   1. step j of the outer-product Cholesky: every thread reads the pivot,
+//      the threads over rows i >= j scale the Schur complement's column j by
+//      1 / sqrt(pivot) into column j of L (kept in place and copied to lc)
+//      and take the forward substitution's r_i -= L[i][j] y_j beside it;
+//      then the rank-1 update of the unfinished triangle, a[i][m] -=
+//      L[i][j] L[m][j] for j < m <= i: a warp a row, its lanes over m, so a
+//      warp's reads and writes are 32 consecutive floats (no bank conflict)
+//      and L[i][j] is a register;
+//   2. y_i = r_i / L[i][i] for every i at once: no step after step i
+//      changes r_i, so this is the TPU kernel's y_i, which it divides out
+//      at step i (step j also needs y_j for its own update, and each
+//      thread computes it the same way);
+//   3. the back substitution row by row of L from the last unknown:
+//      x_p = y_p / L[p][p], then r_i -= L[p][i] x_p for i < p.
+// Like the warp kernel it reads A as it is, (N, K, K) row-major, only its
+// lower triangle, and uses no atomics: two runs are bitwise equal.
+//
+// What bounds it on this card: operations, in the bound's count. At N = 8192
+// and K = 128 the Cholesky and the substitutions are (2 K^3 / 3 + 4 K^2) N =
+// 1.2e10 float32 operations (0.18 ms at 67 TFLOP/s) against 0.08 ms of the
+// lower triangle's bytes. The kernel is held instead by shared memory: each
+// multiply-add of the update reads and writes a[i][m] and reads L[m][j], so
+// it runs at about a third of the shared-memory rate, and by the 3 K
+// barriers of one block. A register-tiled update is later work.
+// ---------------------------------------------------------------------------
+
+constexpr int kBlockThreads = 256;
+constexpr int kBlockWarps = kBlockThreads / 32;
+
+__host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
+
+__host__ __device__ __forceinline__ size_t block_smem_floats(int k) {
+  return (size_t)k * (k + 1) / 2 + 2 * (size_t)k;
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+spd_solve_block_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ x,
+                       int k) {
+  extern __shared__ float smem[];
+  float* t = smem;              // the packed lower triangle, then L
+  float* r = t + tri(k);        // b, then y
+  float* lc = r + k;            // column j of L at step j, then x
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long sys = blockIdx.x;
+  const float* as = a + sys * k * k;
+
+  for (int i = warp; i < k; i += kBlockWarps) {
+    const float* row = as + (size_t)i * k;
+    float* dst = t + tri(i);
+    for (int m = lane; m <= i; m += 32) dst[m] = row[m];
+  }
+  for (int i = tid; i < k; i += kBlockThreads) r[i] = b[sys * k + i];
+  __syncthreads();
+
+  for (int j = 0; j < k; ++j) {
+    const float d = t[tri(j) + j];
+    const float dinv = 1.0f / sqrtf(d);
+    const float ljj = d * dinv;                 // L[j][j]
+    const float yj = r[j] / ljj;
+    for (int i = j + tid; i < k; i += kBlockThreads) {
+      const float l = i == j ? ljj : t[tri(i) + j] * dinv;
+      lc[i] = l;
+      if (i > j) {
+        t[tri(i) + j] = l;
+        r[i] = fmaf(-l, yj, r[i]);
+      }
+    }
+    __syncthreads();
+    if (tid == 0) t[tri(j) + j] = ljj;          // nobody reads it below
+    for (int i = j + 1 + warp; i < k; i += kBlockWarps) {
+      const float li = lc[i];
+      float* row = t + tri(i);
+      for (int m = j + 1 + lane; m <= i; m += 32)
+        row[m] = fmaf(-li, lc[m], row[m]);
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < k; i += kBlockThreads) r[i] = r[i] / t[tri(i) + i];
+  __syncthreads();
+  for (int p = k - 1; p >= 0; --p) {
+    const float* row = t + tri(p);              // row p of L
+    const float xp = r[p] / row[p];
+    if (tid == 0) lc[p] = xp;
+    for (int i = tid; i < p; i += kBlockThreads)
+      r[i] = fmaf(-row[i], xp, r[i]);
+    __syncthreads();
+  }
+  for (int i = tid; i < k; i += kBlockThreads) x[sys * k + i] = lc[i];
+}
+
 }  // namespace
 
 extern "C" {
 
-// Solve the n systems on `stream`: a (n, k, k), b (n, k), x (n, k), float32,
-// contiguous, 1 <= k <= 64 (checked by the caller). Returns
-// cudaGetLastError() after the launch (0 on success).
+// Solve the n systems on `stream` with the one-warp kernel: a (n, k, k),
+// b (n, k), x (n, k), float32, contiguous, 1 <= k <= 64 (checked by the
+// caller). Returns cudaGetLastError() after the launch (0 on success).
 int spd_solve_launch(const void* a, const void* b, void* x, long long n,
                      int k, void* stream) {
   if (n == 0) return 0;
@@ -209,6 +315,31 @@ int spd_solve_launch(const void* a, const void* b, void* x, long long n,
     spd_solve_kernel<1><<<(unsigned)grid, kThreads, 0, s>>>(af, bf, xf, n, k);
   else
     spd_solve_kernel<2><<<(unsigned)grid, kThreads, 0, s>>>(af, bf, xf, n, k);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory one block of the one-block kernel needs.
+long long spd_solve_block_smem_bytes(int k) {
+  return (long long)(block_smem_floats(k) * sizeof(float));
+}
+
+// Solve the n systems on `stream` with the one-block kernel, one block a
+// system: the same operands, 64 < k <= 338 (checked by the caller; a k whose
+// triangle does not fit fails with the launch). Returns cudaGetLastError()
+// after the launch (0 on success).
+int spd_solve_block_launch(const void* a, const void* b, void* x,
+                           long long n, int k, void* stream) {
+  if (n == 0) return 0;
+  if (n > INT_MAX) return (int)cudaErrorInvalidValue;
+  const size_t bytes = block_smem_floats(k) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      spd_solve_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  spd_solve_block_kernel<<<(unsigned)n, kBlockThreads, bytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(x), k);
   return (int)cudaGetLastError();
 }
 

@@ -30,12 +30,13 @@ planes round explicit ratings). Duplicate (row, col) pairs are dropped
 
 The batched solve (``ALSConfig.solver``): "pallas" is
 ``ops/pallas_kernels.spd_solve`` — the hand-written CUDA kernel for CUDA
-tensors (K <= 64; a larger rank raises), its plain version for CPU tensors,
-as the JAX package runs its Pallas kernel in interpret mode off the TPU;
-"cholesky" is ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``;
-"newton" is the Newton–Schulz loop in float32 matmuls with TF32 off;
-"auto" takes "pallas" on a CUDA device at rank <= 64 and "cholesky"
-otherwise. The JAX package's ``HARP_ALS_PALLAS=0`` opt-out is not ported.
+tensors (one warp a system at K <= 64, one block a system up to K = 338;
+a larger rank raises), its plain version for CPU tensors, as the JAX
+package runs its Pallas kernel in interpret mode off the TPU; "cholesky"
+is ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``; "newton" is
+the Newton–Schulz loop in float32 matmuls with TF32 off; "auto" takes
+"pallas" where ``pallas_kernels.use_spd_solve_pallas`` says so (a CUDA
+device, rank <= 64, ``HARP_ALS_PALLAS`` not "0") and "cholesky" otherwise.
 
 The JAX package runs all iterations as one compiled scan; here an iteration
 is a Python loop over eager tensor ops, and the per-iteration RMSEs are
@@ -175,11 +176,12 @@ def _resolve_solver(cfg: ALSConfig, device) -> str:
                                                                 device)
                 else "cholesky")
     if (cfg.solver == "pallas" and torch.device(device).type == "cuda"
-            and cfg.rank > pallas_kernels.SPD_MAX_K):
+            and cfg.rank > pallas_kernels.SPD_MAX_K_SMEM):
         raise ValueError(
-            f"solver='pallas' takes rank <= {pallas_kernels.SPD_MAX_K} on a "
-            f"CUDA device (the hand-written solve keeps two columns a lane), "
-            f"got rank {cfg.rank}; use solver='cholesky' or 'auto'")
+            f"solver='pallas' takes rank <= {pallas_kernels.SPD_MAX_K_SMEM} "
+            f"on a CUDA device (the one-block solve holds the packed lower "
+            f"triangle in shared memory), got rank {cfg.rank}; use "
+            f"solver='cholesky' or 'auto'")
     return cfg.solver
 
 

@@ -13,28 +13,38 @@ Ported:
   worker's H block against its slab bucket, pred and G kept on chip);
   ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch;
 * the batched SPD solve of ALS. ``spd_solve_cuda`` launches ``csrc/
-  spd_solve.cu`` (one warp a system, the factor in registers);
-  ``spd_solve_plain`` is the TPU kernel's Cholesky and substitutions,
-  vectorized over the batch;
+  spd_solve.cu``: one warp a system, the factor in registers, at K <= 64;
+  one block a system, the packed lower triangle in shared memory, at
+  64 < K <= 338. ``spd_solve_plain`` is the TPU kernel's Cholesky and
+  substitutions, vectorized over the batch;
 * flash attention. ``flash_attention_cuda`` launches ``csrc/
   flash_attention.cu`` (running max, denominator and accumulator on chip,
   the causal trapezoid of KV tiles, any L, Dv != Dh, optional stats);
   ``flash_attention_plain`` is a full-row softmax in plain PyTorch.
 
-Each dispatcher (``kmeans_stats``, ``dense_mf_hop``, ``spd_solve``,
-``flash_attention``) sends a CPU tensor to the plain version and a CUDA
-tensor to the kernel; there is no fallback from one to the other, and a
-shape the kernel cannot take raises.
+A ``*_cuda`` wrapper takes CUDA tensors only and raises on a shape its
+kernel cannot take. A CPU tensor always takes the plain version. On a CUDA
+tensor the dispatchers the models call (``kmeans_stats``, ``dense_mf_hop``,
+``spd_solve``; ``blocked_attention`` and the ring's hops in ``parallel/
+ring_attention.py``) launch the kernel, with two exceptions decided before
+any launch, where the JAX package itself takes XLA: ``kmeans_stats``
+outside :func:`use_kmeans_pallas` (the JAX package's E-step is XLA by
+default) and attention below :func:`use_flash_pallas`'s length. A shape
+the JAX package runs through its kernel and this kernel cannot take (a
+dense-MF rank above ``MF_MAX_K``, a flash head wider than ``FLASH_MAX_D``)
+raises. Nothing catches a build or launch error.
 
 ``launches`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernel.
+path went through the kernel. ``plain_on_card`` counts the plain calls
+those two exceptions made on a CUDA device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -43,12 +53,58 @@ import torch.nn.functional as F
 from harp_tpu_torch.ops import distance
 
 launches: Dict[str, int] = {"kmeans_stats": 0, "dense_mf_hop": 0,
-                             "spd_solve": 0, "flash_attention": 0}
+                             "spd_solve": 0, "spd_solve_block": 0,
+                             "flash_attention": 0}
+plain_on_card: Dict[str, int] = {"kmeans_stats": 0, "flash_attention": 0}
 
 # shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
 _GRID: Dict[tuple, int] = {}
 _LIB: Dict[str, ctypes.CDLL] = {}
+
+
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def count_plain_on_card(name: str, device) -> None:
+    """Count one plain call of dispatcher ``name`` on ``device`` in
+    :data:`plain_on_card` (a CPU device counts nothing)."""
+    if _on_card(device):
+        plain_on_card[name] += 1
+
+
+# the E-step kernel's limits: a (K, D) shape whose block needs more shared
+# memory than MAX_SMEM_BYTES (kmeans_smem_bytes) is not taken, nor N above
+# KMEANS_MAX_N (the kernel indexes rows and tiles with 32-bit ints), nor
+# points other than float32 or bfloat16
+KMEANS_MAX_N = 2 ** 31 - 2 ** 19
+KMEANS_DTYPES = (torch.float32, torch.bfloat16)
+_KM_TILE = 64                 # points a tile (kTile in kmeans_stats.cu)
+_KM_XSTRIDE = _KM_TILE + 4    # a transposed tile row (kXStride)
+
+
+def kmeans_smem_bytes(d: int, k: int) -> int:
+    """Bytes of shared memory one E-step block needs at (D, K): the twin of
+    ``smem_floats`` in ``csrc/kmeans_stats.cu`` (the transposed point tile
+    with its ones and distance rows, the centroids at an odd row stride,
+    their norms, the (K, D+2) partial, the tile's norms and ranks, the
+    split)."""
+    floats = ((d + 2) * _KM_XSTRIDE + k * (d | 1) + k + k * (d + 2)
+              + 4 * _KM_TILE + 1)
+    return 4 * floats
+
+
+def use_kmeans_pallas(n: int, d: int, k: int, dtype, device) -> bool:
+    """Whether ``kmeans_stats`` takes the E-step kernel for (N, D) points
+    of ``dtype`` against K centroid rows on ``device``: a CUDA device,
+    ``dtype`` in ``KMEANS_DTYPES``, N <= ``KMEANS_MAX_N`` and
+    ``kmeans_smem_bytes(d, k) <= MAX_SMEM_BYTES``. Elsewhere the plain
+    version runs, as the JAX package's ``kmeans_stats`` takes XLA wherever
+    its opt-in kernel is not chosen."""
+    return (_on_card(device) and dtype in KMEANS_DTYPES
+            and 0 <= n <= KMEANS_MAX_N and d >= 1 and k >= 1
+            and kmeans_smem_bytes(d, k) <= MAX_SMEM_BYTES)
 
 
 def kmeans_stats_plain(x: torch.Tensor, c: torch.Tensor,
@@ -72,7 +128,7 @@ def _kmeans_lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.kmeans_stats_smem_bytes.argtypes = [i, i]
         lib.kmeans_stats_smem_bytes.restype = ctypes.c_longlong
-        lib.kmeans_stats_grid.argtypes = [i] * 6
+        lib.kmeans_stats_grid.argtypes = [i] * 5
         lib.kmeans_stats_grid.restype = i
         lib.kmeans_stats_launch.argtypes = [vp] * 6 + [i] * 8 + [vp]
         lib.kmeans_stats_launch.restype = i
@@ -88,11 +144,16 @@ def kmeans_stats_cuda(x: torch.Tensor, c: torch.Tensor,
     ``x``: (N, D) or stacked (W, N, D), float32 or bfloat16, contiguous.
     ``c``: (K, D) shared or (W, K, D) per worker, float32, contiguous.
     Outputs carry the worker axis when ``x`` does. Centroid rows >= valid_k
-    are masked out of the argmin. cost = Σ min score + Σ‖x‖²."""
+    are masked out of the argmin. cost = Σ min score + Σ‖x‖². Raises
+    outside the kernel's limits (:func:`use_kmeans_pallas`).
+
+    Each worker's point tiles are split over the same number of blocks
+    whatever W is (a function of N, D, K, valid_k and the type), so a
+    stacked launch is bitwise the launches of its workers one by one."""
     if not (x.is_cuda and c.is_cuda) or x.device != c.device:
         raise ValueError(f"kmeans_stats_cuda needs both tensors on one CUDA "
                          f"device, got {x.device} and {c.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in KMEANS_DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if c.dtype != torch.float32:
         raise TypeError(f"c must be float32, got {c.dtype}")
@@ -114,19 +175,22 @@ def kmeans_stats_cuda(x: torch.Tensor, c: torch.Tensor,
     if k < 1 or vk < 1 or d < 1:
         raise ValueError(f"need K >= 1, valid_k >= 1, D >= 1 (K={k}, "
                          f"valid_k={vk}, D={d})")
-    lib = _kmeans_lib()
-    smem = lib.kmeans_stats_smem_bytes(d, k)
+    if n > KMEANS_MAX_N:
+        raise ValueError(f"kmeans_stats_cuda takes N <= {KMEANS_MAX_N}, got "
+                         f"N={n}")
+    smem = kmeans_smem_bytes(d, k)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"K={k}, D={d} needs {smem} bytes of shared memory per block, "
             f"more than the {MAX_SMEM_BYTES} an H100 block can use; tiling "
             f"K is not implemented")
+    lib = _kmeans_lib()
     bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
-        key = (x.device.index, n, d, k, vk, w, bf16)
+        key = (x.device.index, n, d, k, vk, bf16)
         g = _GRID.get(key)
         if g is None:
-            g = lib.kmeans_stats_grid(n, d, k, vk, w, bf16)
+            g = lib.kmeans_stats_grid(n, d, k, vk, bf16)
             if g < 1:
                 raise RuntimeError(f"kmeans_stats grid query failed: CUDA "
                                    f"error {-g}")
@@ -152,21 +216,26 @@ def kmeans_stats_cuda(x: torch.Tensor, c: torch.Tensor,
 def kmeans_stats(x: torch.Tensor, c: torch.Tensor,
                  valid_k: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The K-means E-step the model calls: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
-    if x.device.type == "cuda":
+    """The K-means E-step the model calls: the CUDA kernel where
+    :func:`use_kmeans_pallas` says so, else the plain version (counted in
+    ``plain_on_card`` on a CUDA device)."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"kmeans_stats runs on cuda or cpu, not {x.device}")
+    n, d = x.shape[-2:]
+    if use_kmeans_pallas(n, d, c.shape[-2], x.dtype, x.device):
         return kmeans_stats_cuda(x, c, valid_k)
-    if x.device.type == "cpu":
-        return kmeans_stats_plain(x, c, valid_k)
-    raise ValueError(f"kmeans_stats runs on cuda or cpu, not {x.device}")
+    count_plain_on_card("kmeans_stats", x.device)
+    return kmeans_stats_plain(x, c, valid_k)
 
 
 # --------------------------------------------------------------------------- #
 # Dense SGD-MF hop
 # --------------------------------------------------------------------------- #
 
-# ranks the kernel is built for; K is zero-padded up to the next one
+# ranks the kernel is built for; K is zero-padded up to the next one, so
+# the kernel takes 1 <= K <= MF_MAX_K
 MF_RANKS = (16, 32, 64, 128)
+MF_MAX_K = MF_RANKS[-1]
 
 
 def _mf_shapes(slab, buckets, w, h, row_cnt, col_cnt, nmb):
@@ -266,8 +335,9 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
     ``w``: (W, rpw, K) and ``h``: (W, cpb, K) float32; ``row_cnt``: (W,
     n_blocks, rpw) and ``col_cnt``: (W, n_blocks, nmb_fine, cpb) float32
     regularizer counts, ``col_cnt`` summed over ``nmb_fine // nmb`` adjacent
-    fine stripes per stripe. All on one CUDA device and contiguous. K <= 128
-    (zero-padded to 16, 32, 64 or 128 here: exact)."""
+    fine stripes per stripe. All on one CUDA device and contiguous. 1 <= K
+    <= ``MF_MAX_K`` (zero-padded to 16, 32, 64 or 128 here: exact); a larger
+    K raises."""
     args = (slab, buckets, w, h, row_cnt, col_cnt)
     if not all(t.is_cuda and t.device == slab.device for t in args):
         raise ValueError("dense_mf_hop_cuda needs every tensor on one CUDA "
@@ -283,7 +353,7 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
     nw, n_blocks, rpw, cpb, k, nmb_fine = _mf_shapes(*args, nmb)
     kp = next((r for r in MF_RANKS if k <= r), 0)
     if k < 1 or not kp:
-        raise ValueError(f"dense_mf_hop_cuda takes 1 <= K <= {MF_RANKS[-1]}, "
+        raise ValueError(f"dense_mf_hop_cuda takes 1 <= K <= {MF_MAX_K}, "
                          f"got K={k}")
     if slab.data_ptr() % 16:
         raise ValueError("the slab must start on a 16-byte boundary")
@@ -322,7 +392,9 @@ def dense_mf_hop(slab: torch.Tensor, buckets: torch.Tensor, w: torch.Tensor,
                  nmb: int, lr: float, lam: float
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dense SGD-MF hop the model calls: the CUDA kernel for a CUDA
-    slab, the plain version for a CPU slab."""
+    slab (K above ``MF_MAX_K`` raises: the JAX package runs its kernel
+    there, and this kernel's wider variant is still to be written), the
+    plain version for a CPU slab."""
     if slab.device.type == "cuda":
         return dense_mf_hop_cuda(slab, buckets, w, h, row_cnt, col_cnt, nmb,
                                  lr, lam)
@@ -336,8 +408,19 @@ def dense_mf_hop(slab: torch.Tensor, buckets: torch.Tensor, w: torch.Tensor,
 # Batched small SPD solve (the ALS normal equations)
 # --------------------------------------------------------------------------- #
 
-# the largest K the kernel takes: two columns of the system a lane
+# the largest K of the one-warp kernel (two columns of the system a lane),
+# and the JAX package's rule for solver="auto"
 SPD_MAX_K = 64
+# the largest K of the one-block kernel: the packed lower triangle and two
+# K-vectors must fit one block's shared memory (spd_solve_block_smem_bytes)
+SPD_MAX_K_SMEM = 338
+
+
+def spd_solve_block_smem_bytes(k: int) -> int:
+    """Bytes of shared memory the one-block solve needs at K: the twin of
+    ``block_smem_floats`` in ``csrc/spd_solve.cu`` (the packed lower
+    triangle, K (K + 1) / 2 floats, the right-hand side and column j of L)."""
+    return 4 * (k * (k + 1) // 2 + 2 * k)
 
 
 def _spd_shapes(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int]:
@@ -391,9 +474,11 @@ def _spd_lib() -> ctypes.CDLL:
 
         lib = _cuda_build.library("spd_solve")
         vp = ctypes.c_void_p
-        lib.spd_solve_launch.argtypes = [vp, vp, vp, ctypes.c_longlong,
-                                         ctypes.c_int, vp]
-        lib.spd_solve_launch.restype = ctypes.c_int
+        for fn in (lib.spd_solve_launch, lib.spd_solve_block_launch):
+            fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
+            fn.restype = ctypes.c_int
+        lib.spd_solve_block_smem_bytes.argtypes = [ctypes.c_int]
+        lib.spd_solve_block_smem_bytes.restype = ctypes.c_longlong
         _LIB["spd_solve"] = lib
     return lib
 
@@ -402,9 +487,12 @@ def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched SPD solve on the card: x (N, K) with ``a[n] @ x[n] = b[n]``.
 
     ``a``: (N, K, K) and ``b``: (N, K) float32, contiguous, on one CUDA
-    device; 1 <= K <= 64, any N. Like the plain version it reads only the
-    lower triangle of each system; a system that is not positive definite
-    gives NaN, as the TPU kernel does."""
+    device; any N. 1 <= K <= ``SPD_MAX_K`` launches the one-warp kernel
+    (counted in ``launches["spd_solve"]``), ``SPD_MAX_K`` < K <=
+    ``SPD_MAX_K_SMEM`` the one-block kernel (``launches["spd_solve_block"]``);
+    a larger K raises. Like the plain version both read only the lower
+    triangle of each system; a system that is not positive definite gives
+    NaN, as the TPU kernel does."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError(f"spd_solve_cuda needs both tensors on one CUDA "
                          f"device, got {a.device} and {b.device}")
@@ -412,26 +500,28 @@ def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"a and b must be float32, got {a.dtype} and "
                         f"{b.dtype}")
     n, k = _spd_shapes(a, b)
-    if not 1 <= k <= SPD_MAX_K:
-        raise ValueError(f"spd_solve_cuda takes 1 <= K <= {SPD_MAX_K}, got "
-                         f"K={k}")
+    if not 1 <= k <= SPD_MAX_K_SMEM:
+        raise ValueError(f"spd_solve_cuda takes 1 <= K <= {SPD_MAX_K_SMEM}, "
+                         f"got K={k}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
     lib = _spd_lib()
+    block = k > SPD_MAX_K
+    launch = lib.spd_solve_block_launch if block else lib.spd_solve_launch
     with torch.cuda.device(a.device):
         x = torch.empty((n, k), dtype=torch.float32, device=a.device)
-        err = lib.spd_solve_launch(
-            a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k,
-            torch.cuda.current_stream(a.device).cuda_stream)
+        err = launch(a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k,
+                     torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"spd_solve kernel launch failed: CUDA error {err}")
-    launches["spd_solve"] += 1
+    launches["spd_solve_block" if block else "spd_solve"] += 1
     return x
 
 
 def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The batched SPD solve ALS calls: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    """The batched SPD solve ALS's ``solver="pallas"`` calls, an explicit
+    request for the kernel: the CUDA kernel for CUDA tensors (any K it
+    takes; a larger K raises), the plain version for CPU tensors."""
     if a.device.type == "cuda":
         return spd_solve_cuda(a, b)
     if a.device.type == "cpu":
@@ -440,10 +530,12 @@ def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def use_spd_solve_pallas(k: int, device) -> bool:
-    """Whether ALS's ``solver="auto"`` takes the hand-written solve: on a
-    CUDA device at K <= 64 (the JAX package's rule, with the card in the
-    TPU's place). There is no opt-out switch."""
-    return torch.device(device).type == "cuda" and k <= SPD_MAX_K
+    """Whether ALS's ``solver="auto"`` takes the hand-written solve: a CUDA
+    device, ``HARP_ALS_PALLAS`` not "0" and K <= ``SPD_MAX_K`` (the JAX
+    package's rule and opt-out, with the card in the TPU's place; elsewhere
+    "auto" is "cholesky")."""
+    return (_on_card(device) and os.environ.get("HARP_ALS_PALLAS") != "0"
+            and 1 <= k <= SPD_MAX_K)
 
 
 # --------------------------------------------------------------------------- #
@@ -642,7 +734,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def use_flash_pallas(l: int, device) -> bool:
-    """Whether attention takes the flash kernel: on a CUDA device at
-    L >= 8192 (the JAX package's rule, with the card in the TPU's place).
-    There is no opt-out switch."""
-    return torch.device(device).type == "cuda" and l >= FLASH_MIN_L
+    """Whether attention takes the flash kernel at length L on ``device``: a
+    CUDA device and L >= ``FLASH_MIN_L`` (the JAX package's rule, with the
+    card in the TPU's place). Below it attention is plain tensor code, as
+    the JAX package leaves it to XLA. The JAX kernel takes any head width;
+    this one raises above ``FLASH_MAX_D`` (its wider variant is still to be
+    written)."""
+    return _on_card(device) and l >= FLASH_MIN_L

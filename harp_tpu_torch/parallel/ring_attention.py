@@ -18,10 +18,13 @@ block is a slice of a (W, L/W, H, D) tensor, and ``lax_ops.worker_id()`` is
 local length of at least 8192 (``pallas_kernels.use_flash_pallas``) a hop
 or a blocked call is one launch of the flash-attention kernel for every
 stacked worker; otherwise it is plain tensor code, as the JAX package
-leaves it to XLA. ``fused_dma=True`` hops the (k, v) blocks through the
-ring-DMA engine (``ops/ring_dma.hop_tree``), bitwise the unfused ring; the
-JAX package's in-kernel KV send (``flash_attention_pallas(ring_hop=True)``)
-is not ported yet, so the port takes the JAX package's out-of-kernel branch.
+leaves it to XLA, and each plain hop or call on a CUDA device is counted
+in ``pallas_kernels.plain_on_card["flash_attention"]``. ``fused_dma=True``
+hops the (k, v) blocks through the ring-DMA engine
+(``ops/ring_dma.hop_tree``), bitwise the unfused ring; ``fused_dma=None``
+is ``ring_dma.use_ring_dma`` of the device, so fused on the card. The JAX
+package's in-kernel KV send (``flash_attention_pallas(ring_hop=True)``) is
+not ported yet, so the port takes the JAX package's out-of-kernel branch.
 """
 
 from __future__ import annotations
@@ -113,11 +116,12 @@ def _hop_stats(q, kb, vb, scale, diag_causal: bool, use_flash: bool):
     ring, the only hop whose mask is partial; every later hop is kept or
     dropped whole by the merge. ``use_flash`` runs the hop through the
     flash kernel (one launch for all workers, ``return_stats``) instead of
-    the einsum path."""
+    the einsum path, which counts in ``plain_on_card`` on a CUDA device."""
     if use_flash:
         out, m, den = pk.flash_attention(q, kb, vb, causal=diag_causal,
                                          return_stats=True)
         return m, out * den[..., None], den
+    pk.count_plain_on_card("flash_attention", q.device)
     s = torch.einsum("wqhd,wkhd->whqk", q.float(), kb.float()) * scale
     if diag_causal:
         lq, lk = q.shape[1], kb.shape[1]
@@ -146,11 +150,13 @@ def ring_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     package). ``use_flash=None`` takes the flash kernel where
     :func:`~harp_tpu_torch.ops.pallas_kernels.use_flash_pallas` says so for
     the local block length: W launches a call, one a hop, each for all
-    workers.
+    workers; elsewhere the W hops are einsums.
 
     ``fused_dma``: True hops (k, v) through the ring-DMA engine
     (``ring_dma.hop_tree``: two launches of its kernel a hop on the card);
-    None means False (the JAX package's None turns it on for a TPU only).
+    None is :func:`~harp_tpu_torch.ops.ring_dma.use_ring_dma` of the
+    device, as the JAX package's None is its ``use_ring_dma()``: fused on
+    the card, unfused on the CPU.
     ``ablate_rotation``: timing ablation only: keeps the per-hop compute but
     never moves the KV block (the result is wrong)."""
     w = lax_ops.num_workers()
@@ -159,6 +165,8 @@ def ring_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = _scale(q.shape[-1])
     if use_flash is None:
         use_flash = pk.use_flash_pallas(lq, q.device)
+    if fused_dma is None:
+        fused_dma = ring_dma.use_ring_dma(q.device)
 
     def hop_valid(tm1, m_r):
         if causal:
@@ -233,9 +241,10 @@ def blocked_attention(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     On a CUDA device at L >= 8192 this is one launch of the flash kernel
     (any L, Dv != Dh); otherwise :func:`_streamed_attention`, the same
     running (max, numerator, normalizer) merge as the ring, over resident
-    KV blocks."""
+    KV blocks (counted in ``plain_on_card`` on a CUDA device)."""
     if pk.use_flash_pallas(qf.shape[-3], qf.device):
         return pk.flash_attention(qf, kf, vf, causal)
+    pk.count_plain_on_card("flash_attention", qf.device)
     return _streamed_attention(qf, kf, vf, causal, kv_block)
 
 

@@ -116,15 +116,17 @@ def test_spd_solve_dispatch_and_checks():
     for k, device, want in ((64, "cuda", True), (65, "cuda", False),
                             (8, "cpu", False)):
         assert tpk.use_spd_solve_pallas(k, device) is want
-    # "auto" follows the predicate; an explicit "pallas" above K = 64 on the
-    # card is refused before any work
+    # "auto" follows the predicate; an explicit "pallas" on the card takes
+    # the kernel up to the one-block solve's limit and is refused above it
+    # before any work
     resolve = tals._resolve_solver
     assert resolve(tals.ALSConfig(rank=64), "cuda") == "pallas"
     assert resolve(tals.ALSConfig(rank=65), "cuda") == "cholesky"
     assert resolve(tals.ALSConfig(rank=8), "cpu") == "cholesky"
     assert resolve(tals.ALSConfig(rank=8, solver="pallas"), "cpu") == "pallas"
-    with pytest.raises(ValueError, match="rank <= 64"):
-        resolve(tals.ALSConfig(rank=65, solver="pallas"), "cuda")
+    assert resolve(tals.ALSConfig(rank=65, solver="pallas"), "cuda") == "pallas"
+    with pytest.raises(ValueError, match="rank <= 338"):
+        resolve(tals.ALSConfig(rank=339, solver="pallas"), "cuda")
     with pytest.raises(ValueError, match="solver must be"):
         resolve(tals.ALSConfig(solver="lu"), "cpu")
 

@@ -302,8 +302,9 @@ def test_ring_attention_mha_ablation_matches_jax(session):
 
 def test_ring_attention_mha_refuses_fused_dma():
     """fused_dma=True is ported (it refused before): the ring-DMA hops give
-    the unfused ring's attention bitwise, and fused_dma=None is the unfused
-    ring (tests/test_torch_ring_dma.py holds fused_dma=True to the JAX
+    the unfused ring's attention bitwise, and fused_dma=None, which is
+    ``ring_dma.use_ring_dma`` of the device, is the unfused ring on the CPU
+    (tests/test_torch_ring_dma.py holds fused_dma=True to the JAX
     package)."""
     ts = TorchSession(num_workers=2, device="cpu")
     q, k, v = map(torch.from_numpy, qkv((8, 2, 4), 4, seed=5))

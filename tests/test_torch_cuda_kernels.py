@@ -7,7 +7,9 @@ file imports no JAX, so it also runs where only PyTorch is installed:
 
 Tolerances: K-means f32 sums rtol 1e-4 (the kernel and the matmul sum the
 cross term in different orders), counts exact except for near-tie rows, cost
-rtol 1e-4; bf16 sums rtol 2e-2. Two runs of a kernel are bitwise equal.
+rtol 1e-4; bf16 sums rtol 2e-2. Two runs of a kernel are bitwise equal, and
+a stacked launch of 4 workers is bitwise their separate launches at a tile
+count above the grid (its blocks a worker do not depend on W).
 
 Dense SGD-MF hop: SSE rtol 1e-5 against the plain version. W and H are
 held against the plain version run in float64 (exact sums of the same bf16
@@ -22,7 +24,15 @@ Batched SPD solve: the kernel and the plain version sum in different orders
 (the kernel's shuffles, fused multiply-adds), so both are held against a
 float64 ``torch.linalg.solve`` of the same systems: the kernel within
 max(1e-5, 4x the plain version's own distance from it), relative to max
-|x|.
+|x|. The one-block kernel (64 < K <= 338) follows the plain version's steps
+and is held to it within 1e-4 of max |x| as well.
+
+Dispatch: where the JAX package takes XLA (K-means K=400, D=100 beyond one
+block's shared memory; attention below the flash length), a dispatcher on
+CUDA tensors launches nothing, counts each plain call in ``plain_on_card``
+and answers as the plain version does, within the tolerances above. Where
+the JAX package runs its kernel and this one cannot (dense-MF K=192, flash
+Dh=192 at L=8192), the call raises before any launch.
 
 Flash attention: the kernel and the plain version (a full-row softmax) sum
 in different orders, so both are held against a float64 attention of the
@@ -101,6 +111,30 @@ def test_kmeans_stats_kernel_matches_plain(cuda, w, n, k, d, valid_k, dtype,
     again = pk.kmeans_stats_cuda(x, c, valid_k)
     for a, b in zip((sums, counts, cost), again):
         assert torch.equal(a, b)
+
+
+def test_kmeans_stats_stacked_launch_is_bitwise_the_separate_ones(cuda):
+    """262,144 points a worker, K = 100, D = 100: 4096 tiles, more than the
+    blocks of one worker's grid, so the grid is the card's resident blocks
+    in both launches and each worker's partial sums add in the same order."""
+    w, n, k, d = 4, 262_144, 100, 100
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(w, n, d, generator=g, device=cuda)
+    c = torch.randn(k, d, generator=g, device=cuda)
+    lib = pk._kmeans_lib()
+    grid = lib.kmeans_stats_grid(n, d, k, k, 0)
+    assert 1 <= grid < -(-n // 64)
+    stacked = pk.kmeans_stats_cuda(x, c)
+    for wi in range(w):
+        one = pk.kmeans_stats_cuda(x[wi], c)
+        assert all(torch.equal(a[wi], b) for a, b in zip(stacked, one))
+
+
+@pytest.mark.parametrize("d,k", [(1, 1), (16, 8), (100, 100), (100, 249),
+                                 (100, 250), (33, 37), (256, 200)])
+def test_kmeans_smem_twin_matches_the_library(cuda, d, k):
+    assert pk._kmeans_lib().kmeans_stats_smem_bytes(d, k) == \
+        pk.kmeans_smem_bytes(d, k)
 
 
 def test_kmeans_stats_kernel_refuses_bad_inputs(cuda):
@@ -218,9 +252,33 @@ def test_spd_solve_kernel_matches_plain(cuda, n, k):
     assert torch.equal(x, pk.spd_solve_cuda(a, b))
 
 
+@pytest.mark.parametrize("n,k", [(2048, 65), (2048, 96), (2048, 128),
+                                 (257, 256), (64, 338)])
+def test_spd_solve_block_kernel_matches_plain(cuda, n, k):
+    a, b = (t.to(cuda) for t in spd_inputs(n, k, seed=n + k))
+    before = dict(pk.launches)
+    x = pk.spd_solve_cuda(a, b)
+    torch.cuda.synchronize()
+    assert pk.launches["spd_solve_block"] == before["spd_solve_block"] + 1
+    assert pk.launches["spd_solve"] == before["spd_solve"]
+    assert x.shape == (n, k) and x.dtype == torch.float32
+    plain = pk.spd_solve_plain(a, b)
+    assert max_rel(x.double(), plain.double()) <= 1e-4
+    exact = torch.linalg.solve(a.double(), b.double())
+    tol = max(1e-5, 4 * max_rel(plain.double(), exact))
+    assert max_rel(x.double(), exact) <= tol
+    assert torch.equal(x, pk.spd_solve_cuda(a, b))
+
+
+@pytest.mark.parametrize("k", [1, 64, 65, 128, 338, 339])
+def test_spd_solve_block_smem_twin_matches_the_library(cuda, k):
+    assert pk._spd_lib().spd_solve_block_smem_bytes(k) == \
+        pk.spd_solve_block_smem_bytes(k)
+
+
 def test_spd_solve_kernel_refuses_bad_inputs(cuda):
-    a, b = (t.to(cuda) for t in spd_inputs(4, 65))
-    with pytest.raises(ValueError, match="K <= 64"):
+    a, b = (t.to(cuda) for t in spd_inputs(2, 339))
+    with pytest.raises(ValueError, match="K <= 338"):
         pk.spd_solve_cuda(a, b)
     a, b = (t.to(cuda) for t in spd_inputs(4, 8))
     with pytest.raises(ValueError, match="CUDA device"):
@@ -422,3 +480,135 @@ def test_ring_dma_hop_gives_up_on_a_hung_peer(cuda):
                            cwd=root, extra_env={"PYTHONPATH": root})
     assert result.ok, result
     assert "GAVE UP" in result[0][1] and "credit" in result[0][1]
+
+
+# --------------------------------------------------------------------------- #
+# Dispatch outside each kernel's limits
+# --------------------------------------------------------------------------- #
+
+def _counts():
+    from harp_tpu_torch.ops import ring_dma
+
+    torch.cuda.synchronize()
+    return {**pk.launches, **ring_dma.launches}, dict(pk.plain_on_card)
+
+
+def _moved(before, after):
+    """The counters that moved between two readings, with their steps."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _kmeans_plain_case(dev, n=4096, k=400, d=100, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=g)
+    c = torch.randn(k, d, generator=g)
+    b_launch, b_plain = _counts()
+    got = pk.kmeans_stats(x.to(dev), c.to(dev), k)
+    a_launch, a_plain = _counts()
+    ref = pk.kmeans_stats_plain(x, c, k)
+    ties = _near_ties(x, c, k)
+    assert float((got[1].cpu() - ref[1]).abs().sum()) <= 2 * ties
+    if ties == 0:
+        torch.testing.assert_close(got[0].cpu(), ref[0], rtol=1e-4,
+                                   atol=1e-4)
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-4, atol=1e-3)
+    return _moved(b_launch, a_launch), _moved(b_plain, a_plain)
+
+
+def _flash_plain_case(dev, l=4096, h=2, dh=64, dv=64):
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    g = torch.Generator().manual_seed(l + dh)
+    q, k = (torch.randn(l, h, dh, generator=g) for _ in range(2))
+    v = torch.randn(l, h, dv, generator=g)
+    b_launch, b_plain = _counts()
+    got = ra.blocked_attention(q.to(dev), k.to(dev), v.to(dev), True)
+    a_launch, a_plain = _counts()
+    ref = pk.flash_attention_plain(q, k, v, True)
+    rows = sample_rows(l)
+    exact = attention64(q, k, v, True, rows)[0]
+    tol = max(1e-5, 4 * max_rel(ref[None][:, rows].double(), exact))
+    assert max_rel(got.cpu()[None][:, rows].double(), exact) <= tol
+    return _moved(b_launch, a_launch), _moved(b_plain, a_plain)
+
+
+def _ring_plain_case(dev, w=4, l_local=1024):
+    """A ring below the flash length: W einsum hops, each counted."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    g = torch.Generator().manual_seed(l_local)
+    q, k, v = (torch.randn(w * l_local, 2, 32, generator=g)
+               for _ in range(3))
+    sess = HarpSession(num_workers=w, device=dev)
+    b_launch, b_plain = _counts()
+    got = sess.run(lambda a, b, c: ra.ring_attention_mha(
+        a, b, c, True, fused_dma=False), q.to(dev), k.to(dev), v.to(dev),
+        in_specs=(sess.shard(),) * 3, out_specs=sess.shard())
+    a_launch, a_plain = _counts()
+    rows = sample_rows(w * l_local)
+    exact = attention64(q, k, v, True, rows)[0]
+    ref = pk.flash_attention_plain(q, k, v, True)
+    tol = max(1e-5, 4 * max_rel(ref[None][:, rows].double(), exact))
+    assert max_rel(got.cpu()[None][:, rows].double(), exact) <= tol
+    return _moved(b_launch, a_launch), _moved(b_plain, a_plain)
+
+
+@pytest.mark.parametrize("case,name,calls", [
+    (_kmeans_plain_case, "kmeans_stats", 1),
+    (_flash_plain_case, "flash_attention", 1),
+    (_ring_plain_case, "flash_attention", 4),
+])
+def test_dispatch_outside_the_kernel_takes_the_plain_version(cuda, case,
+                                                             name, calls):
+    """Where the JAX package takes XLA (its E-step by default, attention
+    below its flash length), the dispatcher takes the plain version: no
+    launch, one count a plain call."""
+    launched, plain = case(cuda)
+    assert launched == {} and plain == {name: calls}
+
+
+def test_dispatch_beyond_the_kernel_width_raises(cuda):
+    """A shape the JAX package runs through its kernel and this kernel
+    cannot take (dense-MF K=192, flash Dh=192 at L=8192) raises before any
+    launch, and nothing is counted as plain."""
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    v, w, h, rc, cc = mf_hop_inputs(1, 1, 512, 1024, 192, 4, seed=192)
+    b = torch.zeros(1, dtype=torch.int32)
+    g = torch.Generator().manual_seed(192)
+    q, k, vv = (torch.randn(8192, 1, 192, generator=g).to(cuda)
+                for _ in range(3))
+    b_launch, b_plain = _counts()
+    with pytest.raises(ValueError, match="K <= 128"):
+        pk.dense_mf_hop(*(t.to(cuda) for t in (v, b, w, h, rc, cc)), 4,
+                        0.05, 0.01)
+    with pytest.raises(ValueError, match="128"):
+        ra.blocked_attention(q, k, vv, True)
+    a_launch, a_plain = _counts()
+    assert _moved(b_launch, a_launch) == {} and _moved(b_plain,
+                                                       a_plain) == {}
+
+
+def test_ring_attention_fused_dma_none_is_fused_on_the_card(cuda):
+    """fused_dma=None on the card takes the ring-DMA engine (2 hop launches
+    a hop: k and v), bitwise the unfused ring."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    sess = HarpSession(num_workers=4, device=cuda)
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(4 * 256, 2, 32, generator=g).to(cuda)
+               for _ in range(3))
+
+    def ring(fused):
+        return sess.run(lambda a, b, c: ra.ring_attention_mha(
+            a, b, c, True, fused_dma=fused), q, k, v,
+            in_specs=(sess.shard(),) * 3, out_specs=sess.shard())
+
+    unfused = ring(False)
+    before, _ = _counts()
+    out = ring(None)
+    after, _ = _counts()
+    assert after["ring_dma_hop"] - before["ring_dma_hop"] == 8
+    assert torch.equal(out, unfused)

@@ -1,0 +1,270 @@
+"""The port's dispatch rules and the SPD solve past K = 64, on the CPU.
+
+* Every dispatch predicate (``use_kmeans_pallas``, ``use_flash_pallas``,
+  ``use_spd_solve_pallas``) at shapes inside and just outside its rule, on
+  the device strings "cuda" and "cpu": on "cpu" every one is False, on
+  "cuda" each says yes exactly inside its rule.
+* ``HARP_ALS_PALLAS``, the one switch the port reads: "0" turns ALS's
+  ``solver="auto"`` away from the kernel on "cuda", unset or any other value
+  leaves it on, and no other predicate moves.
+* ``ring_attention_mha`` with ``fused_dma=None`` follows
+  ``ring_dma.use_ring_dma`` of the device; its einsum hops are counted one a
+  hop actually computed, whatever ``use_flash`` was.
+* The K-means shared-memory twin at known (D, K), and the SPD solve's
+  shared-memory limit.
+* ``ALS._resolve_solver`` around the two SPD limits.
+* ``spd_solve_plain`` against the JAX package's ``spd_solve_pallas`` in
+  interpret mode at K = 72 and 96, and against ``numpy.linalg.solve`` in
+  float64 at K = 128 and 200: rtol 1e-4 relative to max |x| (the pattern of
+  ``tests/test_torch_als.py``).
+* A W=4 ALS fit at rank 96 with ``solver="pallas"`` (the plain solve on the
+  CPU) against the JAX fit, within the tolerances of
+  ``tests/test_torch_als.py`` (RMSE rtol 1e-4, factors 1e-3 of their largest
+  entry). The JAX fit takes ``solver="cholesky"``: its Pallas solve in
+  interpret mode spends about 25 s compiling each K = 96 half-step on the
+  CPU, and the solve itself is held to that kernel by the test above.
+
+The card's side (kernel launches, ``plain_on_card`` outside each predicate,
+the loud error beyond a kernel's width, the one-block SPD kernel) is in
+``tests/test_torch_cuda_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from harp_tpu.io import datagen as jdatagen
+from harp_tpu.models import als as jals
+from harp_tpu.ops import pallas_kernels as jpk
+from harp_tpu.session import HarpSession as JaxSession
+from harp_tpu_torch.collectives import lax_ops as tlax
+from harp_tpu_torch.models import als as tals
+from harp_tpu_torch.ops import pallas_kernels as tpk
+from harp_tpu_torch.ops import ring_dma as tdma
+from harp_tpu_torch.parallel import ring_attention as tra
+from harp_tpu_torch.session import HarpSession as TorchSession
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+# (predicate, arguments inside its rule, arguments just outside)
+PREDICATES = {
+    "kmeans": (tpk.use_kmeans_pallas,
+               [(1_000_000, 100, 249, F32), (1, 100, 100, BF16),
+                (tpk.KMEANS_MAX_N, 8, 4, F32)],
+               [(1_000_000, 100, 250, F32), (1000, 100, 100, torch.float16),
+                (tpk.KMEANS_MAX_N + 1, 8, 4, F32), (1000, 256, 200, F32)]),
+    "flash": (tpk.use_flash_pallas, [(8192,), (16384,), (1 << 20,)],
+              [(8191,), (1,)]),
+    "spd": (tpk.use_spd_solve_pallas, [(1,), (32,), (64,)],
+            [(65,), (128,)]),
+}
+
+
+@pytest.fixture(autouse=True)
+def als_switch_unset(monkeypatch):
+    monkeypatch.delenv("HARP_ALS_PALLAS", raising=False)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu", torch.device("cuda", 0)])
+@pytest.mark.parametrize("name", sorted(PREDICATES))
+def test_predicate_limits(name, device):
+    fn, inside, outside = PREDICATES[name]
+    on_card = torch.device(device).type == "cuda"
+    for args in inside:
+        assert fn(*args, device) is on_card, (name, args, device)
+    for args in outside:
+        assert fn(*args, device) is False, (name, args, device)
+
+
+@pytest.mark.parametrize("value,on", [(None, True), ("0", False), ("1", True),
+                                      ("", True), ("off", True)])
+def test_als_pallas_switch(monkeypatch, value, on):
+    if value is not None:
+        monkeypatch.setenv("HARP_ALS_PALLAS", value)
+    assert tpk.use_spd_solve_pallas(64, "cuda") is on
+    assert tpk.use_spd_solve_pallas(64, "cpu") is False
+    # the switch turns off the SPD solve's "auto" rule and nothing else
+    for name, (fn, inside, _) in PREDICATES.items():
+        if name != "spd":
+            assert fn(*inside[0], "cuda") is True, name
+
+
+def _qkv(w=4, l_local=8, seed=4):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (w * l_local, 2, 8)).astype(np.float32)) for _ in range(3))
+
+
+@pytest.mark.parametrize("card", [True, False])
+def test_ring_attention_fused_dma_none_follows_use_ring_dma(monkeypatch,
+                                                            card):
+    """fused_dma=None is ``use_ring_dma`` of the device: evaluated as on
+    the card, its hops go through the ring-DMA engine (spied on, the plain
+    hop standing in for the kernel); on the CPU it is the unfused ring. The
+    result is bitwise the unfused ring either way."""
+    real = tdma.use_ring_dma
+    calls = []
+
+    def spy_hop(x, shift=1):
+        calls.append(shift)
+        return tlax.rotate(x, shift)
+
+    if card:
+        monkeypatch.setattr(tdma, "use_ring_dma", lambda device: real("cuda"))
+    monkeypatch.setattr(tdma, "hop", spy_hop)
+    monkeypatch.setattr(tdma, "hop_tree",
+                        lambda tree, shift=1: tuple(spy_hop(x, shift)
+                                                    for x in tree))
+    ts = TorchSession(num_workers=4, device="cpu")
+    q, k, v = _qkv()
+
+    def ring(fused_dma):
+        return ts.run(lambda a, b, c: tra.ring_attention_mha(
+            a, b, c, True, fused_dma=fused_dma), q, k, v,
+            in_specs=(ts.shard(),) * 3, out_specs=ts.shard())
+
+    got = ring(None)
+    assert bool(calls) is card
+    calls.clear()
+    assert torch.equal(got, ring(False)) and not calls
+
+
+@pytest.mark.parametrize("use_flash", [None, False])
+def test_ring_attention_counts_each_plain_hop(monkeypatch, use_flash):
+    """The ring's einsum path asks ``count_plain_on_card`` once for every
+    hop it computes (W hops for W workers), whether ``use_flash`` was
+    resolved to False or passed so."""
+    seen = []
+    monkeypatch.setattr(tpk, "count_plain_on_card",
+                        lambda name, device: seen.append(
+                            (name, torch.device(device).type)))
+    ts = TorchSession(num_workers=4, device="cpu")
+    q, k, v = _qkv()
+    ts.run(lambda a, b, c: tra.ring_attention_mha(
+        a, b, c, False, use_flash=use_flash, fused_dma=False), q, k, v,
+        in_specs=(ts.shard(),) * 3, out_specs=ts.shard())
+    assert seen == [("flash_attention", "cpu")] * 4
+
+
+def test_cpu_dispatch_counts_nothing():
+    """On a CPU tensor every dispatcher takes the plain version, outside a
+    predicate too, and neither ``launches`` nor ``plain_on_card`` moves;
+    ``count_plain_on_card`` counts CUDA devices only."""
+    before = dict(tpk.launches), dict(tpk.plain_on_card)
+    x, c = torch.randn(64, 256), torch.randn(250, 256)     # beyond the smem
+    got = tpk.kmeans_stats(x, c, 200)
+    for a, b in zip(got, tpk.kmeans_stats_plain(x, c, 200)):
+        assert torch.equal(a, b)
+    assert (dict(tpk.launches), dict(tpk.plain_on_card)) == before
+    tpk.count_plain_on_card("flash_attention", "cpu")
+    assert tpk.plain_on_card == before[1]
+    tpk.count_plain_on_card("flash_attention", "cuda")
+    assert (tpk.plain_on_card["flash_attention"]
+            == before[1]["flash_attention"] + 1)
+    tpk.plain_on_card["flash_attention"] -= 1
+
+
+@pytest.mark.parametrize("d,k,want", [
+    (100, 100, 4 * (102 * 68 + 100 * 101 + 100 + 100 * 102 + 257)),
+    (16, 8, 4 * (18 * 68 + 8 * 17 + 8 + 8 * 18 + 257)),
+    (64, 32, 4 * (66 * 68 + 32 * 65 + 32 + 32 * 66 + 257)),
+])
+def test_kmeans_smem_twin(d, k, want):
+    assert tpk.kmeans_smem_bytes(d, k) == want
+
+
+def test_kmeans_and_spd_shared_memory_limits():
+    # D = 100: K = 249 is the last centroid count one block holds
+    assert tpk.kmeans_smem_bytes(100, 249) <= tpk.MAX_SMEM_BYTES
+    assert tpk.kmeans_smem_bytes(100, 250) > tpk.MAX_SMEM_BYTES
+    lim = tpk.SPD_MAX_K_SMEM
+    assert tpk.spd_solve_block_smem_bytes(lim) <= tpk.MAX_SMEM_BYTES
+    assert tpk.spd_solve_block_smem_bytes(lim + 1) > tpk.MAX_SMEM_BYTES
+    assert tpk.spd_solve_block_smem_bytes(128) == 4 * (128 * 129 // 2 + 256)
+
+
+@pytest.mark.parametrize("rank,solver,device,want", [
+    (64, "auto", "cuda", "pallas"),
+    (65, "auto", "cuda", "cholesky"),
+    (128, "auto", "cuda", "cholesky"),
+    (64, "auto", "cpu", "cholesky"),
+    (64, "pallas", "cuda", "pallas"),
+    (65, "pallas", "cuda", "pallas"),
+    (128, "pallas", "cuda", "pallas"),
+    (338, "pallas", "cuda", "pallas"),
+    (339, "pallas", "cpu", "pallas"),
+    (339, "pallas", "cuda", None),
+    (1000, "pallas", "cuda", None),
+])
+def test_resolve_solver(rank, solver, device, want):
+    cfg = tals.ALSConfig(rank=rank, solver=solver)
+    if want is None:
+        with pytest.raises(ValueError, match="rank <= 338"):
+            tals._resolve_solver(cfg, device)
+    else:
+        assert tals._resolve_solver(cfg, device) == want
+
+
+def test_resolve_solver_auto_honours_the_switch(monkeypatch):
+    monkeypatch.setenv("HARP_ALS_PALLAS", "0")
+    assert tals._resolve_solver(tals.ALSConfig(rank=32), "cuda") == "cholesky"
+    # an explicit request still takes the kernel
+    assert tals._resolve_solver(tals.ALSConfig(rank=32, solver="pallas"),
+                                "cuda") == "pallas"
+
+
+def normal_equations(n, k, seed):
+    """ALS-shaped SPD systems: V'V over 4k factor rows plus 0.1 I, with a
+    right-hand side, as numpy float32."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((n, 4 * k, k)).astype(np.float32) / np.sqrt(k)
+    a = (np.einsum("nek,nel->nkl", v, v)
+         + 0.1 * np.eye(k, dtype=np.float32)).astype(np.float32)
+    b = rng.standard_normal((n, k)).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("k", [72, 96])
+def test_spd_solve_plain_matches_pallas_interpret_past_64(k):
+    n = 16
+    a, b = normal_equations(n, k, seed=k)
+    ref = np.asarray(jpk.spd_solve_pallas(jnp.asarray(a), jnp.asarray(b),
+                                          tile_b=n, interpret=True))
+    got = tpk.spd_solve_plain(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32 and got.shape == (n, k)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got.numpy() / scale, ref / scale, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [128, 200])
+def test_spd_solve_plain_matches_numpy_past_64(k):
+    a, b = normal_equations(8, k, seed=k)
+    exact = np.linalg.solve(a.astype(np.float64),
+                            b.astype(np.float64)[..., None])[..., 0]
+    got = tpk.spd_solve_plain(torch.from_numpy(a), torch.from_numpy(b))
+    scale = np.abs(exact).max()
+    np.testing.assert_allclose(got.numpy() / scale, exact / scale, rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_als_fit_rank96_pallas_matches_jax():
+    nu, ni = 128, 96
+    rows, cols, vals = jdatagen.sparse_ratings(nu, ni, rank=4, density=0.1,
+                                               seed=3)
+    data = (rows, cols, np.abs(vals), nu, ni, 1)
+    kw = dict(rank=96, lam=0.1, alpha=40.0, iterations=3, implicit=True,
+              layout="sparse")
+    ref = jals.ALS(JaxSession(num_workers=4),
+                   jals.ALSConfig(**kw, solver="cholesky")).fit(*data)
+    got = tals.ALS(TorchSession(num_workers=4, device="cpu"),
+                   tals.ALSConfig(**kw, solver="pallas")).fit(*data)
+    assert got[0].shape == (nu, 96) and got[1].shape == (ni, 96)
+    assert np.all(np.diff(got[2]) < 0)
+    np.testing.assert_allclose(got[2], np.asarray(ref[2]), rtol=1e-4)
+    for g, r in zip(got[:2], ref[:2]):
+        r = np.asarray(r, np.float64)
+        assert np.abs(np.asarray(g, np.float64) - r).max() <= (
+            1e-3 * np.abs(r).max())
