@@ -41,16 +41,22 @@ main path must make no plain call on the card:
   * ring DMA: the hop (shifts 1, -1, 3; f32, bf16, int32 and a ragged
     uint8 block), ``hop_tree`` and ``ring_allgather`` on 4 stacked workers
     against their plain versions; the SGD-MF flagship at W=4 with
-    ``fused_dma=True``, bitwise the unfused fit; ring attention with fused
-    hops; then, through the port's launcher, 4 processes on the card
-    (``chip_smoke.py --mp-child``): hop and allgather between processes
-    against the gloo plain version, 200 hops with one rank held back, the
-    fused SGD-MF flagship bitwise the stacked fit, its factors pulled
-    with ``table_ops.pull(fused=True)`` (the allgather kernel's path; the
-    fit itself launches no allgather), and K-means at n = 1,048,576
-    (262,144 a worker), k = 100, d = 100, 5 iterations, whose centroids,
-    counts and costs are bitwise the stacked W=4 fit; and
-    ``parallel/mp_smoke.py`` as 2 processes x 2 workers;
+    ``fused_dma=True``, bitwise the unfused fit: on one slice through the
+    hop kernel's in-kernel send (no ring-DMA hop), on two slices through
+    one ring-DMA hop a micro-step; the in-kernel sends alone against the
+    pairs they replace (``[mfhop:ring]`` at the flagship's W=4 hop shape,
+    ``[flash:ring]`` at the ring's hop shape), bitwise and timed; ring
+    attention fused (the flash kernel's in-kernel send); then, through the
+    port's launcher, 4 processes on the card (``chip_smoke.py
+    --mp-child``): hop and allgather between processes against the gloo
+    plain version, 200 hops and 200 dense-MF sends with one rank held
+    back, the fused causal ring attention call and the fused SGD-MF
+    flagship bitwise the stacked ones, the factors pulled with
+    ``table_ops.pull(fused=True)`` (the allgather kernel's path; the fit
+    itself launches no allgather), and K-means at n = 1,048,576 (262,144 a
+    worker), k = 100, d = 100, 5 iterations, whose centroids, counts and
+    costs are bitwise the stacked W=4 fit; and ``parallel/mp_smoke.py`` as
+    2 processes x 2 workers;
   * dispatch: the plain-call counts of every main path (all 0); one call
     where the JAX package takes XLA (K-means K=400, D=100; attention at
     L=4096): no launch, one plain call, the plain version's answer; and one
@@ -64,7 +70,11 @@ It prints:
   * a ``{"kernels": [...]}`` line: per kernel (the SPD solve's two
     variants apart) its launches on its path, its error against the plain
     version, its time, the plain version's time, the bound for the same
-    work and a PyTorch yardstick's time;
+    work and a PyTorch yardstick's time; the dense-MF and flash rows also
+    a ``ring_hop`` record (the in-kernel send: its launches on its path,
+    stacked and in a process of the 4-process gang with that process's
+    receive launches, its ms, the ms of the pair it replaces and its
+    bound);
   * last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. It imports nothing of
@@ -537,12 +547,13 @@ def library_hop(slab, buckets, w, h, rc, cc, nmb, lr, lam):
     return w_out, hb, sse
 
 
-def mf_hop_bound(nw, rpw, cpb, k, nmb_fine):
+def mf_hop_bound(nw, rpw, cpb, k, nmb_fine, extra_bytes=0):
     """Least time for one hop: every worker's slab bucket (bf16), W, H and
-    the counts read once and W, H, SSE written once, against 6 rpw cpb K
-    operations at the bf16 tensor-core peak."""
+    the counts read once and W, H, SSE written once (and ``extra_bytes``
+    more moved), against 6 rpw cpb K operations at the bf16 tensor-core
+    peak."""
     moved = nw * (rpw * cpb * 2 + 2 * rpw * k * 4 + 2 * cpb * k * 4
-                  + rpw * 4 + nmb_fine * cpb * 4 + 4)
+                  + rpw * 4 + nmb_fine * cpb * 4 + 4) + extra_bytes
     ops = 6 * nw * rpw * cpb * k
     t_bytes, t_ops = moved / PEAK_BYTES_S, ops / PEAK_BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
@@ -1349,16 +1360,16 @@ def attention_rows(q, k, v, causal, rows, dtype=torch.float64):
             den.transpose(1, 2))
 
 
-def flash_bound(w, l, h, dh, dv, causal, in_bytes):
+def flash_bound(w, l, h, dh, dv, causal, in_bytes, extra_bytes=0):
     """Least time for attention over (W, L, H): q, k, v read once and out
-    written once, against (2 Dh + 2 Dv) H operations a live (query, key)
-    pair, L (L + 1) / 2 pairs causal. The float32 path's operations take
-    three TF32 passes (the fastest route to float32 accuracy); with bf16
-    inputs the q k half runs at the bf16 rate, p v still as three TF32
-    passes (p stays float32). Returns (ms, what bounds it, the same
-    operations on the float32 CUDA cores in ms)."""
+    written once (and ``extra_bytes`` more moved), against (2 Dh + 2 Dv) H
+    operations a live (query, key) pair, L (L + 1) / 2 pairs causal. The
+    float32 path's operations take three TF32 passes (the fastest route to
+    float32 accuracy); with bf16 inputs the q k half runs at the bf16 rate,
+    p v still as three TF32 passes (p stays float32). Returns (ms, what
+    bounds it, the same operations on the float32 CUDA cores in ms)."""
     pairs = w * h * (l * (l + 1) // 2 if causal else l * l)
-    moved = w * l * h * ((2 * dh + dv) * in_bytes + dv * 4)
+    moved = w * l * h * ((2 * dh + dv) * in_bytes + dv * 4) + extra_bytes
     qk, pv = 2 * dh * pairs, 2 * dv * pairs
     t_qk = qk / PEAK_BF16_FLOPS if in_bytes == 2 else 3 * qk / PEAK_TF32_FLOPS
     t_ops = t_qk + 3 * pv / PEAK_TF32_FLOPS
@@ -1864,6 +1875,94 @@ def ringdma_stacked():
     return hop, ag
 
 
+def in_turns(fn_a, fn_b, reps, warmup=2):
+    """CUDA-event ms of ``fn_a`` and ``fn_b`` timed in turns (a, b, b, a),
+    each the mean of its two readings."""
+    a1 = cuda_time_ms(fn_a, reps, warmup)
+    b1, b2 = (cuda_time_ms(fn_b, reps, warmup) for _ in range(2))
+    a2 = cuda_time_ms(fn_a, reps, warmup)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def mfhop_ring_phase(state):
+    """[mfhop:ring]: the hop with its in-kernel send (``ring_hop=True``) at
+    the flagship's W=4 hop shape, against the pair it replaces (the hop,
+    then ``ring_dma.hop_cuda`` of h'): every output bitwise, CUDA-event ms
+    of both in turns, and the bound (the hop's, whose bytes already read H
+    and write h', plus one more write of H: h_next)."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.ops import ring_dma
+    from harp_tpu_torch.parallel.mesh import WorkerGroup
+
+    f = MF_FLAGSHIP
+    args = (*mf_hop_args(state), f["nmb"], f["lr"], f["lam"])
+    slab, _, w, _, _, cc = args[:6]
+    nw, _, rpw, cpb = slab.shape
+    k = w.shape[-1]
+    g = WorkerGroup(nw, slab.device)
+    log(f"[mfhop:ring] W={nw} stacked, rpw={rpw} cpb={cpb} K={k} "
+        f"nmb={f['nmb']}: dense_mf_hop_cuda(ring_hop=True) against the hop "
+        f"and ring_dma.hop_cuda")
+
+    def ring():
+        return pk.dense_mf_hop_cuda(*args, ring_hop=True, group=g)
+
+    def pair():
+        out = pk.dense_mf_hop_cuda(*args)
+        return (*out, ring_dma.hop_cuda(out[1], 1, g))
+
+    got, want = ring(), pair()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "w', h', sse and h_next bitwise the pair's")
+    pair_ms, ms = in_turns(pair, ring, 10)
+    hop_bound, _ = mf_hop_bound(nw, rpw, cpb, k, cc.shape[2])
+    bound, by = mf_hop_bound(nw, rpw, cpb, k, cc.shape[2],
+                             extra_bytes=nw * cpb * k * 4)
+    log(f"  ring_hop {ms:.4f} ms, the pair {pair_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}; the hop's alone {hop_bound:.4f} ms, plus "
+        f"the write of h_next)")
+    return {"ms": ms, "pair_ms": pair_ms, "bound_ms": bound, "bound_by": by}
+
+
+def flash_ring_phase():
+    """[flash:ring]: flash attention with its in-kernel send at the ring's
+    hop shape (W=4 stacked, L=8192 local, H=8, Dh=64, not causal) against
+    the pair it replaces (the kernel, then ``ring_dma.hop_cuda`` of k and of
+    v): every output bitwise, CUDA-event ms of both in turns, and the bound
+    (the flash bound, whose bytes already read k and v, plus one more
+    write of them: k_next, v_next)."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.ops import ring_dma
+    from harp_tpu_torch.parallel.mesh import WorkerGroup
+
+    c = ATTN_RING
+    w, l = c["workers"], c["l"] // c["workers"]
+    q, k, v = attn_inputs((w, l, c["h"], c["dh"]), c["dh"], seed=12)
+    g = WorkerGroup(w, q.device)
+    log(f"[flash:ring] W={w} stacked, L={l} H={c['h']} Dh={c['dh']} full "
+        f"f32: flash_attention_cuda(ring_hop=True) against the kernel and "
+        f"two ring_dma.hop_cuda")
+
+    def ring():
+        return pk.flash_attention_cuda(q, k, v, False, True, ring_hop=True,
+                                       group=g)
+
+    def pair():
+        return (*pk.flash_attention_cuda(q, k, v, False, True),
+                ring_dma.hop_cuda(k, 1, g), ring_dma.hop_cuda(v, 1, g))
+
+    got, want = ring(), pair()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "out, m, den, k_next and v_next bitwise the pair's")
+    pair_ms, ms = in_turns(pair, ring, 5, warmup=1)
+    kv_bytes = k.numel() * 4 + v.numel() * 4
+    bound, by, _ = flash_bound(w, l, c["h"], c["dh"], c["dh"], False, 4,
+                               kv_bytes)
+    log(f"  ring_hop {ms:.4f} ms, the pair {pair_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by})")
+    return {"ms": ms, "pair_ms": pair_ms, "bound_ms": bound, "bound_by": by}
+
+
 def mf_fused_config(**kw):
     from harp_tpu_torch.models import sgd_mf
 
@@ -1978,7 +2077,11 @@ def mf_rates(model_for, state, nnz):
 
 def mf_fused_stacked():
     """[sgd_mf:fused] stacked: the flagship at W=4 with fused_dma=True
-    against fused_dma=False, bitwise; one hop launch a rotation step."""
+    against fused_dma=False, bitwise: on one slice the hop kernel's
+    in-kernel send (one dense_mf_hop launch a rotation step, each with the
+    send, no ring_dma_hop), on two slices the out-of-kernel hop (one
+    ring_dma_hop and one dense_mf_hop launch a micro-step); and
+    [mfhop:ring] on the 1-slice state."""
     from harp_tpu_torch import HarpSession
     from harp_tpu_torch.models import sgd_mf
 
@@ -1997,9 +2100,13 @@ def mf_fused_stacked():
     counts = read_counts()
     check_no_plain("[sgd_mf:fused] stacked")
     steps = f["epochs"] * RING_W
-    check(counts["ring_dma_hop"] == steps and counts["dense_mf_hop"] == steps,
-          f"one ring_dma_hop and one dense_mf_hop launch a rotation step "
-          f"({counts['ring_dma_hop']}, {counts['dense_mf_hop']} = {steps})")
+    check(counts["dense_mf_hop"] == steps
+          and counts["dense_mf_hop_ring"] == steps
+          and counts["ring_dma_hop"] == 0 and counts["ring_recv"] == 0,
+          f"one dense_mf_hop launch a rotation step, each with the in-kernel "
+          f"send, and no ring_dma_hop or receive kernel (stacked) "
+          f"({counts['dense_mf_hop']}, {counts['dense_mf_hop_ring']} = "
+          f"{steps}; {counts['ring_dma_hop']}, {counts['ring_recv']})")
     plain = sgd_mf.SGDMF(sess, mf_fused_config(fused_dma=False))
     p_w, p_h, p_rmse = plain.train_prepared(state)
     check(torch.equal(out_w, p_w) and torch.equal(out_h, p_h)
@@ -2015,17 +2122,61 @@ def mf_fused_stacked():
     log(f"  two-point: fused {fused_tp['rate']:.6g} ratings/s "
         f"({fused_tp['per_iter_ms']:.4f} ms an epoch), unfused "
         f"{plain_tp['rate']:.6g} ({plain_tp['per_iter_ms']:.4f} ms)")
-    return {"launches": counts, "digest": digest,
+    ring = mfhop_ring_phase(state)
+    del state, model, plain
+    torch.cuda.empty_cache()
+
+    log(f"[sgd_mf:fused] stacked W={RING_W}, 2 slices: the same data, "
+        f"fused_dma=True against False")
+    cfg2 = mf_fused_config(fused_dma=True, num_slices=2)
+    model2 = sgd_mf.SGDMF(sess, cfg2)
+    state2 = model2.prepare(rows, cols, vals, f["users"], f["items"], seed=0)
+    zero_counts()
+    fit2 = model2.train_prepared(state2)
+    counts2 = read_counts()
+    check_no_plain("[sgd_mf:fused] stacked, 2 slices")
+    micro = 2 * steps
+    check(counts2["ring_dma_hop"] == micro and counts2["dense_mf_hop"] == micro
+          and counts2["dense_mf_hop_ring"] == 0,
+          f"one ring_dma_hop and one dense_mf_hop launch a micro-step, no "
+          f"in-kernel send ({counts2['ring_dma_hop']}, "
+          f"{counts2['dense_mf_hop']} = {micro}; "
+          f"{counts2['dense_mf_hop_ring']})")
+    unfused2 = sgd_mf.SGDMF(sess, mf_fused_config(
+        fused_dma=False, num_slices=2)).train_prepared(state2)
+    check(all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+              for a, b in zip(fit2, unfused2)),
+          "2 slices: factors and RMSEs bitwise the fused_dma=False fit")
+    fused2_tp = mf_rates(lambda e: sgd_mf.SGDMF(sess, mf_fused_config(
+        fused_dma=True, num_slices=2, epochs=e)), state2, nnz)
+    plain2_tp = mf_rates(lambda e: sgd_mf.SGDMF(sess, mf_fused_config(
+        fused_dma=False, num_slices=2, epochs=e)), state2, nnz)
+    log(f"  two-point, 2 slices: fused {fused2_tp['rate']:.6g} ratings/s "
+        f"({fused2_tp['per_iter_ms']:.4f} ms an epoch), unfused "
+        f"{plain2_tp['rate']:.6g} ({plain2_tp['per_iter_ms']:.4f} ms)")
+    return {"launches": counts, "launches2": counts2, "digest": digest,
             "rmse": [float(r) for r in rmse], "nnz": nnz,
             "ratings_per_s": fused_tp["rate"],
             "per_epoch_ms": fused_tp["per_iter_ms"],
             "unfused_ratings_per_s": plain_tp["rate"],
-            "unfused_per_epoch_ms": plain_tp["per_iter_ms"]}
+            "unfused_per_epoch_ms": plain_tp["per_iter_ms"],
+            "two_slice_per_epoch_ms": fused2_tp["per_iter_ms"],
+            "two_slice_unfused_per_epoch_ms": plain2_tp["per_iter_ms"],
+            "ring_hop": ring}
+
+
+def ring_digest(out) -> str:
+    """sha256 of a ring attention output's bytes."""
+    import hashlib
+
+    return hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
 
 
 def ring_fused_phase():
     """[attention:ring fused]: ring attention at W=4, L=32768, causal, with
-    the (k, v) hops through the ring-DMA kernel, bitwise the unfused ring."""
+    the (k, v) hops inside the W flash launches (the in-kernel send), bitwise
+    the unfused ring; [flash:ring] after it."""
     from harp_tpu_torch import HarpSession
     from harp_tpu_torch.parallel import ring_attention as ra
 
@@ -2043,18 +2194,24 @@ def ring_fused_phase():
     out = ring(True)
     counts = read_counts()
     check_no_plain("[attention:ring fused]")
-    hops = 2 * c["workers"]
-    check(counts["ring_dma_hop"] == hops
-          and counts["flash_attention"] == c["workers"],
-          f"{hops} ring_dma_hop launches a call (k and v, W hops) and "
-          f"{c['workers']} flash_attention ({counts['ring_dma_hop']}, "
-          f"{counts['flash_attention']})")
+    w = c["workers"]
+    check(counts["flash_attention"] == w
+          and counts["flash_attention_ring"] == w
+          and counts["ring_dma_hop"] == 0 and counts["ring_recv"] == 0,
+          f"{w} flash_attention launches a call, each with the in-kernel "
+          f"send, and no ring_dma_hop or receive kernel (stacked) "
+          f"({counts['flash_attention']}, {counts['flash_attention_ring']}; "
+          f"{counts['ring_dma_hop']}, {counts['ring_recv']})")
     check(torch.equal(out, ring(False)), "bitwise the unfused ring call")
-    ms, plain_ms = (cuda_time_ms(lambda: ring(f), reps=3, warmup=1)
-                    for f in (True, False))
+    plain_ms, ms = in_turns(lambda: ring(False), lambda: ring(True), 3,
+                            warmup=1)
     log(f"  fused {ms:.4f} ms a call, unfused {plain_ms:.4f} ms")
-    return {"launches": counts["ring_dma_hop"], "ms": ms,
-            "unfused_ms": plain_ms}
+    res = {"launches": counts, "ms": ms, "unfused_ms": plain_ms,
+           "digest": ring_digest(out)}
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    res["ring_hop"] = flash_ring_phase()
+    return res
 
 
 def mp_child() -> int:
@@ -2125,6 +2282,60 @@ def mp_child() -> int:
     out["credit_s"] = time.perf_counter() - t0
     ring_dma.check_errors()
 
+    # 200 back-to-back dense-MF in-kernel sends, rank 1 held back the same
+    # way: an all-missing slab with zero counts leaves H as it was, so every
+    # h_next must be the left neighbour's block of the same iteration
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    slab = torch.full((1, 1, 16, 1000), float("nan"),
+                      device=CARD).bfloat16()
+    mf = (slab, torch.zeros(1, dtype=torch.int32, device=CARD),
+          torch.ones(1, 16, 16, device=CARD))
+    h = torch.empty((1, 1000, 16), device=CARD)
+    counts = (torch.zeros(1, 1, 16, device=CARD),
+              torch.zeros(1, 1, 1, 1000, device=CARD))
+    bad.zero_()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for it in range(CREDIT_HOPS):
+        if rank == 1:
+            torch.cuda._sleep(20_000 * (it % 13))
+        h.fill_(rank * 1000 + it)
+        got = pk.dense_mf_hop_cuda(*mf, h, *counts, 1, 0.05, 0.01,
+                                   ring_hop=True, group=g)[3]
+        bad += (got != ((rank - 1) % RING_W) * 1000 + it).sum()
+    torch.cuda.synchronize()
+    out["mf_credit_mismatches"] = int(bad)
+    out["mf_credit_s"] = time.perf_counter() - t0
+    ring_dma.check_errors()
+
+    # the causal ring attention call of [attention:ring fused], 4 processes
+    # x 1 worker, fused (the in-kernel sends) and unfused
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    c = ATTN_RING
+    q, k, v = (sess.scatter(t) for t in attn_inputs(
+        (c["l"], c["h"], c["dh"]), c["dh"], seed=6))
+
+    def ring(fused):
+        return sharded(sess, lambda a, b, d: ra.ring_attention_mha(
+            a, b, d, True, fused_dma=fused), q, k, v)
+
+    zero_counts()
+    got = ring(True)
+    out["ring_launches"] = read_counts()
+    out["ring_plain"] = plain_counts()
+    out["ring_digest"] = ring_digest(distributed.gather_rows(got))
+    out["ring_unfused_bitwise"] = bool(torch.equal(got, ring(False)))
+    for name, fused in (("ring_ms", True), ("ring_unfused_ms", False)):
+        torch.cuda.synchronize()
+        dist.barrier()
+        out[name] = cuda_time_ms(lambda: ring(fused), reps=3, warmup=1)
+    ring_dma.check_errors()
+    del q, k, v, got
+    torch.cuda.empty_cache()
+
     # the SGD-MF flagship, 4 processes x 1 worker, fused_dma=True
     f = MF_FLAGSHIP
     rows, cols, vals = mf_fused_data()
@@ -2156,16 +2367,18 @@ def mp_child() -> int:
     return 0
 
 
-def ringdma_mp(stacked_mf, stacked_km):
+def ringdma_mp(stacked_mf, stacked_km, stacked_ring):
     """[ringdma:mp] and [sgd_mf:fused] across 4 processes on the card,
-    through the port's launcher, and the K-means fit at n = 1M across 4
-    processes; any child's failure fails the run."""
+    through the port's launcher, the fused causal ring attention call and
+    the K-means fit at n = 1M across 4 processes; any child's failure fails
+    the run."""
     from harp_tpu_torch.parallel import launch
 
     log(f"[ringdma:mp] {RING_W} processes x 1 worker on the card (the "
         f"port's launcher): hop and ring_allgather against the gloo plain "
         f"version at {', '.join(str(b) for b in RING_MP_BYTES)} bytes a "
-        f"worker, {CREDIT_HOPS} credit hops, the SGD-MF flagship fused")
+        f"worker, {CREDIT_HOPS} credit hops and dense-MF sends, the fused "
+        f"ring attention call, the SGD-MF flagship fused")
     t0 = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     res = launch.launch(RING_W, [sys.executable, os.path.abspath(__file__),
@@ -2191,14 +2404,40 @@ def ringdma_mp(stacked_mf, stacked_km):
     check(all(o["credit_mismatches"] == 0 for o in outs.values()),
           f"{CREDIT_HOPS} back-to-back hops with rank 1 held back: every "
           f"hop bitwise on every rank ({[round(o['credit_s'], 3) for o in outs.values()]} s)")
+    check(all(o["mf_credit_mismatches"] == 0 for o in outs.values()),
+          f"{CREDIT_HOPS} back-to-back dense-MF in-kernel sends with rank 1 "
+          f"held back: every h_next bitwise on every rank "
+          f"({[round(o['mf_credit_s'], 3) for o in outs.values()]} s)")
+    w = ATTN_RING["workers"]
+    for i, o in outs.items():
+        c = o["ring_launches"]
+        check(c["flash_attention"] == w and c["flash_attention_ring"] == w
+              and c["ring_recv"] == w and c["ring_dma_hop"] == 0,
+              f"rank {i}, the fused ring call: {w} flash_attention launches, "
+              f"each with the in-kernel send and its receive launch, no "
+              f"ring_dma_hop ({c['flash_attention']}, "
+              f"{c['flash_attention_ring']}, {c['ring_recv']}, "
+              f"{c['ring_dma_hop']})")
+        check_no_plain(f"[ringdma:mp] ring attention fused, rank {i}",
+                       o["ring_plain"])
+    check(all(o["ring_digest"] == stacked_ring["digest"]
+              and o["ring_unfused_bitwise"] for o in outs.values()),
+          f"ring attention, 4 processes x 1 worker, L={ATTN_RING['l']} "
+          f"causal: bitwise the stacked call and the unfused call")
+    log(f"  ring attention 4 processes: fused "
+        f"{[round(o['ring_ms'], 4) for o in outs.values()]} ms a call, "
+        f"unfused {[round(o['ring_unfused_ms'], 4) for o in outs.values()]}")
     steps = MF_FLAGSHIP["epochs"] * RING_W
     for i, o in outs.items():
         c, p = o["launches"], o["pull_launches"]
-        check(c["ring_dma_hop"] == steps and c["dense_mf_hop"] == steps
+        check(c["dense_mf_hop"] == steps and c["dense_mf_hop_ring"] == steps
+              and c["ring_recv"] == steps and c["ring_dma_hop"] == 0
               and c["ring_allgather"] == 0,
-              f"rank {i}, the fit: {steps} ring_dma_hop and dense_mf_hop "
-              f"launches, no ring_allgather ({c['ring_dma_hop']}, "
-              f"{c['dense_mf_hop']}, {c['ring_allgather']})")
+              f"rank {i}, the fit: {steps} dense_mf_hop launches, each with "
+              f"the in-kernel send and its receive launch, no ring_dma_hop "
+              f"or ring_allgather ({c['dense_mf_hop']}, "
+              f"{c['dense_mf_hop_ring']}, {c['ring_recv']}, "
+              f"{c['ring_dma_hop']}, {c['ring_allgather']})")
         check(p["ring_allgather"] == 2 and p["ring_dma_hop"] == 0,
               f"rank {i}, table_ops.pull(fused=True) of W and H: 2 "
               f"ring_allgather launches ({p['ring_allgather']})")
@@ -2241,8 +2480,9 @@ def mp_smoke_phase():
 
 
 def ringdma_phases():
-    """Every ring-DMA phase; returns the kernels-line entries of the hop and
-    the allgather."""
+    """Every ring-DMA phase; returns the ring_hop records of the dense-MF
+    and flash kernels and the kernels-line entries of the hop and the
+    allgather."""
     from harp_tpu_torch.ops import ring_dma
 
     hop, ag = ringdma_stacked()
@@ -2256,14 +2496,26 @@ def ringdma_phases():
     torch.cuda.empty_cache()
     km = kmeans_mp_stacked()
     torch.cuda.empty_cache()
-    mp = ringdma_mp(mf, km)      # each child checks after each of its parts
+    mp = ringdma_mp(mf, km, attn)   # each child checks after each part
     mp_smoke_phase()
     mb = str(1 << 20)
-    return [{
+    mf_ring = {"launches": mf["launches"]["dense_mf_hop_ring"],
+               "mp_launches": mp[0]["launches"]["dense_mf_hop_ring"],
+               "mp_recv_launches": mp[0]["launches"]["ring_recv"],
+               **mf["ring_hop"]}
+    flash_ring = {
+        "launches": attn["launches"]["flash_attention_ring"],
+        "mp_launches": mp[0]["ring_launches"]["flash_attention_ring"],
+        "mp_recv_launches": mp[0]["ring_launches"]["ring_recv"],
+        **attn["ring_hop"]}
+    return mf_ring, flash_ring, [{
         "name": "ring_dma_hop", "route": "cuda",
         "source": "harp_tpu_torch/csrc/ring_dma.cu",
         "replaces": "harp_tpu/ops/ring_dma.py:224",
-        "launches": mf["launches"]["ring_dma_hop"], "max_abs_err": 0.0,
+        "launches": mf["launches2"]["ring_dma_hop"],
+        "launches_path": "the 2-slice fused SGD-MF flagship fit at W=4",
+        "one_slice_fit_launches": mf["launches"]["ring_dma_hop"],
+        "max_abs_err": 0.0,
         "ms": hop["ms"], "plain_ms": hop["plain_ms"],
         "bound_ms": hop["bound_ms"], "bound_by": "bytes",
         "library_ms": hop["library_ms"], "ms_4kib": hop["ms_4kib"],
@@ -2280,12 +2532,20 @@ def ringdma_phases():
         "fit_ratings_per_s": mf["ratings_per_s"],
         "fit_per_epoch_ms": mf["per_epoch_ms"],
         "fit_unfused_ratings_per_s": mf["unfused_ratings_per_s"],
+        "fit_unfused_per_epoch_ms": mf["unfused_per_epoch_ms"],
+        "two_slice_fit_per_epoch_ms": mf["two_slice_per_epoch_ms"],
+        "two_slice_fit_unfused_per_epoch_ms":
+            mf["two_slice_unfused_per_epoch_ms"],
         "mp_fit_ratings_per_s": mp[0]["ratings_per_s"],
         "mp_fit_per_epoch_ms": mp[0]["per_epoch_ms"],
         "mp_fit_staged_ratings_per_s": mp[0]["staged_ratings_per_s"],
-        "ring_attention_launches": attn["launches"],
+        "mp_fit_staged_per_epoch_ms": mp[0]["staged_per_epoch_ms"],
+        "ring_attention_launches": attn["launches"]["ring_dma_hop"],
         "ring_attention_fused_ms": attn["ms"],
         "ring_attention_unfused_ms": attn["unfused_ms"],
+        "mp_ring_attention_fused_ms": [mp[i]["ring_ms"] for i in mp],
+        "mp_ring_attention_unfused_ms": [mp[i]["ring_unfused_ms"]
+                                         for i in mp],
     }, {
         "name": "ring_allgather", "route": "cuda",
         "source": "harp_tpu_torch/csrc/ring_dma.cu",
@@ -2430,7 +2690,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     attn = attention_phases()
     torch.cuda.empty_cache()
-    ring = ringdma_phases()
+    mf["ring_hop"], attn["ring_hop"], ring = ringdma_phases()
     torch.cuda.empty_cache()
     plain = dispatch_phase()
     attn["plain_on_card"] = plain["flash_attention"]

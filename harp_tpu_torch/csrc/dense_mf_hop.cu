@@ -3,8 +3,9 @@
 // NaN-coded bf16 rating slab, with pred and G never written to device memory.
 //
 // Replaces: harp_tpu/ops/pallas_kernels.py::_dense_mf_hop_kernel (the TPU
-// kernel behind dense_mf_hop_pallas), without its in-kernel ring send. It
-// computes the same function, which is the XLA stripe loop of
+// kernel behind dense_mf_hop_pallas), with its in-kernel ring send
+// (ring_hop, _ring_send at pallas_kernels.py:225-247). It computes the same
+// function, which is the XLA stripe loop of
 // harp_tpu/models/sgd_mf.py::_build_dense. For stripe i = 0 .. nmb-1 in order:
 //   Wb = bf16(W_i)   Hb = bf16(H)
 //   pred = Wb Hb^T                         (bf16 products, f32 sums)
@@ -50,6 +51,33 @@
 //   The workspace costs a write and a read of n_ct rpw KP 4 bytes per hop
 //   (0.54 GB at the flagship); a cluster reduction would remove it.
 //
+// The ring send (ring_hop). With h_next given, each block also writes its
+// final H tile to the right neighbour, worker (g + 1) mod W, where the TPU
+// kernel ships the whole updated block from VMEM after its last step. A
+// block owns its tile through every stripe, so the tile is final when the
+// block's own last stripe ends and it sends with no grid-wide step:
+//   * neighbour in this launch (a stacked group, or a row of this process):
+//     straight into h_next at the neighbour's row; stream order plays the
+//     credit's role, as in ring_hop_kernel (ring_dma.cu);
+//   * neighbour in another process (ring_dma.cuh): the launch's first block
+//     gives every row's sender its credit before anything else; a block
+//     whose tile is final looks once at its own credit (the receiver has
+//     entered this call, so its IPC receive slot is free). If the credit is
+//     in, it stores the tile into that slot, fences and signals its arrival;
+//     if not, it marks the tile as left (sent = 0) and goes on. One arrival
+//     a tile, n_ct a row a call, whoever sends it.
+// No block of this launch ever spins. Its grid is not capped at the blocks
+// the card holds at once, so a block spinning here (for a credit, or for its
+// sender's tiles) could hold the SM that a block of this launch which has
+// not sent yet needs, or, where the processes' launches run at once (MPS),
+// the SM that the peer's first block needs to give the credit, while the
+// peer waits the same way. The waits are in ring_recv_kernel (ring_dma.cu),
+// launched after this kernel in stream order on a grid capped at its share
+// of the card, as every spinning launch of the ring engine is: it waits for
+// the credit and sends the tiles left here from h_out, then waits for its
+// own sender's n_ct arrivals and copies the slot into h_next.
+// The send adds one write of H (cpb KP 4 bytes a worker) to the hop's bytes.
+//
 // Layout: slab (W, n_blocks, rpw, cpb) bf16; bucket (W) int32, the block each
 // worker updates this hop; w (W, rpw, KP) f32; h (W, cpb, KP) f32; row_cnt
 // (W, n_blocks, rpw) f32; col_cnt (W, n_blocks, nmb_fine, cpb) f32, summed
@@ -62,8 +90,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "ring_dma.cuh"
 
 namespace {
+
+using ring_dma::HopPlan;
 
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
@@ -155,6 +188,20 @@ __device__ __forceinline__ unsigned as_u32(bf162 v) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
+// The ring send of a hop launch; h_next null: no send. remote: the workers
+// span processes (plan, ready and sent are used); base: global id of row 0;
+// sent (W, n_ct): per tile bound for another process, 1 where its block
+// sent it, 0 where it left it to the receive kernel.
+struct RingSend {
+  float* h_next;
+  HopPlan plan;
+  int remote;
+  int base;
+  int nworkers;
+  unsigned long long ready;
+  int* sent;
+};
+
 // H <- H + lr (dH - lam cnt H), in the reference's order of operations
 __device__ __forceinline__ float sgd_step(float x, float d, float cnt,
                                           float lr, float lam) {
@@ -171,7 +218,7 @@ dense_mf_hop_kernel(const bf16* __restrict__ slab,
                     float* __restrict__ h_out, float* __restrict__ ws,
                     float* __restrict__ sse_part, int n_blocks, int rpw,
                     int cpb, int nmb, int nmb_fine, float lr, float lam,
-                    int vec) {
+                    int vec, const RingSend ring) {
   using G = Geom<KT>;
   constexpr int KP = G::KP, CT = G::CT, CW = G::CW, R = G::R;
   constexpr int NT = CW / 8;     // n8 tiles of pred per piece
@@ -213,6 +260,9 @@ dense_mf_hop_kernel(const bf16* __restrict__ slab,
   const int ratio = nmb_fine / nmb;
   const int nch = (s_rows + R - 1) / R;
   const int total = nmb * nch;
+
+  if (ring.h_next != nullptr && ring.remote)
+    ring_dma::give_credits(ring.plan, gridDim.y);
 
   for (int e = tid; e < CT * KP; e += kThreads) {
     const int c = e / KP, k = e - c * KP;
@@ -447,11 +497,36 @@ dense_mf_hop_kernel(const bf16* __restrict__ slab,
   }
   __syncthreads();
 
+  // the final tile goes to h_out and, with the ring send, to the neighbour
+  // (in another process only if its credit is in: no block spins here)
+  float* hn = nullptr;
+  bool remote_send = false;
+  if (ring.h_next != nullptr) {
+    const int d =
+        ring_dma::ring_neighbor(ring.base + wk, ring.nworkers, 1) - ring.base;
+    if (d >= 0 && d < (int)gridDim.y) {
+      hn = ring.h_next + (size_t)d * cpb * KP;
+    } else {
+      int in = 0;
+      if (tid == 0) {
+        in = ring_dma::acquire_load(ring.plan.my_ready[wk]) >= ring.ready;
+        __threadfence();
+        ring.sent[(size_t)wk * n_ct + ct] = in;
+      }
+      remote_send = __syncthreads_or(in) != 0;
+      if (remote_send) hn = reinterpret_cast<float*>(ring.plan.remote_dst[wk]);
+    }
+  }
   for (int e = tid; e < CT * KP; e += kThreads) {
     const int c = e / KP, k = e - c * KP;
-    if (c < ncols)
-      h_out[((size_t)wk * cpb + c0 + c) * KP + k] = hs[c * G::LDH + k];
+    if (c < ncols) {
+      const float v = hs[c * G::LDH + k];
+      const size_t o = (size_t)(c0 + c) * KP + k;
+      h_out[(size_t)wk * cpb * KP + o] = v;
+      if (hn != nullptr) hn[o] = v;
+    }
   }
+  if (remote_send) ring_dma::signal_arrival(ring.plan.arrive_to[wk]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sse += __shfl_xor_sync(0xffffffffu, sse, off);
@@ -495,7 +570,7 @@ int launch(const void* slab, const void* bucket, const void* w, const void* h,
            const void* row_cnt, const void* col_cnt, void* w_out, void* h_out,
            void* ws, void* sse_part, void* sse_out, int nw, int n_blocks,
            int rpw, int cpb, int nmb, int nmb_fine, float lr, float lam,
-           cudaStream_t s) {
+           const RingSend& ring, cudaStream_t s) {
   using G = Geom<KT>;
   cudaError_t err = cudaFuncSetAttribute(
       dense_mf_hop_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -507,7 +582,7 @@ int launch(const void* slab, const void* bucket, const void* w, const void* h,
       static_cast<const float*>(w), static_cast<const float*>(h),
       static_cast<const float*>(col_cnt), static_cast<float*>(h_out),
       static_cast<float*>(ws), static_cast<float*>(sse_part), n_blocks, rpw,
-      cpb, nmb, nmb_fine, lr, lam, cpb % 8 == 0 ? 1 : 0);
+      cpb, nmb, nmb_fine, lr, lam, cpb % 8 == 0 ? 1 : 0, ring);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)rpw * G::KP;
@@ -548,18 +623,32 @@ long long dense_mf_hop_smem_bytes(int kp) {
 }
 
 // Launch one hop for all nw workers and its W/SSE reduction on ``stream``.
+// A non-null h_next (nw, cpb, kp) takes the ring send: rows of the launch
+// are workers base .. base + nw - 1 of nworkers; with remote = 1, plan is
+// the call's ring_dma HopPlan, ready the count its credit check expects and
+// sent (nw, n_ct) int32 the tiles sent (1) or left to ring_recv_kernel (0).
 // Returns cudaGetLastError() after the launches (0 on success).
 int dense_mf_hop_launch(const void* slab, const void* bucket, const void* w,
                         const void* h, const void* row_cnt,
                         const void* col_cnt, void* w_out, void* h_out,
                         void* ws, void* sse_part, void* sse_out, int nw,
                         int n_blocks, int rpw, int cpb, int kp, int nmb,
-                        int nmb_fine, float lr, float lam, void* stream) {
+                        int nmb_fine, float lr, float lam, void* stream,
+                        void* h_next, const void* plan, int remote, int base,
+                        int nworkers, unsigned long long ready, void* sent) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  RingSend ring{};
+  ring.h_next = static_cast<float*>(h_next);
+  if (plan != nullptr) memcpy(&ring.plan, plan, sizeof(HopPlan));
+  ring.remote = remote;
+  ring.base = base;
+  ring.nworkers = nworkers;
+  ring.ready = ready;
+  ring.sent = static_cast<int*>(sent);
 #define HARP_MF_LAUNCH(KT)                                                   \
   return launch<KT>(slab, bucket, w, h, row_cnt, col_cnt, w_out, h_out, ws,  \
                     sse_part, sse_out, nw, n_blocks, rpw, cpb, nmb, nmb_fine, \
-                    lr, lam, s)
+                    lr, lam, ring, s)
   switch (kp) {
     case 16: HARP_MF_LAUNCH(1);
     case 32: HARP_MF_LAUNCH(2);

@@ -8,7 +8,8 @@
 // (W, L, H) float32.
 //
 // Replaces: harp_tpu/ops/pallas_kernels.py::_flash_kernel (the TPU kernel
-// behind flash_attention_pallas, without its ring_hop epilogue). It computes
+// behind flash_attention_pallas, with its ring_hop prologue and epilogue,
+// _ring_start / _ring_wait at pallas_kernels.py:433-453). It computes
 // the same function with the same update rule: running max m (starting at
 // -1e30), denominator d and accumulator acc on chip; per KV tile
 // m' = max(m, rowmax s), alpha = exp(m - m'), p = exp(s - m'),
@@ -50,6 +51,28 @@
 // with exact sums it was slower than this kernel (PERF.md). wgmma on
 // pre-split tiles, TMA and warp specialisation are later work.
 //
+// The ring send (ring_hop). The TPU kernel starts two whole-array copies of
+// its k and v to the right neighbour at its first grid step and waits for
+// them at its last, so the copy overlaps the whole pass. Here the launch
+// carries rows x cpr extra copy blocks at the lowest block indices, issued
+// before every attention block: they run beside the first wave of attention
+// blocks (the copy is bound by bytes, the attention blocks by float32
+// operations, so the two share the SMs), and an attention block never waits
+// for them. A row's copy blocks move k[r] and v[r] as they lie, (L, H, D),
+// with no head-pack or padding pass, so the bytes that arrive are k and v
+// bitwise:
+//   * neighbour in this launch: straight into k_next / v_next at its row
+//     (fresh outputs, never the buffers this launch reads);
+//   * neighbour in another process (ring_dma.cuh): the first copy block
+//     gives every row's sender its credit before anything else, one credit a
+//     call for both tensors as the TPU kernel runs one ring_ready; a copy
+//     block waits for its own credit, stores its share of k and v into the
+//     receiver's IPC receive slot and signals, cpr arrivals a row a call.
+// Copy blocks wait only for the first copy block of the receiver's launch,
+// which never waits before it gives; attention blocks wait on nothing. The
+// receive (wait for the own sender, copy the slot into k_next / v_next) is
+// ring_recv_kernel (ring_dma.cu), launched after this one in stream order.
+//
 // The host binding is a plain C interface loaded with ctypes
 // (harp_tpu_torch/ops/_cuda_build.py).
 
@@ -57,6 +80,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "ring_dma.cuh"
 
 namespace {
 
@@ -88,6 +114,52 @@ struct Args {
   int bf16;
 };
 
+// The ring send of a launch, a parameter of its own: the attention blocks'
+// Args stay as they are without the send (a larger Args, even unread,
+// changed how the attention code was compiled and cost up to half its
+// speed). rows = W, cpr copy blocks a row, base the global id of row 0 of
+// nworkers, remote = 1 when the workers span processes (plan, ready, err,
+// cid are then the call's), kbytes / vbytes a row's k / v, v_off the
+// offset of v in a receive slot.
+struct RingSend {
+  int remote;
+  int rows;
+  int cpr;
+  int base;
+  int nworkers;
+  char* k_next;
+  char* v_next;
+  long long kbytes;
+  long long vbytes;
+  long long v_off;
+  ring_dma::HopPlan plan;
+  unsigned long long ready;
+  unsigned* err;
+  unsigned cid;
+};
+
+// A copy block's share of the send (see the header): k and v of one row to
+// the right neighbour's row (k_next, v_next) in this launch, or, with
+// remote_dst set, into its receive slot after the own credit, then the
+// arrival. Out of line, on scalar arguments: so built, the kRing instance's
+// attention blocks time as the plain instance's (PERF.md, PR 9).
+__device__ __noinline__ void ring_send_share(
+    const char* ks, const char* vs, long long kbytes, long long vbytes,
+    char* k_next, char* v_next, char* remote_dst, long long v_off,
+    const unsigned long long* my_ready, unsigned long long* arrive_to,
+    unsigned long long ready, unsigned* err, unsigned code, long long tid,
+    long long nthreads) {
+  if (remote_dst == nullptr) {
+    ring_dma::copy_share(k_next, ks, kbytes, tid, nthreads);
+    ring_dma::copy_share(v_next, vs, vbytes, tid, nthreads);
+    return;
+  }
+  if (!ring_dma::block_wait(my_ready, ready, err, code)) return;
+  ring_dma::copy_share(remote_dst, ks, kbytes, tid, nthreads);
+  ring_dma::copy_share(remote_dst + v_off, vs, vbytes, tid, nthreads);
+  ring_dma::signal_arrival(arrive_to);
+}
+
 __device__ __forceinline__ float load_in(const void* p, long long i,
                                          int bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
@@ -101,9 +173,9 @@ constexpr size_t smem_floats() {
 }
 
 // out[w, l, h, :] lies at row (w L + l) H + h of a (rows, D) matrix.
-template <int DK, int DV>
+template <int DK, int DV, bool kRing>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const Args a) {
+    flash_attention_kernel(const Args a, const RingSend ring) {
   extern __shared__ float4 smem4[];
   constexpr int kLv = DV + kPad;
   constexpr int kNg = DV / 64;     // groups of 4 value columns a thread
@@ -112,8 +184,30 @@ __global__ void __launch_bounds__(kThreads)
   float* vs = ks + DK * kLd;                     // [kBK][kLv]
   float* ps = vs + kBK * kLv;                    // [kBK][kLd]
 
+  long long blk = blockIdx.x;
+  if constexpr (kRing) {
+    const long long ncopy = (long long)ring.rows * ring.cpr;
+    if (blk < ncopy) {   // copy block: row r, share blk % cpr
+      const int r = (int)blk / ring.cpr;
+      if (ring.remote) ring_dma::give_credits(ring.plan, ring.rows);
+      const int d =
+          ring_dma::ring_neighbor(ring.base + r, ring.nworkers, 1) - ring.base;
+      const bool local = d >= 0 && d < ring.rows;
+      ring_send_share(
+          static_cast<const char*>(a.k) + r * ring.kbytes,
+          static_cast<const char*>(a.v) + r * ring.vbytes, ring.kbytes,
+          ring.vbytes, ring.k_next + d * ring.kbytes,
+          ring.v_next + d * ring.vbytes,
+          local ? nullptr : ring.plan.remote_dst[r], ring.v_off,
+          ring.plan.my_ready[r], ring.plan.arrive_to[r], ring.ready,
+          ring.err, ring_dma::kErrReady * 1000 + ring.cid,
+          (blk % ring.cpr) * kThreads + threadIdx.x,
+          (long long)ring.cpr * kThreads);
+      return;
+    }
+    blk -= ncopy;
+  }
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const long long blk = blockIdx.x;
   const int iq = a.n_q - 1 - (int)(blk / a.w_h);   // heaviest tiles first
   const long long pair = blk % a.w_h;              // w H + h
   const long long w = pair / a.heads;
@@ -248,15 +342,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DK, int DV>
-int launch(const Args& a, unsigned grid, cudaStream_t s) {
+template <int DK, int DV, bool kRing>
+int launch(const Args& a, const RingSend& ring, unsigned grid,
+           cudaStream_t s) {
   const size_t bytes = smem_floats<DK, DV>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<DK, DV>,
+      flash_attention_kernel<DK, DV, kRing>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  flash_attention_kernel<DK, DV><<<grid, kThreads, bytes, s>>>(a);
+  flash_attention_kernel<DK, DV, kRing><<<grid, kThreads, bytes, s>>>(a, ring);
   return (int)cudaGetLastError();
+}
+
+template <int DK, int DV>
+int launch(const Args& a, const RingSend* ring, unsigned grid,
+           cudaStream_t s) {
+  return ring != nullptr ? launch<DK, DV, true>(a, *ring, grid, s)
+                         : launch<DK, DV, false>(a, RingSend{}, grid, s);
 }
 
 }  // namespace
@@ -268,11 +370,20 @@ extern "C" {
 // out (W, L, H, dv) float32, m_out and d_out (W, L, H) float32 or both null;
 // all contiguous, 1 <= dh, dv <= 128 (checked by the caller). A non-null
 // `tiles` (one uint64 on the device) gains the KV tiles the blocks loaded.
-// Returns cudaGetLastError() after the launch (0 on success).
+// A non-null k_next and v_next (shaped as k and v) take the ring send, with
+// cpr copy blocks a row; the rows are workers base .. base + w - 1 of
+// nworkers; with remote = 1, plan is the call's ring_dma HopPlan, v_off the
+// offset of v in a receive slot, ready the count the credit wait expects,
+// err the error word and cid the collective id. Returns cudaGetLastError()
+// after the launch (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, void* m_out, void* d_out, void* tiles,
                            int w, int seq, int heads, int dh, int dv,
-                           float scale, int causal, int bf16, void* stream) {
+                           float scale, int causal, int bf16, void* stream,
+                           void* k_next, void* v_next, int cpr,
+                           long long v_off, const void* plan, int remote,
+                           int base, int nworkers, unsigned long long ready,
+                           void* err, int cid) {
   if (w < 1 || seq < 1 || heads < 1 || dh < 1 || dh > 128 || dv < 1 ||
       dv > 128)
     return (int)cudaErrorInvalidValue;
@@ -293,13 +404,36 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   a.scale = scale;
   a.causal = causal;
   a.bf16 = bf16;
-  const long long grid = a.w_h * a.n_q;
+  RingSend ring{};
+  const bool send = k_next != nullptr && v_next != nullptr;
+  if (send) {
+    if (cpr < 1) return (int)cudaErrorInvalidValue;
+    const long long es = bf16 ? 2 : 4;
+    ring.remote = remote;
+    ring.rows = w;
+    ring.cpr = cpr;
+    ring.base = base;
+    ring.nworkers = nworkers;
+    ring.k_next = static_cast<char*>(k_next);
+    ring.v_next = static_cast<char*>(v_next);
+    ring.kbytes = (long long)seq * heads * dh * es;
+    ring.vbytes = (long long)seq * heads * dv * es;
+    ring.v_off = v_off;
+    if (plan != nullptr) memcpy(&ring.plan, plan, sizeof(ring.plan));
+    ring.ready = ready;
+    ring.err = static_cast<unsigned*>(err);
+    ring.cid = (unsigned)cid;
+  }
+  const long long grid =
+      a.w_h * a.n_q + (send ? (long long)ring.rows * ring.cpr : 0);
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = (unsigned)grid;
+  const RingSend* r = send ? &ring : nullptr;
   if (dh <= 64)
-    return dv <= 64 ? launch<64, 64>(a, g, s) : launch<64, 128>(a, g, s);
-  return dv <= 64 ? launch<128, 64>(a, g, s) : launch<128, 128>(a, g, s);
+    return dv <= 64 ? launch<64, 64>(a, r, g, s) : launch<64, 128>(a, r, g, s);
+  return dv <= 64 ? launch<128, 64>(a, r, g, s)
+                  : launch<128, 128>(a, r, g, s);
 }
 
 }  // extern "C"

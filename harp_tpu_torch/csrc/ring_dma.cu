@@ -26,6 +26,20 @@
 //     into `out`. Counters of the edges inside the process move too, so every
 //     counter gains the same count each call, and no block waits for
 //     anything another block of its own launch produces.
+//   * Receive (ring_recv_kernel): the second half of an in-kernel send made
+//     by another kernel (the dense-MF hop's H tile, flash attention's k and
+//     v: dense_mf_hop.cu, flash_attention.cu). The sending kernel gives its
+//     credits and stores into its receiver's slot and signals; this kernel,
+//     launched after it in stream order, waits until every block of the own
+//     sender has arrived and copies the slot into the output. Rows whose
+//     sender is in this process were written by the sending launch itself
+//     and are skipped. The dense-MF hop's grid is not capped, so its blocks
+//     never spin: a tile whose receiver's credit was not in yet when its
+//     block ended is left in h_out, and this kernel first waits for that
+//     credit and sends the left tiles, one arrival each. The wait for the
+//     sender is kept out of the sending launch: a block spinning there could
+//     hold the SM that a block of its own launch, one that has not sent yet,
+//     needs, while the sender's launch is in the same state.
 //   * Allgather: the TPU relay between processes. A process's W_local blocks
 //     are one contiguous chunk; step t forwards chunk (p - t) mod P to the
 //     right process's same slot and waits on the arrivals of step t, each
@@ -36,7 +50,10 @@
 // the processes sharing the card. So no block waits on a block of its own
 // launch that cannot be resident, and where the processes' launches run at
 // once (under MPS) every process's blocks fit beside its peers' while they
-// spin. Without MPS the processes' contexts take turns on the card.
+// spin. Without MPS the processes' contexts take turns on the card. The
+// sends made from inside other kernels keep to this: the dense-MF hop's
+// blocks never spin, and the only blocks of a flash attention launch that
+// spin are its copy blocks, at most 16 a row.
 //
 // What bounds it on this card: bytes. A hop reads the payload once and
 // writes it once; at the SGD-MF flagship's H block (32 x 8192 f32, 1 MiB a
@@ -126,6 +143,51 @@ __global__ void __launch_bounds__(kThreads) ring_allgather_kernel(
   }
 }
 
+// The receive of an in-kernel send (see the header; shift 1, as the TPU
+// kernels' ring_hop). First, where `sent` is set, for every row whose
+// receiver is in another process: wait for the row's credit, then send each
+// tile (`tile_bytes` of the row's `bytes0` in `left`) that the sending launch
+// left (sent 0), one block and one arrival a tile. Then, for every row
+// whose sender is in another process: wait for the sender's blocks and copy
+// the row's slot (one payload at offset 0 and, where dst1 is set, a second
+// at off1) into dst0 / dst1 at row r.
+__global__ void __launch_bounds__(kThreads) ring_recv_kernel(
+    int nrows, int base, int nworkers, HopPlan plan, char* dst0,
+    long long bytes0, char* dst1, long long bytes1, long long off1,
+    const char* left, const int* sent, int tiles, long long tile_bytes,
+    unsigned long long ready_target, unsigned long long arrive_target,
+    unsigned* err, unsigned cid) {
+  const int r = blockIdx.y;
+  const int to = ring_neighbor(base + r, nworkers, 1) - base;
+  if (sent != nullptr && (to < 0 || to >= nrows)) {
+    bool credited = false;
+    for (int i = blockIdx.x; i < tiles; i += gridDim.x) {
+      if (sent[(long long)r * tiles + i]) continue;
+      if (!credited && !block_wait(plan.my_ready[r], ready_target, err,
+                                   kErrReady * 1000 + cid))
+        return;
+      credited = true;
+      const long long o = i * tile_bytes;
+      const long long n = bytes0 - o < tile_bytes ? bytes0 - o : tile_bytes;
+      copy_share(plan.remote_dst[r] + o, left + (long long)r * bytes0 + o, n,
+                 threadIdx.x, kThreads);
+      signal_arrival(plan.arrive_to[r]);
+    }
+  }
+  const int from = ring_mod((long long)base + r - 1, nworkers) - base;
+  if (from >= 0 && from < nrows) return;
+  if (!block_wait(plan.my_arrive[r], arrive_target, err,
+                  kErrArrive * 1000 + cid))
+    return;
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long nthreads = (long long)gridDim.x * kThreads;
+  copy_share(dst0 + (long long)r * bytes0, plan.my_slot[r], bytes0, tid,
+             nthreads);
+  if (dst1 != nullptr)
+    copy_share(dst1 + (long long)r * bytes1, plan.my_slot[r] + off1, bytes1,
+               tid, nthreads);
+}
+
 int g_resident[64];   // resident blocks of the launch, per device (0 = unknown)
 
 }  // namespace
@@ -140,7 +202,7 @@ extern "C" {
 int ring_dma_grid(int device, long long bytes, int rows, int sharers) {
   if (device < 0 || device >= 64 || rows < 1 || sharers < 1) return -1;
   if (g_resident[device] == 0) {
-    int sms = 0, hop = 0, ag = 0;
+    int sms = 0, hop = 0, ag = 0, recv = 0;
     cudaError_t e = cudaDeviceGetAttribute(
         &sms, cudaDevAttrMultiProcessorCount, device);
     if (e == cudaSuccess)
@@ -149,8 +211,12 @@ int ring_dma_grid(int device, long long bytes, int rows, int sharers) {
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &ag, ring_allgather_kernel, kThreads, 0);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &recv, ring_recv_kernel, kThreads, 0);
     if (e != cudaSuccess) return -(int)e;
-    g_resident[device] = sms * (hop < ag ? hop : ag);
+    if (ag < hop) hop = ag;
+    g_resident[device] = sms * (recv < hop ? recv : hop);
   }
   long long want = (bytes + kThreads * 16 - 1) / (kThreads * 16);
   long long cap = g_resident[device] / ((long long)rows * sharers);
@@ -241,6 +307,29 @@ int ring_dma_hop_launch(const void* x, void* out, long long bytes,
       static_cast<const char*>(x), static_cast<char*>(out), bytes, nrows,
       base, nworkers, shift, p, remote, ready_target, arrive_target,
       static_cast<unsigned*>(err), (unsigned)cid);
+  return (int)cudaGetLastError();
+}
+
+// The receive of an in-kernel send (ring_recv_kernel) for `nrows` rows on
+// `stream`: `plan` is the sending call's plan; `sent` null, or the tiles the
+// sending launch sent (nrows, tiles) and `left` the rows they were left in.
+// Returns cudaGetLastError().
+int ring_dma_recv_launch(int nrows, int base, int nworkers, int grid,
+                         const void* plan, void* dst0,
+                         long long bytes0, void* dst1, long long bytes1,
+                         long long off1, const void* left, const void* sent,
+                         int tiles, long long tile_bytes,
+                         unsigned long long ready_target,
+                         unsigned long long arrive_target, void* err, int cid,
+                         void* stream) {
+  HopPlan p{};
+  memcpy(&p, plan, sizeof(p));
+  dim3 blocks(grid, nrows);
+  ring_recv_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      nrows, base, nworkers, p, static_cast<char*>(dst0), bytes0,
+      static_cast<char*>(dst1), bytes1, off1, static_cast<const char*>(left),
+      static_cast<const int*>(sent), tiles, tile_bytes, ready_target,
+      arrive_target, static_cast<unsigned*>(err), (unsigned)cid);
   return (int)cudaGetLastError();
 }
 

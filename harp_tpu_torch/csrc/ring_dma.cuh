@@ -100,13 +100,14 @@ __device__ __forceinline__ void raise_error(unsigned* err, unsigned code) {
 }
 
 // Thread 0 spins until *p >= target; the whole block learns whether it got
-// there. Call from every thread of the block (it holds a __syncthreads).
+// there (a barrier that ANDs thread 0's answer with the others' 1, so the
+// function needs no shared memory of its own). Call from every thread of
+// the block.
 __device__ bool block_wait(const unsigned long long* p,
                            unsigned long long target, unsigned* err,
                            unsigned code) {
-  __shared__ int ok;
+  int ok = 1;
   if (threadIdx.x == 0) {
-    ok = 1;
     const unsigned long long t0 = global_ns();
     for (unsigned spin = 0; acquire_load(p) < target; ++spin) {
       if ((spin & 1023u) == 1023u) {
@@ -124,8 +125,7 @@ __device__ bool block_wait(const unsigned long long* p,
     }
     __threadfence();
   }
-  __syncthreads();
-  return ok != 0;
+  return __syncthreads_and(ok) != 0;
 }
 
 // ring_ready: the credit-exact receiver-ready handshake. One thread of the
@@ -136,6 +136,17 @@ __device__ bool block_wait(const unsigned long long* p,
 // call e + 1.
 __device__ __forceinline__ void give_credit(unsigned long long* credit_to) {
   if (blockIdx.x == 0 && threadIdx.x == 0) release_add(credit_to, 1);
+}
+
+// The same for a kernel that computes and then sends from each of its
+// `nrows` rows (the in-kernel sends of dense_mf_hop.cu and
+// flash_attention.cu): thread r of the launch's first block gives row r's
+// sender its credit before that block does anything else. The first block
+// is the first one issued, so no credit waits for a block of the launch to
+// be scheduled behind others.
+__device__ __forceinline__ void give_credits(const HopPlan& plan, int nrows) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x < nrows)
+    release_add(plan.credit_to[threadIdx.x], 1);
 }
 
 // This block's share of a copy of n bytes, over the threads of every block

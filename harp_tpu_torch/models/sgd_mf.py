@@ -34,12 +34,16 @@ Python loop over eager tensor ops. The SSE and rating count stay device
 tensors, are summed over the worker axis once per epoch, and the per-epoch
 RMSEs are fetched once at the end of a fit.
 
-``fused_dma=True`` hops the H blocks through the ring-DMA engine
-(``ops/ring_dma.hop``: one launch of its kernel a rotation step on the
-card), bitwise the unfused fit. The JAX package can fuse the hop into its
-dense kernel (``ring_hop``) on the 1-slice schedule; that epilogue is not
-ported yet, so both schedules take the out-of-kernel hop, the branch the JAX
-package takes wherever its in-kernel hop is off.
+``fused_dma=True`` moves the H blocks by the ring-DMA engine, bitwise the
+unfused fit. Where the JAX package fuses the hop into its dense kernel
+(``ring_hop``: the dense layout, ``fused_dma``, W > 1, one slice and
+``ring_dma.use_ring_dma`` of the device, so on the card), the hop kernel
+sends its updated H block to the right neighbour itself and returns the
+block it receives (``pallas_kernels.dense_mf_hop(ring_hop=True)``: one
+launch a rotation step), and the rotation runs with shift 0 (the JAX
+package's ``body_hops``). Elsewhere (two slices, the sparse layout, the
+CPU) ``fused_dma=True`` takes the out-of-kernel hop, ``ops/ring_dma.hop``:
+one launch of its kernel a rotation step on the card.
 
 On a process group (``HarpSession(distributed=True)``) each process lays
 out and trains the rows of its own workers; the SSE and rating counts are
@@ -64,7 +68,7 @@ import numpy as np
 import torch
 
 from harp_tpu_torch.collectives import lax_ops, rotation
-from harp_tpu_torch.ops import pallas_kernels
+from harp_tpu_torch.ops import pallas_kernels, ring_dma
 from harp_tpu_torch.parallel.mesh import fetch
 from harp_tpu_torch.session import HarpSession
 
@@ -235,14 +239,20 @@ class SGDMF:
         return torch.from_numpy(table.astype(np.int32)).to(device)
 
     def _build(self, w: int, num_data_args: int,
-               make_update_bucket: Callable, epochs: int):
+               make_update_bucket: Callable, epochs: int,
+               body_hops: bool = False):
         """Shared rotation/epoch harness for both layouts.
 
         ``make_update_bucket(local_data)`` receives the stacked data (W,
         ...) and returns ``(update_bucket, cnt)``: ``update_bucket(w_local,
         h_block, sse, bucket_ids)`` runs one hop of every stacked worker,
         and ``cnt`` (W,) holds the number of ratings each worker visits in
-        an epoch."""
+        an epoch.
+
+        ``body_hops``: the update itself performs the ring hop (the dense
+        kernel's in-kernel send returns the next resident block), so the
+        rotation runs with shift 0: the schedule is unchanged, only the
+        transport moved into the kernel."""
         cfg = self.config
         two_slice = cfg.num_slices == 2
 
@@ -259,8 +269,9 @@ class SGDMF:
                                                       table[t])
                 return (w_local, sse), h_block
 
-            rotator = rotation.Rotator(w, cfg.num_slices,
-                                       fused_dma=cfg.fused_dma)
+            rotator = rotation.Rotator(
+                w, cfg.num_slices, fused_dma=cfg.fused_dma and not body_hops,
+                shift=0 if body_hops else 1)
             # two-slice h0 arrives stacked (W, 1, 2, cpb, K): slice A block
             # w and slice B block W + w on worker w
             h = ((h0[:, 0, 0].contiguous(), h0[:, 0, 1].contiguous())
@@ -324,7 +335,13 @@ class SGDMF:
     # -- dense (masked stripe-GEMM) program ------------------------------------ #
 
     def _build_dense(self, w: int, nmb: int, epochs: int):
-        lr, lam = self.config.lr, self.config.lam
+        cfg = self.config
+        lr, lam = cfg.lr, cfg.lam
+        # the JAX package's in-kernel ring hop, decided before any launch:
+        # the 1-slice schedule only (the 2-slice pipeline keeps its
+        # out-of-kernel hop), with the ring-DMA engine serving the device
+        ring_hop = (cfg.fused_dma and w > 1 and cfg.num_slices == 1
+                    and ring_dma.use_ring_dma(self.session.device))
 
         def make_update_bucket(data):
             # missing entries are NaN in the value slab: no mask slab
@@ -332,15 +349,21 @@ class SGDMF:
 
             def update_bucket(w_local, h_block, sse, bucket_ids):
                 # col counts are stored at the finest stripe split
-                # (nmb_fine); the hop sums them for a coarser budget nmb
-                w_local, h_block, hop_sse = self.dense_hop(
-                    v_slab, bucket_ids, w_local, h_block, row_cnt, col_cnt,
-                    nmb, lr, lam)
+                # (nmb_fine); the hop sums them for a coarser budget nmb.
+                # With ring_hop the hop returns the next resident block.
+                args = (v_slab, bucket_ids, w_local, h_block, row_cnt,
+                        col_cnt, nmb, lr, lam)
+                if ring_hop:
+                    w_local, _, hop_sse, h_block = self.dense_hop(
+                        *args, ring_hop=True)
+                else:
+                    w_local, h_block, hop_sse = self.dense_hop(*args)
                 return w_local, h_block, sse + hop_sse
 
             return update_bucket, col_cnt.flatten(1).sum(1)
 
-        return self._build(w, 3, make_update_bucket, epochs)
+        return self._build(w, 3, make_update_bucket, epochs,
+                           body_hops=ring_hop)
 
     def _program(self, layout: str, nmb: int, epochs: int, geom: Tuple):
         """Build (or fetch) the fit callable for a per-hop budget ``nmb``;

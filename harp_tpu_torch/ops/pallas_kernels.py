@@ -10,8 +10,10 @@ Ported:
   plain PyTorch (``ops/distance.partial_sums_counts``);
 * the dense SGD-MF hop. ``dense_mf_hop_cuda`` launches ``csrc/
   dense_mf_hop.cu`` (the masked stripe-GEMM update of every stacked
-  worker's H block against its slab bucket, pred and G kept on chip);
-  ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch;
+  worker's H block against its slab bucket, pred and G kept on chip; with
+  ``ring_hop``, each block also sends its final H tile to the right ring
+  neighbour); ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch,
+  followed by ``ring_dma.hop_plain`` with ``ring_hop``;
 * the batched SPD solve of ALS. ``spd_solve_cuda`` launches ``csrc/
   spd_solve.cu``: one warp a system, the factor in registers, at K <= 64;
   one block a system, the packed lower triangle in shared memory, at
@@ -19,8 +21,15 @@ Ported:
   substitutions, vectorized over the batch;
 * flash attention. ``flash_attention_cuda`` launches ``csrc/
   flash_attention.cu`` (running max, denominator and accumulator on chip,
-  the causal trapezoid of KV tiles, any L, Dv != Dh, optional stats);
-  ``flash_attention_plain`` is a full-row softmax in plain PyTorch.
+  the causal trapezoid of KV tiles, any L, Dv != Dh, optional stats; with
+  ``ring_hop``, copy blocks beside the attention blocks send k and v to the
+  right ring neighbour); ``flash_attention_plain`` is a full-row softmax in
+  plain PyTorch.
+
+The two ``ring_hop`` sends run on the ring-DMA engine's device functions
+(``csrc/ring_dma.cuh``). On a process group the receive of a send from
+another process is ``ring_dma.SendPlan.receive``, a kernel launched after
+the sending one and counted in ``ring_dma.launches["ring_recv"]``.
 
 A ``*_cuda`` wrapper takes CUDA tensors only and raises on a shape its
 kernel cannot take. A CPU tensor always takes the plain version. On a CUDA
@@ -36,8 +45,9 @@ raises. Nothing catches a build or launch error.
 
 ``launches`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernel. ``plain_on_card`` counts the plain calls
-those two exceptions made on a CUDA device.
+path went through the kernel; a launch with the ring send also counts in
+``dense_mf_hop_ring`` or ``flash_attention_ring``. ``plain_on_card`` counts
+the plain calls those two exceptions made on a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,11 +60,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from harp_tpu_torch.ops import distance
+from harp_tpu_torch.ops import distance, ring_dma
+from harp_tpu_torch.parallel import mesh as mesh_lib
 
 launches: Dict[str, int] = {"kmeans_stats": 0, "dense_mf_hop": 0,
-                             "spd_solve": 0, "spd_solve_block": 0,
-                             "flash_attention": 0}
+                             "dense_mf_hop_ring": 0, "spd_solve": 0,
+                             "spd_solve_block": 0, "flash_attention": 0,
+                             "flash_attention_ring": 0}
 plain_on_card: Dict[str, int] = {"kmeans_stats": 0, "flash_attention": 0}
 
 # shared memory one block may use on an H100 (227 KB)
@@ -266,10 +278,12 @@ def _mf_shapes(slab, buckets, w, h, row_cnt, col_cnt, nmb):
 def dense_mf_hop_plain(slab: torch.Tensor, buckets: torch.Tensor,
                        w: torch.Tensor, h: torch.Tensor,
                        row_cnt: torch.Tensor, col_cnt: torch.Tensor, nmb: int,
-                       lr: float, lam: float
-                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                       lr: float, lam: float, ring_hop: bool = False
+                       ) -> Tuple[torch.Tensor, ...]:
     """One dense SGD-MF hop in plain PyTorch: the stripe loop of the JAX
-    package's ``SGDMF._build_dense``, per worker. Same contract as
+    package's ``SGDMF._build_dense``, per worker; with ``ring_hop``, then
+    ``ring_dma.hop_plain(h', 1)`` on the bound worker group (a stacked
+    group, or gloo between processes). Same contract as
     :func:`dense_mf_hop_cuda`; the products are ``torch.matmul`` of the
     bf16-rounded operands in the factors' type (bf16 products are exact in
     float32, so only the order of the sums differs from the kernel; with
@@ -302,6 +316,8 @@ def dense_mf_hop_plain(slab: torch.Tensor, buckets: torch.Tensor,
             total = total + (g * g).sum()
         h_out[wi] = hb
         sse[wi] = total
+    if ring_hop:
+        return w_out, h_out, sse, ring_dma.hop_plain(h_out, 1)
     return w_out, h_out, sse
 
 
@@ -316,7 +332,9 @@ def _mf_lib() -> ctypes.CDLL:
         lib.dense_mf_hop_col_tile.restype = i
         lib.dense_mf_hop_smem_bytes.argtypes = [i]
         lib.dense_mf_hop_smem_bytes.restype = ctypes.c_longlong
-        lib.dense_mf_hop_launch.argtypes = [vp] * 11 + [i] * 7 + [f, f, vp]
+        lib.dense_mf_hop_launch.argtypes = ([vp] * 11 + [i] * 7
+                                            + [f, f, vp, vp, vp, i, i, i,
+                                               ctypes.c_ulonglong, vp])
         lib.dense_mf_hop_launch.restype = i
         _LIB["dense_mf_hop"] = lib
     return lib
@@ -325,10 +343,16 @@ def _mf_lib() -> ctypes.CDLL:
 def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
                       w: torch.Tensor, h: torch.Tensor,
                       row_cnt: torch.Tensor, col_cnt: torch.Tensor, nmb: int,
-                      lr: float, lam: float
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      lr: float, lam: float, ring_hop: bool = False,
+                      group: Optional[mesh_lib.WorkerGroup] = None
+                      ) -> Tuple[torch.Tensor, ...]:
     """One dense SGD-MF hop of every stacked worker on the card:
-    (w' (W, rpw, K), h' (W, cpb, K), sse (W,)).
+    (w' (W, rpw, K), h' (W, cpb, K), sse (W,)), and with ``ring_hop`` h_next
+    (W, cpb, K), the block of worker (id - 1) mod W of ``group`` (by default
+    the bound one), bitwise ``ring_dma.hop_plain(h', 1)``: the same launch
+    sends each final H tile to the right neighbour (``csrc/dense_mf_hop.cu``;
+    across processes where the receiver's credit is in, and the receive
+    kernel after it sends the rest and receives).
 
     ``slab``: (W, n_blocks, rpw, cpb) bf16, NaN = missing; ``buckets``: (W,)
     int32, the block each worker updates (no bucket is copied);
@@ -337,7 +361,7 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
     regularizer counts, ``col_cnt`` summed over ``nmb_fine // nmb`` adjacent
     fine stripes per stripe. All on one CUDA device and contiguous. 1 <= K
     <= ``MF_MAX_K`` (zero-padded to 16, 32, 64 or 128 here: exact); a larger
-    K raises."""
+    K raises. With ``ring_hop`` W is the group's workers a process."""
     args = (slab, buckets, w, h, row_cnt, col_cnt)
     if not all(t.is_cuda and t.device == slab.device for t in args):
         raise ValueError("dense_mf_hop_cuda needs every tensor on one CUDA "
@@ -357,8 +381,14 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
                          f"got K={k}")
     if slab.data_ptr() % 16:
         raise ValueError("the slab must start on a 16-byte boundary")
+    if ring_hop:
+        group = group or mesh_lib.current_group()
+        if nw != group.workers_per_process:
+            raise ValueError(f"ring_hop: the slab holds {nw} workers, the "
+                             f"group {group.workers_per_process} a process")
     lib = _mf_lib()
-    n_ct = -(-cpb // lib.dense_mf_hop_col_tile(kp))
+    col_tile = lib.dense_mf_hop_col_tile(kp)
+    n_ct = -(-cpb // col_tile)
     w_in = w if kp == k else F.pad(w, (0, kp - k))
     h_in = h if kp == k else F.pad(h, (0, kp - k))
     if w_in.data_ptr() % 16:
@@ -370,13 +400,26 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
         ws = torch.empty((nw, n_ct, rpw, kp), dtype=torch.float32, device=dev)
         sse_part = torch.empty((nw, n_ct), dtype=torch.float32, device=dev)
         sse = torch.empty((nw,), dtype=torch.float32, device=dev)
+        h_next = sent = None
+        ring = (None, None, 0, 0, 1, 0, None)           # no send
+        if ring_hop:
+            h_next = torch.empty_like(h_out)
+            send = ring_dma.SendPlan(group, dev, "dense_mf_ring",
+                                     h_out[0].numel() * 4, n_ct)
+            if send.plan is not None:
+                sent = torch.empty((nw, n_ct), dtype=torch.int32, device=dev)
+            ring = (h_next.data_ptr(), *send.args[:5],
+                    None if sent is None else sent.data_ptr())
         err = lib.dense_mf_hop_launch(
             slab.data_ptr(), buckets.data_ptr(), w_in.data_ptr(),
             h_in.data_ptr(), row_cnt.data_ptr(), col_cnt.data_ptr(),
             w_out.data_ptr(), h_out.data_ptr(), ws.data_ptr(),
             sse_part.data_ptr(), sse.data_ptr(), nw, n_blocks, rpw, cpb, kp,
             nmb, nmb_fine, float(lr), float(lam),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, *ring)
+        if err == 0 and ring_hop:
+            send.receive(h_next, left=h_out, sent=sent,
+                         tile_bytes=col_tile * kp * 4)
     if err != 0:
         raise RuntimeError(f"dense_mf_hop kernel launch failed: CUDA error "
                            f"{err}")
@@ -384,23 +427,30 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
     if kp != k:
         w_out = w_out[..., :k].contiguous()
         h_out = h_out[..., :k].contiguous()
-    return w_out, h_out, sse
+    if not ring_hop:
+        return w_out, h_out, sse
+    launches["dense_mf_hop_ring"] += 1
+    return w_out, h_out, sse, (h_next if kp == k
+                               else h_next[..., :k].contiguous())
 
 
 def dense_mf_hop(slab: torch.Tensor, buckets: torch.Tensor, w: torch.Tensor,
                  h: torch.Tensor, row_cnt: torch.Tensor, col_cnt: torch.Tensor,
-                 nmb: int, lr: float, lam: float
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                 nmb: int, lr: float, lam: float, ring_hop: bool = False
+                 ) -> Tuple[torch.Tensor, ...]:
     """The dense SGD-MF hop the model calls: the CUDA kernel for a CUDA
     slab (K above ``MF_MAX_K`` raises: the JAX package runs its kernel
     there, and this kernel's wider variant is still to be written), the
-    plain version for a CPU slab."""
+    plain version for a CPU slab. ``ring_hop`` (the JAX package's in-kernel
+    send) also returns h_next, the left neighbour's updated block on the
+    bound worker group, exactly ``lax_ops.rotate(h', 1)``: on the card
+    sent by the same launch, never by ``ring_dma.hop``."""
     if slab.device.type == "cuda":
         return dense_mf_hop_cuda(slab, buckets, w, h, row_cnt, col_cnt, nmb,
-                                 lr, lam)
+                                 lr, lam, ring_hop=ring_hop)
     if slab.device.type == "cpu":
         return dense_mf_hop_plain(slab, buckets, w, h, row_cnt, col_cnt, nmb,
-                                  lr, lam)
+                                  lr, lam, ring_hop)
     raise ValueError(f"dense_mf_hop runs on cuda or cpu, not {slab.device}")
 
 
@@ -552,6 +602,10 @@ _PACK_LANES = 64
 # the plain version takes its scores in chunks of query rows, at most this
 # many scores a chunk (one head at L=16384 would be 1.07 GB)
 _PLAIN_CHUNK_SCORES = 1 << 26
+# the ring send's copy blocks: one for each 2 MiB of a row's k and v, at
+# most 16 a row (a function of the shapes, so the same on every process)
+_RING_COPY_BYTES = 2 << 20
+_RING_MAX_COPY_BLOCKS = 16
 # inside count_flash_tiles: one uint64 device counter a device, to which
 # every kernel launch adds the KV tiles its blocks loaded
 _flash_tile_counters: Optional[dict] = None
@@ -598,16 +652,20 @@ def _flash_result(out, m, den, stacked: bool, return_stats: bool):
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = False, return_stats: bool = False):
+                          causal: bool = False, return_stats: bool = False,
+                          ring_hop: bool = False):
     """Attention in plain PyTorch, the same function as
-    :func:`flash_attention_cuda`: float32 scores of the inputs scaled by
-    1/sqrt(Dh), causal keys masked with -1e30, a full-row softmax, out =
-    (p @ v) / max(den, 1e-30) in float32 (v widened to float32). At the end
-    of the kernel's KV walk its running max is the row max, so m and den are
-    the kernel's. Loops over stacked workers and over chunks of query rows
-    to bound the scores' memory."""
+    :func:`flash_attention_cuda` (with ``ring_hop``, then
+    ``ring_dma.hop_plain`` of k and of v on the bound worker group, a
+    stacked group or gloo between processes): float32 scores of the inputs
+    scaled by 1/sqrt(Dh), causal keys masked with -1e30, a full-row softmax,
+    out = (p @ v) / max(den, 1e-30) in float32 (v widened to float32). At
+    the end of the kernel's KV walk its running max is the row max, so m and
+    den are the kernel's. Loops over stacked workers and over chunks of
+    query rows to bound the scores' memory."""
     q4, k4, v4, stacked = _flash_operands(q, k, v)
     w, l, h, dh = q4.shape
+    group = _ring_group(stacked, return_stats, w, None) if ring_hop else None
     dv = v4.shape[3]
     scale = 1.0 / float(dh) ** 0.5
     dev = q.device
@@ -632,6 +690,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out[wi, r0:r0 + rows] = o / den_t[..., None]
             m[wi, r0:r0 + rows] = mx.t()
             den[wi, r0:r0 + rows] = d.t()
+    if ring_hop:
+        return (out, m, den, ring_dma.hop_plain(k, 1, group),
+                ring_dma.hop_plain(v, 1, group))
     return _flash_result(out, m, den, stacked, return_stats)
 
 
@@ -642,22 +703,34 @@ def _flash_lib() -> ctypes.CDLL:
 
         lib = _cuda_build.library("flash_attention")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = ([vp] * 7 + [i] * 5
-                                               + [ctypes.c_float, i, i, vp])
+        lib.flash_attention_launch.argtypes = (
+            [vp] * 7 + [i] * 5 + [ctypes.c_float, i, i, vp]
+            + [vp, vp, i, ctypes.c_longlong, vp, i, i, i, ctypes.c_ulonglong,
+               vp, i])
         lib.flash_attention_launch.restype = i
         _LIB["flash_attention"] = lib
     return lib
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = False, return_stats: bool = False):
+                         causal: bool = False, return_stats: bool = False,
+                         ring_hop: bool = False,
+                         group: Optional[mesh_lib.WorkerGroup] = None):
     """Flash attention on the card: out (L, H, Dv), or (out, m (L, H), den
     (L, H)) with ``return_stats``; stacked inputs give stacked outputs.
 
     ``q``, ``k``: (L, H, Dh) or stacked (W, L, H, Dh); ``v``: (L, H, Dv) or
     (W, L, H, Dv); one type, float32 or bfloat16, contiguous, on one CUDA
     device; 1 <= Dh, Dv <= 128; any L. A stacked input is one launch for
-    all workers. Outputs are float32 whatever the input type."""
+    all workers. Outputs are float32 whatever the input type.
+
+    ``ring_hop`` (needs ``return_stats`` and stacked inputs, W the workers
+    a process of ``group``, by default the bound one): the same launch also
+    sends k and v to the right ring neighbour, and the call returns (out,
+    m, den, k_next, v_next), k_next and v_next bitwise ``ring_dma.
+    hop_plain(k, 1)`` and ``hop_plain(v, 1)`` in the input type (across
+    processes with the credit handshake, and the receive kernel after the
+    launch)."""
     args = (q, k, v)
     if not all(t.is_cuda and t.device == q.device for t in args):
         raise ValueError("flash_attention_cuda needs q, k and v on one CUDA "
@@ -675,6 +748,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh > FLASH_MAX_D or dv > FLASH_MAX_D:
         raise ValueError(f"flash_attention_cuda takes Dh, Dv <= "
                          f"{FLASH_MAX_D}, got Dh={dh}, Dv={dv}")
+    if ring_hop:
+        group = _ring_group(stacked, return_stats, w, group)
     lib = _flash_lib()
     dev = q.device
     with torch.cuda.device(dev):
@@ -689,18 +764,52 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _flash_tile_counters[dev] = torch.zeros((), dtype=torch.int64,
                                                         device=dev)
             tiles = _flash_tile_counters[dev].data_ptr()
+        ring = (None, None, 0, 0, None, 0, 0, 1, 0, None, 0)    # no send
+        if ring_hop:
+            k_next, v_next = torch.empty_like(k4), torch.empty_like(v4)
+            kbytes = k4[0].numel() * k4.element_size()
+            v_off = -(-kbytes // 256) * 256
+            row_bytes = v_off + v4[0].numel() * v4.element_size()
+            cpr = min(_RING_MAX_COPY_BLOCKS,
+                      max(1, -(-row_bytes // _RING_COPY_BYTES)))
+            send = ring_dma.SendPlan(group, dev, "flash_ring", row_bytes,
+                                     cpr)
+            ring = (k_next.data_ptr(), v_next.data_ptr(), cpr, v_off,
+                    *send.args)
         err = lib.flash_attention_launch(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(),
             None if m is None else m.data_ptr(),
             None if den is None else den.data_ptr(), tiles, w, l, h, dh, dv,
             1.0 / float(dh) ** 0.5, int(causal),
             int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, *ring)
+        if err == 0 and ring_hop:
+            send.receive(k_next, v_next, v_off)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches["flash_attention"] += 1
-    return _flash_result(out, m, den, stacked, return_stats)
+    if not ring_hop:
+        return _flash_result(out, m, den, stacked, return_stats)
+    launches["flash_attention_ring"] += 1
+    return out, m, den, k_next, v_next
+
+
+def _ring_group(stacked: bool, return_stats: bool, w: int,
+                group: Optional[mesh_lib.WorkerGroup]
+                ) -> mesh_lib.WorkerGroup:
+    """The worker group of a ``ring_hop`` call, checked: stacked inputs of
+    its workers a process, with the stats."""
+    if not return_stats:
+        raise ValueError("ring_hop=True requires return_stats=True (the "
+                         "ring merge needs the streaming-softmax stats)")
+    if not stacked:
+        raise ValueError("ring_hop=True takes stacked (W, L, H, D) inputs")
+    group = group or mesh_lib.current_group()
+    if w != group.workers_per_process:
+        raise ValueError(f"ring_hop=True: the inputs hold {w} workers, the "
+                         f"group {group.workers_per_process} a process")
+    return group
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -713,13 +822,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``head_pack`` (the TPU's two-heads-per-lane-tile layout) never changes
     the output; True raises where the TPU could not pack (odd H, Dh or Dv
-    above 64). ``ring_hop`` (the in-kernel KV ring send) is not ported."""
+    above 64). ``ring_hop`` (the in-kernel KV ring send; needs
+    ``return_stats`` and stacked inputs of the bound worker group) returns
+    (out, m, den, k_next, v_next), k_next and v_next exactly
+    ``lax_ops.rotate`` of k and v: on the card sent by the same launch,
+    never by ``ring_dma.hop``; on the CPU the plain version and
+    ``ring_dma.hop_plain``."""
     if ring_hop and not return_stats:
         raise ValueError("ring_hop=True requires return_stats=True (the "
                          "ring merge needs the streaming-softmax stats)")
-    if ring_hop:
-        raise NotImplementedError("ring_hop=True (the in-kernel KV ring "
-                                  "send) is not ported yet")
     h, dh, dv = q.shape[-2], q.shape[-1], v.shape[-1]
     if head_pack and not (h % 2 == 0 and dh <= _PACK_LANES
                           and dv <= _PACK_LANES):
@@ -727,9 +838,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"head_pack=True needs even H and Dh/Dv <= {_PACK_LANES}, "
             f"got H={h} Dh={dh} Dv={dv}")
     if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal, return_stats)
+        return flash_attention_cuda(q, k, v, causal, return_stats,
+                                    ring_hop=ring_hop)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, return_stats)
+        return flash_attention_plain(q, k, v, causal, return_stats, ring_hop)
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
 
 

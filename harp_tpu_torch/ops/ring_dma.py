@@ -9,7 +9,15 @@ Here a worker is a row of a process's stacked group (``parallel/mesh.py``):
   ``(id - shift) mod W``, bitwise for every dtype (exactly
   ``lax_ops.rotate``); :func:`hop_tree` hops every leaf of a tree;
 * :func:`ring_allgather` — every worker's block, tiled in worker order
-  (bitwise ``lax_ops.allgather``), by the ring relay.
+  (bitwise ``lax_ops.allgather``), by the ring relay;
+* :class:`SendPlan` — the host side of a send made from inside another
+  kernel (the ``ring_hop`` of ``pallas_kernels.dense_mf_hop`` and
+  ``flash_attention``): the kernel stores its payload into the neighbour's
+  row (or, in another process, its receive slot, after the credit) and
+  signals; ``SendPlan.receive`` launches the receive kernel after the
+  sending launch. It sends what the dense-MF hop left because the credit
+  was not in yet (that kernel's blocks never wait), then waits for the
+  sender and copies the slot out.
 
 On a CUDA tensor each launches its hand-written kernel (``csrc/ring_dma.cu``
 on the device functions of ``csrc/ring_dma.cuh``): on a stacked group one
@@ -35,8 +43,8 @@ over. :func:`close_workspace` (called by ``distributed.shutdown``) closes
 the peers' mappings on every process before any owner frees its region.
 
 Collective ids: every distinct fused collective has its own counters.
-``COLLECTIVE_IDS`` holds the static ones (the allgather's; the JAX package's
-ids of the in-kernel ring hops join it with those hops); each :func:`hop` call draws a
+``COLLECTIVE_IDS`` holds the static ones, the JAX package's (the
+allgather's and the two in-kernel sends'); each :func:`hop` call draws a
 fresh id (:func:`_next_hop_id`), the same on every process because every
 process makes the same calls in the same order. The host counts the calls
 and arrivals of each id, so the kernel knows what count each wait expects.
@@ -58,11 +66,12 @@ import torch
 from harp_tpu_torch.collectives import lax_ops
 from harp_tpu_torch.parallel import mesh as mesh_lib
 
-launches: Dict[str, int] = {"ring_dma_hop": 0, "ring_allgather": 0}
+launches: Dict[str, int] = {"ring_dma_hop": 0, "ring_allgather": 0,
+                             "ring_recv": 0}
 
 # Static collective-ID registry (the JAX package's ids): each logical fused
 # collective gets a stable id, the same on every worker.
-COLLECTIVE_IDS = {"allgather": 2}
+COLLECTIVE_IDS = {"allgather": 2, "flash_ring": 3, "dense_mf_ring": 4}
 
 # Dynamic ids for hop() calls, clear of the static registry; more than 240
 # hops in flight at once would alias, far beyond any schedule.
@@ -156,7 +165,10 @@ def _lib() -> ctypes.CDLL:
                 "ring_dma_hop_launch": [_vp, _vp, ll, i, i, i, i, i, _vp, i,
                                         ull, ull, _vp, i, _vp],
                 "ring_dma_allgather_launch": [_vp, _vp, ll, ll, i, i, i, _vp,
-                                              ull, ull, _vp, i, _vp]}.items():
+                                              ull, ull, _vp, i, _vp],
+                "ring_dma_recv_launch": [i, i, i, i, _vp, _vp, ll, _vp, ll, ll,
+                                         _vp, _vp, i, ll, ull, ull, _vp, i,
+                                         _vp]}.items():
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = i
         layout = (lib.ring_dma_max_rows(), lib.ring_dma_max_steps(),
@@ -312,6 +324,105 @@ def _check(x: torch.Tensor, group: mesh_lib.WorkerGroup, op: str) -> None:
                          f"per-worker tensor, got shape {tuple(x.shape)}")
 
 
+def _hop_plan(ws: _Workspace, group: mesh_lib.WorkerGroup, cid: int,
+              stride: int, shift: int) -> _HopPlan:
+    """The pointers of one hop call of ``shift`` for each of this process's
+    rows: its sender's ready counter and its receiver's arrival counter and
+    receive slot (``stride`` bytes a row), its own counters and slot."""
+    p = _HopPlan()
+    rows = group.workers_per_process
+    base, w, me = group.first_worker, group.num_workers, group.rank
+    for r in range(rows):
+        g = base + r
+        dp, dr = divmod((g + shift) % w, rows)
+        sp, sr = divmod((g - shift) % w, rows)
+        p.credit_to[r] = ws.counter(sp, cid, _READY, sr)
+        p.arrive_to[r] = ws.counter(dp, cid, _ARRIVE, dr)
+        p.my_ready[r] = ws.counter(me, cid, _READY, r)
+        p.my_arrive[r] = ws.counter(me, cid, _ARRIVE, r)
+        p.remote_dst[r] = ws.data(dp) + dr * stride
+        p.my_slot[r] = ws.data(me) + r * stride
+    return p
+
+
+def _check_rows(rows: int) -> None:
+    if rows > _MAX_ROWS:
+        raise ValueError(f"a process holds at most {_MAX_ROWS} workers for "
+                         f"the ring-DMA kernels, got {rows}")
+
+
+class SendPlan:
+    """One call of an in-kernel ring send of shift 1 (the ``ring_hop`` of
+    ``pallas_kernels.dense_mf_hop`` and ``flash_attention``, collective id
+    ``COLLECTIVE_IDS[name]``), whose launch sends ``row_bytes`` from each of
+    this process's rows from ``blocks`` blocks a row (the same count on
+    every process). A collective call: every process makes it. On a stacked
+    group every neighbour is in the launch and stream order stands in for
+    the handshake: no plan, no wait and no receive."""
+
+    def __init__(self, group: mesh_lib.WorkerGroup, device: torch.device,
+                 name: str, row_bytes: int, blocks: int):
+        self.group, self.device, self.row_bytes = group, device, row_bytes
+        self.plan = None
+        if not group.process_group:
+            return
+        _check_rows(group.workers_per_process)
+        ws = _workspace(group, device)
+        stride = _round_up(row_bytes, _ALIGN)
+        ws.ensure(group.workers_per_process * stride)
+        self.cid = COLLECTIVE_IDS[name]
+        ws.calls[self.cid] += 1
+        ws.arrivals[self.cid] += blocks
+        self.plan = _hop_plan(ws, group, self.cid, stride, 1)
+        self.ready, self.arrive = ws.calls[self.cid], ws.arrivals[self.cid]
+        self.err = ws.err_dev
+
+    @property
+    def args(self) -> tuple:
+        """The trailing arguments of the sending kernel's launch function:
+        (plan, remote, global id of row 0, workers, the count the credit
+        wait expects, error word, collective id). The dense-MF hop, whose
+        blocks never wait, takes the first five."""
+        g = self.group
+        if self.plan is None:
+            return (None, 0, g.first_worker, g.num_workers, 0, None, 0)
+        return (ctypes.byref(self.plan), 1, g.first_worker, g.num_workers,
+                self.ready, self.err, self.cid)
+
+    def receive(self, dst0: torch.Tensor, dst1: Optional[torch.Tensor] = None,
+                off1: int = 0, left: Optional[torch.Tensor] = None,
+                sent: Optional[torch.Tensor] = None,
+                tile_bytes: int = 0) -> None:
+        """Launch the receive on the current stream, after the sending
+        launch, and count it in ``launches["ring_recv"]``. With ``sent``
+        (rows, tiles) int32, first each row whose receiver is in another
+        process waits for its credit and sends the tiles of ``tile_bytes``
+        that the sending launch left in its row of ``left`` (sent 0). Then
+        each row whose sender is in another process waits for the sender's
+        blocks and copies its slot into row r of ``dst0`` (the slot's first
+        ``dst0[r]`` bytes) and of ``dst1`` (from byte ``off1``). Nothing on
+        a stacked group."""
+        if self.plan is None:
+            return
+        lib, group = _lib(), self.group
+        rows = group.workers_per_process
+        b0 = dst0[0].numel() * dst0.element_size()
+        b1 = 0 if dst1 is None else dst1[0].numel() * dst1.element_size()
+        grid = _grid(lib, self.device, self.row_bytes, rows, group)
+        with torch.cuda.device(self.device):
+            e = lib.ring_dma_recv_launch(
+                rows, group.first_worker, group.num_workers, grid,
+                ctypes.byref(self.plan), dst0.data_ptr(), b0,
+                None if dst1 is None else dst1.data_ptr(), b1, off1,
+                None if left is None else left.data_ptr(),
+                None if sent is None else sent.data_ptr(),
+                0 if sent is None else sent.shape[1], tile_bytes,
+                self.ready, self.arrive, self.err, self.cid,
+                torch.cuda.current_stream(self.device).cuda_stream)
+        _ok(e, "ring_dma receive launch")
+        launches["ring_recv"] += 1
+
+
 def hop_cuda(x: torch.Tensor, shift: int = 1,
              group: Optional[mesh_lib.WorkerGroup] = None) -> torch.Tensor:
     """One ring hop on the card: one launch for all of this process's
@@ -331,27 +442,14 @@ def hop_cuda(x: torch.Tensor, shift: int = 1,
     grid = _grid(lib, x.device, nb, rows, group)
     plan, remote, ready, arrive, err, cid = None, 0, 0, 0, None, 0
     if group.process_group:
-        if rows > _MAX_ROWS:
-            raise ValueError(f"a process holds at most {_MAX_ROWS} workers "
-                             f"for the ring-DMA kernels, got {rows}")
+        _check_rows(rows)
         ws = _workspace(group, x.device)
         stride = _round_up(nb, _ALIGN)
         ws.ensure(rows * stride)
         cid = _next_hop_id()
         ws.calls[cid] += 1
         ws.arrivals[cid] += grid
-        p = _HopPlan()
-        base, w, me = group.first_worker, group.num_workers, group.rank
-        for r in range(rows):
-            g = base + r
-            dp, dr = divmod((g + shift) % w, rows)
-            sp, sr = divmod((g - shift) % w, rows)
-            p.credit_to[r] = ws.counter(sp, cid, _READY, sr)
-            p.arrive_to[r] = ws.counter(dp, cid, _ARRIVE, dr)
-            p.my_ready[r] = ws.counter(me, cid, _READY, r)
-            p.my_arrive[r] = ws.counter(me, cid, _ARRIVE, r)
-            p.remote_dst[r] = ws.data(dp) + dr * stride
-            p.my_slot[r] = ws.data(me) + r * stride
+        p = _hop_plan(ws, group, cid, stride, shift)
         plan, remote = ctypes.byref(p), 1
         ready, arrive, err = ws.calls[cid], ws.arrivals[cid], ws.err_dev
     with torch.cuda.device(x.device):

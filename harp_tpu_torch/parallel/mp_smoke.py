@@ -20,6 +20,10 @@ process boundary:
   ``hop_tree`` on a tree of f32, bf16 and int32 leaves and
   ``ring_allgather``, bitwise against the stacked group (on the card: the
   kernels between processes);
+* the two in-kernel ring sends (``pallas_kernels.dense_mf_hop`` and
+  ``flash_attention`` with ``ring_hop=True``), bitwise the stacked group,
+  whose sent blocks are bitwise ``torch.roll`` (on the card: the kernels'
+  sends between processes and the receive kernel);
 * one K-means iteration in each of the five comm variants, bitwise the
   stacked group's;
 * small SGD-MF fits with ``fused_dma=True`` (dense, 1 and 2 slices; on the
@@ -160,6 +164,62 @@ def ring_dma_checks(pg, st) -> None:
         ring_dma.check_errors()
 
 
+def ring_send_checks(pg, st) -> None:
+    from harp_tpu_torch.ops import pallas_kernels as pk
+    from harp_tpu_torch.ops import ring_dma
+
+    w = pg.num_workers
+    rng = np.random.default_rng(5)
+    rpw, cpb, k, nmb = 16, 40, 6, 2
+    v = rng.random((w, rpw, cpb)).astype(np.float32)
+    v[rng.random(v.shape) < 0.7] = np.nan
+    seen = ~np.isnan(v)
+    mf = (v, rng.random((w * rpw, k)).astype(np.float32),
+          rng.random((w * cpb, k)).astype(np.float32),
+          seen.sum(2).astype(np.float32),
+          seen.reshape(w, nmb, rpw // nmb, cpb).sum(2).astype(np.float32))
+
+    def hop(slab, w_, h_, rc, cc):
+        zero = torch.zeros(slab.shape[0], dtype=torch.int32,
+                           device=slab.device)
+        w_, h_, sse, h_next = pk.dense_mf_hop(
+            slab.bfloat16(), zero, w_, h_, rc, cc, nmb, 0.05, 0.01,
+            ring_hop=True)
+        return w_, h_, sse[:, None], h_next
+
+    l, h, d = 24, 2, 8
+    qkv = [rng.standard_normal((w * l, h, d)).astype(np.float32)
+           for _ in range(3)]
+    cases = (("dense_mf_hop", hop, mf, 4),
+             ("flash_attention", lambda a, b, c: pk.flash_attention(
+                 a, b, c, True, return_stats=True, ring_hop=True), qkv, 5))
+    for name, fn, arrays, nout in cases:
+        outs, recv = [], []
+        for sess in (pg, st):
+            before = ring_dma.launches["ring_recv"]
+            outs.append(sess.run(fn, *(sess.scatter(a) for a in arrays),
+                                 in_specs=(sess.shard(),) * len(arrays),
+                                 out_specs=(sess.shard(),) * nout))
+            recv.append(ring_dma.launches["ring_recv"] - before)
+        if pg.device.type == "cuda":
+            _check(recv == [1, 0], f"{name} ring_hop: one receive launch on "
+                   f"the process group, none stacked ({recv})")
+        for i, (got, ref) in enumerate(zip(*outs)):
+            _same(_global(pg, got), ref, f"{name} ring_hop, output {i}")
+        # the stacked group's received blocks: its left neighbours' h' or k, v
+        ref = outs[1]
+        sent = ([(ref[3], ref[1])] if nout == 4
+                else [(ref[3], arrays[1]), (ref[4], arrays[2])])
+        for nxt, blk in sent:
+            blk = torch.as_tensor(blk).cpu()
+            _check(torch.equal(nxt.cpu(), torch.roll(blk, blk.shape[0] // w,
+                                                     0)),
+                   f"{name} ring_hop: each worker receives its left "
+                   f"neighbour's block")
+    if pg.device.type == "cuda":
+        ring_dma.check_errors()
+
+
 def kmeans_checks(pg, st) -> None:
     from harp_tpu_torch.io import datagen
     from harp_tpu_torch.models import kmeans as km
@@ -215,6 +275,7 @@ def run(device=None) -> None:
            f"{wl} workers a process ({pg.workers})")
     collective_checks(pg, st)
     ring_dma_checks(pg, st)
+    ring_send_checks(pg, st)
     kmeans_checks(pg, st)
     sgd_mf_checks(pg, st)
     pg.barrier()

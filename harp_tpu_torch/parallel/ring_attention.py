@@ -19,12 +19,17 @@ local length of at least 8192 (``pallas_kernels.use_flash_pallas``) a hop
 or a blocked call is one launch of the flash-attention kernel for every
 stacked worker; otherwise it is plain tensor code, as the JAX package
 leaves it to XLA, and each plain hop or call on a CUDA device is counted
-in ``pallas_kernels.plain_on_card["flash_attention"]``. ``fused_dma=True``
-hops the (k, v) blocks through the ring-DMA engine
-(``ops/ring_dma.hop_tree``), bitwise the unfused ring; ``fused_dma=None``
-is ``ring_dma.use_ring_dma`` of the device, so fused on the card. The JAX
-package's in-kernel KV send (``flash_attention_pallas(ring_hop=True)``) is
-not ported yet, so the port takes the JAX package's out-of-kernel branch.
+in ``pallas_kernels.plain_on_card["flash_attention"]``.
+
+``fused_dma=True`` moves the (k, v) blocks by the ring-DMA engine, bitwise
+the unfused ring; ``fused_dma=None`` is ``ring_dma.use_ring_dma`` of the
+device, so fused on the card. Where the JAX package fuses the hop into its
+flash kernel (``fused_dma``, the flash route, W > 1, ``use_ring_dma`` of
+the device and no ``ablate_rotation``, so on the card at a local length of
+at least 8192), each of the W flash launches also sends its k and v to the
+right neighbour (``flash_attention(ring_hop=True)``) and no collective runs
+outside the kernels; elsewhere ``fused_dma=True`` hops (k, v) with
+``ops/ring_dma.hop_tree``, the JAX package's out-of-kernel branch.
 """
 
 from __future__ import annotations
@@ -152,11 +157,15 @@ def ring_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the local block length: W launches a call, one a hop, each for all
     workers; elsewhere the W hops are einsums.
 
-    ``fused_dma``: True hops (k, v) through the ring-DMA engine
-    (``ring_dma.hop_tree``: two launches of its kernel a hop on the card);
-    None is :func:`~harp_tpu_torch.ops.ring_dma.use_ring_dma` of the
-    device, as the JAX package's None is its ``use_ring_dma()``: fused on
-    the card, unfused on the CPU.
+    ``fused_dma``: True moves (k, v) by the ring-DMA engine: with the flash
+    route on a device the engine serves and W > 1, inside the W flash
+    launches (``flash_attention(ring_hop=True)``: the call before the hop
+    sends the block the next call computes on; the last send brings the
+    blocks home); otherwise by ``ring_dma.hop_tree`` (two launches of its
+    kernel a hop on the card). None is
+    :func:`~harp_tpu_torch.ops.ring_dma.use_ring_dma` of the device, as the
+    JAX package's None is its ``use_ring_dma()``: fused on the card,
+    unfused on the CPU.
     ``ablate_rotation``: timing ablation only: keeps the per-hop compute but
     never moves the KV block (the result is wrong)."""
     w = lax_ops.num_workers()
@@ -175,6 +184,23 @@ def ring_attention_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             # wrapped around
             return (wid >= tm1 + 1)[:, None, None].expand(m_r.shape)
         return torch.ones(m_r.shape, dtype=torch.bool, device=m_r.device)
+
+    in_kernel = (fused_dma and use_flash
+                 and ring_dma.use_ring_dma(q.device) and w > 1
+                 and not ablate_rotation)
+    if in_kernel:
+        # every call ships its resident KV onward while it computes, so
+        # call t + 1 computes on the block call t received
+        out, m_run, den, kb, vb = pk.flash_attention(
+            q, k, v, causal=causal, return_stats=True, ring_hop=True)
+        num = out * den[..., None]
+        for tm1 in range(w - 1):
+            out, m_b, den_b, kb, vb = pk.flash_attention(
+                q, kb, vb, causal=False, return_stats=True, ring_hop=True)
+            m_run, num, den = _softmax_merge(m_run, num, den, m_b,
+                                             out * den_b[..., None], den_b,
+                                             hop_valid(tm1, m_run))
+        return num / torch.clamp(den, min=1e-30)[..., None]
 
     m_run, num, den = _hop_stats(q, k, v, scale, causal, use_flash)
     if w > 1:

@@ -187,8 +187,14 @@ def test_flash_attention_errors():
     q = torch.zeros(8, 3, 16)
     with pytest.raises(ValueError, match="requires return_stats"):
         tpk.flash_attention(q, q, q, ring_hop=True)
-    with pytest.raises(NotImplementedError, match="ring_hop"):
+    with pytest.raises(ValueError, match="stacked"):     # no worker axis
         tpk.flash_attention(q, q, q, return_stats=True, ring_hop=True)
+    ts = TorchSession(num_workers=2, device="cpu")       # ported: it works
+    x = torch.arange(2 * 8 * 3 * 16, dtype=torch.float32).reshape(16, 3, 16)
+    out = ts.run(lambda a: tpk.flash_attention(a, a, a, return_stats=True,
+                                               ring_hop=True), x,
+                 in_specs=(ts.shard(),), out_specs=(ts.shard(),) * 5)
+    assert len(out) == 5 and torch.equal(out[3], torch.roll(x, 8, 0))
     with pytest.raises(ValueError, match="head_pack=True needs even H"):
         tpk.flash_attention(q, q, q, head_pack=True)       # H = 3
     with pytest.raises(ValueError, match="head_pack=True needs even H"):
@@ -201,6 +207,37 @@ def test_flash_attention_errors():
         tpk.flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="k must be"):
         tpk.flash_attention(q, torch.zeros(9, 3, 16), q)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_ring_hop_matches_pallas_and_rotate(session, causal):
+    """flash_attention(return_stats=True, ring_hop=True) on a stacked CPU
+    group of 4 workers against the TPU kernel in interpret mode with
+    return_stats on every worker's block and ``lax_ops.rotate`` of k and v
+    in a JAX session (the kernel's own ``ring_hop`` has no interpret
+    lowering): out, m, den within 1e-5, k_next and v_next bitwise."""
+    w = 4
+    q, k, v = qkv((w * 16, 2, 8), 12, seed=41 + causal)
+
+    def jfn(a, b, c):
+        o, m, d = jpk.flash_attention_pallas(a, b, c, causal, bq=32, bk=32,
+                                             interpret=True,
+                                             return_stats=True)
+        return o, m, d, jlax.rotate(b, 1), jlax.rotate(c, 1)
+
+    js, ts = sessions(w, session)
+    jout = js.run(jfn, *[js.scatter(jnp.asarray(x)) for x in (q, k, v)],
+                  in_specs=(js.shard(),) * 3, out_specs=(js.shard(),) * 5)
+    tout = ts.run(lambda a, b, c: tpk.flash_attention(
+        a, b, c, causal, return_stats=True, ring_hop=True),
+        *map(torch.from_numpy, (q, k, v)), in_specs=(ts.shard(),) * 3,
+        out_specs=(ts.shard(),) * 5)
+    for got, want in zip(tout[:3], jout[:3]):
+        close(got, want)
+    for got, want, x in zip(tout[3:], jout[3:], (k, v)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.roll(x, x.shape[0] // w, axis=0))
 
 
 def test_use_flash_pallas_rule():

@@ -46,7 +46,14 @@ tests/test_torch_attention.py holds against the JAX package's grid).
 Ring DMA: the hop and the allgather are bitwise ``torch.roll`` and the
 stacked copy for every dtype and for a ragged byte count, one launch a
 call; ``parallel/mp_smoke.py`` as 2 processes x 2 workers on the card holds
-the kernels between processes bitwise to the stacked group.
+the kernels between processes bitwise to the stacked group, the in-kernel
+sends among them.
+
+In-kernel ring sends (``ring_hop``): the dense-MF hop's and flash
+attention's other outputs are bitwise the launch without the send, and the
+sent blocks (h_next; k_next, v_next) bitwise ``torch.roll`` of h' and of k,
+v; 200 back-to-back dense-MF sends between 2 processes, one held back by a
+busy kernel of varying length, all deliver their own iteration's block.
 """
 
 import math
@@ -208,6 +215,75 @@ def test_dense_mf_hop_kernel_matches_plain(cuda, nw, n_blocks, rpw, cpb, k,
         assert torch.equal(a, c)
 
 
+@pytest.mark.parametrize("k", [32, 20])
+def test_dense_mf_hop_ring_hop_sends_h_bitwise(cuda, k):
+    """W=4 stacked, per-worker buckets, K=32 and K=20 (padded to 32): the
+    send changes no other output, and h_next is h' rolled by one worker."""
+    from harp_tpu_torch.parallel.mesh import WorkerGroup
+
+    v, w, h, rc, cc = (x.to(cuda) for x in mf_hop_inputs(
+        4, 8, 512, 1000, k, 8, seed=k))
+    b = torch.tensor([5, 2, 7, 0], dtype=torch.int32, device=cuda)
+    args = (v, b, w, h, rc, cc, 4, 0.05, 0.01)
+    plain = pk.dense_mf_hop_cuda(*args)
+    before = dict(pk.launches)
+    got = pk.dense_mf_hop_cuda(*args, ring_hop=True,
+                               group=WorkerGroup(4, cuda))
+    torch.cuda.synchronize()
+    assert pk.launches["dense_mf_hop"] == before["dense_mf_hop"] + 1
+    assert pk.launches["dense_mf_hop_ring"] == before["dense_mf_hop_ring"] + 1
+    assert len(got) == 4 and got[3].shape == h.shape
+    for a, c in zip(got[:3], plain):
+        assert torch.equal(a, c)
+    assert torch.equal(got[3], torch.roll(got[1], 1, 0))
+
+
+def test_dense_mf_hop_ring_sends_survive_a_held_back_rank(cuda):
+    """2 processes x 1 worker: 200 back-to-back sends, process 1 held back
+    before each by a busy kernel of varying length; every h_next is its
+    left neighbour's block of the same iteration (an all-missing slab with
+    zero counts leaves H as it was), and each send has its receive launch."""
+    import os
+    import sys
+
+    from harp_tpu_torch.parallel import launch
+
+    code = (
+        "import torch\n"
+        "from harp_tpu_torch import HarpSession\n"
+        "from harp_tpu_torch.ops import pallas_kernels as pk, ring_dma\n"
+        "s = HarpSession(num_workers=2, distributed=True)\n"
+        "g, r = s.workers, s.workers.rank\n"
+        "dev = torch.device('cuda')\n"
+        "slab = torch.full((1, 1, 16, 1000), float('nan'), device=dev)\n"
+        "slab = slab.bfloat16()\n"
+        "b = torch.zeros(1, dtype=torch.int32, device=dev)\n"
+        "w = torch.ones(1, 16, 16, device=dev)\n"
+        "h = torch.empty(1, 1000, 16, device=dev)\n"
+        "rc = torch.zeros(1, 1, 16, device=dev)\n"
+        "cc = torch.zeros(1, 1, 1, 1000, device=dev)\n"
+        "bad = torch.zeros((), dtype=torch.int64, device=dev)\n"
+        "s.barrier()\n"
+        "for it in range(200):\n"
+        "    if r == 1:\n"
+        "        torch.cuda._sleep(20000 * (it % 13))\n"
+        "    h.fill_(r * 1000 + it)\n"
+        "    out = pk.dense_mf_hop_cuda(slab, b, w, h, rc, cc, 1, 0.05, "
+        "0.01, ring_hop=True, group=g)\n"
+        "    bad += (out[3] != (1 - r) * 1000 + it).sum()\n"
+        "    bad += (out[1] != h).sum()\n"
+        "ring_dma.check_errors()\n"
+        "print('SENDS', int(bad), ring_dma.launches['ring_recv'], "
+        "flush=True)\n"
+        "s.barrier()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    result = launch.launch(2, [sys.executable, "-c", code], timeout=300,
+                           cwd=root, extra_env={"PYTHONPATH": root})
+    assert result.ok, result
+    for _, out in result:
+        assert "SENDS 0 200" in out, out[-4000:]
+
+
 def test_dense_mf_hop_kernel_refuses_bad_inputs(cuda):
     v, w, h, rc, cc = (x.to(cuda) for x in mf_hop_inputs(1, 1, 64, 64, 8, 2))
     b = torch.zeros(1, dtype=torch.int32, device=cuda)
@@ -351,6 +427,33 @@ def test_flash_attention_kernel_matches_plain(cuda, w, l, h, dh, dv, causal,
 FLASH_TILE = 64   # the kernel's query and key tile
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_ring_hop_sends_kv_bitwise(cuda, causal, dtype):
+    """W=4 stacked, ragged L, Dv != Dh: out, m and den bitwise the launch
+    without the send; k_next and v_next bitwise k and v rolled by one
+    worker, in the input type."""
+    from harp_tpu_torch.parallel.mesh import WorkerGroup
+
+    g = torch.Generator().manual_seed(7 + causal)
+    q, k = (torch.randn(4, 1000, 2, 64, generator=g) for _ in range(2))
+    v = torch.randn(4, 1000, 2, 48, generator=g)
+    q, k, v = (x.to(dtype).to(cuda) for x in (q, k, v))
+    plain = pk.flash_attention_cuda(q, k, v, causal, return_stats=True)
+    before = dict(pk.launches)
+    got = pk.flash_attention_cuda(q, k, v, causal, return_stats=True,
+                                  ring_hop=True, group=WorkerGroup(4, cuda))
+    torch.cuda.synchronize()
+    assert pk.launches["flash_attention"] == before["flash_attention"] + 1
+    assert (pk.launches["flash_attention_ring"]
+            == before["flash_attention_ring"] + 1)
+    assert len(got) == 5
+    for a, c in zip(got[:3], plain):
+        assert torch.equal(a, c)
+    for nxt, x in zip(got[3:], (k, v)):
+        assert nxt.dtype == dtype and torch.equal(nxt, torch.roll(x, 1, 0))
+
+
 def trapezoid_tiles(l, causal, tile=FLASH_TILE):
     """KV tiles one (worker, head) loads at length ``l``: causal, query
     tile iq walks the min(n, iq + 1) tiles at or below the diagonal (none
@@ -431,8 +534,10 @@ def test_ring_allgather_kernel_matches_the_copy(cuda, dtype):
 
 def test_ring_dma_kernels_between_processes(cuda):
     """parallel/mp_smoke.py as 2 processes x 2 workers on the card: the
-    kernels between processes (through CUDA IPC) and within one, bitwise
-    the stacked group."""
+    kernels between processes (through CUDA IPC) and within one, the
+    dense-MF and flash in-kernel sends (each process's h_next, k_next and
+    v_next) and the fused SGD-MF fits among them, bitwise the stacked
+    group."""
     import os
     import sys
 

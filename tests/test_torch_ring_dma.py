@@ -212,7 +212,7 @@ def test_ring_dma_errors():
     tdma.check_errors()            # no workspace on the CPU: nothing to read
     ids = [tdma._next_hop_id() for _ in range(241)]
     assert min(ids) >= 16 and max(ids) <= 255 and len(set(ids)) == 240
-    assert tdma.COLLECTIVE_IDS == {"allgather": jdma.COLLECTIVE_IDS["allgather"]}
+    assert tdma.COLLECTIVE_IDS == jdma.COLLECTIVE_IDS
 
 
 # --------------------------------------------------------------------------- #
@@ -302,6 +302,43 @@ def test_ring_attention_mha_fused_matches_jax(session, causal):
     assert np.abs(outs[0].numpy() - j).max() <= 1e-5 * np.abs(j).max()
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_mha_in_kernel_branch_matches_jax(session, causal,
+                                                         monkeypatch):
+    """The in-kernel send's schedule (the flash route with the ring-DMA
+    engine serving the device, patched on here): W flash calls with
+    ``ring_hop=True`` and no out-of-kernel hop, bitwise the port's
+    out-of-kernel fused ring and within 1e-5 of the JAX fused ring."""
+    rng = np.random.default_rng(31 + causal)
+    q, k, v = (rng.standard_normal((4 * 8, 4, 8)).astype(np.float32)
+               for _ in range(3))
+    js = JaxSession(num_workers=4, devices=jax.devices()[:4])
+    j = np.asarray(js.run(lambda a, b, c: jra.ring_attention_mha(
+        a, b, c, causal, use_flash=False, fused_dma=True),
+        *[js.scatter(jnp.asarray(x)) for x in (q, k, v)],
+        in_specs=(js.shard(),) * 3, out_specs=js.shard()))
+    ts = tsess(4)
+
+    def ring():
+        return ts.run(lambda a, b, c: tra.ring_attention_mha(
+            a, b, c, causal, use_flash=True, fused_dma=True),
+            *map(torch.from_numpy, (q, k, v)), in_specs=(ts.shard(),) * 3,
+            out_specs=ts.shard())
+
+    hopped = ring()                      # the CPU: the out-of-kernel hops
+    calls = []
+    flash, hop = tra.pk.flash_attention, tdma.hop
+    monkeypatch.setattr(tdma, "use_ring_dma", lambda device: True)
+    monkeypatch.setattr(tra.pk, "flash_attention", lambda *a, **kw: (
+        calls.append(kw.get("ring_hop")), flash(*a, **kw))[1])
+    monkeypatch.setattr(tdma, "hop", lambda *a: (calls.append("hop"),
+                                                 hop(*a))[1])
+    fused = ring()
+    assert calls == [True] * 4
+    same(fused, hopped)
+    assert np.abs(fused.numpy() - j).max() <= 1e-5 * np.abs(j).max()
+
+
 @pytest.fixture(scope="module")
 def ratings():
     return jdatagen.sparse_ratings(256, 384, rank=8, density=0.05, seed=3)
@@ -317,19 +354,73 @@ def _max_rel(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+_JAX_FITS = {}
+
+
+def _jax_fused_fit(ratings, ns, layout):
+    """The JAX package's fused fit at W=4 (cached for this module)."""
+    if (ns, layout) not in _JAX_FITS:
+        _JAX_FITS[ns, layout] = jmf.SGDMF(
+            JaxSession(num_workers=4),
+            jmf.SGDMFConfig(**_mf_cfg(ns, layout, True))).fit(
+                *ratings, 256, 384, seed=1)
+    return _JAX_FITS[ns, layout]
+
+
 @pytest.mark.parametrize("layout", ["dense", "sparse"])
 @pytest.mark.parametrize("ns", [1, 2])
 def test_sgd_mf_fused_matches_jax(ratings, ns, layout):
     rows, cols, vals = ratings
-    jw, jh, jr = jmf.SGDMF(JaxSession(num_workers=4),
-                           jmf.SGDMFConfig(**_mf_cfg(ns, layout, True))).fit(
-        rows, cols, vals, 256, 384, seed=1)
+    jw, jh, jr = _jax_fused_fit(ratings, ns, layout)
     fits = [tmf.SGDMF(tsess(4), tmf.SGDMFConfig(**_mf_cfg(ns, layout, f))
                       ).fit(rows, cols, vals, 256, 384, seed=1)
             for f in (True, False)]
     for a, b in zip(*fits):
         np.testing.assert_array_equal(a, b)
     tw, th, tr = fits[0]
+    np.testing.assert_allclose(tr, np.asarray(jr), rtol=1e-5)
+    assert _max_rel(tw, jw) <= 1e-4 and _max_rel(th, jh) <= 1e-4
+
+
+@pytest.mark.parametrize("ns", [1, 2])
+def test_sgd_mf_in_kernel_hop_schedule_matches_jax(ratings, ns, monkeypatch):
+    """With the ring-DMA engine serving the device (patched on here), the
+    1-slice dense fused fit takes the JAX package's ``body_hops`` schedule:
+    the hop returns the next block (``ring_hop=True``), the rotation runs
+    with shift 0 and no out-of-kernel hop. The 2-slice fit keeps shift 1
+    and its out-of-kernel hops. Either is bitwise the unfused fit and
+    matches the JAX fused fit."""
+    rows, cols, vals = ratings
+    rotators, hops, rings = [], [], []
+    rotator, hop = trot.Rotator, tdma.hop
+    dense = tmf.pallas_kernels.dense_mf_hop
+
+    class Spy(rotator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rotators.append((self.fused_dma, self.shift))
+
+    monkeypatch.setattr(tdma, "use_ring_dma", lambda device: True)
+    monkeypatch.setattr(trot, "Rotator", Spy)
+    monkeypatch.setattr(tdma, "hop", lambda *a: (hops.append(1), hop(*a))[1])
+    monkeypatch.setattr(tmf.pallas_kernels, "dense_mf_hop", lambda *a, **kw: (
+        rings.append(kw.get("ring_hop", False)), dense(*a, **kw))[1])
+    fused = tmf.SGDMF(tsess(4), tmf.SGDMFConfig(
+        **_mf_cfg(ns, "dense", True))).fit(rows, cols, vals, 256, 384, seed=1)
+    steps = 3 * ns * 4
+    if ns == 1:
+        assert rotators == [(False, 0)] and not hops
+        assert rings == [True] * steps
+    else:
+        assert rotators == [(True, 1)] and len(hops) == steps
+        assert rings == [False] * steps
+    unfused = tmf.SGDMF(tsess(4), tmf.SGDMFConfig(
+        **_mf_cfg(ns, "dense", False))).fit(rows, cols, vals, 256, 384,
+                                            seed=1)
+    for a, b in zip(fused, unfused):
+        np.testing.assert_array_equal(a, b)
+    jw, jh, jr = _jax_fused_fit(ratings, ns, "dense")
+    tw, th, tr = fused
     np.testing.assert_allclose(tr, np.asarray(jr), rtol=1e-5)
     assert _max_rel(tw, jw) <= 1e-4 and _max_rel(th, jh) <= 1e-4
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from harp_tpu.collectives import lax_ops as jlax
 from harp_tpu.collectives import rotation as jrot
 from harp_tpu.io import datagen as jdatagen
 from harp_tpu.io import loaders as jloaders
@@ -169,6 +170,50 @@ def test_dense_mf_hop_plain_matches_pallas_and_xla(nmb, s, cpb, k, pallas):
         np.testing.assert_allclose(w1[0].numpy(), w_r, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(h1[0].numpy(), h_r, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(float(sse[0]), sse_r, rtol=1e-5)
+
+
+def test_dense_mf_hop_ring_hop_matches_pallas_and_rotate():
+    """dense_mf_hop(ring_hop=True) on a stacked CPU group of 4 workers
+    against the TPU kernel in interpret mode on each worker's bucket,
+    followed by ``lax_ops.rotate(h, 1)`` in a JAX session (the kernel's own
+    ``ring_hop`` has no interpret lowering). h_next is bitwise the roll of
+    the port's own h'."""
+    nw, nmb, s, cpb, k, lr, lam = 4, 2, 16, 256, 8, 0.05, 0.01
+    rpw = nmb * s
+    rng = np.random.default_rng(29)
+    v = rng.random((nw, rpw, cpb)).astype(np.float32)
+    v[rng.random(v.shape) < 0.9] = np.nan
+    w0 = rng.random((nw, rpw, k)).astype(np.float32)
+    h0 = rng.random((nw, cpb, k)).astype(np.float32)
+    rc = rng.integers(1, 5, (nw, rpw)).astype(np.float32)
+    cc_fine = rng.integers(0, 3, (nw, 2 * nmb, cpb)).astype(np.float32)
+    cc = cc_fine.reshape(nw, nmb, 2, cpb).sum(axis=2)
+    refs = [jpk.dense_mf_hop_pallas(
+        jnp.asarray(v[i], jnp.bfloat16), jnp.asarray(w0[i]).T,
+        jnp.asarray(h0[i]).T, jnp.asarray(rc[i]).reshape(nmb, s),
+        jnp.asarray(cc[i]), lr, lam, col_tile=128, interpret=True)
+        for i in range(nw)]
+    jh = np.stack([np.asarray(r[1]).T for r in refs])
+    js = JaxSession(num_workers=nw, devices=jax.devices()[:nw])
+    jnext = np.asarray(js.run(lambda x: jlax.rotate(x, 1),
+                              js.scatter(jnp.asarray(jh.reshape(-1, k))),
+                              in_specs=(js.shard(),), out_specs=js.shard())
+                       ).reshape(nw, cpb, k)
+    t = torch.from_numpy
+    ts = TorchSession(num_workers=nw, device="cpu")
+    out = ts.run(lambda: tpk.dense_mf_hop(
+        t(v).to(torch.bfloat16)[:, None], torch.zeros(nw, dtype=torch.int32),
+        t(w0), t(h0), t(rc)[:, None], t(cc_fine)[:, None], nmb, lr, lam,
+        ring_hop=True), in_specs=(), out_specs=(ts.replicate(),) * 4)
+    w1, h1, sse, h_next = out
+    for i, (w_t, h_t, sse_r) in enumerate(refs):
+        np.testing.assert_allclose(w1[i].numpy(), np.asarray(w_t).T,
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(h1[i].numpy(), np.asarray(h_t).T,
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(float(sse[i]), float(sse_r), rtol=1e-5)
+    np.testing.assert_allclose(h_next.numpy(), jnext, rtol=1e-5, atol=1e-5)
+    assert torch.equal(h_next, torch.roll(h1, 1, 0))
 
 
 def test_dense_mf_hop_dispatcher_sends_cpu_tensors_to_plain():
