@@ -15,6 +15,10 @@ main path must make no plain call on the card:
     flagship 32768 x 32768 ratings, 1%, rank 32, 8 minibatches a hop, 10
     epochs, against the same fit through the plain hop; then the stacked
     W=4 variants (1 and 2 slices, dense and sparse) at 4096 x 4096, 5%;
+    past the narrow kernel's rank 128, the wide hop at rank 256 (timed) and
+    a ragged 136 on the flagship's slab and at 1024 on a 4096 x 4096
+    corner of it, the flagship fit at rank 256 (W=1, against the plain-hop
+    fit) and its fused 1-slice W=4 twin (bitwise the unfused fit);
   * implicit ALS through ``ALS.prepare``/``fit_prepared`` at the flagship
     8192 x 8192, 0.5%, rank 32, 10 iterations (dense layout, two SPD-solve
     launches an iteration), against the same fit through the "cholesky"
@@ -27,7 +31,9 @@ main path must make no plain call on the card:
     against its plain version and a float64 solve on the flagship's own
     normal equations and at K = 10 (N odd), 33, 64, 65, 96, 128 and 256
     (K = 96 and 128 timed against cuSOLVER, the plain version and the
-    bound);
+    bound); past K = 338 the global-memory solve at K = 339 and 384 (N =
+    8192) and 512 (N = 2048), timed, and the flagship's data at rank 384
+    with solver="pallas" against the "cholesky" fit;
   * attention: the flash kernel against its plain version and a float64
     reference on sampled query rows at the flagship (causal L=16384, H=8,
     Dh=64, f32), at H=4, Dh=128, ragged L=8209, Dv=96, bf16 and a stacked
@@ -37,7 +43,11 @@ main path must make no plain call on the card:
     ``ulysses_attention``
     on 4 workers at L=16384 (one stacked launch a call), held against
     blocked attention and the float64 reference; the streamed torch loop
-    against the kernel at L = 2048, 4096 and 8192;
+    against the kernel at L = 2048, 4096 and 8192; heads past 128 (the
+    wide variant): Dh = Dv = 256 and MLA's 192 / 128 at causal L=16384,
+    H=4 (timed), 192 / 128 in bf16 at a ragged L, 512 at L=8192, and at
+    Dh = 256 ``blocked_attention`` and a fused causal W=4 ring at L=32768
+    (bitwise the unfused ring);
   * ring DMA: the hop (shifts 1, -1, 3; f32, bf16, int32 and a ragged
     uint8 block), ``hop_tree`` and ``ring_allgather`` on 4 stacked workers
     against their plain versions; the SGD-MF flagship at W=4 with
@@ -60,14 +70,14 @@ main path must make no plain call on the card:
   * dispatch: the plain-call counts of every main path (all 0); one call
     where the JAX package takes XLA (K-means K=400, D=100; attention at
     L=4096): no launch, one plain call, the plain version's answer; and one
-    call where the JAX package runs its kernel and the port's cannot
-    (dense-MF K=192; flash Dh=192 at L=8192): a ValueError before any
-    launch.
+    call at a width past the narrow kernels (dense-MF K=192; flash Dh=192
+    at L=8192): one launch of the wide kernel, no plain call, the plain
+    version's answer within the kernel's tolerance.
 
 It prints:
 
   * the card's name and power limit (nvidia-smi);
-  * a ``{"kernels": [...]}`` line: per kernel (the SPD solve's two
+  * a ``{"kernels": [...]}`` line: per kernel (the SPD solve's three
     variants apart) its launches on its path, its error against the plain
     version, its time, the plain version's time, the bound for the same
     work and a PyTorch yardstick's time; the dense-MF and flash rows also
@@ -150,6 +160,23 @@ KMEANS_FLAGSHIP_MS_BEFORE = 0.9202
 # 8192 systems; explicit solver="pallas" fits at these ranks on its data
 SPD_WIDE = (96, 128)
 ALS_WIDE_ITERATIONS = 5
+# the widths past the narrow kernels: the dense-MF hop at rank 256 and a
+# ragged 136 on the SGD-MF flagship's data (and 1024, the top of the range,
+# on a 4096 x 4096 corner of it), the flagship fit at rank 256, W=1
+# two-point at 2 vs 6 epochs, and its fused 1-slice W=4 twin for 2 epochs
+MF_WIDE = dict(rank=256, ragged=136, top=1024, top_rows=4096, epochs=(2, 6),
+               fused_epochs=2)
+# flash heads past 128: Gemma's 256 at causal L=16384, H=4 (timed, and
+# through blocked_attention and a fused W=4 ring at L=32768), DeepSeek-V2/V3
+# MLA's query/key 192 with value 128 (timed; and bf16 at a ragged L), and
+# 512 at L=8192, the top of the checked range
+ATTN_WIDE = dict(l=16384, h=4, dh=256, ring_l=32768, mla=(192, 128),
+                 ragged_l=8209, top=512, top_l=8192, top_h=2)
+# the SPD solve past K = 338 (the global-memory kernel): N systems at each
+# K, timed (the plain version by its one checked call); ALS on the implicit
+# flagship's data at rank 384 with solver="pallas", 2 iterations
+SPD_GLOBAL = {339: 8192, 384: 8192, 512: 2048}
+ALS_GLOBAL = dict(rank=384, iterations=2)
 
 
 def log(msg: str) -> None:
@@ -599,16 +626,25 @@ def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed):
             nw, rpw, cpb, k, cc.shape[2])
         log(f"  kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
             f"library {out['library_ms']:.4f} ms, bound "
-            f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
-        kp = next(r for r in pk.MF_RANKS if k <= r)
+            f"{out['bound_ms']:.4f} ms ({out['bound_by']}), "
+            f"{out['ms'] / out['bound_ms']:.2f}x the bound")
+        kp = pk.mf_padded_rank(k)
         lib = pk._mf_lib()
         n_ct = -(-cpb // lib.dense_mf_hop_col_tile(kp))
-        ws_gb = nw * n_ct * rpw * kp * 4 / 1e9
+        if kp in pk.MF_WIDE_RANKS:
+            nbytes = 2 * sum(np.prod(shape) for shape in
+                             pk.dense_mf_wide_shapes(nw, rpw, cpb, kp, nmb))
+            ws = (f"wide path: Wb, G and the stripe snapshots "
+                  f"{nbytes / 1e9:.3f} GB written and read, {n_ct} column "
+                  f"tiles")
+        else:
+            ws = (f"dW workspace {n_ct} tiles, "
+                  f"{nw * n_ct * rpw * kp * 4 / 1e9:.3f} GB written and read")
         per, _ = device_profile(lambda: pk.dense_mf_hop_cuda(*args))
         log(f"  one launch under the profiler: " + ", ".join(
             f"{name} {ms:.4f} ms" for name, ms in per.items()) +
-            f"; dW workspace {n_ct} tiles, {ws_gb:.3f} GB written and read; "
-            f"{lib.dense_mf_hop_smem_bytes(kp)} B of shared memory a block")
+            f"; {ws}; {lib.dense_mf_hop_smem_bytes(kp)} B of shared memory "
+            f"a block")
         out["split_ms"] = per
     return out
 
@@ -800,14 +836,12 @@ def mf_phases():
                timed=False)
     del rstate
 
-    rng = np.random.default_rng(128)
     slab, buckets, w32, h32, rc, cc = args
-    w128, h128 = (torch.from_numpy((rng.standard_normal(
-        t.shape[:2] + (128,)) / 128 ** 0.5).astype(np.float32)).to(t.device)
-        for t in (w32, h32))
+    w128, h128 = rank_factors(w32, h32, 128, seed=128)
     r128 = mfhop_case("rank128", slab, buckets, w128, h128, rc, cc, f["nmb"],
                       f["lr"], f["lam"], timed=True)
     del w128, h128
+    wide = mf_wide_hops(args)
 
     fit = mf_flagship(cfg, state, nnz)
     log(f"  kernel {flag['ms']:.4f} ms per hop (one hop an epoch) against a "
@@ -816,6 +850,8 @@ def mf_phases():
     del state, args, slab
     torch.cuda.empty_cache()
     mf_variants()
+    torch.cuda.empty_cache()
+    r256 = mf_rank256_phase(rows, cols, vals)
     return {
         "name": "dense_mf_hop", "route": "cuda",
         "source": "harp_tpu_torch/csrc/dense_mf_hop.cu",
@@ -837,7 +873,134 @@ def mf_phases():
         "fit_hop_kernel_ms": fit["hop_kernel_ms"],
         "fit_w_reduce_ms": fit["w_reduce_ms"],
         "fit_device_busy_share": fit["busy_share"],
+        **{f"rank{MF_WIDE['rank']}_{key}": wide["rank"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "split_ms")},
+        f"rank{MF_WIDE['ragged']}_max_abs_err": wide["ragged"]["max_abs_err"],
+        f"rank{MF_WIDE['top']}_max_abs_err": wide["top"]["max_abs_err"],
+        **{f"fit_rank{MF_WIDE['rank']}_{key}": val
+           for key, val in r256.items()},
     }
+
+
+def rank_factors(w, h, k, seed):
+    """Random W and H of rank K shaped as ``w`` and ``h`` (standard normal
+    over sqrt(K)), from a seed, on their device."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy((rng.standard_normal(
+        t.shape[:2] + (k,)) / k ** 0.5).astype(np.float32)).to(t.device)
+        for t in (w, h))
+
+
+def mf_wide_hops(args):
+    """[mfhop:wide]: the hop past rank 128 (the wide path) on the SGD-MF
+    flagship's slab, W=1: rank 256 timed, a ragged 136 (padded to 256), and
+    one launch at 1024 on a 4096 x 4096 corner of the slab with its own
+    counts, each against the plain version and its float64 twin."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    f, m = MF_FLAGSHIP, MF_WIDE
+    slab, buckets, w, h, rc, cc = args
+    log(f"[mfhop:wide] ranks {m['rank']}, {m['ragged']} and {m['top']} past "
+        f"the narrow kernel's 128")
+    out = {}
+    for tag, k, timed in (("rank", m["rank"], True),
+                          ("ragged", m["ragged"], False)):
+        wk, hk = rank_factors(w, h, k, seed=k)
+        out[tag] = mfhop_case(f"rank{k}", slab, buckets, wk, hk, rc, cc,
+                              f["nmb"], f["lr"], f["lam"], timed=timed)
+        del wk, hk
+    n = m["top_rows"]
+    small = slab[:, :, :n, :n].contiguous()
+    seen = ~torch.isnan(small)
+    nmb_fine = cc.shape[2]
+    rc_s = seen.sum(3).float()
+    cc_s = seen.reshape(1, 1, nmb_fine, n // nmb_fine, n).sum(3).float()
+    wk, hk = rank_factors(w[:, :n], h[:, :n], m["top"], seed=m["top"])
+    before = pk.launches["dense_mf_hop"]
+    out["top"] = mfhop_case(f"rank{m['top']}", small, buckets, wk, hk, rc_s,
+                            cc_s, f["nmb"], f["lr"], f["lam"], timed=False)
+    check(pk.launches["dense_mf_hop"] - before == 2,
+          f"rank {m['top']}: one launch a hop call (two calls, the second "
+          f"the bitwise rerun)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def mf_rank256_phase(rows, cols, vals):
+    """[sgd_mf:rank256]: the flagship fit at rank 256 (the wide hop), W=1,
+    held to the SGD-MF rule against the plain-hop fit, ratings/s two-point;
+    then the fused 1-slice fit at W=4 stacked (each hop launch with its
+    in-kernel send) bitwise its unfused twin."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.benchmark import timing
+    from harp_tpu_torch.models import sgd_mf
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    f, m = MF_FLAGSHIP, MF_WIDE
+    lo, hi = m["epochs"]
+    cfg = sgd_mf.SGDMFConfig(rank=m["rank"], lam=f["lam"], lr=f["lr"],
+                             epochs=lo, minibatches_per_hop=f["nmb"])
+    sess = HarpSession(num_workers=1)
+    model = sgd_mf.SGDMF(sess, cfg)
+    state = model.prepare(rows, cols, vals, f["users"], f["items"], seed=0)
+    nnz = model.last_layout_stats["nnz"]
+    log(f"[sgd_mf:rank{m['rank']}] dense rotation {f['users']}x{f['items']}, "
+        f"rank {m['rank']}, {f['nmb']} minibatches a hop, {lo} epochs, W=1")
+    zero_counts()
+    fit = model.fit_prepared(state)
+    launches = dict(pk.launches)
+    check_no_plain(f"[sgd_mf:rank{m['rank']}]")
+    check(launches["dense_mf_hop"] == lo,
+          f"dense_mf_hop launched once per epoch ({launches['dense_mf_hop']})")
+    log(f"  rmse {fit[2].tolist()}")
+    check(bool(np.all(np.isfinite(fit[2]))) and fit[2][-1] < fit[2][0],
+          "finite, falling RMSEs")
+    plain, exact = mf_plain_models(sess, cfg)
+    r_rel, f_rel = check_fit_vs_plain(fit, plain.fit_prepared(state),
+                                      exact.fit_prepared(state))
+
+    def build(epochs):
+        mm = sgd_mf.SGDMF(sess, dataclasses.replace(cfg, epochs=epochs))
+        mm.train_prepared(state)
+        return lambda: mm.train_prepared(state)
+
+    tp = timing.two_point(build, lo, hi, float(nnz))
+    log(f"  two-point ({lo} vs {hi} epochs): {tp['rate']:.6g} ratings/s, "
+        f"{tp['per_iter_ms']:.4f} ms/epoch, spread {tp['spread_pct']:.1f}%")
+    del state, model, plain, exact
+    torch.cuda.empty_cache()
+
+    ep = m["fused_epochs"]
+    sess4 = HarpSession(num_workers=RING_W)
+    kw = dict(rank=m["rank"], epochs=ep)
+    fused = sgd_mf.SGDMF(sess4, mf_fused_config(fused_dma=True, **kw))
+    state4 = fused.prepare(rows, cols, vals, f["users"], f["items"], seed=0)
+    log(f"[sgd_mf:rank{m['rank']}] fused, 1 slice, W={RING_W} stacked, "
+        f"{ep} epochs: fused_dma=True against False")
+    zero_counts()
+    got = fused.train_prepared(state4)
+    counts = read_counts()
+    check_no_plain(f"[sgd_mf:rank{m['rank']}] fused")
+    steps = ep * RING_W
+    check(counts["dense_mf_hop"] == steps
+          and counts["dense_mf_hop_ring"] == steps
+          and counts["ring_dma_hop"] == 0,
+          f"one dense_mf_hop launch a rotation step, each with its send, no "
+          f"ring_dma_hop ({counts['dense_mf_hop']}, "
+          f"{counts['dense_mf_hop_ring']} = {steps}; "
+          f"{counts['ring_dma_hop']})")
+    want = sgd_mf.SGDMF(sess4, mf_fused_config(
+        fused_dma=False, **kw)).train_prepared(state4)
+    check(all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+              for a, b in zip(got, want)),
+          "factors and RMSEs bitwise the fused_dma=False fit")
+    del state4, fused
+    torch.cuda.empty_cache()
+    return {"launches": launches["dense_mf_hop"], "ratings_per_s": tp["rate"],
+            "per_epoch_ms": tp["per_iter_ms"], "rmse_rel_vs_plain": r_rel,
+            "factor_rel_vs_plain": f_rel,
+            "fused_launches": counts["dense_mf_hop_ring"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -875,16 +1038,31 @@ def library_spd(a, b):
                                 torch.linalg.cholesky_ex(a).L)[..., 0]
 
 
-def random_spd(n, k, seed):
+def random_spd(n, k, seed, chunk=None):
     """ALS-shaped systems made on the card from a seed: V'V over 4k rows
-    plus 0.1 I, and right-hand sides."""
+    plus 0.1 I, and right-hand sides; with ``chunk``, V is drawn ``chunk``
+    systems at a time (at K = 384 one V for 8192 systems is 19 GB)."""
     g = torch.Generator(device=CARD).manual_seed(seed)
-    v = torch.randn(n, 4 * k, k, generator=g, device=CARD) / k ** 0.5
-    a = torch.bmm(v.transpose(1, 2), v) + 0.1 * torch.eye(k, device=CARD)
-    return a.contiguous(), torch.randn(n, k, generator=g, device=CARD)
+    if chunk is None:
+        v = torch.randn(n, 4 * k, k, generator=g, device=CARD) / k ** 0.5
+        a = torch.bmm(v.transpose(1, 2), v) + 0.1 * torch.eye(k, device=CARD)
+        return a.contiguous(), torch.randn(n, k, generator=g, device=CARD)
+    a = torch.empty(n, k, k, device=CARD)
+    for i in range(0, n, chunk):
+        v = torch.randn(min(chunk, n - i), 4 * k, k, generator=g,
+                        device=CARD) / k ** 0.5
+        torch.bmm(v.transpose(1, 2), v, out=a[i:i + chunk])
+        del v
+    a += 0.1 * torch.eye(k, device=CARD)
+    return a, torch.randn(n, k, generator=g, device=CARD)
 
 
-def spd_case(name, a, b, timed):
+def spd_case(name, a, b, timed, reps=20, plain_reps=3):
+    """One solve through the kernel, checked against the plain version and
+    a float64 solve. ``timed``: the kernel's, the library's and the plain
+    version's times; ``plain_reps`` = 0 takes the plain version's time from
+    its one checked call (no warm-up), for the widths where it takes
+    seconds."""
     from harp_tpu_torch.ops import pallas_kernels as pk
 
     n, k = b.shape
@@ -894,7 +1072,12 @@ def spd_case(name, a, b, timed):
     x = pk.spd_solve_cuda(a, b)
     torch.cuda.synchronize()
     check(pk.launches[variant] == before + 1, f"one {variant} launch")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     plain = pk.spd_solve_plain(a, b)
+    end.record()
+    torch.cuda.synchronize()
     exact = torch.linalg.solve(a.double(), b.double())
     err, ref = max_rel(x, exact), max_rel(plain, exact)
     vs_plain = max_rel(x, plain)
@@ -911,14 +1094,19 @@ def spd_case(name, a, b, timed):
     out = {"max_abs_err": float((x - plain).abs().max()),
            "rel_vs_float64": err, "plain_rel_vs_float64": ref}
     if timed:
-        out["ms"] = cuda_time_ms(lambda: pk.spd_solve_cuda(a, b))
-        out["plain_ms"] = cuda_time_ms(lambda: pk.spd_solve_plain(a, b),
-                                       reps=3, warmup=1)
-        out["library_ms"] = cuda_time_ms(lambda: library_spd(a, b))
+        warm = min(3, reps // 2)
+        out["ms"] = cuda_time_ms(lambda: pk.spd_solve_cuda(a, b), reps=reps,
+                                 warmup=warm)
+        out["plain_ms"] = (cuda_time_ms(lambda: pk.spd_solve_plain(a, b),
+                                        reps=plain_reps, warmup=1)
+                           if plain_reps else start.elapsed_time(end))
+        out["library_ms"] = cuda_time_ms(lambda: library_spd(a, b),
+                                         reps=reps, warmup=warm)
         out["bound_ms"], out["bound_by"] = spd_bound(n, k)
         log(f"  kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
             f"library {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} "
-            f"ms ({out['bound_by']})")
+            f"ms ({out['bound_by']}), {out['ms'] / out['bound_ms']:.2f}x the "
+            f"bound")
     return out
 
 
@@ -1039,17 +1227,20 @@ def check_als_fit(fit, other, yard, name):
     return r_rel, worst
 
 
+SPD_COUNTERS = ("spd_solve", "spd_solve_block", "spd_solve_global")
+
+
 def spd_counter(k):
     """The launch counter of the SPD-solve variant that takes rank K."""
     from harp_tpu_torch.ops import pallas_kernels as pk
 
-    return "spd_solve" if k <= pk.SPD_MAX_K else "spd_solve_block"
+    return SPD_COUNTERS[(k > pk.SPD_MAX_K) + (k > pk.SPD_MAX_K_SMEM)]
 
 
 def als_fit_checked(sess, cfg, data, layout, path):
     """Fit ``data`` through the kernel, counting launches, and hold it
     against the cholesky and float64-solve fits. Returns (launches, fit,
-    RMSE distance, factor distance)."""
+    RMSE distance, factor distance, the fit's wall seconds)."""
     from harp_tpu_torch.models import als
     from harp_tpu_torch.ops import pallas_kernels as pk
 
@@ -1066,16 +1257,16 @@ def als_fit_checked(sess, cfg, data, layout, path):
     log(f"  fit wall {wall:.3f} s (first call, includes the factor fetch), "
         f"launches {launches}")
     name = spd_counter(cfg.rank)
-    other = "spd_solve_block" if name == "spd_solve" else "spd_solve"
-    check(launches[name] == 2 * cfg.iterations and launches[other] == 0,
-          f"{name} launched twice an iteration ({launches[name]}), "
-          f"{other} never ({launches[other]})")
+    others = {n: launches[n] for n in SPD_COUNTERS if n != name}
+    check(launches[name] == 2 * cfg.iterations and not any(others.values()),
+          f"{name} launched twice an iteration ({launches[name]}), the "
+          f"other variants never ({others})")
     log(f"  rmse {fit[2].tolist()}")
     check(bool(np.all(np.isfinite(fit[2]))) and np.isfinite(fit[0]).all()
           and np.isfinite(fit[1]).all(), "finite RMSEs and factors")
     ref, yard = reference_fits(sess, cfg, data)
     r_rel, f_rel = check_als_fit(fit, ref, yard, "cholesky fit")
-    return launches, fit, r_rel, f_rel
+    return launches, fit, r_rel, f_rel, wall
 
 
 def als_two_point(sess, cfg, data):
@@ -1105,8 +1296,8 @@ def als_flagship(data, cfg):
         f"{f['alpha']}, {f['iterations']} iterations, W=1")
     sess = HarpSession(num_workers=1)
     check(sess.device.type == "cuda", "HarpSession() runs on cuda")
-    launches, fit, r_rel, f_rel = als_fit_checked(sess, cfg, data, "dense",
-                                                  "[als:flagship]")
+    launches, fit, r_rel, f_rel, _ = als_fit_checked(
+        sess, cfg, data, "dense", "[als:flagship]")
     tp = als_two_point(sess, cfg, data)
     ab = als_two_point(sess, dataclasses.replace(cfg, ablate_solve=True),
                        data)
@@ -1154,7 +1345,7 @@ def als_wide(data, cfg):
         log(f"[als:rank{rank}] implicit, the flagship's data, rank {rank}, "
             f"solver='pallas', {wcfg.iterations} iterations, W=1")
         sess = HarpSession(num_workers=1)
-        launches, fit, r_rel, f_rel = als_fit_checked(
+        launches, fit, r_rel, f_rel, _ = als_fit_checked(
             sess, wcfg, data, "dense", f"[als:rank{rank}]")
         tp = als_two_point(sess, wcfg, data)
         log(f"  two-point: {tp['rate']:.2f} iters/s, {tp['per_iter_ms']:.4f} "
@@ -1165,6 +1356,59 @@ def als_wide(data, cfg):
                      "factor_rel_vs_cholesky": f_rel}
         torch.cuda.empty_cache()
     return out
+
+
+def spd_global_phases(data, cfg):
+    """[spd:wide] and [als:rank384]: the solve past K = 338 (the
+    global-memory kernel) alone at SPD_GLOBAL's K and N, timed against
+    cuSOLVER, the plain version and the bound; then the implicit flagship's
+    data at rank 384 with solver="pallas", held against the "cholesky" fit
+    under the ALS rule. Returns the kernels-line entry of
+    spd_solve_global."""
+    from harp_tpu_torch import HarpSession
+
+    cases = {}
+    for k, n in SPD_GLOBAL.items():
+        a, b = random_spd(n, k, seed=k, chunk=512)
+        cases[k] = spd_case(f"wide:K{k}", a, b, timed=True, reps=3,
+                            plain_reps=0)
+        del a, b
+        torch.cuda.empty_cache()
+    g = ALS_GLOBAL
+    rank = g["rank"]
+    gcfg = dataclasses.replace(cfg, rank=rank, solver="pallas",
+                               iterations=g["iterations"])
+    log(f"[als:rank{rank}] implicit, the flagship's data, rank {rank}, "
+        f"solver='pallas', {gcfg.iterations} iterations, W=1")
+    sess = HarpSession(num_workers=1)
+    launches, fit, r_rel, f_rel, wall = als_fit_checked(
+        sess, gcfg, data, "dense", f"[als:rank{rank}]")
+    per_iter_ms = 1e3 * wall / gcfg.iterations
+    log(f"  {per_iter_ms:.4f} ms an iteration (the checked fit's wall over "
+        f"its iterations)")
+    torch.cuda.empty_cache()
+    entry = {
+        "name": "spd_solve_global", "route": "cuda",
+        "source": "harp_tpu_torch/csrc/spd_solve.cu",
+        "replaces": "harp_tpu/ops/pallas_kernels.py:829",
+        "launches": launches["spd_solve_global"],
+        "launches_path": f"ALS.fit_prepared, implicit, the flagship's data, "
+                         f"rank {rank}, solver='pallas', {gcfg.iterations} "
+                         f"iterations",
+        "k": rank, "n": SPD_GLOBAL[rank],
+        **{key: cases[rank][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "rel_vs_float64", "plain_rel_vs_float64")},
+        "fit_per_iter_ms": per_iter_ms,
+        "fit_rmse_rel_vs_cholesky": r_rel,
+        "fit_factor_rel_vs_cholesky": f_rel,
+    }
+    for k, c in cases.items():
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err"):
+            entry[f"k{k}_{key}"] = c[key]
+        entry[f"k{k}_n"] = SPD_GLOBAL[k]
+    return entry
 
 
 def als_explicit():
@@ -1183,8 +1427,8 @@ def als_explicit():
     cfg = als.ALSConfig(rank=e["rank"], lam=e["lam"],
                         iterations=e["iterations"], implicit=False)
     sess = HarpSession(num_workers=1)
-    launches, fit, r_rel, f_rel = als_fit_checked(sess, cfg, data, "sparse",
-                                                  "[als:explicit]")
+    launches, fit, r_rel, f_rel, _ = als_fit_checked(
+        sess, cfg, data, "sparse", "[als:explicit]")
     tp = als_two_point(sess, cfg, data)
     log(f"  two-point: {tp['rate']:.2f} iters/s, {tp['per_iter_ms']:.4f} "
         f"ms/iter, spread {tp['spread_pct']:.1f}%")
@@ -1241,7 +1485,8 @@ def als_variants():
 
 def als_phases():
     """Every SPD-solve and ALS phase; returns the kernels-line entries of
-    the SPD solve's two variants (one warp, one block a system)."""
+    the SPD solve's three variants (one warp, one block a system, the
+    global-memory kernel)."""
     from harp_tpu_torch import HarpSession
     from harp_tpu_torch.io import datagen
     from harp_tpu_torch.models import als
@@ -1266,6 +1511,7 @@ def als_phases():
         f"a bound of {flag['bound_ms']:.4f} ms ({flag['bound_by']}); fit "
         f"{fit['per_iter_ms']:.4f} ms an iteration")
     wide_fits = als_wide(data, cfg)
+    glob = spd_global_phases(data, cfg)
     exp = als_explicit()
     als_variants()
     top = max(SPD_WIDE)
@@ -1316,7 +1562,7 @@ def als_phases():
         "explicit_fit_iters_per_s": exp["iters_per_s"],
         "explicit_fit_per_iter_ms": exp["per_iter_ms"],
         "explicit_launches": exp["launches"]["spd_solve"],
-    }, block
+    }, block, glob
 
 
 # --------------------------------------------------------------------------- #
@@ -1704,6 +1950,69 @@ def crossover_phase():
     return res
 
 
+def flash_wide_phases():
+    """[flash:wide] and [attention:wide]: heads past 128 (the kernel's wide
+    variant). The kernel alone at Dh = Dv = 256 and at MLA's 192 / 128,
+    causal L=16384, H=4, f32, timed; MLA's shape in bf16 at a ragged L and
+    Dh = Dv = 512 at L=8192, untimed; blocked_attention at the 256 case
+    (one launch a call); one fused causal ring call at W=4, L=32768, 4
+    launches with their sends, bitwise the unfused ring and held against
+    the float64 reference."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.parallel import ring_attention as ra
+
+    a = ATTN_WIDE
+    l, h, dh = a["l"], a["h"], a["dh"]
+    d256 = flash_case(f"wide:dh{dh}", None, l, h, dh, dh, True,
+                      torch.float32, timed=True, seed=20)
+    mdh, mdv = a["mla"]
+    mla = flash_case(f"wide:dh{mdh}_dv{mdv}", None, l, h, mdh, mdv, True,
+                     torch.float32, timed=True, seed=21)
+    del mla["out"], mla["inputs"]
+    flash_case(f"wide:dh{mdh}_dv{mdv}_bf16", None, a["ragged_l"], h, mdh,
+               mdv, True, torch.bfloat16, False, seed=22)
+    top = flash_case(f"wide:dh{a['top']}", None, a["top_l"], a["top_h"],
+                     a["top"], a["top"], True, torch.float32, False, seed=23)
+    del top["out"], top["inputs"]
+    blocked = blocked_phase(f"dh{dh}", d256, dict(l=l, h=h, dh=dh))
+    del d256["out"], d256["inputs"]
+    torch.cuda.empty_cache()
+
+    w, rl = RING_W, a["ring_l"]
+    sess = HarpSession(num_workers=w)
+    q, k, v = attn_inputs((rl, h, dh), dh, seed=24)
+    log(f"[attention:wide] fused ring: W={w} L={rl} (local {rl // w}) H={h} "
+        f"Dh={dh} causal, fused_dma=True against False")
+
+    def ring(fused):
+        return sharded(sess, lambda x, y, z: ra.ring_attention_mha(
+            x, y, z, True, fused_dma=fused), q, k, v)
+
+    zero_counts()
+    out = ring(True)
+    counts = read_counts()
+    check_no_plain("[attention:wide] ring")
+    check(counts["flash_attention"] == w
+          and counts["flash_attention_ring"] == w
+          and counts["ring_dma_hop"] == 0,
+          f"{w} flash_attention launches a call, each with its send, no "
+          f"ring_dma_hop ({counts['flash_attention']}, "
+          f"{counts['flash_attention_ring']}; {counts['ring_dma_hop']})")
+    check(torch.equal(out, ring(False)), "bitwise the unfused ring call")
+    rows = sample_rows(rl, seed=24)
+    exact = attention_rows(q, k, v, True, rows)[0]
+    yard = attention_rows(q, k, v, True, rows, torch.float32)[0]
+    err = hold("ring out", out[None][:, rows], yard, exact)
+    plain_ms, ms = in_turns(lambda: ring(False), lambda: ring(True), 2,
+                            warmup=1)
+    log(f"  fused {ms:.4f} ms a call, unfused {plain_ms:.4f} ms")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return {"dh256": d256, "mla": mla, "blocked": blocked,
+            "ring": {"launches": counts["flash_attention_ring"], "ms": ms,
+                     "unfused_ms": plain_ms, "rel_vs_float64": err}}
+
+
 def attention_phases():
     """Every flash-attention phase; returns the kernels-line entry of
     flash_attention."""
@@ -1718,6 +2027,7 @@ def attention_phases():
     ring = ring_phase()
     torch.cuda.empty_cache()
     cross = crossover_phase()
+    wide = flash_wide_phases()
     log(f"  kernel {flag['ms']:.4f} ms per flagship call against a bound of "
         f"{flag['bound_ms']:.4f} ms ({flag['bound_by']}); blocked "
         f"{blocked['tokens_per_s']:.6g} tokens/s")
@@ -1768,6 +2078,14 @@ def attention_phases():
         "ulysses_max_abs_err": uly["max_abs_err"],
         "ulysses_tiles": uly["tiles"],
         "crossover": cross,
+        **{f"{tag}_{key}": wide[tag][key] for tag in ("dh256", "mla")
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "max_abs_err", "rel_vs_float64",
+                       "tiles")},
+        "dh256_blocked_launches": wide["blocked"]["launches"],
+        "dh256_blocked_tokens_per_s": wide["blocked"]["tokens_per_s"],
+        **{f"dh256_ring_fused_{key}": val
+           for key, val in wide["ring"].items()},
     }
 
 
@@ -2573,10 +2891,11 @@ def ringdma_phases():
 def dispatch_phase():
     """[dispatch]: the plain_on_card counts read after every main path (all
     0); one call on the card where the JAX package takes XLA: no launch, one
-    plain call, the plain version's answer; and one where the JAX package
-    runs its kernel and the port's cannot take the width: a ValueError
-    before any launch. Returns each dispatcher's plain calls summed over
-    the main paths."""
+    plain call, the plain version's answer; and one at a width past the
+    narrow kernels (dense-MF K=192, flash Dh=192 at L=8192): one launch of
+    the wide kernel, no plain call, the plain version's answer within the
+    kernel's own tolerance. Returns each dispatcher's plain calls summed
+    over the main paths."""
     from harp_tpu_torch.ops import pallas_kernels as pk
     from harp_tpu_torch.parallel import ring_attention as ra
 
@@ -2624,24 +2943,39 @@ def dispatch_phase():
           seen.sum(3).float(), seen.reshape(1, 1, 4, 128, 1024).sum(3).float(),
           4, 0.05, 0.01)
     qw, kw, vw = attn_inputs((8192, 1, 192), 192, seed=8)
+    rows = sample_rows(8192, seed=8)
+
+    def mf_rel(got):
+        # the hop rule: within max(1e-4, 4x the float32 plain version's
+        # distance) of the float64 plain hop, W and H
+        plain, exact = pk.dense_mf_hop_plain(*mf), plain64_hop(*mf)
+        return max(max_rel(g, e) / max(1e-4, 4 * max_rel(p, e))
+                   for g, p, e in zip(got[:2], plain[:2], exact[:2]))
+
+    def flash_rel(got):
+        # the flash rule on sampled rows against the float64 reference
+        exact = attention_rows(qw, kw, vw, True, rows)[0]
+        yard = attention_rows(qw, kw, vw, True, rows, torch.float32)[0]
+        return (max_rel(got[None][:, rows], exact)
+                / max(1e-5, 4 * max_rel(yard, exact)))
+
     wide_cases = (
-        ("dense_mf_hop", "K=192", lambda: pk.dense_mf_hop(*mf)),
+        ("dense_mf_hop", "K=192", lambda: pk.dense_mf_hop(*mf), mf_rel),
         ("flash_attention", "L=8192, Dh=Dv=192, causal",
-         lambda: ra.blocked_attention(qw, kw, vw, True)))
-    for name, shape, fn in wide_cases:
+         lambda: ra.blocked_attention(qw, kw, vw, True), flash_rel))
+    for name, shape, fn, rel_of in wide_cases:
         zero_counts()
-        try:
-            fn()
-            raised = None
-        except ValueError as e:
-            raised = str(e)
+        got = fn()
         launched, calls = read_counts(), plain_counts()
-        log(f"  {name} at {shape}: raised {raised!r}, launches {launched}, "
-            f"plain {calls}")
-        check(raised is not None and not any(launched.values())
-              and not any(calls.values()),
-              f"{name} beyond its kernel's width: a ValueError, no launch, "
-              f"no plain call")
+        moved = {n: c for n, c in launched.items() if c}
+        ratio = rel_of(got)
+        log(f"  {name} at {shape}: launches {moved}, plain {calls}, "
+            f"distance {ratio:.3g} of the kernel's tolerance")
+        check(moved == {name: 1} and not any(calls.values()),
+              f"{name} past the narrow kernel's width: one launch of its "
+              f"wide kernel, no plain call")
+        check(ratio <= 1.0, f"{name}: the plain version's answer within the "
+              f"kernel's own tolerance")
     return total
 
 

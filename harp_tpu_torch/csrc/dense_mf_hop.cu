@@ -15,7 +15,8 @@
 //   H   <- H   + lr (dH - lam cc_i H)
 //   sse += sum f32(G)^2
 // Factors ride (rows, K) row-major, K zero-padded by the wrapper to KP = 16,
-// 32, 64 or 128 (exact: zero factor columns stay zero and change nothing).
+// 32, 64 or 128 (exact: zero factor columns stay zero and change nothing);
+// a wider K takes the wide path below (KP = 256, 512 or 1024).
 //
 // What bounds it on this card: one read of the bf16 slab bucket (2 bytes a
 // rating slot) against 6 rows cols K bf16 operations on the tensor cores. At
@@ -595,18 +596,529 @@ int launch(const void* slab, const void* bucket, const void* w, const void* h,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The wide path, 128 < K <= 1024 (KP = 256, 512 or 1024).
+//
+// Where the kernel above stops: its block holds the H tile (CT x KP, f32
+// and bf16) in shared memory and each warp a CW x KP piece of dH in
+// registers, and it sums dW over the column tiles through a (W, n_ct, rpw,
+// KP) workspace. At KP = 256 the tile no longer fits beside the chunk
+// buffers at CT = 128, a warp's dH would be 128 floats a thread, and the
+// workspace, 2 KP / CT times the slab's bytes, would be 17 GB at the
+// flagship. So the wide path keeps the block's ownership of one (worker,
+// column tile) through all nmb stripes, and changes three things:
+//   * The rank is split across the warps: warp q owns rank columns
+//     [q KP / 8, (q + 1) KP / 8). CT = 16384 / KP (64, 32, 16), so the
+//     block's dH tile (CT x KP f32) is 64 floats a thread in registers,
+//     warp q holding dH[:, its columns], and its H tile is 64 KB of f32 and
+//     32 KB of bf16 in shared memory whatever KP is.
+//   * pred = Wb Hb^T for a chunk of R = 16 rows: each warp multiplies its
+//     rank columns (R x CT partial sums), the 8 partials meet in shared
+//     memory and are summed in warp order. G = bf16(V - pred) is formed
+//     once per chunk by the whole block, into shared memory (the operand of
+//     dH += G^T Wb, each warp on its own rank columns) and into a G buffer
+//     in device memory (W, rpw, cpb8) bf16, cpb8 = cpb rounded up to 8.
+//   * dW is not summed over column tiles at all: at each stripe's start a
+//     block writes its bf16 H tile to a snapshot (W, nmb, cpb8, KP), and
+//     after the hop one GEMM kernel forms dW_i = G_i Hb_i for every stripe
+//     i over the full cpb (a fixed order of sums: no atomics, two runs
+//     bitwise equal) and applies the W update in its epilogue. The G buffer
+//     and the snapshots cost one write and one read of rpw cpb 2 and nmb
+//     cpb KP 2 bytes a worker, in place of the workspace's 2 KP / CT slabs.
+//   Wb, the bf16 W of the bucket's rows, is written once per hop by a small
+//   kernel, so a block streams its chunks with 16-byte cp.async loads in
+//   the MMA operand's type, double-buffered like V.
+// The ring send of the final tile, the SSE partials and their fixed-order
+// sum are the kernel's above. KP = 1024 is the widest: there CT is 16, one
+// m16 tile, and a wider rank would need dH outside registers.
+// What bounds it: operations. At rank 256 on the flagship the hop is 6 rpw
+// cpb K = 1.65e12 bf16 tensor-core operations (1.67 ms at 989 TFLOP/s)
+// against the slab's 2.15 GB (0.64 ms). The 8-way partial sums of pred
+// and three barriers a 16-row chunk, and every column tile's read of Wb
+// (KP / CT = 4 times the narrow kernel's at rank 256), stand between it and
+// that bound; larger chunks and a pred split over columns are the levers.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideRows = 16;          // rows a chunk
+constexpr int kWideTile = 16384;       // CT x KP: 64 dH floats a thread
+constexpr int kGemmThreads = 128;      // dW GEMM: 4 warps, 64 x 64 tile
+constexpr int kGemmBM = 64;
+constexpr int kGemmBN = 64;
+constexpr int kGemmBK = 32;
+
+template <int KP_>
+struct WideGeom {
+  static constexpr int KP = KP_;
+  static constexpr int CT = kWideTile / KP;
+  static constexpr int R = kWideRows;
+  static constexpr int KW = KP / kWarps;    // rank columns a warp owns
+  static constexpr int MT = CT / 16;        // m16 tiles of dH (H columns)
+  static constexpr int NK = KW / 8;         // n8 tiles of dH (rank)
+  static constexpr int NT = CT / 8;         // n8 tiles of pred (H columns)
+  static constexpr int LDK = KP + 8;        // bf16 rows over the rank
+  static constexpr int LDH = KP + 4;        // f32
+  static constexpr int LDV = CT + 8;        // bf16 rows over the columns
+  static constexpr int LDP = CT + 4;        // f32 partial pred
+  static constexpr size_t HS = 0;                                     // H f32
+  static constexpr size_t HB = align128(HS + (size_t)CT * LDH * 4);   // bf16
+  static constexpr size_t V = align128(HB + (size_t)CT * LDK * 2);    // 2 x V
+  static constexpr size_t WB = align128(V + (size_t)2 * R * LDV * 2); // 2 x Wb
+  static constexpr size_t GS = align128(WB + (size_t)2 * R * LDK * 2);  // G
+  static constexpr size_t PP = align128(GS + (size_t)R * LDV * 2);
+  static constexpr size_t BYTES = PP + (size_t)kWarps * R * LDP * 4;
+  static_assert(MT * NK == 16, "64 dH floats a thread");
+  static_assert(KW % 16 == 0 && CT % 16 == 0, "whole mma tiles");
+};
+
+__global__ void dense_mf_wbf16_kernel(const float* __restrict__ w,
+                                      bf16* __restrict__ wb, size_t n) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    wb[i] = __float2bfloat16_rn(w[i]);
+}
+
+template <int KP>
+__global__ void __launch_bounds__(kThreads, 1)
+dense_mf_hop_wide_kernel(const bf16* __restrict__ slab,
+                         const int* __restrict__ bucket,
+                         const bf16* __restrict__ wbf,
+                         const float* __restrict__ h,
+                         const float* __restrict__ col_cnt,
+                         float* __restrict__ h_out, bf16* __restrict__ gout,
+                         bf16* __restrict__ hsnap,
+                         float* __restrict__ sse_part, int n_blocks, int rpw,
+                         int cpb, int nmb, int nmb_fine, float lr, float lam,
+                         int vec, const RingSend ring) {
+  using G = WideGeom<KP>;
+  constexpr int CT = G::CT, R = G::R, KW = G::KW;
+  constexpr int MT = G::MT, NK = G::NK, NT = G::NT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* hs = reinterpret_cast<float*>(smem + G::HS);
+  bf16* hb = reinterpret_cast<bf16*>(smem + G::HB);
+  bf16* vbuf = reinterpret_cast<bf16*>(smem + G::V);
+  bf16* wbuf = reinterpret_cast<bf16*>(smem + G::WB);
+  bf16* gs = reinterpret_cast<bf16*>(smem + G::GS);
+  float* pp = reinterpret_cast<float*>(smem + G::PP);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int lr8 = lane & 7;
+  const int lh = (lane >> 3) & 1;
+  const int lq = lane >> 4;
+  const int kw0 = warp * KW;      // this warp's rank columns
+
+  const int ct = blockIdx.x;
+  const int n_ct = gridDim.x;
+  const int wk = blockIdx.y;
+  const int c0 = ct * CT;
+  const int ncols = min(CT, cpb - c0);
+  const int cpb8 = (cpb + 7) / 8 * 8;
+  const int ncols8 = min(CT, cpb8 - c0);   // G and snapshot columns written
+  const size_t blk = (size_t)wk * n_blocks + bucket[wk];
+  const bf16* vsl = slab + blk * rpw * cpb;                 // (rpw, cpb)
+  const bf16* wwk = wbf + (size_t)wk * rpw * KP;            // (rpw, KP)
+  const float* ccw = col_cnt + blk * nmb_fine * cpb;        // (nmb_fine, cpb)
+  bf16* gwk = gout + (size_t)wk * rpw * cpb8;               // (rpw, cpb8)
+  const int s_rows = rpw / nmb;
+  const int ratio = nmb_fine / nmb;
+  const int nch = (s_rows + R - 1) / R;
+  const int total = nmb * nch;
+
+  if (ring.h_next != nullptr && ring.remote)
+    ring_dma::give_credits(ring.plan, gridDim.y);
+
+  for (int e = tid; e < CT * KP; e += kThreads) {
+    const int c = e / KP, k = e - c * KP;
+    const float v = c < ncols ? h[((size_t)wk * cpb + c0 + c) * KP + k] : 0.f;
+    hs[c * G::LDH + k] = v;
+    hb[c * G::LDK + k] = __float2bfloat16_rn(v);
+  }
+
+  // chunk g: rows [row0, row0 + nr) of stripe g / nch, zero-filled past the
+  // stripe (and V past the block's columns)
+  auto issue = [&](int g) {
+    const int c = g % nch;
+    const int row0 = (g / nch) * s_rows + c * R;
+    const int nr = min(R, s_rows - c * R);
+    bf16* vd = vbuf + (g & 1) * R * G::LDV;
+    bf16* wd = wbuf + (g & 1) * R * G::LDK;
+    if (vec) {
+      constexpr int U = CT / 8;
+      for (int u = tid; u < R * U; u += kThreads) {
+        const int r = u / U, col = (u - r * U) * 8;
+        const bool ok = r < nr && col < ncols;
+        cp_async16(vd + r * G::LDV + col,
+                   ok ? vsl + (size_t)(row0 + r) * cpb + c0 + col : vsl,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < R * CT; e += kThreads) {
+        const int r = e / CT, col = e - r * CT;
+        vd[r * G::LDV + col] = (r < nr && col < ncols)
+                                   ? vsl[(size_t)(row0 + r) * cpb + c0 + col]
+                                   : __float2bfloat16_rn(0.f);
+      }
+    }
+    constexpr int UW = KP / 8;
+    for (int u = tid; u < R * UW; u += kThreads) {
+      const int r = u / UW, k = (u - r * UW) * 8;
+      const bool ok = r < nr;
+      cp_async16(wd + r * G::LDK + k,
+                 ok ? wwk + (size_t)(row0 + r) * KP + k : wwk, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float dh[MT][NK][4];
+  float sse = 0.f;
+  issue(0);
+  for (int g = 0; g < total; ++g) {
+    const int i = g / nch;
+    const int c = g - i * nch;
+    const int row0 = i * s_rows + c * R;
+    const int nr = min(R, s_rows - c * R);
+    cp_async_wait<0>();
+    __syncthreads();   // chunk g landed; chunk g-1's readers are done
+    if (g + 1 < total) issue(g + 1);
+    if (c == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dh[mt][nt][q] = 0.f;
+      // stripe i's Hb, the B operand of its dW, for this warp's columns
+      constexpr int UK = KW / 8;
+      bf16* snap = hsnap + (((size_t)wk * nmb + i) * cpb8 + c0) * KP;
+      for (int u = lane; u < ncols8 * UK; u += 32) {
+        const int col = u / UK, k = kw0 + (u - col * UK) * 8;
+        *reinterpret_cast<uint4*>(snap + (size_t)col * KP + k) =
+            *reinterpret_cast<const uint4*>(hb + col * G::LDK + k);
+      }
+    }
+    const bf16* vg = vbuf + (g & 1) * R * G::LDV;
+    const bf16* wg = wbuf + (g & 1) * R * G::LDK;
+
+    // this warp's share of pred = Wb Hb^T: its rank columns, all CT columns
+    {
+      float acc[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KW / 16; ++kk) {
+        unsigned a[4];
+        ldsm4(a, wg + (lr8 + 8 * lh) * G::LDK + kw0 + 16 * kk + 8 * lq);
+#pragma unroll
+        for (int jj = 0; jj < NT / 2; ++jj) {
+          unsigned b[4];
+          ldsm4(b, hb + (16 * jj + lr8 + 8 * lq) * G::LDK + kw0 + 16 * kk +
+                       8 * lh);
+          mma(acc[2 * jj], a, b[0], b[1]);
+          mma(acc[2 * jj + 1], a, b[2], b[3]);
+        }
+      }
+      float* dst = pp + (size_t)warp * R * G::LDP;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(dst + (gq + 8 * hh) * G::LDP + 8 * j +
+                                     2 * tq) =
+              make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+    }
+    __syncthreads();
+
+    // G = bf16(V - pred) where rated, the partials summed in warp order
+    for (int e = tid; e < R * CT; e += kThreads) {
+      const int r = e / CT, col = e - r * CT;
+      float pred = 0.f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q)
+        pred += pp[((size_t)q * R + r) * G::LDP + col];
+      const float v = __bfloat162float(vg[r * G::LDV + col]);
+      const bool live = r < nr && col < ncols && !isnan(v);
+      const bf16 gb = __float2bfloat16_rn(live ? v - pred : 0.f);
+      const float gf = __bfloat162float(gb);
+      sse += gf * gf;
+      gs[r * G::LDV + col] = gb;
+      if (r < nr && col < ncols8)
+        gwk[(size_t)(row0 + r) * cpb8 + c0 + col] = gb;
+    }
+    __syncthreads();
+
+    // dH += G^T Wb over the chunk's rows, this warp's rank columns
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      unsigned a[4];
+      ldsm4t(a, gs + (lr8 + 8 * lq) * G::LDV + 16 * mt + 8 * lh);
+#pragma unroll
+      for (int nn = 0; nn < NK / 2; ++nn) {
+        unsigned b[4];
+        ldsm4t(b, wg + (lr8 + 8 * lh) * G::LDK + kw0 + 16 * nn + 8 * lq);
+        mma(dh[mt][2 * nn], a, b[0], b[1]);
+        mma(dh[mt][2 * nn + 1], a, b[2], b[3]);
+      }
+    }
+
+    if (c == nch - 1) {
+      // stripe end: H <- H + lr (dH - lam cc_i H) on this warp's columns
+      const float* cci = ccw + (size_t)i * ratio * cpb + c0;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int col = 16 * mt + gq + 8 * hh;
+          float cnt = 0.f;
+          if (col < ncols)
+            for (int f = 0; f < ratio; ++f) cnt += cci[(size_t)f * cpb + col];
+#pragma unroll
+          for (int nt = 0; nt < NK; ++nt) {
+            const int k = kw0 + 8 * nt + 2 * tq;
+            float* hp = hs + col * G::LDH + k;
+            const float h0 = sgd_step(hp[0], dh[mt][nt][2 * hh], cnt, lr, lam);
+            const float h1 =
+                sgd_step(hp[1], dh[mt][nt][2 * hh + 1], cnt, lr, lam);
+            hp[0] = h0;
+            hp[1] = h1;
+            *reinterpret_cast<bf162*>(hb + col * G::LDK + k) =
+                __floats2bfloat162_rn(h0, h1);
+          }
+        }
+    }
+  }
+  __syncthreads();
+
+  // the final tile goes to h_out and, with the ring send, to the neighbour
+  // (in another process only if its credit is in: no block spins here)
+  float* hn = nullptr;
+  bool remote_send = false;
+  if (ring.h_next != nullptr) {
+    const int d =
+        ring_dma::ring_neighbor(ring.base + wk, ring.nworkers, 1) - ring.base;
+    if (d >= 0 && d < (int)gridDim.y) {
+      hn = ring.h_next + (size_t)d * cpb * KP;
+    } else {
+      int in = 0;
+      if (tid == 0) {
+        in = ring_dma::acquire_load(ring.plan.my_ready[wk]) >= ring.ready;
+        __threadfence();
+        ring.sent[(size_t)wk * n_ct + ct] = in;
+      }
+      remote_send = __syncthreads_or(in) != 0;
+      if (remote_send) hn = reinterpret_cast<float*>(ring.plan.remote_dst[wk]);
+    }
+  }
+  for (int e = tid; e < CT * KP; e += kThreads) {
+    const int c = e / KP, k = e - c * KP;
+    if (c < ncols) {
+      const float v = hs[c * G::LDH + k];
+      const size_t o = (size_t)(c0 + c) * KP + k;
+      h_out[(size_t)wk * cpb * KP + o] = v;
+      if (hn != nullptr) hn[o] = v;
+    }
+  }
+  if (remote_send) ring_dma::signal_arrival(ring.plan.arrive_to[wk]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sse += __shfl_xor_sync(0xffffffffu, sse, off);
+  if (lane == 0) pp[warp] = sse;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int q = 0; q < kWarps; ++q) s += pp[q];
+    sse_part[(size_t)wk * n_ct + ct] = s;
+  }
+}
+
+// dW_i = G_i Hb_i for every stripe i (the G rows of the stripe against its
+// H snapshot, a sum over all cpb8 columns in order), then W <- W + lr (dW
+// - lam rc W). One block a 64-row x 64-rank tile of one stripe; 4 warps of
+// 32 x 32; bf16 tiles of 32 columns double-buffered by cp.async. Block
+// (0, 0) of each worker also sums its SSE partials in order.
+__global__ void __launch_bounds__(kGemmThreads)
+dense_mf_dw_kernel(const bf16* __restrict__ gbuf,
+                   const bf16* __restrict__ hsnap,
+                   const float* __restrict__ w,
+                   const float* __restrict__ row_cnt,
+                   const int* __restrict__ bucket,
+                   const float* __restrict__ sse_part,
+                   float* __restrict__ w_out, float* __restrict__ sse_out,
+                   int n_blocks, int rpw, int cpb8, int kp, int nmb, int n_ct,
+                   float lr, float lam) {
+  constexpr int LDA = kGemmBK + 8, LDB = kGemmBN + 8;
+  __shared__ __align__(128) bf16 as[2][kGemmBM * LDA];
+  __shared__ __align__(128) bf16 bs[2][kGemmBK * LDB];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int lr8 = lane & 7;
+  const int lh = (lane >> 3) & 1;
+  const int lq = lane >> 4;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int wk = blockIdx.z;
+  const int s_rows = rpw / nmb;
+  const int tiles_i = (s_rows + kGemmBM - 1) / kGemmBM;
+  const int i = blockIdx.x / tiles_i;
+  const int rs0 = (blockIdx.x - i * tiles_i) * kGemmBM;   // in the stripe
+  const int nr = min(kGemmBM, s_rows - rs0);
+  const int row0 = i * s_rows + rs0;
+  const int n0 = blockIdx.y * kGemmBN;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
+    float s = 0.f;
+    for (int t = 0; t < n_ct; ++t) s += sse_part[(size_t)wk * n_ct + t];
+    sse_out[wk] = s;
+  }
+  const bf16* ga = gbuf + ((size_t)wk * rpw + row0) * cpb8;
+  const bf16* hbk = hsnap + ((size_t)wk * nmb + i) * cpb8 * kp + n0;
+  const int nkt = (cpb8 + kGemmBK - 1) / kGemmBK;
+
+  auto issue = [&](int t) {
+    const int k0 = t * kGemmBK;
+    bf16* ad = as[t & 1];
+    bf16* bd = bs[t & 1];
+    for (int u = tid; u < kGemmBM * (kGemmBK / 8); u += kGemmThreads) {
+      const int r = u / (kGemmBK / 8), k = (u % (kGemmBK / 8)) * 8;
+      const bool ok = r < nr && k0 + k < cpb8;
+      cp_async16(ad + r * LDA + k, ok ? ga + (size_t)r * cpb8 + k0 + k : ga,
+                 ok ? 16 : 0);
+    }
+    for (int u = tid; u < kGemmBK * (kGemmBN / 8); u += kGemmThreads) {
+      const int r = u / (kGemmBN / 8), n = (u % (kGemmBN / 8)) * 8;
+      const bool ok = k0 + r < cpb8;
+      cp_async16(bd + r * LDB + n, ok ? hbk + (size_t)(k0 + r) * kp + n : hbk,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
+  issue(0);
+  for (int t = 0; t < nkt; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < nkt) issue(t + 1);
+    const bf16* a_s = as[t & 1];
+    const bf16* b_s = bs[t & 1];
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK / 16; ++kk) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm4(a[mi], a_s + (wm * 32 + 16 * mi + lr8 + 8 * lh) * LDA +
+                         16 * kk + 8 * lq);
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        unsigned b[4];
+        ldsm4t(b, b_s + (16 * kk + lr8 + 8 * lh) * LDB + wn * 32 + 16 * nn +
+                      8 * lq);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma(acc[mi][2 * nn], a[mi], b[0], b[1]);
+          mma(acc[mi][2 * nn + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  const float* rcw = row_cnt + ((size_t)wk * n_blocks + bucket[wk]) * rpw;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = wm * 32 + 16 * mi + gq + 8 * hh;
+      if (r >= nr) continue;
+      const float rc = rcw[row0 + r];
+      const size_t o = ((size_t)wk * rpw + row0 + r) * kp;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        const int k = n0 + wn * 32 + 8 * nj + 2 * tq;
+        w_out[o + k] = sgd_step(w[o + k], acc[mi][nj][2 * hh], rc, lr, lam);
+        w_out[o + k + 1] =
+            sgd_step(w[o + k + 1], acc[mi][nj][2 * hh + 1], rc, lr, lam);
+      }
+    }
+}
+
+template <int KP>
+int launch_wide(const void* slab, const void* bucket, const void* w,
+                const void* h, const void* row_cnt, const void* col_cnt,
+                void* w_out, void* h_out, void* wbf, void* gbuf, void* hsnap,
+                void* sse_part, void* sse_out, int nw, int n_blocks, int rpw,
+                int cpb, int nmb, int nmb_fine, float lr, float lam,
+                const RingSend& ring, cudaStream_t s) {
+  using G = WideGeom<KP>;
+  const size_t nwb = (size_t)nw * rpw * KP;
+  const size_t nb = (nwb + 255) / 256;
+  dense_mf_wbf16_kernel<<<(unsigned)(nb < 4096 ? nb : 4096), 256, 0, s>>>(
+      static_cast<const float*>(w), static_cast<bf16*>(wbf), nwb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dense_mf_hop_wide_kernel<KP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)G::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int n_ct = (cpb + G::CT - 1) / G::CT;
+  dense_mf_hop_wide_kernel<KP><<<dim3(n_ct, nw), kThreads, G::BYTES, s>>>(
+      static_cast<const bf16*>(slab), static_cast<const int*>(bucket),
+      static_cast<const bf16*>(wbf), static_cast<const float*>(h),
+      static_cast<const float*>(col_cnt), static_cast<float*>(h_out),
+      static_cast<bf16*>(gbuf), static_cast<bf16*>(hsnap),
+      static_cast<float*>(sse_part), n_blocks, rpw, cpb, nmb, nmb_fine, lr,
+      lam, cpb % 8 == 0 ? 1 : 0, ring);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int s_rows = rpw / nmb;
+  const int tiles = nmb * ((s_rows + kGemmBM - 1) / kGemmBM);
+  dense_mf_dw_kernel<<<dim3(tiles, KP / kGemmBN, nw), kGemmThreads, 0, s>>>(
+      static_cast<const bf16*>(gbuf), static_cast<const bf16*>(hsnap),
+      static_cast<const float*>(w), static_cast<const float*>(row_cnt),
+      static_cast<const int*>(bucket), static_cast<const float*>(sse_part),
+      static_cast<float*>(w_out), static_cast<float*>(sse_out), n_blocks, rpw,
+      (cpb + 7) / 8 * 8, KP, nmb, n_ct, lr, lam);
+  return (int)cudaGetLastError();
+}
+
+RingSend ring_send(void* h_next, const void* plan, int remote, int base,
+                   int nworkers, unsigned long long ready, void* sent) {
+  RingSend ring{};
+  ring.h_next = static_cast<float*>(h_next);
+  if (plan != nullptr) memcpy(&ring.plan, plan, sizeof(HopPlan));
+  ring.remote = remote;
+  ring.base = base;
+  ring.nworkers = nworkers;
+  ring.ready = ready;
+  ring.sent = static_cast<int*>(sent);
+  return ring;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Columns per block (the column tile) for padded rank kp; 0 if kp is not
-// 16, 32, 64 or 128.
+// 16, 32, 64, 128 (the kernel above) or 256, 512, 1024 (the wide path).
 int dense_mf_hop_col_tile(int kp) {
   switch (kp) {
     case 16: return Geom<1>::CT;
     case 32: return Geom<2>::CT;
     case 64: return Geom<4>::CT;
     case 128: return Geom<8>::CT;
+    case 256: return WideGeom<256>::CT;
+    case 512: return WideGeom<512>::CT;
+    case 1024: return WideGeom<1024>::CT;
     default: return 0;
   }
 }
@@ -618,16 +1130,20 @@ long long dense_mf_hop_smem_bytes(int kp) {
     case 32: return (long long)Geom<2>::BYTES;
     case 64: return (long long)Geom<4>::BYTES;
     case 128: return (long long)Geom<8>::BYTES;
+    case 256: return (long long)WideGeom<256>::BYTES;
+    case 512: return (long long)WideGeom<512>::BYTES;
+    case 1024: return (long long)WideGeom<1024>::BYTES;
     default: return 0;
   }
 }
 
-// Launch one hop for all nw workers and its W/SSE reduction on ``stream``.
-// A non-null h_next (nw, cpb, kp) takes the ring send: rows of the launch
-// are workers base .. base + nw - 1 of nworkers; with remote = 1, plan is
-// the call's ring_dma HopPlan, ready the count its credit check expects and
-// sent (nw, n_ct) int32 the tiles sent (1) or left to ring_recv_kernel (0).
-// Returns cudaGetLastError() after the launches (0 on success).
+// Launch one hop for all nw workers and its W/SSE reduction on ``stream``,
+// kp = 16, 32, 64 or 128. A non-null h_next (nw, cpb, kp) takes the ring
+// send: rows of the launch are workers base .. base + nw - 1 of nworkers;
+// with remote = 1, plan is the call's ring_dma HopPlan, ready the count its
+// credit check expects and sent (nw, n_ct) int32 the tiles sent (1) or left
+// to ring_recv_kernel (0). Returns cudaGetLastError() after the launches (0
+// on success).
 int dense_mf_hop_launch(const void* slab, const void* bucket, const void* w,
                         const void* h, const void* row_cnt,
                         const void* col_cnt, void* w_out, void* h_out,
@@ -637,14 +1153,8 @@ int dense_mf_hop_launch(const void* slab, const void* bucket, const void* w,
                         void* h_next, const void* plan, int remote, int base,
                         int nworkers, unsigned long long ready, void* sent) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RingSend ring{};
-  ring.h_next = static_cast<float*>(h_next);
-  if (plan != nullptr) memcpy(&ring.plan, plan, sizeof(HopPlan));
-  ring.remote = remote;
-  ring.base = base;
-  ring.nworkers = nworkers;
-  ring.ready = ready;
-  ring.sent = static_cast<int*>(sent);
+  const RingSend ring =
+      ring_send(h_next, plan, remote, base, nworkers, ready, sent);
 #define HARP_MF_LAUNCH(KT)                                                   \
   return launch<KT>(slab, bucket, w, h, row_cnt, col_cnt, w_out, h_out, ws,  \
                     sse_part, sse_out, nw, n_blocks, rpw, cpb, nmb, nmb_fine, \
@@ -657,6 +1167,37 @@ int dense_mf_hop_launch(const void* slab, const void* bucket, const void* w,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef HARP_MF_LAUNCH
+}
+
+// The wide path, kp = 256, 512 or 1024: the same operands and send, with
+// the wide path's buffers in place of ws: wbf (nw, rpw, kp) bf16, gbuf (nw,
+// rpw, cpb8) bf16 and hsnap (nw, nmb, cpb8, kp) bf16, cpb8 = cpb rounded up
+// to a multiple of 8; three launches (Wb, the hop, the dW GEMM with the W
+// update).
+int dense_mf_hop_wide_launch(const void* slab, const void* bucket,
+                             const void* w, const void* h,
+                             const void* row_cnt, const void* col_cnt,
+                             void* w_out, void* h_out, void* wbf, void* gbuf,
+                             void* hsnap, void* sse_part, void* sse_out,
+                             int nw, int n_blocks, int rpw, int cpb, int kp,
+                             int nmb, int nmb_fine, float lr, float lam,
+                             void* stream, void* h_next, const void* plan,
+                             int remote, int base, int nworkers,
+                             unsigned long long ready, void* sent) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RingSend ring =
+      ring_send(h_next, plan, remote, base, nworkers, ready, sent);
+#define HARP_MF_WIDE(KP)                                                     \
+  return launch_wide<KP>(slab, bucket, w, h, row_cnt, col_cnt, w_out, h_out, \
+                         wbf, gbuf, hsnap, sse_part, sse_out, nw, n_blocks,  \
+                         rpw, cpb, nmb, nmb_fine, lr, lam, ring, s)
+  switch (kp) {
+    case 256: HARP_MF_WIDE(256);
+    case 512: HARP_MF_WIDE(512);
+    case 1024: HARP_MF_WIDE(1024);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef HARP_MF_WIDE
 }
 
 }  // extern "C"

@@ -361,6 +361,249 @@ int launch(const Args& a, const RingSend* ring, unsigned grid,
                          : launch<DK, DV, false>(a, RingSend{}, grid, s);
 }
 
+// ---------------------------------------------------------------------------
+// Wide heads: Dh or Dv above 128, any width.
+//
+// The kernel above holds its whole q and k tiles (DK x 64) and a 64 x DV v
+// tile in shared memory and a 4 x DV / 16 accumulator a thread: at DK = DV =
+// 256 that is 223,232 bytes, at the edge of the 232,448 a block may use, and
+// 64 accumulator floats a thread; a wider head fits neither. Its instances
+// stay as they are (their parameters and code decide their speed: see
+// RingSend), and a wider head takes this kernel, which cuts both widths:
+//   * Dv is sliced across the grid in pieces of kDs = 128 columns: block
+//     (slice, worker, head, query tile) keeps the accumulator of its slice
+//     only (the 4 x 8 a thread of the Dv = 128 instance). Every slice
+//     computes the same scores in the same order, so m and den are bitwise
+//     equal across slices, and slice 0 writes them.
+//   * Dh is staged through shared memory in chunks of kDc = 128: for each
+//     KV tile the score loop runs over the chunks in order, the q chunk and
+//     the k chunk loaded beside each other (q once before the loop when Dh
+//     fits one chunk), so s_ij is the same chain of fused multiply-adds
+//     over d = 0 .. Dh - 1 as in one pass.
+// The update rule, masking, trapezoid, heaviest-first order, precision and
+// the ring send's copy blocks are the kernel's above; a slice's blocks
+// follow each other in the grid, so its neighbours find the k and v tiles
+// in L2. What it costs: the scores once a slice, (2 Dh ceil(Dv / 128) + 2
+// Dv) operations a live pair in place of 2 Dh + 2 Dv, and a q chunk
+// reloaded each KV tile when Dh > 128. The tile counter adds each slice's
+// loads: ceil(Dv / 128) times the trapezoid. Bound: operations, as above
+// (at Dh = Dv = 256, causal L = 16384, H = 4: 3.33 ms as three TF32
+// passes); the scores recomputed in every slice, on the float32 CUDA
+// cores, keep it far from that.
+// ---------------------------------------------------------------------------
+
+constexpr int kDc = 128;   // Dh staged in chunks
+constexpr int kDs = 128;   // Dv sliced across the grid
+
+constexpr size_t wide_smem_floats() {
+  // q and k chunks transposed, the v slice, p transposed
+  return (size_t)2 * kDc * kLd + (size_t)kBK * (kDs + kPad) +
+         (size_t)kBK * kLd;
+}
+
+template <bool kRing>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_wide_kernel(const Args a, const RingSend ring) {
+  extern __shared__ float4 smem4[];
+  constexpr int kLv = kDs + kPad;
+  constexpr int kNg = kDs / 64;
+  float* qs = reinterpret_cast<float*>(smem4);   // [kDc][kLd]
+  float* ks = qs + kDc * kLd;                    // [kDc][kLd]
+  float* vs = ks + kDc * kLd;                    // [kBK][kLv]
+  float* ps = vs + kBK * kLv;                    // [kBK][kLd]
+
+  long long blk = blockIdx.x;
+  if constexpr (kRing) {   // the copy blocks, as in flash_attention_kernel
+    const long long ncopy = (long long)ring.rows * ring.cpr;
+    if (blk < ncopy) {
+      const int r = (int)blk / ring.cpr;
+      if (ring.remote) ring_dma::give_credits(ring.plan, ring.rows);
+      const int d =
+          ring_dma::ring_neighbor(ring.base + r, ring.nworkers, 1) - ring.base;
+      const bool local = d >= 0 && d < ring.rows;
+      ring_send_share(
+          static_cast<const char*>(a.k) + r * ring.kbytes,
+          static_cast<const char*>(a.v) + r * ring.vbytes, ring.kbytes,
+          ring.vbytes, ring.k_next + d * ring.kbytes,
+          ring.v_next + d * ring.vbytes,
+          local ? nullptr : ring.plan.remote_dst[r], ring.v_off,
+          ring.plan.my_ready[r], ring.plan.arrive_to[r], ring.ready,
+          ring.err, ring_dma::kErrReady * 1000 + ring.cid,
+          (blk % ring.cpr) * kThreads + threadIdx.x,
+          (long long)ring.cpr * kThreads);
+      return;
+    }
+    blk -= ncopy;
+  }
+  const int nvs = (a.dv + kDs - 1) / kDs;
+  const int sv = (int)(blk % nvs);                 // the Dv slice
+  blk /= nvs;
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const int iq = a.n_q - 1 - (int)(blk / a.w_h);   // heaviest tiles first
+  const long long pair = blk % a.w_h;              // w H + h
+  const long long w = pair / a.heads;
+  const long long row0 = w * a.seq * a.heads + pair % a.heads;  // l = 0
+  const int q0 = iq * kBQ;
+  const int dv0 = sv * kDs;
+  const int dvn = min(kDs, a.dv - dv0);
+  const int nck = (a.dh + kDc - 1) / kDc;
+
+  auto load_q = [&](int d0, int dn) {
+    for (int i = t; i < kBQ * kDc; i += kThreads) {
+      const int r = i / kDc, d = i % kDc, l = q0 + r;
+      qs[d * kLd + r] = (l < a.seq && d < dn)
+          ? load_in(a.q, (row0 + (long long)l * a.heads) * a.dh + d0 + d,
+                    a.bf16)
+          : 0.f;
+    }
+  };
+  if (nck == 1) load_q(0, a.dh);
+
+  float m[4], den[4], acc[4][kNg * 4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kMasked;
+    den[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kNg * 4; ++c) acc[i][c] = 0.f;
+  }
+
+  const int n_kv = (a.seq + kBK - 1) / kBK;
+  const int n_vis = a.causal ? min(n_kv, (q0 + kBQ + kBK - 1) / kBK) : n_kv;
+  unsigned long long loaded = 0;
+  for (int j = 0; j < n_vis; ++j) {
+    const int k0 = j * kBK;
+    __syncthreads();               // the last tile's k, v and p are read
+    ++loaded;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+    for (int ch = 0; ch < nck; ++ch) {
+      const int d0 = ch * kDc, dn = min(kDc, a.dh - d0);
+      if (ch > 0) __syncthreads();   // the last chunk's q and k are read
+      if (nck > 1) load_q(d0, dn);
+      for (int i = t; i < kBK * kDc; i += kThreads) {
+        const int c = i / kDc, d = i % kDc, l = k0 + c;
+        ks[d * kLd + c] = (l < a.seq && d < dn)
+            ? load_in(a.k, (row0 + (long long)l * a.heads) * a.dh + d0 + d,
+                      a.bf16)
+            : 0.f;
+      }
+      if (ch == nck - 1) {
+        for (int i = t; i < kBK * kDs; i += kThreads) {
+          const int c = i / kDs, d = i % kDs, l = k0 + c;
+          vs[c * kLv + d] = (l < a.seq && d < dvn)
+              ? load_in(a.v,
+                        (row0 + (long long)l * a.heads) * a.dv + dv0 + d,
+                        a.bf16)
+              : 0.f;
+        }
+      }
+      __syncthreads();
+      const int dn8 = (dn + 7) & ~7;   // zero-padded to 8 in shared memory
+#pragma unroll 8
+      for (int d = 0; d < dn8; ++d) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(qs + d * kLd + ty * 4);
+        const float4 kv =
+            *reinterpret_cast<const float4*>(ks + d * kLd + tx * 4);
+        const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+        const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qa[i], ka[c], s[i][c]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty * 4 + i;
+      float mx = kMasked;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kpos = k0 + tx * 4 + c;
+        const bool live = kpos < a.seq && (!a.causal || qpos >= kpos);
+        s[i][c] = live ? s[i][c] * a.scale : kMasked;
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = expf(s[i][c] - m_new);
+        sum += s[i][c];
+      }
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1) sum += __shfl_xor_sync(kFull, sum, o);
+      den[i] = den[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kNg * 4; ++c) acc[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(ps + (tx * 4 + c) * kLd + ty * 4) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      const float4 pv = *reinterpret_cast<const float4*>(ps + c * kLd + ty * 4);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int g = 0; g < kNg; ++g) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(vs + c * kLv + g * 64 + tx * 4);
+        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][g * 4 + e] = fmaf(pa[i], va[e], acc[i][g * 4 + e]);
+      }
+    }
+  }
+  if (a.tiles != nullptr && t == 0) atomicAdd(a.tiles, loaded);
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    if (qpos >= a.seq) continue;   // a padded query row is never written
+    const long long row = row0 + (long long)qpos * a.heads;
+    const float dd = fmaxf(den[i], 1e-30f);
+#pragma unroll
+    for (int g = 0; g < kNg; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = g * 64 + tx * 4 + e;
+        if (d < dvn) a.out[row * a.dv + dv0 + d] = acc[i][g * 4 + e] / dd;
+      }
+    if (a.m_out != nullptr && tx == 0 && sv == 0) {
+      a.m_out[row] = m[i];
+      a.d_out[row] = den[i];
+    }
+  }
+}
+
+template <bool kRing>
+int launch_wide(const Args& a, const RingSend& ring, unsigned grid,
+                cudaStream_t s) {
+  const size_t bytes = wide_smem_floats() * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_wide_kernel<kRing>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_attention_wide_kernel<kRing><<<grid, kThreads, bytes, s>>>(a, ring);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -368,7 +611,9 @@ extern "C" {
 // Attention of the n_wh = W H (worker, head) pairs on `stream`: q, k
 // (W, L, H, dh), v (W, L, H, dv), float32 (bf16 = 0) or bfloat16 (bf16 = 1),
 // out (W, L, H, dv) float32, m_out and d_out (W, L, H) float32 or both null;
-// all contiguous, 1 <= dh, dv <= 128 (checked by the caller). A non-null
+// all contiguous, dh, dv >= 1; dh and dv <= 128 take the instances of
+// flash_attention_kernel, a wider head flash_attention_wide_kernel
+// (ceil(dv / 128) blocks a query tile). A non-null
 // `tiles` (one uint64 on the device) gains the KV tiles the blocks loaded.
 // A non-null k_next and v_next (shaped as k and v) take the ring send, with
 // cpr copy blocks a row; the rows are workers base .. base + w - 1 of
@@ -384,8 +629,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long v_off, const void* plan, int remote,
                            int base, int nworkers, unsigned long long ready,
                            void* err, int cid) {
-  if (w < 1 || seq < 1 || heads < 1 || dh < 1 || dh > 128 || dv < 1 ||
-      dv > 128)
+  if (w < 1 || seq < 1 || heads < 1 || dh < 1 || dv < 1)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -424,11 +668,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     ring.err = static_cast<unsigned*>(err);
     ring.cid = (unsigned)cid;
   }
-  const long long grid =
-      a.w_h * a.n_q + (send ? (long long)ring.rows * ring.cpr : 0);
+  const bool wide = dh > 128 || dv > 128;
+  const long long grid = a.w_h * a.n_q * (wide ? (dv + kDs - 1) / kDs : 1) +
+                         (send ? (long long)ring.rows * ring.cpr : 0);
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = (unsigned)grid;
+  if (wide)
+    return send ? launch_wide<true>(a, ring, g, s)
+                : launch_wide<false>(a, RingSend{}, g, s);
   const RingSend* r = send ? &ring : nullptr;
   if (dh <= 64)
     return dv <= 64 ? launch<64, 64>(a, r, g, s) : launch<64, 128>(a, r, g, s);

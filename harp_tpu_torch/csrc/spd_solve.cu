@@ -1,9 +1,10 @@
 // Batched small SPD solve for Hopper (sm_90a): for each of N independent
 // systems A x = b with A (K, K) symmetric positive definite, factor A = L L^T
 // by the outer-product Cholesky, then solve L y = b and L^T x = y. All in
-// float32. Two kernels: one warp a system in registers for K <= 64
+// float32. Three kernels: one warp a system in registers for K <= 64
 // (spd_solve_kernel), one block a system in shared memory for 64 < K <= 338
-// (spd_solve_block_kernel, after the first).
+// (spd_solve_block_kernel, after the first), and for a wider K the second's
+// steps on a workspace in device memory (spd_solve_global_kernel, last).
 //
 // Replaces: harp_tpu/ops/pallas_kernels.py::_chol_solve_kernel (the TPU
 // kernel behind spd_solve_pallas). It computes the same function in the same
@@ -296,6 +297,95 @@ spd_solve_block_kernel(const float* __restrict__ a,
   for (int i = tid; i < k; i += kBlockThreads) x[sys * k + i] = lc[i];
 }
 
+// ---------------------------------------------------------------------------
+// K > 338: the one-block kernel's steps, the triangle in device memory.
+//
+// Past K = 338 the packed lower triangle no longer fits one block's shared
+// memory. This kernel runs spd_solve_block_kernel's steps in the same order
+// (the same arithmetic, so it gives the same x bit for bit wherever both
+// run) with the triangle in a workspace in device memory and the right-hand
+// side and column j of L, 2 K floats, still in shared memory. The grid is
+// persistent: each block loops over systems blockIdx.x, blockIdx.x + grid,
+// ..., so the workspace is one triangle a block, K (K + 1) / 2 floats (525 KB
+// at K = 512), not one a system. Within a block the barriers order its
+// device-memory writes before the next step's reads, as they do for shared
+// memory. The grid (spd_solve_global_grid) is the card's resident blocks,
+// at most N.
+//
+// What bounds it: the bound's count is the one-block kernel's (operations
+// from K of about 140 at N = 8192); the kernel is held by the rank-1
+// updates' read-modify-writes in device memory, K^3 / 6 a system, and by
+// 3 K barriers a system. A thread-block cluster that holds the triangle in
+// its blocks' distributed shared memory (up to 16 x 227 KB) is the lever
+// for a faster one. The widest K: the two K-vectors in shared memory,
+// K <= 29,056.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ __forceinline__ long long tri_ll(long long i) {
+  return i * (i + 1) / 2;
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+spd_solve_global_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b, float* __restrict__ x,
+                        float* ws, long long n, int k) {
+  extern __shared__ float smem[];
+  float* r = smem;              // b, then y
+  float* lc = r + k;            // column j of L at step j, then x
+  float* t = ws + (size_t)blockIdx.x * tri_ll(k);  // the triangle, then L
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  for (long long sys = blockIdx.x; sys < n; sys += gridDim.x) {
+    const float* as = a + sys * k * k;
+    for (int i = warp; i < k; i += kBlockWarps) {
+      const float* row = as + (size_t)i * k;
+      float* dst = t + tri_ll(i);
+      for (int m = lane; m <= i; m += 32) dst[m] = row[m];
+    }
+    for (int i = tid; i < k; i += kBlockThreads) r[i] = b[sys * k + i];
+    __syncthreads();
+
+    for (int j = 0; j < k; ++j) {
+      const float d = t[tri_ll(j) + j];
+      const float dinv = 1.0f / sqrtf(d);
+      const float ljj = d * dinv;               // L[j][j]
+      const float yj = r[j] / ljj;
+      for (int i = j + tid; i < k; i += kBlockThreads) {
+        const float l = i == j ? ljj : t[tri_ll(i) + j] * dinv;
+        lc[i] = l;
+        if (i > j) {
+          t[tri_ll(i) + j] = l;
+          r[i] = fmaf(-l, yj, r[i]);
+        }
+      }
+      __syncthreads();
+      if (tid == 0) t[tri_ll(j) + j] = ljj;     // nobody reads it below
+      for (int i = j + 1 + warp; i < k; i += kBlockWarps) {
+        const float li = lc[i];
+        float* row = t + tri_ll(i);
+        for (int m = j + 1 + lane; m <= i; m += 32)
+          row[m] = fmaf(-li, lc[m], row[m]);
+      }
+      __syncthreads();
+    }
+
+    for (int i = tid; i < k; i += kBlockThreads) r[i] = r[i] / t[tri_ll(i) + i];
+    __syncthreads();
+    for (int p = k - 1; p >= 0; --p) {
+      const float* row = t + tri_ll(p);         // row p of L
+      const float xp = r[p] / row[p];
+      if (tid == 0) lc[p] = xp;
+      for (int i = tid; i < p; i += kBlockThreads)
+        r[i] = fmaf(-row[i], xp, r[i]);
+      __syncthreads();
+    }
+    for (int i = tid; i < k; i += kBlockThreads) x[sys * k + i] = lc[i];
+    __syncthreads();                            // r, lc and t are reused
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -340,6 +430,48 @@ int spd_solve_block_launch(const void* a, const void* b, void* x,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<float*>(x), k);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the global-memory kernel's persistent grid for n systems of
+// rank k on the current device: the resident blocks, at most n. A negative
+// value is a CUDA error, negated.
+int spd_solve_global_grid(long long n, int k) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t bytes = 2 * (size_t)k * sizeof(float);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(spd_solve_global_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, spd_solve_global_kernel, kBlockThreads, bytes);
+  if (e != cudaSuccess) return -(int)e;
+  long long grid = (long long)sms * per_sm;
+  if (grid > n) grid = n;
+  return grid < 1 ? 1 : (int)grid;
+}
+
+// Solve the n systems on `stream` with the global-memory kernel: the same
+// operands, k > 338 (checked by the caller), on `grid` blocks
+// (spd_solve_global_grid) with ws (grid, k (k + 1) / 2) float32. Returns
+// cudaGetLastError() after the launch (0 on success).
+int spd_solve_global_launch(const void* a, const void* b, void* x, void* ws,
+                            long long n, int k, int grid, void* stream) {
+  if (n == 0) return 0;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  const size_t bytes = 2 * (size_t)k * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      spd_solve_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  spd_solve_global_kernel<<<(unsigned)grid, kBlockThreads, bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(x), static_cast<float*>(ws), n, k);
   return (int)cudaGetLastError();
 }
 

@@ -175,13 +175,6 @@ def _resolve_solver(cfg: ALSConfig, device) -> str:
         return ("pallas" if pallas_kernels.use_spd_solve_pallas(cfg.rank,
                                                                 device)
                 else "cholesky")
-    if (cfg.solver == "pallas" and torch.device(device).type == "cuda"
-            and cfg.rank > pallas_kernels.SPD_MAX_K_SMEM):
-        raise ValueError(
-            f"solver='pallas' takes rank <= {pallas_kernels.SPD_MAX_K_SMEM} "
-            f"on a CUDA device (the one-block solve holds the packed lower "
-            f"triangle in shared memory), got rank {cfg.rank}; use "
-            f"solver='cholesky' or 'auto'")
     return cfg.solver
 
 

@@ -12,16 +12,20 @@ Ported:
   dense_mf_hop.cu`` (the masked stripe-GEMM update of every stacked
   worker's H block against its slab bucket, pred and G kept on chip; with
   ``ring_hop``, each block also sends its final H tile to the right ring
-  neighbour); ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch,
-  followed by ``ring_dma.hop_plain`` with ``ring_hop``;
+  neighbour), at K <= 128, and past it the wide path (the rank split over
+  the warps, dW by a GEMM kernel after the hop) up to ``MF_MAX_K``;
+  ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch, followed by
+  ``ring_dma.hop_plain`` with ``ring_hop``;
 * the batched SPD solve of ALS. ``spd_solve_cuda`` launches ``csrc/
   spd_solve.cu``: one warp a system, the factor in registers, at K <= 64;
   one block a system, the packed lower triangle in shared memory, at
-  64 < K <= 338. ``spd_solve_plain`` is the TPU kernel's Cholesky and
-  substitutions, vectorized over the batch;
+  64 < K <= 338; past it the same steps with the triangle in device
+  memory, on a persistent grid. ``spd_solve_plain`` is the TPU kernel's
+  Cholesky and substitutions, vectorized over the batch;
 * flash attention. ``flash_attention_cuda`` launches ``csrc/
   flash_attention.cu`` (running max, denominator and accumulator on chip,
-  the causal trapezoid of KV tiles, any L, Dv != Dh, optional stats; with
+  the causal trapezoid of KV tiles, any L, any Dh and Dv (past 128, Dh
+  staged in chunks and Dv sliced across the grid), optional stats; with
   ``ring_hop``, copy blocks beside the attention blocks send k and v to the
   right ring neighbour); ``flash_attention_plain`` is a full-row softmax in
   plain PyTorch.
@@ -38,10 +42,10 @@ tensor the dispatchers the models call (``kmeans_stats``, ``dense_mf_hop``,
 ring_attention.py``) launch the kernel, with two exceptions decided before
 any launch, where the JAX package itself takes XLA: ``kmeans_stats``
 outside :func:`use_kmeans_pallas` (the JAX package's E-step is XLA by
-default) and attention below :func:`use_flash_pallas`'s length. A shape
-the JAX package runs through its kernel and this kernel cannot take (a
-dense-MF rank above ``MF_MAX_K``, a flash head wider than ``FLASH_MAX_D``)
-raises. Nothing catches a build or launch error.
+default) and attention below :func:`use_flash_pallas`'s length. Every
+width the JAX package's kernels take launches a kernel here; the stated
+limits (a dense-MF rank above ``MF_MAX_K``, an SPD rank above
+``SPD_MAX_K_GLOBAL``) raise. Nothing catches a build or launch error.
 
 ``launches`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
@@ -65,7 +69,8 @@ from harp_tpu_torch.parallel import mesh as mesh_lib
 
 launches: Dict[str, int] = {"kmeans_stats": 0, "dense_mf_hop": 0,
                              "dense_mf_hop_ring": 0, "spd_solve": 0,
-                             "spd_solve_block": 0, "flash_attention": 0,
+                             "spd_solve_block": 0, "spd_solve_global": 0,
+                             "flash_attention": 0,
                              "flash_attention_ring": 0}
 plain_on_card: Dict[str, int] = {"kmeans_stats": 0, "flash_attention": 0}
 
@@ -245,9 +250,31 @@ def kmeans_stats(x: torch.Tensor, c: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 # ranks the kernel is built for; K is zero-padded up to the next one, so
-# the kernel takes 1 <= K <= MF_MAX_K
+# the kernel takes 1 <= K <= MF_MAX_K: MF_RANKS by the kernel that holds
+# each warp's dH piece in registers, MF_WIDE_RANKS by the wide path, whose
+# (CT, KP) dH tile of 16384 floats lies in registers, 64 a thread: at KP =
+# 1024 its column tile is 16, one m16 tile, so a wider rank would need dH
+# outside registers (the JAX kernel's own VMEM budget ends near K = 1000 at
+# cpb = 8192)
 MF_RANKS = (16, 32, 64, 128)
-MF_MAX_K = MF_RANKS[-1]
+MF_WIDE_RANKS = (256, 512, 1024)
+MF_MAX_K = MF_WIDE_RANKS[-1]
+
+
+def mf_padded_rank(k: int) -> int:
+    """The rank KP the kernel runs rank K at (K zero-padded up to it: exact),
+    0 outside 1 <= K <= ``MF_MAX_K``. KP > 128 takes the wide path."""
+    return next((r for r in MF_RANKS + MF_WIDE_RANKS if 1 <= k <= r), 0)
+
+
+def dense_mf_wide_shapes(nw: int, rpw: int, cpb: int, kp: int,
+                         nmb: int) -> Tuple[tuple, ...]:
+    """Shapes of the wide path's bf16 device buffers for one hop, in the
+    order ``dense_mf_hop_wide_launch`` (``csrc/dense_mf_hop.cu``) takes
+    them: Wb (W, rpw, KP), the G buffer (W, rpw, cpb8) and the stripe
+    snapshots of Hb (W, nmb, cpb8, KP), cpb8 = cpb rounded up to 8."""
+    cpb8 = -(-cpb // 8) * 8
+    return (nw, rpw, kp), (nw, rpw, cpb8), (nw, nmb, cpb8, kp)
 
 
 def _mf_shapes(slab, buckets, w, h, row_cnt, col_cnt, nmb):
@@ -336,6 +363,11 @@ def _mf_lib() -> ctypes.CDLL:
                                             + [f, f, vp, vp, vp, i, i, i,
                                                ctypes.c_ulonglong, vp])
         lib.dense_mf_hop_launch.restype = i
+        lib.dense_mf_hop_wide_launch.argtypes = ([vp] * 13 + [i] * 7
+                                                 + [f, f, vp, vp, vp, i, i,
+                                                    i, ctypes.c_ulonglong,
+                                                    vp])
+        lib.dense_mf_hop_wide_launch.restype = i
         _LIB["dense_mf_hop"] = lib
     return lib
 
@@ -360,8 +392,11 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
     n_blocks, rpw) and ``col_cnt``: (W, n_blocks, nmb_fine, cpb) float32
     regularizer counts, ``col_cnt`` summed over ``nmb_fine // nmb`` adjacent
     fine stripes per stripe. All on one CUDA device and contiguous. 1 <= K
-    <= ``MF_MAX_K`` (zero-padded to 16, 32, 64 or 128 here: exact); a larger
-    K raises. With ``ring_hop`` W is the group's workers a process."""
+    <= ``MF_MAX_K``, zero-padded here to :func:`mf_padded_rank` (exact): up
+    to 128 one launch of the hop kernel and one of the W reduction, past it
+    the wide path (a Wb launch, the hop, the dW GEMM with the W update); a
+    larger K raises. With ``ring_hop`` W is the group's workers a
+    process."""
     args = (slab, buckets, w, h, row_cnt, col_cnt)
     if not all(t.is_cuda and t.device == slab.device for t in args):
         raise ValueError("dense_mf_hop_cuda needs every tensor on one CUDA "
@@ -375,8 +410,8 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
     if not all(t.is_contiguous() for t in args):
         raise ValueError("every dense_mf_hop_cuda operand must be contiguous")
     nw, n_blocks, rpw, cpb, k, nmb_fine = _mf_shapes(*args, nmb)
-    kp = next((r for r in MF_RANKS if k <= r), 0)
-    if k < 1 or not kp:
+    kp = mf_padded_rank(k)
+    if not kp:
         raise ValueError(f"dense_mf_hop_cuda takes 1 <= K <= {MF_MAX_K}, "
                          f"got K={k}")
     if slab.data_ptr() % 16:
@@ -397,7 +432,15 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
     with torch.cuda.device(dev):
         w_out = torch.empty((nw, rpw, kp), dtype=torch.float32, device=dev)
         h_out = torch.empty((nw, cpb, kp), dtype=torch.float32, device=dev)
-        ws = torch.empty((nw, n_ct, rpw, kp), dtype=torch.float32, device=dev)
+        if kp in MF_WIDE_RANKS:
+            ws = tuple(torch.empty(shape, dtype=torch.bfloat16, device=dev)
+                       for shape in dense_mf_wide_shapes(nw, rpw, cpb, kp,
+                                                         nmb))
+            launch = lib.dense_mf_hop_wide_launch
+        else:
+            ws = (torch.empty((nw, n_ct, rpw, kp), dtype=torch.float32,
+                              device=dev),)
+            launch = lib.dense_mf_hop_launch
         sse_part = torch.empty((nw, n_ct), dtype=torch.float32, device=dev)
         sse = torch.empty((nw,), dtype=torch.float32, device=dev)
         h_next = sent = None
@@ -410,10 +453,10 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
                 sent = torch.empty((nw, n_ct), dtype=torch.int32, device=dev)
             ring = (h_next.data_ptr(), *send.args[:5],
                     None if sent is None else sent.data_ptr())
-        err = lib.dense_mf_hop_launch(
+        err = launch(
             slab.data_ptr(), buckets.data_ptr(), w_in.data_ptr(),
             h_in.data_ptr(), row_cnt.data_ptr(), col_cnt.data_ptr(),
-            w_out.data_ptr(), h_out.data_ptr(), ws.data_ptr(),
+            w_out.data_ptr(), h_out.data_ptr(), *(t.data_ptr() for t in ws),
             sse_part.data_ptr(), sse.data_ptr(), nw, n_blocks, rpw, cpb, kp,
             nmb, nmb_fine, float(lr), float(lam),
             torch.cuda.current_stream(dev).cuda_stream, *ring)
@@ -439,8 +482,7 @@ def dense_mf_hop(slab: torch.Tensor, buckets: torch.Tensor, w: torch.Tensor,
                  nmb: int, lr: float, lam: float, ring_hop: bool = False
                  ) -> Tuple[torch.Tensor, ...]:
     """The dense SGD-MF hop the model calls: the CUDA kernel for a CUDA
-    slab (K above ``MF_MAX_K`` raises: the JAX package runs its kernel
-    there, and this kernel's wider variant is still to be written), the
+    slab (K above ``MF_MAX_K`` raises, the kernel's stated limit), the
     plain version for a CPU slab. ``ring_hop`` (the JAX package's in-kernel
     send) also returns h_next, the left neighbour's updated block on the
     bound worker group, exactly ``lax_ops.rotate(h', 1)``: on the card
@@ -464,6 +506,9 @@ SPD_MAX_K = 64
 # the largest K of the one-block kernel: the packed lower triangle and two
 # K-vectors must fit one block's shared memory (spd_solve_block_smem_bytes)
 SPD_MAX_K_SMEM = 338
+# the largest K of the global-memory kernel: its two K-vectors (the
+# right-hand side and column j of L) stay in one block's shared memory
+SPD_MAX_K_GLOBAL = 29_056
 
 
 def spd_solve_block_smem_bytes(k: int) -> int:
@@ -471,6 +516,14 @@ def spd_solve_block_smem_bytes(k: int) -> int:
     ``block_smem_floats`` in ``csrc/spd_solve.cu`` (the packed lower
     triangle, K (K + 1) / 2 floats, the right-hand side and column j of L)."""
     return 4 * (k * (k + 1) // 2 + 2 * k)
+
+
+def spd_solve_global_workspace_bytes(grid: int, k: int) -> int:
+    """Bytes of the global-memory solve's workspace: one packed lower
+    triangle, K (K + 1) / 2 floats, for each of the ``grid`` blocks of its
+    persistent grid (``spd_solve_global_grid`` in ``csrc/spd_solve.cu``).
+    The grid never exceeds N, so this is at most half of A's bytes."""
+    return 4 * grid * (k * (k + 1) // 2)
 
 
 def _spd_shapes(a: torch.Tensor, b: torch.Tensor) -> Tuple[int, int]:
@@ -523,12 +576,16 @@ def _spd_lib() -> ctypes.CDLL:
         from harp_tpu_torch.ops import _cuda_build
 
         lib = _cuda_build.library("spd_solve")
-        vp = ctypes.c_void_p
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for fn in (lib.spd_solve_launch, lib.spd_solve_block_launch):
-            fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
-            fn.restype = ctypes.c_int
-        lib.spd_solve_block_smem_bytes.argtypes = [ctypes.c_int]
-        lib.spd_solve_block_smem_bytes.restype = ctypes.c_longlong
+            fn.argtypes = [vp, vp, vp, ll, i, vp]
+            fn.restype = i
+        lib.spd_solve_block_smem_bytes.argtypes = [i]
+        lib.spd_solve_block_smem_bytes.restype = ll
+        lib.spd_solve_global_grid.argtypes = [ll, i]
+        lib.spd_solve_global_grid.restype = i
+        lib.spd_solve_global_launch.argtypes = [vp] * 4 + [ll, i, i, vp]
+        lib.spd_solve_global_launch.restype = i
         _LIB["spd_solve"] = lib
     return lib
 
@@ -539,10 +596,11 @@ def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``a``: (N, K, K) and ``b``: (N, K) float32, contiguous, on one CUDA
     device; any N. 1 <= K <= ``SPD_MAX_K`` launches the one-warp kernel
     (counted in ``launches["spd_solve"]``), ``SPD_MAX_K`` < K <=
-    ``SPD_MAX_K_SMEM`` the one-block kernel (``launches["spd_solve_block"]``);
-    a larger K raises. Like the plain version both read only the lower
-    triangle of each system; a system that is not positive definite gives
-    NaN, as the TPU kernel does."""
+    ``SPD_MAX_K_SMEM`` the one-block kernel (``launches["spd_solve_block"]``),
+    ``SPD_MAX_K_SMEM`` < K <= ``SPD_MAX_K_GLOBAL`` the global-memory kernel
+    (``launches["spd_solve_global"]``); a larger K raises. Like the plain
+    version all read only the lower triangle of each system; a system that
+    is not positive definite gives NaN, as the TPU kernel does."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError(f"spd_solve_cuda needs both tensors on one CUDA "
                          f"device, got {a.device} and {b.device}")
@@ -550,11 +608,13 @@ def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"a and b must be float32, got {a.dtype} and "
                         f"{b.dtype}")
     n, k = _spd_shapes(a, b)
-    if not 1 <= k <= SPD_MAX_K_SMEM:
-        raise ValueError(f"spd_solve_cuda takes 1 <= K <= {SPD_MAX_K_SMEM}, "
-                         f"got K={k}")
+    if not 1 <= k <= SPD_MAX_K_GLOBAL:
+        raise ValueError(f"spd_solve_cuda takes 1 <= K <= "
+                         f"{SPD_MAX_K_GLOBAL}, got K={k}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
+    if k > SPD_MAX_K_SMEM:
+        return _spd_solve_global(a, b)
     lib = _spd_lib()
     block = k > SPD_MAX_K
     launch = lib.spd_solve_block_launch if block else lib.spd_solve_launch
@@ -568,10 +628,34 @@ def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _spd_solve_global(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The global-memory kernel on checked operands (any K up to
+    ``SPD_MAX_K_GLOBAL``; :func:`spd_solve_cuda` sends it K >
+    ``SPD_MAX_K_SMEM``)."""
+    n, k = b.shape
+    lib = _spd_lib()
+    with torch.cuda.device(a.device):
+        x = torch.empty((n, k), dtype=torch.float32, device=a.device)
+        grid = lib.spd_solve_global_grid(n, k) if n else 1
+        if grid < 1:
+            raise RuntimeError(f"spd_solve grid query failed: CUDA error "
+                               f"{-grid}")
+        ws = torch.empty(spd_solve_global_workspace_bytes(grid, k) // 4,
+                         dtype=torch.float32, device=a.device)
+        err = lib.spd_solve_global_launch(
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), ws.data_ptr(), n, k,
+            grid, torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spd_solve kernel launch failed: CUDA error {err}")
+    launches["spd_solve_global"] += 1
+    return x
+
+
 def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The batched SPD solve ALS's ``solver="pallas"`` calls, an explicit
-    request for the kernel: the CUDA kernel for CUDA tensors (any K it
-    takes; a larger K raises), the plain version for CPU tensors."""
+    request for the kernel: the CUDA kernel for CUDA tensors (any K up to
+    ``SPD_MAX_K_GLOBAL``; a larger K raises), the plain version for CPU
+    tensors."""
     if a.device.type == "cuda":
         return spd_solve_cuda(a, b)
     if a.device.type == "cpu":
@@ -592,8 +676,6 @@ def use_spd_solve_pallas(k: int, device) -> bool:
 # Flash attention
 # --------------------------------------------------------------------------- #
 
-# the widest head the kernel takes (Dh and Dv are zero-padded to 64 or 128)
-FLASH_MAX_D = 128
 # the JAX package's dispatch threshold (a TPU crossover, kept as it is)
 FLASH_MIN_L = 8192
 # head packing is a TPU lane layout: two heads share a 128-lane tile when
@@ -721,8 +803,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``q``, ``k``: (L, H, Dh) or stacked (W, L, H, Dh); ``v``: (L, H, Dv) or
     (W, L, H, Dv); one type, float32 or bfloat16, contiguous, on one CUDA
-    device; 1 <= Dh, Dv <= 128; any L. A stacked input is one launch for
-    all workers. Outputs are float32 whatever the input type.
+    device; any L, Dh and Dv (a head wider than 128 takes the kernel's wide
+    variant, ceil(Dv / 128) blocks a query tile). A
+    stacked input is one launch for all workers. Outputs are float32
+    whatever the input type.
 
     ``ring_hop`` (needs ``return_stats`` and stacked inputs, W the workers
     a process of ``group``, by default the bound one): the same launch also
@@ -745,9 +829,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q4, k4, v4, stacked = _flash_operands(q, k, v)
     w, l, h, dh = q4.shape
     dv = v4.shape[3]
-    if dh > FLASH_MAX_D or dv > FLASH_MAX_D:
-        raise ValueError(f"flash_attention_cuda takes Dh, Dv <= "
-                         f"{FLASH_MAX_D}, got Dh={dh}, Dv={dv}")
     if ring_hop:
         group = _ring_group(stacked, return_stats, w, group)
     lib = _flash_lib()
@@ -849,7 +930,6 @@ def use_flash_pallas(l: int, device) -> bool:
     """Whether attention takes the flash kernel at length L on ``device``: a
     CUDA device and L >= ``FLASH_MIN_L`` (the JAX package's rule, with the
     card in the TPU's place). Below it attention is plain tensor code, as
-    the JAX package leaves it to XLA. The JAX kernel takes any head width;
-    this one raises above ``FLASH_MAX_D`` (its wider variant is still to be
-    written)."""
+    the JAX package leaves it to XLA. Like the JAX kernel, this one takes
+    any head width."""
     return _on_card(device) and l >= FLASH_MIN_L

@@ -104,6 +104,21 @@ def test_spd_solve_plain_matches_jax_solve(k):
     assert max_rel(got.numpy(), exact) <= 1e-4
 
 
+@pytest.mark.parametrize("n,k", [(6, 339), (4, 400)])
+def test_spd_solve_plain_past_the_block_width_matches_float64(n, k):
+    """K past the one-block kernel's 338 (the global-memory kernel on the
+    card). The oracle is a float64 numpy solve, not the Pallas kernel in
+    interpret mode: that unrolls its K steps in Python and would spend
+    minutes compiling at these K. 1e-4 relative to max |x|: float32
+    Cholesky on systems of condition about 20."""
+    a, b = normal_equations(n, k, seed=k)
+    got = tpk.spd_solve_plain(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32 and got.shape == (n, k)
+    exact = np.linalg.solve(a.astype(np.float64),
+                            b[..., None].astype(np.float64))[..., 0]
+    assert max_rel(got.numpy(), exact) <= 1e-4
+
+
 def test_spd_solve_dispatch_and_checks():
     a, b = (torch.from_numpy(x) for x in normal_equations(8, 5, seed=1))
     before = dict(tpk.launches)
@@ -117,16 +132,15 @@ def test_spd_solve_dispatch_and_checks():
                             (8, "cpu", False)):
         assert tpk.use_spd_solve_pallas(k, device) is want
     # "auto" follows the predicate; an explicit "pallas" on the card takes
-    # the kernel up to the one-block solve's limit and is refused above it
-    # before any work
+    # the kernel at every rank (past K = 338 the global-memory solve)
     resolve = tals._resolve_solver
     assert resolve(tals.ALSConfig(rank=64), "cuda") == "pallas"
     assert resolve(tals.ALSConfig(rank=65), "cuda") == "cholesky"
     assert resolve(tals.ALSConfig(rank=8), "cpu") == "cholesky"
     assert resolve(tals.ALSConfig(rank=8, solver="pallas"), "cpu") == "pallas"
     assert resolve(tals.ALSConfig(rank=65, solver="pallas"), "cuda") == "pallas"
-    with pytest.raises(ValueError, match="rank <= 338"):
-        resolve(tals.ALSConfig(rank=339, solver="pallas"), "cuda")
+    assert resolve(tals.ALSConfig(rank=339, solver="pallas"),
+                   "cuda") == "pallas"
     with pytest.raises(ValueError, match="solver must be"):
         resolve(tals.ALSConfig(solver="lu"), "cpu")
 
@@ -277,6 +291,37 @@ def test_fit_pallas_solver_matches_jax(ratings):
                      tals.ALSConfig(**kw))
     got = model.fit(*data)
     check_fit(got, ref)
+    def f64_solve(a, b, _cfg):
+        return torch.linalg.solve(a.double(), b.double()).float()
+
+    with mock.patch.object(tals, "_spd_solve", f64_solve):
+        check_fit(model.fit(*data), got)
+
+
+def test_fit_pallas_solver_past_the_block_width_matches_jax():
+    """solver="pallas" at rank 340, past the one-block solve's 338 (the
+    global-memory kernel on the card; the plain version here) against the
+    JAX package's "cholesky" fit, implicit, sparse, 2 iterations, on a
+    24 x 16 rating set (the plain solve takes K steps over the whole batch,
+    so the batch is kept small), under check_fit's fixed rule; and a
+    float64 solve patched in for ``als._spd_solve`` moves the fit only by
+    rounding. Rank 340 over 16 items leaves the normal equations' smallest
+    eigenvalue at the regularizer, so lam is 1.0: at 0.1 their condition
+    puts the JAX "cholesky" fit 5e-3 (U) and 8e-3 (V) from a float64-solve
+    fit, past the rule, while the port's plain solve stays within 2e-3; at
+    1.0 both float32 fits lie within 4e-4 of it."""
+    rows, cols, vals = jdatagen.sparse_ratings(24, 16, rank=4, density=0.3,
+                                               seed=5)
+    data = (rows, cols, np.abs(vals), 24, 16, 2)
+    kw = _kw(True, "sparse", rank=340, lam=1.0, iterations=2)
+    ref = jals.ALS(JaxSession(num_workers=1),
+                   jals.ALSConfig(**kw, solver="cholesky")).fit(*data)
+    model = tals.ALS(TorchSession(num_workers=1, device="cpu"),
+                     tals.ALSConfig(**kw, solver="pallas"))
+    got = model.fit(*data)
+    assert got[0].shape == (24, 340) and got[1].shape == (16, 340)
+    check_fit(got, ref)
+
     def f64_solve(a, b, _cfg):
         return torch.linalg.solve(a.double(), b.double()).float()
 

@@ -91,6 +91,10 @@ FLASH_CASES = {
     "l97-causal": (97, 1, 8, 8, True, False),
     "dv24-causal": (64, 2, 16, 24, True, False),
     "bf16-causal": (64, 2, 32, 32, True, True),
+    # heads past the kernel's 128 (its wide variant on the card): Gemma's
+    # 256, and DeepSeek-V2/V3's query/key 192 with value 128, at a prime L
+    "dh256-causal": (61, 2, 256, 256, True, False),
+    "dh192-dv128-causal": (61, 2, 192, 128, True, False),
 }
 # cases also run through the Pallas kernel without return_stats
 NO_STATS = ("l61", "l97-causal")
@@ -272,6 +276,18 @@ def test_blocked_attention_matches_jax(l, causal):
                                                          kv_block=16))
 
 
+@pytest.mark.parametrize("dh,dv", [(256, 256), (192, 128)])
+def test_blocked_attention_wide_head_matches_jax(dh, dv):
+    """Heads past 128 (the flash kernel's wide variant on the card): the
+    streamed loop at a prime L, causal, against the JAX package's."""
+    q, k, v = qkv((47, 2, dh), dv, seed=dh + dv)
+    want = jra.blocked_attention(*map(jnp.asarray, (q, k, v)), True,
+                                 kv_block=16)
+    got = tra.blocked_attention(*map(torch.from_numpy, (q, k, v)), True,
+                                kv_block=16)
+    close(got, want)
+
+
 def test_reference_attention_matches_jax():
     q, k, v = qkv((40, 8), 12, seed=4)
     for causal in (False, True):
@@ -322,6 +338,22 @@ def test_ring_attention_mha_matches_jax(session, w, l_local, causal,
         *map(torch.from_numpy, (q, k, v)), in_specs=(ts.shard(),) * 3,
         out_specs=ts.shard())
     close(other, j)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_ring_attention_mha_wide_head_matches_jax(session, use_flash):
+    """The causal multi-head ring at Dh = Dv = 256 on 4 workers, einsum and
+    flash hops (interpret-mode Pallas on the JAX side)."""
+    q, k, v = qkv((4 * 8, 2, 256), 256, seed=256 + use_flash)
+    j, t = run_both(
+        4, session,
+        lambda a, b, c: jra.ring_attention_mha(
+            a, b, c, True, use_flash=use_flash, interpret=use_flash,
+            fused_dma=False),
+        lambda a, b, c: tra.ring_attention_mha(a, b, c, True,
+                                               use_flash=use_flash),
+        (q, k, v))
+    close(t, j)
 
 
 def test_ring_attention_mha_ablation_matches_jax(session):

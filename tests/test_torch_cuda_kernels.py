@@ -11,7 +11,8 @@ rtol 1e-4; bf16 sums rtol 2e-2. Two runs of a kernel are bitwise equal, and
 a stacked launch of 4 workers is bitwise their separate launches at a tile
 count above the grid (its blocks a worker do not depend on W).
 
-Dense SGD-MF hop: SSE rtol 1e-5 against the plain version. W and H are
+Dense SGD-MF hop (K <= 128, and the wide path up to K = 1024): SSE rtol
+1e-5 against the plain version. W and H are
 held against the plain version run in float64 (exact sums of the same bf16
 products): relative to their largest entry, the kernel must be within 1e-4
 or within 4x the distance of the float32 plain version from it, whichever
@@ -24,21 +25,24 @@ Batched SPD solve: the kernel and the plain version sum in different orders
 (the kernel's shuffles, fused multiply-adds), so both are held against a
 float64 ``torch.linalg.solve`` of the same systems: the kernel within
 max(1e-5, 4x the plain version's own distance from it), relative to max
-|x|. The one-block kernel (64 < K <= 338) follows the plain version's steps
-and is held to it within 1e-4 of max |x| as well.
+|x|. The one-block kernel (64 < K <= 338) and the global-memory kernel
+(K > 338) follow the plain version's steps and are held to it within 1e-4
+of max |x| as well; the two run the same arithmetic, so where both take a
+K they agree bitwise.
 
 Dispatch: where the JAX package takes XLA (K-means K=400, D=100 beyond one
 block's shared memory; attention below the flash length), a dispatcher on
 CUDA tensors launches nothing, counts each plain call in ``plain_on_card``
-and answers as the plain version does, within the tolerances above. Where
-the JAX package runs its kernel and this one cannot (dense-MF K=192, flash
-Dh=192 at L=8192), the call raises before any launch.
+and answers as the plain version does, within the tolerances above. At
+the widths past the narrow kernels (dense-MF K=192, flash Dh=192 at
+L=8192) the dispatcher launches the wide kernel once, makes no plain call
+and answers within the kernel's own tolerance of the plain version.
 
 Flash attention: the kernel and the plain version (a full-row softmax) sum
 in different orders, so both are held against a float64 attention of the
 same inputs over sampled query rows of every head: out, m and den within
 max(1e-5, 4x the plain version's own distance), relative to their largest
-entry. A stacked launch is bitwise the separate ones, and two runs are
+entry; heads past 128 (the wide variant) by the same rule. A stacked launch is bitwise the separate ones, and two runs are
 bitwise equal. The KV tiles the kernel counts as loaded are exactly the
 causal trapezoid of its 64 x 64 tiles (``trapezoid_tiles``, which
 tests/test_torch_attention.py holds against the JAX package's grid).
@@ -190,6 +194,11 @@ def max_rel(a, b):
     (1, 1, 1024, 2048, 128, 4, 4, [0]),         # rank 128
     (1, 2, 512, 1024, 64, 2, 4, [1]),           # K=64, coarser budget
     (4, 8, 512, 512, 32, 4, 8, [5, 2, 7, 0]),   # stacked, per-worker buckets
+    (1, 1, 1024, 2048, 256, 4, 4, [0]),         # wide path, rank 256
+    (1, 1, 520, 1001, 136, 4, 4, [0]),          # wide, K=136, odd cpb
+    (1, 1, 512, 1024, 512, 4, 4, [0]),          # wide, rank 512
+    (1, 1, 256, 1000, 1024, 2, 2, [0]),         # wide, rank 1024
+    (4, 8, 512, 512, 256, 4, 8, [5, 2, 7, 0]),  # wide, stacked
 ])
 def test_dense_mf_hop_kernel_matches_plain(cuda, nw, n_blocks, rpw, cpb, k,
                                            nmb, nmb_fine, buckets):
@@ -215,10 +224,13 @@ def test_dense_mf_hop_kernel_matches_plain(cuda, nw, n_blocks, rpw, cpb, k,
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("k", [32, 20])
+@pytest.mark.parametrize("k", [32, 20, 256, 200])
 def test_dense_mf_hop_ring_hop_sends_h_bitwise(cuda, k):
-    """W=4 stacked, per-worker buckets, K=32 and K=20 (padded to 32): the
-    send changes no other output, and h_next is h' rolled by one worker."""
+    """W=4 stacked, per-worker buckets, K=32 and K=20 (padded to 32), and
+    the wide path at K=256 and 200 (padded to 256): the send changes no
+    other output, and h_next is h' rolled by one worker, bitwise the
+    kernel-plus-``ring_dma.hop`` pair it replaces."""
+    from harp_tpu_torch.ops import ring_dma
     from harp_tpu_torch.parallel.mesh import WorkerGroup
 
     v, w, h, rc, cc = (x.to(cuda) for x in mf_hop_inputs(
@@ -227,8 +239,8 @@ def test_dense_mf_hop_ring_hop_sends_h_bitwise(cuda, k):
     args = (v, b, w, h, rc, cc, 4, 0.05, 0.01)
     plain = pk.dense_mf_hop_cuda(*args)
     before = dict(pk.launches)
-    got = pk.dense_mf_hop_cuda(*args, ring_hop=True,
-                               group=WorkerGroup(4, cuda))
+    group = WorkerGroup(4, cuda)
+    got = pk.dense_mf_hop_cuda(*args, ring_hop=True, group=group)
     torch.cuda.synchronize()
     assert pk.launches["dense_mf_hop"] == before["dense_mf_hop"] + 1
     assert pk.launches["dense_mf_hop_ring"] == before["dense_mf_hop_ring"] + 1
@@ -236,6 +248,7 @@ def test_dense_mf_hop_ring_hop_sends_h_bitwise(cuda, k):
     for a, c in zip(got[:3], plain):
         assert torch.equal(a, c)
     assert torch.equal(got[3], torch.roll(got[1], 1, 0))
+    assert torch.equal(got[3], ring_dma.hop_cuda(plain[1], 1, group))
 
 
 def test_dense_mf_hop_ring_sends_survive_a_held_back_rank(cuda):
@@ -289,9 +302,9 @@ def test_dense_mf_hop_kernel_refuses_bad_inputs(cuda):
     b = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError, match="int32"):
         pk.dense_mf_hop_cuda(v, b.long(), w, h, rc, cc, 2, 0.05, 0.01)
-    with pytest.raises(ValueError, match="K <= 128"):
-        pk.dense_mf_hop_cuda(v, b, torch.zeros(1, 64, 130, device=cuda),
-                             torch.zeros(1, 64, 130, device=cuda), rc, cc, 2,
+    with pytest.raises(ValueError, match="K <= 1024"):
+        pk.dense_mf_hop_cuda(v, b, torch.zeros(1, 64, 1025, device=cuda),
+                             torch.zeros(1, 64, 1025, device=cuda), rc, cc, 2,
                              0.05, 0.01)
     with pytest.raises(ValueError, match="nmb"):
         pk.dense_mf_hop_cuda(v, b, w, h, rc, cc, 3, 0.05, 0.01)
@@ -352,10 +365,48 @@ def test_spd_solve_block_smem_twin_matches_the_library(cuda, k):
         pk.spd_solve_block_smem_bytes(k)
 
 
+def spd_inputs_on(dev, n, k, seed=0):
+    """spd_inputs' systems made on ``dev`` with torch (V'V over 4k rows
+    plus 0.1 I, and right-hand sides): numpy's einsum takes minutes at the
+    wide K."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn(n, 4 * k, k, generator=g, device=dev) / k ** 0.5
+    a = torch.bmm(v.transpose(1, 2), v) + 0.1 * torch.eye(k, device=dev)
+    return a.contiguous(), torch.randn(n, k, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("n,k", [(2048, 339), (1024, 384), (257, 512),
+                                 (3, 700)])
+def test_spd_solve_global_kernel_matches_plain(cuda, n, k):
+    a, b = spd_inputs_on(cuda, n, k, seed=n + k)
+    before = dict(pk.launches)
+    x = pk.spd_solve_cuda(a, b)
+    torch.cuda.synchronize()
+    assert pk.launches["spd_solve_global"] == before["spd_solve_global"] + 1
+    assert pk.launches["spd_solve_block"] == before["spd_solve_block"]
+    assert x.shape == (n, k) and x.dtype == torch.float32
+    plain = pk.spd_solve_plain(a, b)
+    assert max_rel(x.double(), plain.double()) <= 1e-4
+    exact = torch.linalg.solve(a.double(), b.double())
+    tol = max(1e-5, 4 * max_rel(plain.double(), exact))
+    assert max_rel(x.double(), exact) <= tol
+    assert torch.equal(x, pk.spd_solve_cuda(a, b))
+
+
+def test_spd_solve_global_kernel_is_bitwise_the_block_kernel(cuda):
+    """At a K both take (300), the global-memory kernel runs the one-block
+    kernel's arithmetic: the same x bit for bit, on a grid smaller than
+    N (each block loops over systems)."""
+    a, b = spd_inputs_on(cuda, 4099, 300, seed=3)
+    assert pk._spd_lib().spd_solve_global_grid(4099, 300) < 4099
+    assert torch.equal(pk._spd_solve_global(a, b), pk.spd_solve_cuda(a, b))
+
+
 def test_spd_solve_kernel_refuses_bad_inputs(cuda):
-    a, b = (t.to(cuda) for t in spd_inputs(2, 339))
-    with pytest.raises(ValueError, match="K <= 338"):
-        pk.spd_solve_cuda(a, b)
+    k = pk.SPD_MAX_K_GLOBAL + 1
+    with pytest.raises(ValueError, match=f"K <= {k - 1}"):
+        pk.spd_solve_cuda(torch.zeros(1, 1, 1, device=cuda).expand(1, k, k),
+                          torch.zeros(1, k, device=cuda))
     a, b = (t.to(cuda) for t in spd_inputs(4, 8))
     with pytest.raises(ValueError, match="CUDA device"):
         pk.spd_solve_cuda(a.cpu(), b.cpu())
@@ -398,6 +449,10 @@ def sample_rows(l, n=256, seed=0):
     (1, 2048, 8, 64, 64, True, torch.bfloat16),     # bf16 inputs
     (3, 700, 3, 32, 48, False, torch.float32),      # stacked, odd W H
     (1, 130, 2, 100, 20, True, torch.float32),      # odd widths
+    (1, 1031, 2, 256, 256, True, torch.float32),    # wide: Dh = Dv = 256
+    (1, 700, 2, 192, 128, True, torch.bfloat16),    # wide: MLA's 192 / 128
+    (2, 300, 3, 512, 512, False, torch.float32),    # wide, stacked, 512
+    (1, 130, 2, 100, 200, True, torch.float32),     # wide Dv only, odd
 ])
 def test_flash_attention_kernel_matches_plain(cuda, w, l, h, dh, dv, causal,
                                               dtype):
@@ -427,22 +482,27 @@ def test_flash_attention_kernel_matches_plain(cuda, w, l, h, dh, dv, causal,
 FLASH_TILE = 64   # the kernel's query and key tile
 
 
+@pytest.mark.parametrize("dh,dv", [(64, 48), (256, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_attention_ring_hop_sends_kv_bitwise(cuda, causal, dtype):
-    """W=4 stacked, ragged L, Dv != Dh: out, m and den bitwise the launch
-    without the send; k_next and v_next bitwise k and v rolled by one
-    worker, in the input type."""
+def test_flash_attention_ring_hop_sends_kv_bitwise(cuda, causal, dtype, dh,
+                                                   dv):
+    """W=4 stacked, ragged L, Dv != Dh, and a wide head (Dh = Dv = 256):
+    out, m and den bitwise the launch without the send; k_next and v_next
+    bitwise k and v rolled by one worker, in the input type, and the
+    ``ring_dma.hop`` of each (the pair the send replaces)."""
+    from harp_tpu_torch.ops import ring_dma
     from harp_tpu_torch.parallel.mesh import WorkerGroup
 
     g = torch.Generator().manual_seed(7 + causal)
-    q, k = (torch.randn(4, 1000, 2, 64, generator=g) for _ in range(2))
-    v = torch.randn(4, 1000, 2, 48, generator=g)
+    q, k = (torch.randn(4, 1000, 2, dh, generator=g) for _ in range(2))
+    v = torch.randn(4, 1000, 2, dv, generator=g)
     q, k, v = (x.to(dtype).to(cuda) for x in (q, k, v))
     plain = pk.flash_attention_cuda(q, k, v, causal, return_stats=True)
     before = dict(pk.launches)
+    group = WorkerGroup(4, cuda)
     got = pk.flash_attention_cuda(q, k, v, causal, return_stats=True,
-                                  ring_hop=True, group=WorkerGroup(4, cuda))
+                                  ring_hop=True, group=group)
     torch.cuda.synchronize()
     assert pk.launches["flash_attention"] == before["flash_attention"] + 1
     assert (pk.launches["flash_attention_ring"]
@@ -452,6 +512,7 @@ def test_flash_attention_ring_hop_sends_kv_bitwise(cuda, causal, dtype):
         assert torch.equal(a, c)
     for nxt, x in zip(got[3:], (k, v)):
         assert nxt.dtype == dtype and torch.equal(nxt, torch.roll(x, 1, 0))
+        assert torch.equal(nxt, ring_dma.hop_cuda(x, 1, group))
 
 
 def trapezoid_tiles(l, causal, tile=FLASH_TILE):
@@ -476,11 +537,29 @@ def test_flash_attention_kernel_loads_the_trapezoid(cuda, l, causal):
         assert tiles() == 2 * w * h * trapezoid_tiles(l, causal)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_wide_kernel_loads_the_trapezoid_a_slice(cuda,
+                                                                 causal):
+    """Dv = 300 takes the wide variant's three 128-column slices, each of
+    which walks the trapezoid (Dh = 192 in two chunks, one KV tile each)."""
+    w, h, l = 1, 2, 200
+    g = torch.Generator().manual_seed(l)
+    q, k = (torch.randn(w, l, h, 192, generator=g).to(cuda) for _ in range(2))
+    v = torch.randn(w, l, h, 300, generator=g).to(cuda)
+    with pk.count_flash_tiles() as tiles:
+        pk.flash_attention_cuda(q, k, v, causal)
+        assert tiles() == 3 * w * h * trapezoid_tiles(l, causal)
+
+
 def test_flash_attention_kernel_refuses_bad_inputs(cuda):
     x = torch.zeros(64, 2, 16, device=cuda)
-    with pytest.raises(ValueError, match="Dh, Dv <= 128"):
-        wide = torch.zeros(64, 2, 130, device=cuda)
-        pk.flash_attention_cuda(wide, wide, wide)
+    # a head past 128 is no longer refused: one launch of the wide variant
+    wide = torch.randn(64, 2, 130, device=cuda)
+    before = pk.launches["flash_attention"]
+    torch.testing.assert_close(pk.flash_attention_cuda(wide, wide, wide),
+                               pk.flash_attention_plain(wide, wide, wide),
+                               rtol=1e-4, atol=1e-5)
+    assert pk.launches["flash_attention"] == before + 1
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         pk.flash_attention_cuda(x.half(), x.half(), x.half())
     with pytest.raises(TypeError, match="share one type"):
@@ -673,26 +752,40 @@ def test_dispatch_outside_the_kernel_takes_the_plain_version(cuda, case,
     assert launched == {} and plain == {name: calls}
 
 
-def test_dispatch_beyond_the_kernel_width_raises(cuda):
-    """A shape the JAX package runs through its kernel and this kernel
-    cannot take (dense-MF K=192, flash Dh=192 at L=8192) raises before any
-    launch, and nothing is counted as plain."""
+def test_dispatch_past_the_narrow_width_launches_the_wide_kernel(cuda):
+    """The widths the narrow kernels refused before their wide variants
+    (dense-MF K=192, flash Dh=192 at L=8192) now raise nothing: each
+    dispatcher launches its kernel once, makes no plain call and answers
+    within the kernel's own tolerance of the plain version. The stated
+    limits are pinned in the kernels' refusal tests."""
     from harp_tpu_torch.parallel import ring_attention as ra
 
     v, w, h, rc, cc = mf_hop_inputs(1, 1, 512, 1024, 192, 4, seed=192)
     b = torch.zeros(1, dtype=torch.int32)
+    args = (v, b, w, h, rc, cc, 4, 0.05, 0.01)
     g = torch.Generator().manual_seed(192)
     q, k, vv = (torch.randn(8192, 1, 192, generator=g).to(cuda)
                 for _ in range(3))
     b_launch, b_plain = _counts()
-    with pytest.raises(ValueError, match="K <= 128"):
-        pk.dense_mf_hop(*(t.to(cuda) for t in (v, b, w, h, rc, cc)), 4,
-                        0.05, 0.01)
-    with pytest.raises(ValueError, match="128"):
-        ra.blocked_attention(q, k, vv, True)
+    got = pk.dense_mf_hop(*(t.to(cuda) if torch.is_tensor(t) else t
+                            for t in args))
+    mid_launch, mid_plain = _counts()
+    out = ra.blocked_attention(q, k, vv, True)
     a_launch, a_plain = _counts()
-    assert _moved(b_launch, a_launch) == {} and _moved(b_plain,
-                                                       a_plain) == {}
+    assert _moved(b_launch, mid_launch) == {"dense_mf_hop": 1}
+    assert _moved(mid_launch, a_launch) == {"flash_attention": 1}
+    assert _moved(b_plain, a_plain) == {}
+    plain = pk.dense_mf_hop_plain(*args)
+    exact = pk.dense_mf_hop_plain(v, b, w.double(), h.double(), rc.double(),
+                                  cc.double(), 4, 0.05, 0.01)
+    for got_t, plain_t, exact_t in zip(got[:2], plain[:2], exact[:2]):
+        tol = max(1e-4, 4 * max_rel(plain_t.double(), exact_t))
+        assert max_rel(got_t.cpu().double(), exact_t) <= tol
+    rows = sample_rows(8192).to(cuda)
+    ex = attention64(q, k, vv, True, rows)[0]
+    ref = pk.flash_attention_plain(q, k, vv, True)
+    tol = max(1e-5, 4 * max_rel(ref[None][:, rows].double(), ex))
+    assert max_rel(out[None][:, rows].double(), ex) <= tol
 
 
 def test_ring_attention_fused_dma_none_is_fused_on_the_card(cuda):

@@ -183,6 +183,32 @@ def test_kmeans_and_spd_shared_memory_limits():
     assert tpk.spd_solve_block_smem_bytes(lim) <= tpk.MAX_SMEM_BYTES
     assert tpk.spd_solve_block_smem_bytes(lim + 1) > tpk.MAX_SMEM_BYTES
     assert tpk.spd_solve_block_smem_bytes(128) == 4 * (128 * 129 // 2 + 256)
+    # the global-memory solve keeps its two K-vectors in shared memory
+    top = tpk.SPD_MAX_K_GLOBAL
+    assert 8 * top <= tpk.MAX_SMEM_BYTES < 8 * (top + 1)
+    assert tpk.spd_solve_global_workspace_bytes(132, 512) == \
+        4 * 132 * 131_328
+    assert tpk.spd_solve_global_workspace_bytes(1, 339) == 4 * 57_630
+
+
+@pytest.mark.parametrize("k,kp", [(1, 16), (16, 16), (20, 32), (128, 128),
+                                  (129, 256), (136, 256), (256, 256),
+                                  (257, 512), (1000, 1024), (1024, 1024),
+                                  (1025, 0), (0, 0)])
+def test_mf_padded_rank(k, kp):
+    # up to 128 the narrow kernel's ranks, past it the wide path's, 0 past
+    # the stated limit MF_MAX_K
+    assert tpk.mf_padded_rank(k) == kp
+    assert tpk.MF_MAX_K == 1024
+
+
+def test_dense_mf_wide_shapes():
+    # Wb (W, rpw, KP), G (W, rpw, cpb8) and the snapshots (W, nmb, cpb8,
+    # KP); cpb8 = cpb rounded up to 8
+    assert tpk.dense_mf_wide_shapes(1, 32768, 32768, 256, 8) == (
+        (1, 32768, 256), (1, 32768, 32768), (1, 8, 32768, 256))
+    assert tpk.dense_mf_wide_shapes(2, 64, 1001, 512, 2) == (
+        (2, 64, 512), (2, 64, 1008), (2, 2, 1008, 512))
 
 
 @pytest.mark.parametrize("rank,solver,device,want", [
@@ -195,16 +221,14 @@ def test_kmeans_and_spd_shared_memory_limits():
     (128, "pallas", "cuda", "pallas"),
     (338, "pallas", "cuda", "pallas"),
     (339, "pallas", "cpu", "pallas"),
-    (339, "pallas", "cuda", None),
-    (1000, "pallas", "cuda", None),
+    (339, "pallas", "cuda", "pallas"),
+    (1000, "pallas", "cuda", "pallas"),
 ])
 def test_resolve_solver(rank, solver, device, want):
+    # an explicit "pallas" takes the kernel at every rank on the card (past
+    # K = 338 the global-memory solve); "auto" only up to K = 64
     cfg = tals.ALSConfig(rank=rank, solver=solver)
-    if want is None:
-        with pytest.raises(ValueError, match="rank <= 338"):
-            tals._resolve_solver(cfg, device)
-    else:
-        assert tals._resolve_solver(cfg, device) == want
+    assert tals._resolve_solver(cfg, device) == want
 
 
 def test_resolve_solver_auto_honours_the_switch(monkeypatch):

@@ -172,6 +172,48 @@ def test_dense_mf_hop_plain_matches_pallas_and_xla(nmb, s, cpb, k, pallas):
         np.testing.assert_allclose(float(sse[0]), sse_r, rtol=1e-5)
 
 
+@pytest.mark.parametrize("k", [136, 256])
+def test_dense_mf_hop_plain_matches_pallas_at_wide_ranks(k):
+    """Ranks past 128 (the kernel's wide path on the card): the plain hop
+    against the TPU kernel in interpret mode, rpw = 64, cpb = 256, nmb = 2.
+    At these ranks a last-bit difference in pred can flip an entry of G's
+    bf16 rounding, so both are held to the plain hop with float64 factors
+    (exact sums of the same bf16 products) within max(1e-5, 4x the float32
+    plain version's own distance from it), relative to the largest entry;
+    SSE rtol 1e-5."""
+    nmb, s, cpb = 2, 32, 256
+    rng = np.random.default_rng(k)
+    rpw, lr, lam = nmb * s, 0.05, 0.01
+    v = rng.standard_normal((rpw, cpb)).astype(np.float32)
+    v[rng.random((rpw, cpb)) < 0.9] = np.nan
+    w0 = (rng.standard_normal((rpw, k)) / np.sqrt(k)).astype(np.float32)
+    h0 = (rng.standard_normal((cpb, k)) / np.sqrt(k)).astype(np.float32)
+    rc = rng.integers(1, 5, rpw).astype(np.float32)
+    cc_fine = rng.integers(0, 3, (2 * nmb, cpb)).astype(np.float32)
+    cc = cc_fine.reshape(nmb, 2, cpb).sum(axis=1)
+    vb = jnp.asarray(v, jnp.bfloat16)
+    w_t, h_t, sse_pl = jpk.dense_mf_hop_pallas(
+        vb, jnp.asarray(w0).T, jnp.asarray(h0).T,
+        jnp.asarray(rc).reshape(nmb, s), jnp.asarray(cc), lr, lam,
+        col_tile=128, interpret=True)
+    t = torch.from_numpy
+    args = (t(v).to(torch.bfloat16)[None, None],
+            torch.zeros(1, dtype=torch.int32))
+    counts = (t(rc)[None, None], t(cc_fine)[None, None])
+    w1, h1, sse = tpk.dense_mf_hop_plain(*args, t(w0)[None], t(h0)[None],
+                                         *counts, nmb, lr, lam)
+    w3, h3, _ = tpk.dense_mf_hop_plain(
+        *args, t(w0)[None].double(), t(h0)[None].double(),
+        *(x.double() for x in counts), nmb, lr, lam)
+    for got, jax_ref, exact in ((w1, np.asarray(w_t).T, w3),
+                                (h1, np.asarray(h_t).T, h3)):
+        exact = exact[0].numpy()
+        tol = max(1e-5, 4 * max_rel(got[0].numpy(), exact))
+        assert max_rel(jax_ref, exact) <= tol
+        assert max_rel(got[0].numpy(), jax_ref) <= 2 * tol
+    np.testing.assert_allclose(float(sse[0]), float(sse_pl), rtol=1e-5)
+
+
 def test_dense_mf_hop_ring_hop_matches_pallas_and_rotate():
     """dense_mf_hop(ring_hop=True) on a stacked CPU group of 4 workers
     against the TPU kernel in interpret mode on each worker's bucket,
@@ -295,6 +337,25 @@ def test_fit_matches_jax(ratings, w, ns, layout):
     assert max_rel(tw, jw) <= 1e-4 and max_rel(th, jh) <= 1e-4
     assert np.all(np.diff(tr) < 0)
     assert tmf.numpy_rmse(tw, th, rows, cols, vals) < tr[0]
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_fit_at_rank_256_matches_jax(ratings, w):
+    """A rank past the kernel's 128 (its wide path on the card), dense, one
+    slice: the plain-hop fit against the JAX SGDMF on the same inputs, with
+    the whole-fit tolerance above."""
+    rows, cols, vals = ratings
+    kw = dict(_cfg(w, 1, "dense"), rank=256)
+    jw, jh, jr = jmf.SGDMF(JaxSession(num_workers=w),
+                           jmf.SGDMFConfig(**kw)).fit(rows, cols, vals, NU,
+                                                      NI, seed=1)
+    tw, th, tr = tmf.SGDMF(TorchSession(num_workers=w, device="cpu"),
+                           tmf.SGDMFConfig(**kw)).fit(rows, cols, vals, NU,
+                                                      NI, seed=1)
+    assert tw.shape == (NU, 256) and th.shape == (NI, 256)
+    np.testing.assert_allclose(tr, np.asarray(jr), rtol=1e-5)
+    assert max_rel(tw, jw) <= 1e-4 and max_rel(th, jh) <= 1e-4
+    assert np.all(np.diff(tr) < 0)
 
 
 @pytest.mark.parametrize("ns", [1, 2])
