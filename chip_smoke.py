@@ -10,7 +10,14 @@ main path must make no plain call on the card:
   * K-means regroupallgather through ``HarpSession`` and ``KMeans.fit`` at
     the flagship n=1,000,000, k=100, d=100, 10 iterations (the E-step grid
     and the ms an iteration printed beside the reading before the grid
-    fix), and the five comm variants bitwise equal;
+    fix), and the five comm variants bitwise equal; past one block's shared
+    memory, the E-step's wide variant at K=400, D=100 and K=1024, D=128
+    (n=1,048,576) and K=256, D=1024 (n=262,144), timed against the library
+    path and the bound, and at bf16, a ragged n with phantom rows and the
+    edges K=250, D=100 and K=1, D=825; the fit at K=1024, D=128 through the
+    model (W=1, in lock step with the plain E-step, two-point), its five
+    comm variants at W=4 bitwise equal and a stacked launch bitwise its
+    per-worker launches;
   * dense SGD-MF rotation through ``SGDMF.prepare``/``fit_prepared`` at the
     flagship 32768 x 32768 ratings, 1%, rank 32, 8 minibatches a hop, 10
     epochs, against the same fit through the plain hop; then the stacked
@@ -64,21 +71,23 @@ main path must make no plain call on the card:
     flagship bitwise the stacked ones, the factors pulled with
     ``table_ops.pull(fused=True)`` (the allgather kernel's path; the fit
     itself launches no allgather), and K-means at n = 1,048,576 (262,144 a
-    worker), k = 100, d = 100, 5 iterations, whose centroids, counts and
-    costs are bitwise the stacked W=4 fit; and ``parallel/mp_smoke.py`` as
-    2 processes x 2 workers;
+    worker), k = 100, d = 100, 5 iterations, and at k = 1024, d = 128, 3
+    iterations (the wide variant), whose centroids, counts and costs are
+    bitwise the stacked W=4 fits; and ``parallel/mp_smoke.py`` as 2
+    processes x 2 workers;
   * dispatch: the plain-call counts of every main path (all 0); one call
-    where the JAX package takes XLA (K-means K=400, D=100; attention at
-    L=4096): no launch, one plain call, the plain version's answer; and one
-    call at a width past the narrow kernels (dense-MF K=192; flash Dh=192
-    at L=8192): one launch of the wide kernel, no plain call, the plain
-    version's answer within the kernel's tolerance.
+    where the JAX package takes XLA (K-means on float16 points; attention
+    at L=4096): no launch, one plain call, the plain version's answer; and
+    one call at a width past the narrow kernels (K-means K=400, D=100;
+    dense-MF K=192; flash Dh=192 at L=8192): one launch of the wide kernel,
+    no plain call, the plain version's answer within the kernel's
+    tolerance.
 
 It prints:
 
   * the card's name and power limit (nvidia-smi);
-  * a ``{"kernels": [...]}`` line: per kernel (the SPD solve's three
-    variants apart) its launches on its path, its error against the plain
+  * a ``{"kernels": [...]}`` line: per kernel (the E-step's wide variant
+    and the SPD solve's three variants apart) its launches on its path, its error against the plain
     version, its time, the plain version's time, the bound for the same
     work and a PyTorch yardstick's time; the dense-MF and flash rows also
     a ``ring_hop`` record (the in-kernel send: its launches on its path,
@@ -156,6 +165,19 @@ KMEANS_MP = dict(n=1 << 20, k=100, d=100, iterations=5, seed=21)
 # the E-step's time an iteration at the W=1 flagship before the grid stopped
 # depending on W (PERF.md, H100 80GB HBM3, 700 W): printed beside this run's
 KMEANS_FLAGSHIP_MS_BEFORE = 0.9202
+# the E-step past one block's shared memory (the wide variant), timed: the
+# flagship's width with four times the centroids, a codebook (vector
+# quantisation, IVF coarse quantisers over SIFT) and past D = 824, on points
+# drawn on the card by the flagship's recipe (card_points); the fit
+# through the model at the codebook shape, W=1, two-point at 2 vs 6
+# iterations, its five comm variants at W=4 on 65,536 of its points, and as
+# 4 processes x 1 worker (3 iterations) against the stacked W=4 fit
+ESTEP_WIDE = (("k400", 1 << 20, 400, 100), ("k1024", 1 << 20, 1024, 128),
+              ("d1024", 262_144, 256, 1024))
+KMEANS_WIDE = dict(n=1 << 20, k=1024, d=128, iterations=5, epochs=(2, 6),
+                   variants_n=65_536)
+KMEANS_WIDE_MP = dict(n=1 << 20, k=1024, d=128, iterations=3, seed=31,
+                      on_card=True)
 # SPD solve past K = 64 (the one-block kernel): timed at the ALS flagship's
 # 8192 systems; explicit solver="pallas" fits at these ranks on its data
 SPD_WIDE = (96, 128)
@@ -325,6 +347,8 @@ def estep_bound(n, k, valid_k, d, x_bytes):
 def near_ties(x, c, valid_k):
     from harp_tpu_torch.ops import distance
 
+    if valid_k < 2:
+        return 0                  # one centroid: no second score
     cdtype = None if x.dtype == torch.float32 else x.dtype
     s = distance.pairwise_scores(x, c, cdtype)[:, :valid_k]
     top2 = torch.topk(s, 2, dim=1, largest=False).values
@@ -332,19 +356,42 @@ def near_ties(x, c, valid_k):
                 <= TIE_EPS * s.abs().amax(dim=1)).sum())
 
 
-def estep_case(name, n, k, d, valid_k, dtype, timed):
+def card_points(n, d, k, seed):
+    """``datagen.dense_points``' recipe drawn on the card (k uniform
+    centres, spread 0.1) from a seeded generator, so every process of a
+    gang draws the same points, and k of the points as initial
+    centroids."""
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    centers = torch.rand(k, d, device=CARD, generator=g)
+    assign = torch.randint(k, (n,), device=CARD, generator=g)
+    pts = centers[assign] + 0.1 * torch.randn(n, d, device=CARD, generator=g)
+    pick = torch.randperm(n, device=CARD, generator=g)[:k]
+    return pts, pts[pick].contiguous()
+
+
+def estep_case(name, n, k, d, valid_k, dtype, timed, data=None):
+    """One E-step shape, kernel against plain (``data``: float32 points and
+    valid_k initial centroids on the card, else drawn on the host). Past one
+    block's shared memory the wrapper must take the wide variant; there the
+    plain version is timed over 3 calls after one warm-up."""
     from harp_tpu_torch.io import datagen
     from harp_tpu_torch.ops import pallas_kernels as pk
 
     log(f"[estep:{name}] n={n} k={k} valid_k={valid_k} d={d} "
         f"x={str(dtype).split('.')[-1]}")
-    pts = datagen.dense_points(n, d, seed=11, num_clusters=valid_k)
-    x = torch.from_numpy(pts).to("cuda", dtype)
+    if data is None:
+        pts = datagen.dense_points(n, d, seed=11, num_clusters=valid_k)
+        data = (torch.from_numpy(pts).cuda(), torch.from_numpy(
+            datagen.initial_centroids(pts, valid_k, seed=12)).cuda())
+    x = data[0].to(dtype)
     c = torch.zeros(k, d, device="cuda")
-    c[:valid_k] = torch.from_numpy(datagen.initial_centroids(pts, valid_k,
-                                                             seed=12)).cuda()
+    c[:valid_k] = data[1]
+    wide = pk.kmeans_smem_bytes(d, k) > pk.MAX_SMEM_BYTES
+    before = pk.launches["kmeans_stats_wide"]
     sums, counts, cost = pk.kmeans_stats_cuda(x, c, valid_k)
     torch.cuda.synchronize()
+    check(pk.launches["kmeans_stats_wide"] - before == int(wide),
+          f"the {'wide' if wide else 'narrow'} kernel ran")
     ps, pc, pq = pk.kmeans_stats_plain(x, c, valid_k)
     ties = near_ties(x, c, valid_k)
     moved = float((counts - pc).abs().sum())
@@ -370,13 +417,18 @@ def estep_case(name, n, k, d, valid_k, dtype, timed):
     if timed:
         out["ms"] = cuda_time_ms(lambda: pk.kmeans_stats_cuda(x, c, valid_k))
         out["plain_ms"] = cuda_time_ms(
-            lambda: pk.kmeans_stats_plain(x, c, valid_k))
+            lambda: pk.kmeans_stats_plain(x, c, valid_k),
+            reps=3 if wide else 20, warmup=1 if wide else 3)
         out["library_ms"] = cuda_time_ms(lambda: library_estep(x, c, valid_k))
         out["bound_ms"], out["bound_by"] = estep_bound(
             n, k, valid_k, d, x.element_size())
         log(f"  kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
             f"library {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} "
             f"ms ({out['bound_by']})")
+        if wide:
+            out["split_ms"], _ = device_profile(
+                lambda: pk.kmeans_stats_cuda(x, c, valid_k))
+            log(f"  under the profiler: {out['split_ms']}")
     return out
 
 
@@ -527,6 +579,100 @@ def variants_bitwise():
     for comm, (cen, costs) in outs.items():
         check(torch.equal(cen, base[0]) and torch.equal(costs, base[1]),
               f"{comm} bitwise equal to regroupallgather")
+
+
+# --------------------------------------------------------------------------- #
+# K-means past one block's shared memory: the wide variant
+# --------------------------------------------------------------------------- #
+
+def estep_wide_phases():
+    """[estep:wide:*]: the timed shapes, then bf16 at the codebook shape,
+    a ragged N with phantom rows and the two edges (the first K past
+    shared memory at D = 100, one centroid at D = 825), all on points
+    drawn on the card. Returns the timed cases' results and the codebook's
+    points and initial centroids."""
+    out, keep = {}, None
+    for name, n, k, d in ESTEP_WIDE:
+        data = card_points(n, d, k, seed=11)
+        out[name] = estep_case(f"wide:{name}", n, k, d, k, torch.float32,
+                               timed=True, data=data)
+        if (n, k, d) == (KMEANS_WIDE["n"], KMEANS_WIDE["k"], KMEANS_WIDE["d"]):
+            keep = data
+            estep_case(f"wide:{name}:bf16", n, k, d, k, torch.bfloat16,
+                       timed=False, data=data)
+        del data
+    for name, n, k, d, valid_k in (("ragged", 65_537, 408, 100, 400),
+                                   ("k250", 1 << 20, 250, 100, 250),
+                                   ("d825", 65_536, 1, 825, 1)):
+        estep_case(f"wide:{name}", n, k, d, valid_k, torch.float32, False,
+                   data=card_points(n, d, valid_k, seed=13))
+    return out, keep
+
+
+def kmeans_wide_phase(data):
+    """[kmeans:wide]: the K-means fit through the model at the codebook
+    shape (W=1), in lock step with the plain E-step, two-point; the five
+    comm variants at W=4 bitwise equal; a stacked W=4 launch bitwise its
+    four single-worker launches."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.benchmark import timing
+    from harp_tpu_torch.models import kmeans as km
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    c = KMEANS_WIDE
+    n, k, d, iters = c["n"], c["k"], c["d"], c["iterations"]
+    log(f"[kmeans:wide] regroupallgather n={n} k={k} d={d} iterations="
+        f"{iters}, W=1 (the wide variant)")
+    pts, cen0 = data
+    sess = HarpSession(num_workers=1)
+    model = km.KMeans(sess, km.KMeansConfig(k, d, iters))
+    p, c0 = model.prepare(pts, cen0)
+    zero_counts()
+    cen, costs = model.fit_prepared(p, c0)
+    launches = read_counts()
+    check_no_plain("[kmeans:wide]")
+    check(launches["kmeans_stats"] == iters
+          and launches["kmeans_stats_wide"] == iters,
+          f"one wide kmeans_stats launch an iteration "
+          f"({launches['kmeans_stats']}, {launches['kmeans_stats_wide']})")
+    cc = costs.cpu().numpy().astype(np.float64)
+    log(f"  costs {cc.tolist()}")
+    check(bool(torch.isfinite(cen).all()) and np.all(np.isfinite(cc))
+          and bool(np.all(np.diff(cc) <= 1e-6 * cc[:-1])),
+          "finite centroids, costs non-increasing")
+    lcen, rel = lockstep_fit(p, c0, iters)
+    check(torch.equal(cen, lcen), "the model's fit is bitwise the kernel's "
+          "Lloyd trajectory")
+
+    def build(it):
+        m = km.KMeans(sess, km.KMeansConfig(k, d, it))
+        m.fit_prepared(p, c0)
+        return lambda: m.fit_prepared(p, c0)
+
+    lo, hi = c["epochs"]
+    tp = timing.two_point(build, lo, hi, 1.0)
+    log(f"  two-point ({lo} vs {hi}): {tp['per_iter_ms']:.4f} ms an "
+        f"iteration, spread {tp['spread_pct']:.1f}%")
+    x4 = p.reshape(4, n // 4, d)
+    stacked = pk.kmeans_stats_cuda(x4, lcen)
+    check(all(all(torch.equal(a[wi], b) for a, b in zip(
+        stacked, pk.kmeans_stats_cuda(x4[wi], lcen))) for wi in range(4)),
+        f"a stacked W=4 launch ({n // 4} points a worker) is bitwise its "
+        f"four single-worker launches")
+    del p, x4, stacked
+    vn = c["variants_n"]
+    log(f"[kmeans:wide variants] all five comm variants, W=4, n={vn} k={k} "
+        f"d={d}, {iters} iterations")
+    sess4 = HarpSession(num_workers=4)
+    outs = {comm: km.KMeans(sess4, km.KMeansConfig(k, d, iters, comm)).fit(
+        pts[:vn], cen0) for comm in km.COMM_VARIANTS}
+    base = outs["regroupallgather"]
+    for comm, (vc, vcost) in outs.items():
+        check(torch.equal(vc, base[0]) and torch.equal(vcost, base[1]),
+              f"{comm} bitwise equal to regroupallgather")
+    return {"launches": launches, "per_iter_ms": tp["per_iter_ms"],
+            "iters_per_s": tp["rate"], "centroid_rel_vs_plain": rel,
+            "grid": pk._kmeans_lib().kmeans_stats_wide_grid(n, d, k)}
 
 
 # --------------------------------------------------------------------------- #
@@ -2324,11 +2470,12 @@ def factor_digest(tables, rmse) -> str:
     return h.hexdigest()
 
 
-def kmeans_mp_fit(sess):
-    """The KMEANS_MP fit on ``sess`` (stacked W=4, or one process of the
-    4-process group): sha256 of its centroids, its per-iteration costs and
-    the counts of one more E-step from the final centroids (summed over
-    the workers), with the fit's launch and plain-call counts."""
+def kmeans_mp_fit(sess, c=KMEANS_MP):
+    """The fit ``c`` (KMEANS_MP or KMEANS_WIDE_MP) on ``sess`` (stacked
+    W=4, or one process of the 4-process group): sha256 of its centroids,
+    its per-iteration costs and the counts of one more E-step from the
+    final centroids (summed over the workers), with the fit's launch and
+    plain-call counts and the seconds the whole took (data included)."""
     import hashlib
 
     from harp_tpu_torch.collectives import lax_ops
@@ -2336,10 +2483,13 @@ def kmeans_mp_fit(sess):
     from harp_tpu_torch.models import kmeans as km
     from harp_tpu_torch.ops import pallas_kernels as pk
 
-    c = KMEANS_MP
-    pts = datagen.dense_points(c["n"], c["d"], seed=c["seed"],
-                               num_clusters=c["k"])
-    cen0 = datagen.initial_centroids(pts, c["k"], seed=c["seed"] + 1)
+    t0 = time.perf_counter()
+    if c.get("on_card"):
+        pts, cen0 = card_points(c["n"], c["d"], c["k"], c["seed"])
+    else:
+        pts = datagen.dense_points(c["n"], c["d"], seed=c["seed"],
+                                   num_clusters=c["k"])
+        cen0 = datagen.initial_centroids(pts, c["k"], seed=c["seed"] + 1)
     model = km.KMeans(sess, km.KMeansConfig(c["k"], c["d"], c["iterations"],
                                             "regroupallgather"))
     p, c0 = model.prepare(pts, cen0)
@@ -2355,28 +2505,43 @@ def kmeans_mp_fit(sess):
     for t in (cen, costs, counts):
         h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
     return {"digest": h.hexdigest(), "launches": launches, "plain": plain,
-            "cost": float(costs[-1])}
+            "cost": float(costs[-1]), "seconds": time.perf_counter() - t0}
 
 
-def kmeans_mp_stacked():
-    """The stacked W=4 side of [ringdma:mp]'s K-means fit, in this
+def kmeans_mp_launches_ok(launches, c):
+    """One kmeans_stats launch an iteration of fit ``c``, each of the wide
+    variant past one block's shared memory and none of it below."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    wide = pk.kmeans_smem_bytes(c["d"], c["k"]) > pk.MAX_SMEM_BYTES
+    return (launches["kmeans_stats"] == c["iterations"]
+            and launches["kmeans_stats_wide"] == c["iterations"] * wide)
+
+
+def kmeans_mp_stacked(c=KMEANS_MP, name="[kmeans:stacked]"):
+    """The stacked W=4 side of a [ringdma:mp] K-means fit, in this
     process."""
     from harp_tpu_torch import HarpSession
     from harp_tpu_torch.ops import pallas_kernels as pk
 
-    c = KMEANS_MP
     per = c["n"] // RING_W
-    grid = pk._kmeans_lib().kmeans_stats_grid(per, c["d"], c["k"], c["k"], 0)
-    log(f"[kmeans:stacked] W={RING_W} in one process: n={c['n']} ({per} a "
+    lib = pk._kmeans_lib()
+    if pk.kmeans_smem_bytes(c["d"], c["k"]) > pk.MAX_SMEM_BYTES:
+        grid = lib.kmeans_stats_wide_grid(per, c["d"], c["k"])
+    else:
+        grid = lib.kmeans_stats_grid(per, c["d"], c["k"], c["k"], 0)
+    log(f"{name} W={RING_W} in one process: n={c['n']} ({per} a "
         f"worker, {-(-per // 64)} tiles, grid {grid} blocks a worker), "
         f"k={c['k']}, d={c['d']}, regroupallgather, {c['iterations']} "
         f"iterations")
-    ref = kmeans_mp_fit(HarpSession(num_workers=RING_W))
-    check(ref["launches"]["kmeans_stats"] == c["iterations"],
+    ref = kmeans_mp_fit(HarpSession(num_workers=RING_W), c)
+    check(kmeans_mp_launches_ok(ref["launches"], c),
           f"one stacked kmeans_stats launch an iteration "
-          f"({ref['launches']['kmeans_stats']})")
-    check_no_plain("[kmeans:stacked]", ref["plain"])
-    log(f"  final cost {ref['cost']:.8g}, digest {ref['digest'][:16]}")
+          f"({ref['launches']['kmeans_stats']}, wide "
+          f"{ref['launches']['kmeans_stats_wide']})")
+    check_no_plain(name, ref["plain"])
+    log(f"  final cost {ref['cost']:.8g}, digest {ref['digest'][:16]}, "
+        f"{ref['seconds']:.2f} s")
     return ref
 
 
@@ -2680,16 +2845,19 @@ def mp_child() -> int:
     del state, model
     torch.cuda.empty_cache()
     out["kmeans"] = kmeans_mp_fit(sess)
+    torch.cuda.empty_cache()
+    out["kmeans_wide"] = kmeans_mp_fit(sess, KMEANS_WIDE_MP)
     distributed.shutdown()
     print("MP_CHILD " + json.dumps(out), flush=True)
     return 0
 
 
-def ringdma_mp(stacked_mf, stacked_km, stacked_ring):
+def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw):
     """[ringdma:mp] and [sgd_mf:fused] across 4 processes on the card,
     through the port's launcher, the fused causal ring attention call and
-    the K-means fit at n = 1M across 4 processes; any child's failure fails
-    the run."""
+    the K-means fits at n = 1M (k = 100, and k = 1024, d = 128 through the
+    wide variant) across 4 processes; any child's failure fails the
+    run."""
     from harp_tpu_torch.parallel import launch
 
     log(f"[ringdma:mp] {RING_W} processes x 1 worker on the card (the "
@@ -2760,11 +2928,15 @@ def ringdma_mp(stacked_mf, stacked_km, stacked_ring):
               f"rank {i}, table_ops.pull(fused=True) of W and H: 2 "
               f"ring_allgather launches ({p['ring_allgather']})")
         check_no_plain(f"[ringdma:mp] SGD-MF fused, rank {i}", o["plain"])
-        kmo = o["kmeans"]
-        check(kmo["launches"]["kmeans_stats"] == KMEANS_MP["iterations"],
-              f"rank {i}, the K-means fit: one kmeans_stats launch an "
-              f"iteration ({kmo['launches']['kmeans_stats']})")
-        check_no_plain(f"[ringdma:mp] K-means, rank {i}", kmo["plain"])
+        for key, c, what in (("kmeans", KMEANS_MP, "K-means"),
+                             ("kmeans_wide", KMEANS_WIDE_MP,
+                              "K-means wide")):
+            kmo = o[key]
+            check(kmeans_mp_launches_ok(kmo["launches"], c),
+                  f"rank {i}, the {what} fit: one kmeans_stats launch an "
+                  f"iteration ({kmo['launches']['kmeans_stats']}, wide "
+                  f"{kmo['launches']['kmeans_stats_wide']})")
+            check_no_plain(f"[ringdma:mp] {what}, rank {i}", kmo["plain"])
     check(all(o["digest"] == stacked_mf["digest"] for o in outs.values()),
           "SGD-MF fused, 4 processes: factors (pulled through the fused "
           "allgather) and RMSEs bitwise the stacked fit")
@@ -2772,6 +2944,15 @@ def ringdma_mp(stacked_mf, stacked_km, stacked_ring):
               for o in outs.values()),
           f"K-means, 4 processes x 1 worker, n={KMEANS_MP['n']}: centroids, "
           f"counts and costs bitwise the stacked W={RING_W} fit")
+    c = KMEANS_WIDE_MP
+    check(all(o["kmeans_wide"]["digest"] == stacked_kmw["digest"]
+              for o in outs.values()),
+          f"K-means wide, 4 processes x 1 worker, n={c['n']}, k={c['k']}, "
+          f"d={c['d']}: centroids, counts and costs bitwise the stacked "
+          f"W={RING_W} fit")
+    log(f"  K-means wide in each process "
+        f"{[round(o['kmeans_wide']['seconds'], 2) for o in outs.values()]} "
+        f"s (data drawn, {c['iterations']} iterations, one more E-step)")
     o = outs[0]
     log(f"  SGD-MF 4 processes: fused {o['ratings_per_s']:.6g} ratings/s "
         f"({o['per_epoch_ms']:.4f} ms an epoch), host-staged fused_dma=False "
@@ -2814,7 +2995,9 @@ def ringdma_phases():
     torch.cuda.empty_cache()
     km = kmeans_mp_stacked()
     torch.cuda.empty_cache()
-    mp = ringdma_mp(mf, km, attn)   # each child checks after each part
+    kmw = kmeans_mp_stacked(KMEANS_WIDE_MP, "[kmeans:wide stacked]")
+    torch.cuda.empty_cache()
+    mp = ringdma_mp(mf, km, attn, kmw)   # each child checks after each part
     mp_smoke_phase()
     mb = str(1 << 20)
     mf_ring = {"launches": mf["launches"]["dense_mf_hop_ring"],
@@ -2890,12 +3073,13 @@ def ringdma_phases():
 
 def dispatch_phase():
     """[dispatch]: the plain_on_card counts read after every main path (all
-    0); one call on the card where the JAX package takes XLA: no launch, one
-    plain call, the plain version's answer; and one at a width past the
-    narrow kernels (dense-MF K=192, flash Dh=192 at L=8192): one launch of
-    the wide kernel, no plain call, the plain version's answer within the
-    kernel's own tolerance. Returns each dispatcher's plain calls summed
-    over the main paths."""
+    0); one call on the card where the JAX package takes XLA (K-means on
+    float16 points, attention at L=4096): no launch, one plain call, the
+    plain version's answer; and one at a width past the narrow kernels
+    (K-means K=400 at D=100, dense-MF K=192, flash Dh=192 at L=8192): one
+    launch of the wide kernel, no plain call, the plain version's answer
+    within the kernel's own tolerance. Returns each dispatcher's plain
+    calls summed over the main paths."""
     from harp_tpu_torch.ops import pallas_kernels as pk
     from harp_tpu_torch.parallel import ring_attention as ra
 
@@ -2911,10 +3095,12 @@ def dispatch_phase():
     g = torch.Generator(device=CARD).manual_seed(8)
     x = torch.randn(4096, 100, device=CARD, generator=g)
     c = torch.randn(400, 100, device=CARD, generator=g)
+    xh, ch = x.half(), c[:100].contiguous()
     q, k, v = attn_inputs((4096, 8, 64), 64, seed=4)
     plain_cases = (
-        ("kmeans_stats", "K=400, D=100 (beyond shared memory)",
-         lambda: pk.kmeans_stats(x, c), lambda: pk.kmeans_stats_plain(x, c)),
+        ("kmeans_stats", "K=100, D=100, float16 points (not a kernel type)",
+         lambda: pk.kmeans_stats(xh, ch),
+         lambda: pk.kmeans_stats_plain(xh, ch)),
         ("flash_attention", "L=4096, H=8, Dh=64, causal (below the length)",
          lambda: ra.blocked_attention(q, k, v, True),
          lambda: ra._streamed_attention(q, k, v, True)))
@@ -2959,11 +3145,28 @@ def dispatch_phase():
         return (max_rel(got[None][:, rows], exact)
                 / max(1e-5, 4 * max_rel(yard, exact)))
 
+    def km_rel(got):
+        # the E-step rule: counts up to near ties, sums rtol 1e-4 on rows
+        # with equal counts, cost rtol 1e-4
+        ps, pc, pq = pk.kmeans_stats_plain(x, c)
+        moved = float((got[1] - pc).abs().sum())
+        ties = near_ties(x, c, c.shape[0])
+        same = got[1] == pc
+        sums = float(((got[0] - ps).abs()[same]
+                      / (ps.abs()[same] + 1e-3 * float(ps.abs().max())))
+                     .max())
+        cost = abs(float(got[2]) - float(pq)) / abs(float(pq))
+        return max(moved / max(2 * ties, 1e-30), sums / 1e-4, cost / 1e-4)
+
     wide_cases = (
-        ("dense_mf_hop", "K=192", lambda: pk.dense_mf_hop(*mf), mf_rel),
+        ("kmeans_stats", "K=400, D=100", lambda: pk.kmeans_stats(x, c),
+         km_rel, {"kmeans_stats": 1, "kmeans_stats_wide": 1}),
+        ("dense_mf_hop", "K=192", lambda: pk.dense_mf_hop(*mf), mf_rel,
+         {"dense_mf_hop": 1}),
         ("flash_attention", "L=8192, Dh=Dv=192, causal",
-         lambda: ra.blocked_attention(qw, kw, vw, True), flash_rel))
-    for name, shape, fn, rel_of in wide_cases:
+         lambda: ra.blocked_attention(qw, kw, vw, True), flash_rel,
+         {"flash_attention": 1}))
+    for name, shape, fn, rel_of, want in wide_cases:
         zero_counts()
         got = fn()
         launched, calls = read_counts(), plain_counts()
@@ -2971,12 +3174,38 @@ def dispatch_phase():
         ratio = rel_of(got)
         log(f"  {name} at {shape}: launches {moved}, plain {calls}, "
             f"distance {ratio:.3g} of the kernel's tolerance")
-        check(moved == {name: 1} and not any(calls.values()),
+        check(moved == want and not any(calls.values()),
               f"{name} past the narrow kernel's width: one launch of its "
               f"wide kernel, no plain call")
         check(ratio <= 1.0, f"{name}: the plain version's answer within the "
               f"kernel's own tolerance")
     return total
+
+
+def kmeans_wide_row(wide, fit):
+    """The kernels-line entry of the E-step's wide variant: its numbers at
+    the codebook shape, the other timed shapes as prefixed keys."""
+    name = next(n for n, _, k, d in ESTEP_WIDE
+                if (k, d) == (KMEANS_WIDE["k"], KMEANS_WIDE["d"]))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    row = {"name": "kmeans_stats_wide", "route": "cuda",
+           "source": "harp_tpu_torch/csrc/kmeans_stats.cu",
+           "replaces": "harp_tpu/ops/pallas_kernels.py:93",
+           "launches": fit["launches"]["kmeans_stats_wide"],
+           "launches_path": f"KMeans.fit_prepared, regroupallgather, n="
+                            f"{KMEANS_WIDE['n']}, k={KMEANS_WIDE['k']}, d="
+                            f"{KMEANS_WIDE['d']}, W=1, "
+                            f"{KMEANS_WIDE['iterations']} iterations",
+           **{key: wide[name][key] for key in keys},
+           "fit_per_iter_ms": fit["per_iter_ms"],
+           "fit_iters_per_s": fit["iters_per_s"],
+           "fit_centroid_rel_vs_plain": fit["centroid_rel_vs_plain"],
+           "grid": fit["grid"]}
+    for other, n, k, d in ESTEP_WIDE:
+        for key in keys + ("near_ties", "count_moves", "split_ms"):
+            row[f"{other}_{key}"] = wide[other][key]
+    return row
 
 
 def main() -> int:
@@ -3018,6 +3247,11 @@ def main() -> int:
         f"{flag['plain_ms']:.4f} ms, library {flag['library_ms']:.4f} ms")
     small_fit_vs_numpy()
     variants_bitwise()
+    wide, data = estep_wide_phases()
+    torch.cuda.empty_cache()
+    wide_fit = kmeans_wide_phase(data)
+    del data
+    torch.cuda.empty_cache()
     mf = mf_phases()
     torch.cuda.empty_cache()
     spd = als_phases()
@@ -3045,7 +3279,7 @@ def main() -> int:
         "fit_centroid_rel_vs_plain": fit["centroid_rel_vs_plain"],
         "grid": fit["grid"],
         "plain_on_card": plain["kmeans_stats"],
-    }, mf, *spd, attn, *ring]
+    }, kmeans_wide_row(wide, wide_fit), mf, *spd, attn, *ring]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,33 @@
 // Layout: x is (W, N, D) row-major, c is (K, D) shared or (W, K, D) one table
 // per worker (c_per_worker), all contiguous. The host binding is a plain C
 // interface loaded with ctypes (harp_tpu_torch/ops/_cuda_build.py).
+//
+// The wide variant (kmeans_stats_wide_launch) takes every (K, D) whose block
+// would need more shared memory than the card gives (smem_floats above 227
+// KB: K > 249 at D = 100, any K past D = 824). It is three passes and the
+// same reduction:
+//   1. kmeans_norms_kernel: ||c_k||^2, a warp a centroid row.
+//   2. kmeans_assign_kernel: a 128-point tile a block. The centroids stream
+//      through shared memory in chunks of 128 rows and the features in
+//      chunks of 16, both double-buffered; each thread holds an 8-point x
+//      8-centroid block of dot products in registers (4 float4 loads feed 64
+//      FMAs a feature). The point tile is re-read, from L2, for each
+//      centroid chunk. A running (min score, argmin) per point lives in
+//      shared memory: chunks in ascending order, strict <, so the lowest
+//      index wins ties. It writes each point's assignment and distance
+//      (min score + ||x||^2) to device memory: (W, N) int32 and float32.
+//      A point's result depends on no other point, so its grid is free.
+//   3. kmeans_wide_sums_kernel: the narrow kernel's sums, with the (K, D+2)
+//      partial in a slab of device memory that one block owns: per 64-point
+//      tile the points are ranked by assignment, each run summed in rank
+//      order and added to its slab row once. G, the blocks a worker, is
+//      2 a streaming multiprocessor, capped at the tiles and at
+//      kWideSlabBudget / slab bytes: a function of (N, D, K) and the card,
+//      never of W, so the determinism argument above holds unchanged.
+// kmeans_reduce_kernel then sums the slabs over G in order. Work: the score
+// pass is the same 2*N*K*D operations, bound by operations; the sums pass
+// reads x once more and read-modify-writes one slab row a run (L2 or
+// device memory), a few percent of the time at K >= 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -412,6 +439,343 @@ kmeans_reduce_kernel(const float* __restrict__ ws, float* __restrict__ sums,
   }
 }
 
+// --------------------------------------------------------------------------
+// The wide variant
+// --------------------------------------------------------------------------
+
+constexpr int kAPoints = 128;             // points a tile of the assign pass
+constexpr int kACents = 128;              // centroid rows a chunk
+constexpr int kADepth = 16;               // features a chunk
+constexpr int kAStride = kAPoints + 4;    // shared row: 16-byte aligned
+constexpr int kALoads = kAPoints * kADepth / kThreads;   // 8 a thread
+static_assert(kAPoints == kACents, "points and centroids load alike");
+static_assert(kThreads == 16 * 16, "a 16 x 16 grid of 8 x 8 thread blocks");
+constexpr int kSumsBlocksPerSM = 2;       // the sums pass's grid a SM
+constexpr int kWideRunBatch = 16;         // ranked points a batch there: its
+                                          // reads go to L2 or device memory
+// the per-worker byte budget of the sums pass's slabs (the twin on the host
+// side: pallas_kernels.KMEANS_WIDE_SLAB_BYTES)
+constexpr long long kWideSlabBudget = 1LL << 30;
+
+// ||c_r||^2 of every row, a warp a row: lane-strided sums, a fixed tree
+__global__ void __launch_bounds__(kThreads)
+kmeans_norms_kernel(const float* __restrict__ c, float* __restrict__ c2,
+                    int rows, int d) {
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;                  // the same for the whole warp
+  const float* cr = c + (size_t)r * d;
+  float s = 0.f;
+  for (int j = lane; j < d; j += 32) s = fmaf(cr[j], cr[j], s);
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) c2[r] = s;
+}
+
+// One step's loads of the assign pass: feature j of the tile's points and
+// of centroid rows k0.., rows lr, lr + 16, ...; zero past the tile, valid_k
+// or D. Centroids rounded to the points' type for the cross term.
+template <typename T>
+__device__ __forceinline__ void fetch_step(const T* xw, const float* cw,
+                                           int cnt, int valid_k, int d,
+                                           int k0, int j, int lr,
+                                           float (&px)[kALoads],
+                                           float (&pc)[kALoads]) {
+#pragma unroll
+  for (int u = 0; u < kALoads; ++u) {
+    const int r = lr + 16 * u;
+    px[u] = (r < cnt && j < d) ? to_float(xw[(size_t)r * d + j]) : 0.f;
+    pc[u] = (k0 + r < valid_k && j < d)
+                ? round_like<T>(cw[(size_t)(k0 + r) * d + j])
+                : 0.f;
+  }
+}
+
+// Store one step's loads, feature-major: (kADepth, kAStride) each.
+__device__ __forceinline__ void put_step(float (*xs)[kAStride],
+                                         float (*cs)[kAStride], int lf,
+                                         int lr, const float (&px)[kALoads],
+                                         const float (&pc)[kALoads]) {
+#pragma unroll
+  for (int u = 0; u < kALoads; ++u) {
+    xs[lf][lr + 16 * u] = px[u];
+    cs[lf][lr + 16 * u] = pc[u];
+  }
+}
+
+// One 128-point tile: the argmin over all valid_k centroids and the
+// point's distance. Thread (ty, tx) = (tid / 16, tid % 16) owns points
+// 4ty..4ty+3 and 64+4ty..64+4ty+3 against the same pattern of centroids.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+kmeans_assign_kernel(const T* __restrict__ x, const float* __restrict__ c,
+                     const float* __restrict__ c2, int* __restrict__ asg,
+                     float* __restrict__ dist, int n, int d, int k,
+                     int valid_k, int c_per_worker) {
+  __shared__ __align__(16) float xs[2][kADepth][kAStride];
+  __shared__ __align__(16) float cs[2][kADepth][kAStride];
+  __shared__ float best[kAPoints];
+  __shared__ int bidx[kAPoints];
+
+  const int tid = threadIdx.x;
+  const int w = blockIdx.y;
+  const int base = blockIdx.x * kAPoints;
+  const int cnt = min(kAPoints, n - base);
+  const T* xw = x + ((size_t)w * n + base) * d;
+  const float* cw = c + (c_per_worker ? (size_t)w * k * d : 0);
+  const float* c2w = c2 + (c_per_worker ? (size_t)w * k : 0);
+  const int lf = tid % kADepth;           // this thread's loads: feature lf
+  const int lr = tid / kADepth;           // of rows lr, lr + 16, ...
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  const int nd = (d + kADepth - 1) / kADepth;
+  const int steps = ((valid_k + kACents - 1) / kACents) * nd;
+
+  if (tid < kAPoints) {
+    best[tid] = INFINITY;
+    bidx[tid] = 0;
+  }
+  float xsq = 0.f;                        // ||x_tid||^2, from the first chunk
+  float px[kALoads], pc[kALoads];
+  float acc[8][8];
+  fetch_step(xw, cw, cnt, valid_k, d, 0, lf, lr, px, pc);
+  put_step(xs[0], cs[0], lf, lr, px, pc);
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & 1;
+    const int kc = s / nd;
+    const int dc = s - kc * nd;
+    if (s + 1 < steps) {                  // in flight during the FMAs
+      const int kn = (s + 1) / nd;
+      fetch_step(xw, cw, cnt, valid_k, d, kn * kACents,
+                 (s + 1 - kn * nd) * kADepth + lf, lr, px, pc);
+    }
+    if (dc == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int f = 0; f < kADepth; ++f) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&xs[buf][f][4 * ty]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&xs[buf][f][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&cs[buf][f][4 * tx]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&cs[buf][f][64 + 4 * tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (kc == 0 && tid < kAPoints) {
+#pragma unroll
+      for (int f = 0; f < kADepth; ++f)
+        xsq = fmaf(xs[buf][f][tid], xs[buf][f][tid], xsq);
+    }
+    if (s + 1 < steps) put_step(xs[buf ^ 1], cs[buf ^ 1], lf, lr, px, pc);
+    __syncthreads();
+    if (dc + 1 < nd) continue;
+    // the chunk's scores: each thread's best of its 8 columns (ascending),
+    // then across the 16 lanes of the half-warp that share its points
+    // (ties to the lower index), then against the earlier chunks (strict <)
+    const int k0 = kc * kACents;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float bs = INFINITY;
+      int bi = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kk = k0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+        if (kk < valid_k) {
+          const float sc = c2w[kk] - 2.f * acc[i][j];
+          if (sc < bs) {
+            bs = sc;
+            bi = kk;
+          }
+        }
+      }
+      for (int off = 8; off > 0; off >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, bs, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (ob < bs || (ob == bs && oi < bi)) {
+          bs = ob;
+          bi = oi;
+        }
+      }
+      if (tx == 0) {
+        const int p = i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4;
+        if (bs < best[p]) {
+          best[p] = bs;
+          bidx[p] = bi;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < cnt) {
+    asg[(size_t)w * n + base + tid] = bidx[tid];
+    dist[(size_t)w * n + base + tid] = best[tid] + xsq;
+  }
+}
+
+// The sums pass: block g of worker w owns slab (w, g) of ws, a (K, D+2)
+// partial (columns [0, D) sums, D counts, D+1 distances), and walks the
+// 64-point tiles g, g + G, ... as the narrow kernel does, reading the
+// assignments and distances the assign pass wrote.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+kmeans_wide_sums_kernel(const T* __restrict__ x, const int* __restrict__ asg,
+                        const float* __restrict__ dist,
+                        float* __restrict__ ws, int n, int d, int k) {
+  __shared__ int sasg[kTile];             // the tile's assignments
+  __shared__ int srow[kTile];             // ranked: assignment
+  __shared__ int sidx[kTile];             // ranked: point
+  __shared__ int split;                   // where the second half starts
+
+  const int tid = threadIdx.x;
+  const int w = blockIdx.y;
+  const int g = blockIdx.x;
+  const int grid_g = gridDim.x;
+  const int row = d + 2;
+  const size_t slab_size = (size_t)k * row;
+  float* slab = ws + ((size_t)w * grid_g + g) * slab_size;
+  const T* xw = x + (size_t)w * n * d;
+  const int* aw = asg + (size_t)w * n;
+  const float* dw = dist + (size_t)w * n;
+  const int num_tiles = (n + kTile - 1) / kTile;
+
+  for (size_t i = tid; i < slab_size; i += kThreads) slab[i] = 0.f;
+
+  for (int tile = g; tile < num_tiles; tile += grid_g) {
+    const int base = tile * kTile;
+    const int cnt = min(kTile, n - base);
+    __syncthreads();  // the slab is zeroed, the previous tile's readers done
+    if (tid < kTile) sasg[tid] = tid < cnt ? aw[base + tid] : 0;
+    if (tid == 0) split = cnt;
+    __syncthreads();
+
+    // the narrow kernel's stable rank and split
+    {
+      const int p = tid >> 2;
+      const int part = tid & 3;
+      const int a = sasg[p];
+      int less = 0, same = 0;
+#pragma unroll
+      for (int u = 0; u < kTile / 4; ++u) {
+        const int q = part * (kTile / 4) + u;
+        const int b = sasg[q];
+        less += (q < cnt) & (b < a);
+        same += (b == a) & (q < p);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        less += __shfl_xor_sync(0xffffffffu, less, off);
+        same += __shfl_xor_sync(0xffffffffu, same, off);
+      }
+      const int r = less + same;
+      if (part == 0 && p < cnt) {
+        srow[r] = a;
+        sidx[r] = p;
+        if (same == 0 && 2 * r >= cnt - cnt % 2) atomicMin(&split, r);
+      }
+    }
+    __syncthreads();
+
+    // the narrow kernel's segmented add, each value read from device
+    // memory (a warp reads 32 neighbouring columns of one point) and each
+    // run's sum added to the slab once, in batches of 16 for more reads in
+    // flight
+    {
+      const int half = tid / (kThreads / 2);
+      const int lo = half ? split : 0;
+      const int hi = half ? cnt : split;
+      for (int col = tid % (kThreads / 2); col < row; col += kThreads / 2) {
+        for (int i0 = lo; i0 < hi; i0 += kWideRunBatch) {
+          int rr[kWideRunBatch];
+          float vv[kWideRunBatch];
+#pragma unroll
+          for (int u = 0; u < kWideRunBatch; ++u) {
+            const int i = i0 + u;
+            rr[u] = -1;
+            vv[u] = 0.f;
+            if (i < hi) {
+              const int p = base + sidx[i];
+              rr[u] = srow[i];
+              vv[u] = col < d    ? to_float(xw[(size_t)p * d + col])
+                      : col == d ? 1.f
+                                 : dw[p];
+            }
+          }
+#pragma unroll
+          for (int u = 1; u < kWideRunBatch; ++u)
+            if (rr[u] == rr[u - 1]) vv[u] += vv[u - 1];
+          bool last[kWideRunBatch];
+          float a[kWideRunBatch];
+#pragma unroll
+          for (int u = 0; u < kWideRunBatch; ++u) {
+            last[u] = rr[u] >= 0 && (u + 1 == kWideRunBatch || rr[u + 1] != rr[u]);
+            a[u] = last[u] ? slab[(size_t)rr[u] * row + col] : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < kWideRunBatch; ++u)
+            if (last[u]) slab[(size_t)rr[u] * row + col] = a[u] + vv[u];
+        }
+      }
+    }
+  }
+}
+
+// Blocks a worker of the sums pass: 2 a SM, at most one a 64-point tile,
+// at most kWideSlabBudget / slab bytes (at least 1). Negative: a CUDA
+// error code.
+int wide_grid(int n, int d, int k) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  long long g = (long long)kSumsBlocksPerSM * sms;
+  const long long tiles = (n + (long long)kTile - 1) / kTile;
+  const long long cap = kWideSlabBudget / (4LL * k * (d + 2));
+  if (g > tiles) g = tiles;
+  if (g > cap) g = cap;
+  return g < 1 ? 1 : (int)g;
+}
+
+template <typename T>
+int launch_wide(const void* x, const void* c, void* c2, void* asg,
+                void* dist, void* ws, void* sums, void* counts, void* cost,
+                int w, int n, int d, int k, int valid_k, int c_per_worker,
+                int grid_g, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = c_per_worker ? w * k : k;
+  kmeans_norms_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+      static_cast<const float*>(c), static_cast<float*>(c2), rows, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (n + kAPoints - 1) / kAPoints;
+  if (tiles > 0) {
+    kmeans_assign_kernel<T><<<dim3(tiles, w), kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(c),
+        static_cast<const float*>(c2), static_cast<int*>(asg),
+        static_cast<float*>(dist), n, d, k, valid_k, c_per_worker);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  kmeans_wide_sums_kernel<T><<<dim3(grid_g, w), kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const int*>(asg),
+      static_cast<const float*>(dist), static_cast<float*>(ws), n, d, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int nb = (k * (d + 2) + kReduceThreads - 1) / kReduceThreads;
+  kmeans_reduce_kernel<<<dim3(nb + 1, w), kReduceThreads, 0, s>>>(
+      static_cast<const float*>(ws), static_cast<float*>(sums),
+      static_cast<float*>(counts), static_cast<float*>(cost), d, k, grid_g);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 using StatsKernel = void (*)(const T*, const float*, float*, int, int, int,
                              int, int);
@@ -501,6 +865,26 @@ int kmeans_stats_launch(const void* x, const void* c, void* ws, void* sums,
                                       k, valid_k, c_per_worker, grid_g, stream)
               : launch<float>(x, c, ws, sums, counts, cost, w, n, d, k,
                               valid_k, c_per_worker, grid_g, stream);
+}
+
+// The wide variant's sums-pass blocks a worker (the twin on the host side:
+// pallas_kernels.kmeans_wide_plan). Negative: a CUDA error code.
+int kmeans_stats_wide_grid(int n, int d, int k) { return wide_grid(n, d, k); }
+
+// Launch the wide variant (norms, assign, sums, reduce) on ``stream``, with
+// the workspaces the host allocated: c2 (rows of c), asg and dist (W, N),
+// ws (W, grid_g, K, D+2). Returns cudaGetLastError() after the launches.
+int kmeans_stats_wide_launch(const void* x, const void* c, void* c2,
+                             void* asg, void* dist, void* ws, void* sums,
+                             void* counts, void* cost, int w, int n, int d,
+                             int k, int valid_k, int c_per_worker, int grid_g,
+                             int bf16, void* stream) {
+  return bf16 ? launch_wide<__nv_bfloat16>(x, c, c2, asg, dist, ws, sums,
+                                           counts, cost, w, n, d, k, valid_k,
+                                           c_per_worker, grid_g, stream)
+              : launch_wide<float>(x, c, c2, asg, dist, ws, sums, counts,
+                                   cost, w, n, d, k, valid_k, c_per_worker,
+                                   grid_g, stream);
 }
 
 }  // extern "C"

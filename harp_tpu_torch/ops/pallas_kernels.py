@@ -6,8 +6,12 @@ Ported:
 
 * the fused K-means E-step. ``kmeans_stats_cuda`` launches the CUDA kernel
   ``csrc/kmeans_stats.cu`` (distance + argmin + partial sums, never writing
-  the (N, K) score matrix); ``kmeans_stats_plain`` is the same function in
-  plain PyTorch (``ops/distance.partial_sums_counts``);
+  the (N, K) score matrix) at any K and D: the narrow kernel where one
+  block's shared memory holds the centroids and the partial, past it the
+  wide variant (centroids and features streamed in chunks, each point's
+  assignment written, the sums in per-block slabs of device memory);
+  ``kmeans_stats_plain`` is the same function in plain PyTorch
+  (``ops/distance.partial_sums_counts``);
 * the dense SGD-MF hop. ``dense_mf_hop_cuda`` launches ``csrc/
   dense_mf_hop.cu`` (the masked stripe-GEMM update of every stacked
   worker's H block against its slab bucket, pred and G kept on chip; with
@@ -41,15 +45,17 @@ tensor the dispatchers the models call (``kmeans_stats``, ``dense_mf_hop``,
 ``spd_solve``; ``blocked_attention`` and the ring's hops in ``parallel/
 ring_attention.py``) launch the kernel, with two exceptions decided before
 any launch, where the JAX package itself takes XLA: ``kmeans_stats``
-outside :func:`use_kmeans_pallas` (the JAX package's E-step is XLA by
-default) and attention below :func:`use_flash_pallas`'s length. Every
-width the JAX package's kernels take launches a kernel here; the stated
-limits (a dense-MF rank above ``MF_MAX_K``, an SPD rank above
-``SPD_MAX_K_GLOBAL``) raise. Nothing catches a build or launch error.
+outside :func:`use_kmeans_pallas` (points other than float32 or bfloat16)
+and attention below :func:`use_flash_pallas`'s length. Every width the JAX
+package's kernels take launches a kernel here; the stated limits (E-step N
+above ``KMEANS_MAX_N`` or K (D + 2) above ``KMEANS_MAX_KD``, a dense-MF
+rank above ``MF_MAX_K``, an SPD rank above ``SPD_MAX_K_GLOBAL``) raise.
+Nothing catches a build or launch error.
 
 ``launches`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernel; a launch with the ring send also counts in
+path went through the kernel; a launch of the E-step's wide variant also
+counts in ``kmeans_stats_wide``, and one with the ring send in
 ``dense_mf_hop_ring`` or ``flash_attention_ring``. ``plain_on_card`` counts
 the plain calls those two exceptions made on a CUDA device.
 """
@@ -58,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 import os
 from typing import Dict, Optional, Tuple
 
@@ -67,7 +74,8 @@ import torch.nn.functional as F
 from harp_tpu_torch.ops import distance, ring_dma
 from harp_tpu_torch.parallel import mesh as mesh_lib
 
-launches: Dict[str, int] = {"kmeans_stats": 0, "dense_mf_hop": 0,
+launches: Dict[str, int] = {"kmeans_stats": 0, "kmeans_stats_wide": 0,
+                             "dense_mf_hop": 0,
                              "dense_mf_hop_ring": 0, "spd_solve": 0,
                              "spd_solve_block": 0, "spd_solve_global": 0,
                              "flash_attention": 0,
@@ -91,14 +99,27 @@ def count_plain_on_card(name: str, device) -> None:
         plain_on_card[name] += 1
 
 
-# the E-step kernel's limits: a (K, D) shape whose block needs more shared
-# memory than MAX_SMEM_BYTES (kmeans_smem_bytes) is not taken, nor N above
-# KMEANS_MAX_N (the kernel indexes rows and tiles with 32-bit ints), nor
-# points other than float32 or bfloat16
+# the E-step kernel's limits: N above KMEANS_MAX_N (the kernels index rows
+# and tiles with 32-bit ints) and K (D + 2) above KMEANS_MAX_KD raise;
+# points other than float32 or bfloat16 take the plain version. A (K, D)
+# whose block needs more shared memory than MAX_SMEM_BYTES
+# (kmeans_smem_bytes) takes the wide variant.
 KMEANS_MAX_N = 2 ** 31 - 2 ** 19
 KMEANS_DTYPES = (torch.float32, torch.bfloat16)
 _KM_TILE = 64                 # points a tile (kTile in kmeans_stats.cu)
 _KM_XSTRIDE = _KM_TILE + 4    # a transposed tile row (kXStride)
+# The wide variant's per-worker budget for its sums pass's (K, D+2) float32
+# slabs, one a block (kWideSlabBudget): it caps G at budget // slab bytes.
+# KMEANS_MAX_KD, one slab within the budget, is the wide variant's stated
+# limit: a larger table would leave no room for even one block's partial
+# (it is also far past what the TPU kernel holds, its whole (K, D)
+# centroid and sums tables as VMEM blocks).
+KMEANS_WIDE_SLAB_BYTES = 1 << 30
+KMEANS_MAX_KD = KMEANS_WIDE_SLAB_BYTES // 4
+_KMW_POINTS = 128             # the assign pass's point tile (kAPoints)
+_KMW_CENTROIDS = 128          # its centroid chunk (kACents)
+_KMW_DEPTH = 16               # its feature chunk (kADepth)
+_KMW_BLOCKS_PER_SM = 2        # the sums pass's blocks a SM (kSumsBlocksPerSM)
 
 
 def kmeans_smem_bytes(d: int, k: int) -> int:
@@ -112,16 +133,39 @@ def kmeans_smem_bytes(d: int, k: int) -> int:
     return 4 * floats
 
 
+def kmeans_wide_plan(n: int, d: int, k: int, sms: int, workers: int = 1,
+                     per_worker_c: bool = False) -> Dict[str, object]:
+    """The wide E-step's plan at (N, D, K) for ``workers`` stacked workers
+    on a card of ``sms`` streaming multiprocessors: the twin of
+    ``wide_grid`` and ``kmeans_stats_wide_launch`` in
+    ``csrc/kmeans_stats.cu``.
+
+    ``grid`` is the sums pass's blocks a worker: ``_KMW_BLOCKS_PER_SM`` a
+    SM, at most one a 64-point tile and at most ``grid_cap`` =
+    ``KMEANS_WIDE_SLAB_BYTES`` // one slab's bytes (at least 1); it never
+    depends on ``workers``. ``shapes`` are the workspaces the wrapper
+    allocates (the centroid norms, each point's assignment and distance,
+    one (K, D+2) slab a block) and ``workspace_bytes`` their total."""
+    slab = 4 * k * (d + 2)
+    cap = max(1, KMEANS_WIDE_SLAB_BYTES // slab)
+    grid = max(1, min(_KMW_BLOCKS_PER_SM * sms, -(-n // _KM_TILE), cap))
+    shapes = {"norms": ((workers if per_worker_c else 1) * k,),
+              "asg": (workers, n), "dist": (workers, n),
+              "slabs": (workers, grid, k, d + 2)}
+    return {"point_tile": _KMW_POINTS, "centroid_chunk": _KMW_CENTROIDS,
+            "depth_chunk": _KMW_DEPTH, "sum_tile": _KM_TILE,
+            "grid_cap": cap, "grid": grid, "shapes": shapes,
+            "workspace_bytes": 4 * sum(math.prod(s) for s in shapes.values())}
+
+
 def use_kmeans_pallas(n: int, d: int, k: int, dtype, device) -> bool:
     """Whether ``kmeans_stats`` takes the E-step kernel for (N, D) points
-    of ``dtype`` against K centroid rows on ``device``: a CUDA device,
-    ``dtype`` in ``KMEANS_DTYPES``, N <= ``KMEANS_MAX_N`` and
-    ``kmeans_smem_bytes(d, k) <= MAX_SMEM_BYTES``. Elsewhere the plain
-    version runs, as the JAX package's ``kmeans_stats`` takes XLA wherever
-    its opt-in kernel is not chosen."""
-    return (_on_card(device) and dtype in KMEANS_DTYPES
-            and 0 <= n <= KMEANS_MAX_N and d >= 1 and k >= 1
-            and kmeans_smem_bytes(d, k) <= MAX_SMEM_BYTES)
+    of ``dtype`` against K centroid rows on ``device``: a CUDA device and
+    ``dtype`` in ``KMEANS_DTYPES``, the JAX package's own rule for its
+    kernel (its ``kmeans_stats`` sends other types to XLA). The shape
+    decides nothing: past one block's shared memory the wide variant runs,
+    and past ``KMEANS_MAX_N`` or ``KMEANS_MAX_KD`` the kernel raises."""
+    return _on_card(device) and dtype in KMEANS_DTYPES
 
 
 def kmeans_stats_plain(x: torch.Tensor, c: torch.Tensor,
@@ -149,6 +193,10 @@ def _kmeans_lib() -> ctypes.CDLL:
         lib.kmeans_stats_grid.restype = i
         lib.kmeans_stats_launch.argtypes = [vp] * 6 + [i] * 8 + [vp]
         lib.kmeans_stats_launch.restype = i
+        lib.kmeans_stats_wide_grid.argtypes = [i] * 3
+        lib.kmeans_stats_wide_grid.restype = i
+        lib.kmeans_stats_wide_launch.argtypes = [vp] * 9 + [i] * 8 + [vp]
+        lib.kmeans_stats_wide_launch.restype = i
         _LIB["kmeans_stats"] = lib
     return lib
 
@@ -161,12 +209,16 @@ def kmeans_stats_cuda(x: torch.Tensor, c: torch.Tensor,
     ``x``: (N, D) or stacked (W, N, D), float32 or bfloat16, contiguous.
     ``c``: (K, D) shared or (W, K, D) per worker, float32, contiguous.
     Outputs carry the worker axis when ``x`` does. Centroid rows >= valid_k
-    are masked out of the argmin. cost = Σ min score + Σ‖x‖². Raises
-    outside the kernel's limits (:func:`use_kmeans_pallas`).
+    are masked out of the argmin. cost = Σ min score + Σ‖x‖². Raises past
+    N = ``KMEANS_MAX_N`` and K (D + 2) = ``KMEANS_MAX_KD``.
 
-    Each worker's point tiles are split over the same number of blocks
-    whatever W is (a function of N, D, K, valid_k and the type), so a
-    stacked launch is bitwise the launches of its workers one by one."""
+    Where one block's shared memory holds the (K, D) table and its partial
+    (``kmeans_smem_bytes(d, k) <= MAX_SMEM_BYTES``) the narrow kernel runs;
+    past it the wide variant (``kmeans_wide_plan``), counted also in
+    ``launches["kmeans_stats_wide"]``. Either way each worker's point tiles
+    are summed by the same number of blocks whatever W is (a function of
+    N, D, K, valid_k, the type and the card), so a stacked launch is
+    bitwise the launches of its workers one by one."""
     if not (x.is_cuda and c.is_cuda) or x.device != c.device:
         raise ValueError(f"kmeans_stats_cuda needs both tensors on one CUDA "
                          f"device, got {x.device} and {c.device}")
@@ -195,14 +247,13 @@ def kmeans_stats_cuda(x: torch.Tensor, c: torch.Tensor,
     if n > KMEANS_MAX_N:
         raise ValueError(f"kmeans_stats_cuda takes N <= {KMEANS_MAX_N}, got "
                          f"N={n}")
-    smem = kmeans_smem_bytes(d, k)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"K={k}, D={d} needs {smem} bytes of shared memory per block, "
-            f"more than the {MAX_SMEM_BYTES} an H100 block can use; tiling "
-            f"K is not implemented")
+    if k * (d + 2) > KMEANS_MAX_KD:
+        raise ValueError(f"kmeans_stats_cuda takes K (D + 2) <= "
+                         f"{KMEANS_MAX_KD}, got K={k}, D={d}")
     lib = _kmeans_lib()
     bf16 = int(x.dtype == torch.bfloat16)
+    if kmeans_smem_bytes(d, k) > MAX_SMEM_BYTES:
+        return _kmeans_stats_wide(lib, x, x3, c, vk, bf16)
     with torch.cuda.device(x.device):
         key = (x.device.index, n, d, k, vk, bf16)
         g = _GRID.get(key)
@@ -230,12 +281,54 @@ def kmeans_stats_cuda(x: torch.Tensor, c: torch.Tensor,
     return sums, counts, cost
 
 
+def _kmeans_stats_wide(lib, x, x3, c, vk, bf16):
+    """The wide variant on operands :func:`kmeans_stats_cuda` checked."""
+    w, n, d = x3.shape
+    k = c.shape[-2]
+    per_worker = c.dim() == 3
+    dev = x.device
+    with torch.cuda.device(dev):
+        g = lib.kmeans_stats_wide_grid(n, d, k)
+        if g < 1:
+            raise RuntimeError(f"kmeans_stats wide grid query failed: CUDA "
+                               f"error {-g}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = kmeans_wide_plan(n, d, k, sms, w, per_worker)
+        if plan["grid"] != g:
+            raise RuntimeError(f"kmeans_wide_plan's grid {plan['grid']} is "
+                               f"not the kernel's {g}")
+        shapes = plan["shapes"]
+        norms = torch.empty(shapes["norms"], dtype=torch.float32, device=dev)
+        asg = torch.empty(shapes["asg"], dtype=torch.int32, device=dev)
+        dist = torch.empty(shapes["dist"], dtype=torch.float32, device=dev)
+        ws = torch.empty(shapes["slabs"], dtype=torch.float32, device=dev)
+        sums = torch.empty((w, k, d), dtype=torch.float32, device=dev)
+        counts = torch.empty((w, k), dtype=torch.float32, device=dev)
+        cost = torch.empty((w,), dtype=torch.float32, device=dev)
+        err = lib.kmeans_stats_wide_launch(
+            x3.data_ptr(), c.data_ptr(), norms.data_ptr(), asg.data_ptr(),
+            dist.data_ptr(), ws.data_ptr(), sums.data_ptr(),
+            counts.data_ptr(), cost.data_ptr(), w, n, d, k, vk,
+            int(per_worker), g, bf16,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kmeans_stats wide kernel launch failed: CUDA "
+                           f"error {err}")
+    launches["kmeans_stats"] += 1
+    launches["kmeans_stats_wide"] += 1
+    if x.dim() == 2:
+        return sums[0], counts[0], cost[0]
+    return sums, counts, cost
+
+
 def kmeans_stats(x: torch.Tensor, c: torch.Tensor,
                  valid_k: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The K-means E-step the model calls: the CUDA kernel where
-    :func:`use_kmeans_pallas` says so, else the plain version (counted in
-    ``plain_on_card`` on a CUDA device)."""
+    :func:`use_kmeans_pallas` says so (any K and D: the narrow kernel or
+    its wide variant; past the stated limits it raises), else the plain
+    version (counted in ``plain_on_card`` on a CUDA device: points other
+    than float32 or bfloat16, which the JAX package also sends to XLA)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"kmeans_stats runs on cuda or cpu, not {x.device}")
     n, d = x.shape[-2:]

@@ -30,13 +30,19 @@ max(1e-5, 4x the plain version's own distance from it), relative to max
 of max |x| as well; the two run the same arithmetic, so where both take a
 K they agree bitwise.
 
-Dispatch: where the JAX package takes XLA (K-means K=400, D=100 beyond one
-block's shared memory; attention below the flash length), a dispatcher on
-CUDA tensors launches nothing, counts each plain call in ``plain_on_card``
-and answers as the plain version does, within the tolerances above. At
-the widths past the narrow kernels (dense-MF K=192, flash Dh=192 at
+Dispatch: where the JAX package takes XLA (K-means on float16 points;
+attention below the flash length), a dispatcher on CUDA tensors launches
+nothing, counts each plain call in ``plain_on_card`` and answers as the
+plain version does, within the tolerances above. At the widths past the
+narrow kernels (K-means K=400 at D=100, dense-MF K=192, flash Dh=192 at
 L=8192) the dispatcher launches the wide kernel once, makes no plain call
 and answers within the kernel's own tolerance of the plain version.
+
+K-means past one block's shared memory (the wide variant): the narrow
+kernel's rules at ragged N, phantom rows, bf16, per-worker tables, D past
+824 and one centroid; a stacked launch bitwise its per-worker launches at
+K = 1024, D = 128; its grid the twin of ``kmeans_wide_plan``; a W = 4 fit
+at K = 1030, D = 1024 one wide launch an iteration.
 
 Flash attention: the kernel and the plain version (a full-row softmax) sum
 in different orders, so both are held against a float64 attention of the
@@ -79,7 +85,10 @@ def cuda():
 
 
 def _near_ties(x, c, valid_k, eps=1e-4):
-    """Rows whose best two scores are within eps (relative) of each other."""
+    """Rows whose best two scores are within eps (relative) of each other
+    (none with one centroid)."""
+    if valid_k < 2:
+        return 0
     cdtype = None if x.dtype == torch.float32 else x.dtype
     from harp_tpu_torch.ops import distance
 
@@ -148,6 +157,71 @@ def test_kmeans_smem_twin_matches_the_library(cuda, d, k):
         pk.kmeans_smem_bytes(d, k)
 
 
+@pytest.mark.parametrize("w,n,k,d,valid_k,dtype,per_worker", [
+    (1, 65_537, 408, 100, 400, torch.float32, False),  # ragged, phantom rows
+    (2, 5000, 250, 100, 250, torch.float32, False),    # the first K past smem
+    (1, 4099, 264, 100, 250, torch.bfloat16, False),   # bf16 points
+    (3, 3000, 16, 900, 16, torch.float32, True),       # D past 824, per worker
+    (1, 2000, 1, 825, 1, torch.float32, False),        # one centroid
+    (1, 3001, 300, 1030, 290, torch.float32, False),   # D not a chunk multiple
+])
+def test_kmeans_stats_wide_kernel_matches_plain(cuda, w, n, k, d, valid_k,
+                                                dtype, per_worker):
+    """Past one block's shared memory the wrapper launches the wide
+    variant, held to the plain version by the narrow kernel's rules."""
+    assert pk.kmeans_smem_bytes(d, k) > pk.MAX_SMEM_BYTES
+    g = torch.Generator().manual_seed(n + k + d)
+    x = torch.randn(w, n, d, generator=g).to(cuda, dtype)
+    c = torch.randn(k, d, generator=g).to(cuda)
+    if per_worker:
+        c = c.expand(w, -1, -1).contiguous()
+    before = dict(pk.launches)
+    sums, counts, cost = pk.kmeans_stats_cuda(x, c, valid_k)
+    torch.cuda.synchronize()
+    assert _moved(before, pk.launches) == {"kmeans_stats": 1,
+                                           "kmeans_stats_wide": 1}
+    ps, pc, pq = pk.kmeans_stats_plain(x, c, valid_k)
+    ties = _near_ties(x, c, valid_k)
+    assert float((counts - pc).abs().sum()) <= 2 * ties
+    assert float(counts[..., valid_k:].sum()) == 0.0
+    assert float(counts.sum()) == w * n
+    rtol = 1e-4 if dtype == torch.float32 else 2e-2
+    if ties == 0:
+        torch.testing.assert_close(sums, ps, rtol=rtol, atol=rtol)
+    torch.testing.assert_close(cost, pq, rtol=1e-4, atol=1e-3)
+    again = pk.kmeans_stats_cuda(x, c, valid_k)
+    for a, b in zip((sums, counts, cost), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("per_worker", [False, True])
+def test_kmeans_stats_wide_stacked_launch_is_bitwise_the_separate_ones(
+        cuda, per_worker):
+    """K = 1024, D = 128, 65,536 points a worker: 1024 tiles of the sums
+    pass, more than its grid, so each worker's slabs add in the same order
+    in a stacked launch and in its own."""
+    w, n, k, d = 4, 65_536, 1024, 128
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(w, n, d, generator=g, device=cuda)
+    c = torch.randn(w if per_worker else 1, k, d, generator=g, device=cuda)
+    c = c if per_worker else c[0]
+    grid = pk._kmeans_lib().kmeans_stats_wide_grid(n, d, k)
+    assert 1 <= grid < -(-n // 64)
+    stacked = pk.kmeans_stats_cuda(x, c)
+    for wi in range(w):
+        one = pk.kmeans_stats_cuda(x[wi], c[wi] if per_worker else c)
+        assert all(torch.equal(a[wi], b) for a, b in zip(stacked, one))
+
+
+@pytest.mark.parametrize("n,d,k", [(1 << 20, 100, 400), (1 << 20, 128, 1024),
+                                   (262_144, 1024, 256), (4097, 100, 250),
+                                   (1, 825, 1), (1 << 20, 4094, 2048)])
+def test_kmeans_wide_plan_matches_the_library(cuda, n, d, k):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pk._kmeans_lib().kmeans_stats_wide_grid(n, d, k) == \
+        pk.kmeans_wide_plan(n, d, k, sms)["grid"]
+
+
 def test_kmeans_stats_kernel_refuses_bad_inputs(cuda):
     x = torch.zeros(64, 8, device=cuda)
     c = torch.zeros(4, 8, device=cuda)
@@ -155,9 +229,36 @@ def test_kmeans_stats_kernel_refuses_bad_inputs(cuda):
         pk.kmeans_stats_cuda(x.t().contiguous().t(), c)
     with pytest.raises(TypeError, match="float32"):
         pk.kmeans_stats_cuda(x.half(), c)
-    with pytest.raises(ValueError, match="shared memory"):
-        pk.kmeans_stats_cuda(torch.zeros(64, 256, device=cuda),
-                             torch.zeros(200, 256, device=cuda))
+    # the stated limit: one (K, D + 2) slab within the wide variant's budget
+    k = pk.KMEANS_MAX_KD // 3 + 1
+    with pytest.raises(ValueError, match="K \\(D \\+ 2\\)"):
+        pk.kmeans_stats_cuda(torch.zeros(64, 1, device=cuda),
+                             torch.zeros(k, 1, device=cuda))
+
+
+def test_kmeans_fit_takes_the_wide_variant(cuda):
+    """A W = 4 fit at K = 1030, D = 1024 (k_pad = 1032, valid_k = K): one
+    wide launch an iteration, no plain call, costs that never rise and a
+    final cost within 1e-4 of the same fit through the plain E-step."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import kmeans as km
+
+    pts = datagen.dense_points(8192, 1024, seed=4, num_clusters=1030)
+    cen0 = datagen.initial_centroids(pts, 1030, seed=5)
+    cfg = km.KMeansConfig(1030, 1024, 3)
+    b_launch, b_plain = _counts()
+    cen, costs = km.KMeans(HarpSession(num_workers=4, device=cuda),
+                           cfg).fit(pts, cen0)
+    a_launch, a_plain = _counts()
+    assert _moved(b_launch, a_launch) == {"kmeans_stats": 3,
+                                          "kmeans_stats_wide": 3}
+    assert _moved(b_plain, a_plain) == {}
+    c = costs.cpu().double().numpy()
+    assert np.all(np.isfinite(c)) and np.all(np.diff(c) <= 1e-6 * c[:-1])
+    _, pcosts = km.KMeans(HarpSession(num_workers=4, device="cpu"),
+                          cfg).fit(pts, cen0)
+    assert abs(c[-1] - float(pcosts[-1])) <= 1e-4 * abs(float(pcosts[-1]))
 
 
 def mf_hop_inputs(nw, n_blocks, rpw, cpb, k, nmb_fine, density=0.05,
@@ -682,9 +783,10 @@ def _moved(before, after):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
-def _kmeans_plain_case(dev, n=4096, k=400, d=100, seed=3):
+def _kmeans_plain_case(dev, n=4096, k=100, d=100, seed=3):
+    """float16 points: the type the JAX package also sends to XLA."""
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(n, d, generator=g)
+    x = torch.randn(n, d, generator=g).half()
     c = torch.randn(k, d, generator=g)
     b_launch, b_plain = _counts()
     got = pk.kmeans_stats(x.to(dev), c.to(dev), k)
@@ -754,11 +856,28 @@ def test_dispatch_outside_the_kernel_takes_the_plain_version(cuda, case,
 
 def test_dispatch_past_the_narrow_width_launches_the_wide_kernel(cuda):
     """The widths the narrow kernels refused before their wide variants
-    (dense-MF K=192, flash Dh=192 at L=8192) now raise nothing: each
-    dispatcher launches its kernel once, makes no plain call and answers
-    within the kernel's own tolerance of the plain version. The stated
-    limits are pinned in the kernels' refusal tests."""
+    (K-means K=400 at D=100, dense-MF K=192, flash Dh=192 at L=8192) now
+    raise nothing: each dispatcher launches its kernel once, makes no plain
+    call and answers within the kernel's own tolerance of the plain
+    version. The stated limits are pinned in the kernels' refusal tests."""
     from harp_tpu_torch.parallel import ring_attention as ra
+
+    gk = torch.Generator().manual_seed(400)
+    xk, ck = torch.randn(4096, 100, generator=gk), torch.randn(400, 100,
+                                                             generator=gk)
+    b_launch, b_plain = _counts()
+    got = pk.kmeans_stats(xk.to(cuda), ck.to(cuda), 400)
+    a_launch, a_plain = _counts()
+    assert _moved(b_launch, a_launch) == {"kmeans_stats": 1,
+                                          "kmeans_stats_wide": 1}
+    assert _moved(b_plain, a_plain) == {}
+    ref = pk.kmeans_stats_plain(xk, ck, 400)
+    ties = _near_ties(xk, ck, 400)
+    assert float((got[1].cpu() - ref[1]).abs().sum()) <= 2 * ties
+    if ties == 0:
+        torch.testing.assert_close(got[0].cpu(), ref[0], rtol=1e-4,
+                                   atol=1e-4)
+    torch.testing.assert_close(got[2].cpu(), ref[2], rtol=1e-4, atol=1e-3)
 
     v, w, h, rc, cc = mf_hop_inputs(1, 1, 512, 1024, 192, 4, seed=192)
     b = torch.zeros(1, dtype=torch.int32)

@@ -10,8 +10,9 @@
 * ``ring_attention_mha`` with ``fused_dma=None`` follows
   ``ring_dma.use_ring_dma`` of the device; its einsum hops are counted one a
   hop actually computed, whatever ``use_flash`` was.
-* The K-means shared-memory twin at known (D, K), and the SPD solve's
-  shared-memory limit.
+* The K-means shared-memory twin at known (D, K), the wide E-step's plan
+  (chunk sizes, a grid that does not depend on W, workspaces), and the SPD
+  solve's shared-memory limit.
 * ``ALS._resolve_solver`` around the two SPD limits.
 * ``spd_solve_plain`` against the JAX package's ``spd_solve_pallas`` in
   interpret mode at K = 72 and 96, and against ``numpy.linalg.solve`` in
@@ -50,11 +51,14 @@ F32, BF16 = torch.float32, torch.bfloat16
 
 # (predicate, arguments inside its rule, arguments just outside)
 PREDICATES = {
+    # past one block's shared memory the wide variant runs, and past the
+    # stated limits the kernel raises: only the point type decides
     "kmeans": (tpk.use_kmeans_pallas,
                [(1_000_000, 100, 249, F32), (1, 100, 100, BF16),
-                (tpk.KMEANS_MAX_N, 8, 4, F32)],
-               [(1_000_000, 100, 250, F32), (1000, 100, 100, torch.float16),
-                (tpk.KMEANS_MAX_N + 1, 8, 4, F32), (1000, 256, 200, F32)]),
+                (tpk.KMEANS_MAX_N, 8, 4, F32), (1_000_000, 100, 250, F32),
+                (1000, 256, 200, F32), (tpk.KMEANS_MAX_N + 1, 8, 4, F32)],
+               [(1000, 100, 100, torch.float16),
+                (1000, 100, 100, torch.float64)]),
     "flash": (tpk.use_flash_pallas, [(8192,), (16384,), (1 << 20,)],
               [(8191,), (1,)]),
     "spd": (tpk.use_spd_solve_pallas, [(1,), (32,), (64,)],
@@ -153,7 +157,7 @@ def test_cpu_dispatch_counts_nothing():
     predicate too, and neither ``launches`` nor ``plain_on_card`` moves;
     ``count_plain_on_card`` counts CUDA devices only."""
     before = dict(tpk.launches), dict(tpk.plain_on_card)
-    x, c = torch.randn(64, 256), torch.randn(250, 256)     # beyond the smem
+    x, c = torch.randn(64, 256), torch.randn(250, 256)     # the wide variant's
     got = tpk.kmeans_stats(x, c, 200)
     for a, b in zip(got, tpk.kmeans_stats_plain(x, c, 200)):
         assert torch.equal(a, b)
@@ -189,6 +193,39 @@ def test_kmeans_and_spd_shared_memory_limits():
     assert tpk.spd_solve_global_workspace_bytes(132, 512) == \
         4 * 132 * 131_328
     assert tpk.spd_solve_global_workspace_bytes(1, 339) == 4 * 57_630
+
+
+@pytest.mark.parametrize("n,d,k,grid", [
+    (1 << 20, 100, 400, 264),      # the card's 2 a SM
+    (1 << 20, 128, 1024, 264),
+    (262_144, 1024, 256, 264),
+    (4097, 100, 250, 65),          # one a 64-point tile
+    (0, 825, 1, 1),                # no points: one block, its slab zeroed
+    (1 << 20, 8190, 32_768, 1),    # one slab fills the budget
+    (1 << 20, 4094, 2048, 32),     # the budget caps G
+])
+def test_kmeans_wide_plan(n, d, k, grid):
+    """The wide E-step's plan: the C side's chunk sizes, G = min(2 a SM,
+    tiles, budget // slab) whatever W, and the workspaces' shapes and
+    bytes (norms, each point's assignment and distance, a slab a block)."""
+    for w in (1, 4):
+        for per_worker in (False, True):
+            plan = tpk.kmeans_wide_plan(n, d, k, 132, w, per_worker)
+            assert plan["grid"] == grid
+            assert plan["grid_cap"] == max(
+                1, tpk.KMEANS_WIDE_SLAB_BYTES // (4 * k * (d + 2)))
+            assert (plan["point_tile"], plan["centroid_chunk"],
+                    plan["depth_chunk"], plan["sum_tile"]) == (128, 128, 16,
+                                                              64)
+            assert plan["shapes"] == {
+                "norms": ((w if per_worker else 1) * k,), "asg": (w, n),
+                "dist": (w, n), "slabs": (w, grid, k, d + 2)}
+            rows = w * k if per_worker else k
+            assert plan["workspace_bytes"] == 4 * (
+                rows + 2 * w * n + w * grid * k * (d + 2))
+    # the stated limit: one slab within the budget
+    assert 4 * tpk.KMEANS_MAX_KD == tpk.KMEANS_WIDE_SLAB_BYTES
+    assert 32_768 * (8190 + 2) == tpk.KMEANS_MAX_KD
 
 
 @pytest.mark.parametrize("k,kp", [(1, 16), (16, 16), (20, 32), (128, 128),

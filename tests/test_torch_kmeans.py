@@ -2,9 +2,10 @@
 
 Same numpy inputs (made from a seed) go through ``harp_tpu`` and its
 counterpart in ``harp_tpu_torch``: the E-step ops, the fused E-step's plain
-version (against the Pallas kernel in interpret mode and the XLA path), the
-whole ``KMeans`` model in all five comm variants, the CLI and the state
-converter. Tolerances: f32 E-step sums rtol/atol 1e-4 with exact counts,
+version (against the Pallas kernel in interpret mode and the XLA path, also
+at the widths the card takes only through the wide variant), the whole
+``KMeans`` model in all five comm variants (and at K = 300, D = 900), the
+CLI and the state converter. Tolerances: f32 E-step sums rtol/atol 1e-4 with exact counts,
 bf16 counts atol 1 and sums rtol 2e-2 (the JAX package's own kernel test,
 tests/test_aux_sp.py), whole fits rtol 1e-5 (the two packages round the
 score matmul and the cross-worker sums in different orders).
@@ -99,6 +100,23 @@ def test_kmeans_stats_plain_matches_pallas_and_xla(dtype, valid_k):
     rng = np.random.default_rng(3)
     x = rng.standard_normal((256, 16)).astype(np.float32)
     c = rng.standard_normal((8, 16)).astype(np.float32)
+    _check_stats_against_jax(x, c, dtype, valid_k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,valid_k,d", [(264, 250, 100), (16, None, 900)])
+def test_kmeans_stats_plain_matches_pallas_and_xla_wide(dtype, k, valid_k,
+                                                         d):
+    """The same at the widths the card's wide variant takes: K past one
+    block's shared memory at D = 100 (with phantom rows), and D past 824."""
+    rng = np.random.default_rng(k + d)
+    x = rng.standard_normal((512, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    assert tpk.kmeans_smem_bytes(d, k) > tpk.MAX_SMEM_BYTES
+    _check_stats_against_jax(x, c, dtype, valid_k)
+
+
+def _check_stats_against_jax(x, c, dtype, valid_k):
     xj = jnp.asarray(x, getattr(jnp, dtype))
     xt = torch.from_numpy(x).to(getattr(torch, dtype))
     sums, counts, cost = tpk.kmeans_stats_plain(xt, torch.from_numpy(c),
@@ -195,6 +213,47 @@ def test_fit_matches_jax(data, w, comm):
                               ITERS)
     np.testing.assert_allclose(cen, ref, rtol=1e-4, atol=1e-5)
     assert np.all(np.diff(costs) <= 1e-5 * np.abs(costs[:-1])), costs
+
+
+def test_wide_fit_matches_jax():
+    """A fit at widths the card's E-step takes only through its wide
+    variant (K = 300, D = 900), W = 4, regroupallgather, 3 iterations:
+    within the fit tolerances above of the JAX fit from the same state."""
+    k, d, iters = 300, 900, 3
+    pts = jdatagen.dense_points(2048, d, seed=9, num_clusters=k)
+    cen0 = jdatagen.initial_centroids(pts, k, seed=10)
+    assert tpk.kmeans_smem_bytes(d, k) > tpk.MAX_SMEM_BYTES
+    jmodel = jkm.KMeans(JaxSession(num_workers=4),
+                        jkm.KMeansConfig(k, d, iters, "regroupallgather"))
+    jcen, jcosts = (np.asarray(a) for a in jmodel.fit(pts, cen0))
+    cfg, tcen0 = convert.kmeans_state_from_jax(
+        cen0, dataclasses.asdict(jmodel.config))
+    cen, costs = torch_fit(4, cfg, pts, tcen0)
+    np.testing.assert_allclose(cen, jcen, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(costs, jcosts, rtol=1e-5)
+
+
+def test_fit_hands_the_kernel_its_wide_operands(monkeypatch):
+    """Evaluated as on the card, a W = 4 fit at K = 1030, D = 1024 calls
+    the kernel's wrapper once an iteration with the stacked points (4, N/4,
+    D), the centroids padded to k_pad = round_up(K, W) = 1032 rows and
+    valid_k = K: the shapes that send it to the wide variant. (The wrapper
+    is spied on and answers with the plain version.)"""
+    seen = []
+
+    def spy(x, c, valid_k=None):
+        seen.append((tuple(x.shape), tuple(c.shape), valid_k))
+        return tpk.kmeans_stats_plain(x, c, valid_k)
+
+    monkeypatch.setattr(tpk, "_on_card", lambda device: True)
+    monkeypatch.setattr(tpk, "kmeans_stats_cuda", spy)
+    pts = tdatagen.dense_points(2048, 1024, seed=2, num_clusters=8)
+    cen0 = tdatagen.initial_centroids(pts, 1030, seed=3)
+    before = dict(tpk.plain_on_card)
+    torch_fit(4, tkm.KMeansConfig(1030, 1024, 2), pts, cen0)
+    assert seen == [((4, 512, 1024), (1032, 1024), 1030)] * 2
+    assert tpk.kmeans_smem_bytes(1024, 1032) > tpk.MAX_SMEM_BYTES
+    assert tpk.plain_on_card == before
 
 
 def test_variants_bitwise_equal(data):
