@@ -38,9 +38,11 @@ main path must make no plain call on the card:
     against its plain version and a float64 solve on the flagship's own
     normal equations and at K = 10 (N odd), 33, 64, 65, 96, 128 and 256
     (K = 96 and 128 timed against cuSOLVER, the plain version and the
-    bound); past K = 338 the global-memory solve at K = 339 and 384 (N =
-    8192) and 512 (N = 2048), timed, and the flagship's data at rank 384
-    with solver="pallas" against the "cholesky" fit;
+    bound); past K = 338 the global-memory solve (panel-blocked) at K =
+    339 and 384 (N = 8192) and 512 (N = 2048), timed, at K = 300 (N =
+    8192) bitwise the one-block solve and timed against it, and the
+    flagship's data at rank 384 with solver="pallas" against the
+    "cholesky" fit;
   * attention: the flash kernel against its plain version and a float64
     reference on sampled query rows at the flagship (causal L=16384, H=8,
     Dh=64, f32), at H=4, Dh=128, ragged L=8209, Dv=96, bf16 and a stacked
@@ -199,6 +201,9 @@ ATTN_WIDE = dict(l=16384, h=4, dh=256, ring_l=32768, mla=(192, 128),
 # flagship's data at rank 384 with solver="pallas", 2 iterations
 SPD_GLOBAL = {339: 8192, 384: 8192, 512: 2048}
 ALS_GLOBAL = dict(rank=384, iterations=2)
+# a K both the one-block and the global-memory solve take: N systems, the
+# two bitwise equal and timed against each other
+SPD_BOTH = dict(k=300, n=8192)
 
 
 def log(msg: str) -> None:
@@ -1504,15 +1509,38 @@ def als_wide(data, cfg):
     return out
 
 
+def spd_both_phase():
+    """[spd:wide:K300]: at a K both take, the global-memory kernel (called
+    directly) against the one-block kernel the dispatcher launches there:
+    bitwise equal, and both timed in turns."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    k, n = SPD_BOTH["k"], SPD_BOTH["n"]
+    log(f"[spd:wide:K{k}] N={n}: the global-memory kernel against the "
+        f"one-block kernel")
+    a, b = random_spd(n, k, seed=k, chunk=512)
+    check(torch.equal(pk._spd_solve_global(a, b), pk.spd_solve_cuda(a, b)),
+          "the global-memory kernel's x is the one-block kernel's, bitwise")
+    block, glob = in_turns(lambda: pk.spd_solve_cuda(a, b),
+                           lambda: pk._spd_solve_global(a, b), 3)
+    log(f"  one-block {block:.4f} ms, global-memory {glob:.4f} ms "
+        f"({block / glob:.2f}x)")
+    del a, b
+    torch.cuda.empty_cache()
+    return {"k300_block_ms": block, "k300_global_ms": glob,
+            "k300_bitwise": True}
+
+
 def spd_global_phases(data, cfg):
     """[spd:wide] and [als:rank384]: the solve past K = 338 (the
     global-memory kernel) alone at SPD_GLOBAL's K and N, timed against
-    cuSOLVER, the plain version and the bound; then the implicit flagship's
-    data at rank 384 with solver="pallas", held against the "cholesky" fit
-    under the ALS rule. Returns the kernels-line entry of
-    spd_solve_global."""
+    cuSOLVER, the plain version and the bound, and at SPD_BOTH against the
+    one-block kernel; then the implicit flagship's data at rank 384 with
+    solver="pallas", held against the "cholesky" fit under the ALS rule.
+    Returns the kernels-line entry of spd_solve_global."""
     from harp_tpu_torch import HarpSession
 
+    both = spd_both_phase()
     cases = {}
     for k, n in SPD_GLOBAL.items():
         a, b = random_spd(n, k, seed=k, chunk=512)
@@ -1548,6 +1576,7 @@ def spd_global_phases(data, cfg):
         "fit_per_iter_ms": per_iter_ms,
         "fit_rmse_rel_vs_cholesky": r_rel,
         "fit_factor_rel_vs_cholesky": f_rel,
+        **both,
     }
     for k, c in cases.items():
         for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

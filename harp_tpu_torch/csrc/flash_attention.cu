@@ -370,45 +370,58 @@ int launch(const Args& a, const RingSend* ring, unsigned grid,
 // 64 accumulator floats a thread; a wider head fits neither. Its instances
 // stay as they are (their parameters and code decide their speed: see
 // RingSend), and a wider head takes this kernel, which cuts both widths:
-//   * Dv is sliced across the grid in pieces of kDs = 128 columns: block
-//     (slice, worker, head, query tile) keeps the accumulator of its slice
-//     only (the 4 x 8 a thread of the Dv = 128 instance). Every slice
-//     computes the same scores in the same order, so m and den are bitwise
-//     equal across slices, and slice 0 writes them.
-//   * Dh is staged through shared memory in chunks of kDc = 128: for each
-//     KV tile the score loop runs over the chunks in order, the q chunk and
-//     the k chunk loaded beside each other (q once before the loop when Dh
-//     fits one chunk), so s_ij is the same chain of fused multiply-adds
-//     over d = 0 .. Dh - 1 as in one pass.
+//   * Dv is sliced across the grid in pieces of kDs = 256 columns: block
+//     (slice, worker, head, query tile) keeps the accumulator of its slice,
+//     4 x 16 floats a thread, so at Dv <= 256 the scores are computed once.
+//     Past 256 every slice computes the same scores in the same order, so m
+//     and den are bitwise equal across slices, and slice 0 writes them. A
+//     head of Dv <= 128 (MLA's 192 / 128) takes the instance whose one slice
+//     is 128 columns wide (4 x 8 a thread, a 64 x 128 v tile), so it pays
+//     for no empty column.
+//   * q stays in shared memory for Dh <= kQRes = 256: the block loads its q
+//     tile once, before the KV loop. k is staged in chunks of kDc = 128:
+//     for each KV tile the score loop runs over the chunks in order, so s_ij
+//     is the same chain of fused multiply-adds over d = 0 .. Dh - 1 as in
+//     one pass. Past 256 the q chunk is reloaded beside each k chunk.
 // The update rule, masking, trapezoid, heaviest-first order, precision and
 // the ring send's copy blocks are the kernel's above; a slice's blocks
 // follow each other in the grid, so its neighbours find the k and v tiles
-// in L2. What it costs: the scores once a slice, (2 Dh ceil(Dv / 128) + 2
-// Dv) operations a live pair in place of 2 Dh + 2 Dv, and a q chunk
-// reloaded each KV tile when Dh > 128. The tile counter adds each slice's
-// loads: ceil(Dv / 128) times the trapezoid. Bound: operations, as above
-// (at Dh = Dv = 256, causal L = 16384, H = 4: 3.33 ms as three TF32
-// passes); the scores recomputed in every slice, on the float32 CUDA
-// cores, keep it far from that.
+// in L2. What it costs: (2 Dh ceil(Dv / 256) + 2 Dv) operations a live
+// pair, 2 Dh + 2 Dv up to Dv = 256. The tile counter adds each slice's
+// loads: ceil(Dv / 256) times the trapezoid. Shared memory: 188,416 bytes
+// (q 256 x 68, a k chunk 128 x 68, v 64 x 260, p 64 x 68 floats; 155,648
+// with the 128-column slice), one block an SM, 197 registers (155 at 128).
+// The slice width is a template parameter so the v tile's index math stays
+// shifts: an integer division a loaded element, with the width a runtime
+// value, took 48.5 ms against 29.4 at Dh = Dv = 256 (PERF.md).
+// Bound: operations, as above (at Dh = Dv = 256, causal L = 16384, H = 4:
+// 3.33 ms as three TF32 passes); on the float32 CUDA cores the kernel is
+// held by them.
 // ---------------------------------------------------------------------------
 
-constexpr int kDc = 128;   // Dh staged in chunks
-constexpr int kDs = 128;   // Dv sliced across the grid
+constexpr int kDc = 128;    // k (and past kQRes, q) staged in chunks
+constexpr int kDs = 256;    // Dv sliced across the grid
+constexpr int kQRes = 256;  // the widest q tile kept for the whole KV loop
 
+// the slice width of a launch: a head of Dv <= 128 takes one 128-column
+// slice (its accumulator and v tile at that width), a wider one kDs
+inline int wide_slice(int dv) { return dv <= 128 ? 128 : kDs; }
+
+template <int DS>
 constexpr size_t wide_smem_floats() {
-  // q and k chunks transposed, the v slice, p transposed
-  return (size_t)2 * kDc * kLd + (size_t)kBK * (kDs + kPad) +
+  // q transposed, a k chunk transposed, the v slice, p transposed
+  return (size_t)kQRes * kLd + (size_t)kDc * kLd + (size_t)kBK * (DS + kPad) +
          (size_t)kBK * kLd;
 }
 
-template <bool kRing>
+template <bool kRing, int DS>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_wide_kernel(const Args a, const RingSend ring) {
   extern __shared__ float4 smem4[];
-  constexpr int kLv = kDs + kPad;
-  constexpr int kNg = kDs / 64;
-  float* qs = reinterpret_cast<float*>(smem4);   // [kDc][kLd]
-  float* ks = qs + kDc * kLd;                    // [kDc][kLd]
+  constexpr int kLv = DS + kPad;
+  constexpr int kNg = DS / 64;
+  float* qs = reinterpret_cast<float*>(smem4);   // [kQRes][kLd]
+  float* ks = qs + kQRes * kLd;                  // [kDc][kLd]
   float* vs = ks + kDc * kLd;                    // [kBK][kLv]
   float* ps = vs + kBK * kLv;                    // [kBK][kLd]
 
@@ -435,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     blk -= ncopy;
   }
-  const int nvs = (a.dv + kDs - 1) / kDs;
+  const int nvs = (a.dv + DS - 1) / DS;
   const int sv = (int)(blk % nvs);                 // the Dv slice
   blk /= nvs;
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
@@ -444,20 +457,22 @@ __global__ void __launch_bounds__(kThreads)
   const long long w = pair / a.heads;
   const long long row0 = w * a.seq * a.heads + pair % a.heads;  // l = 0
   const int q0 = iq * kBQ;
-  const int dv0 = sv * kDs;
-  const int dvn = min(kDs, a.dv - dv0);
+  const int dv0 = sv * DS;
+  const int dvn = min(DS, a.dv - dv0);
   const int nck = (a.dh + kDc - 1) / kDc;
+  const bool qres = a.dh <= kQRes;
 
-  auto load_q = [&](int d0, int dn) {
-    for (int i = t; i < kBQ * kDc; i += kThreads) {
-      const int r = i / kDc, d = i % kDc, l = q0 + r;
-      qs[d * kLd + r] = (l < a.seq && d < dn)
+  // q rows d0 .. d0 + nd - 1 (zero from dn on) into qs rows qr ..
+  auto load_q = [&](int qr, int d0, int dn, int nd) {
+    for (int i = t; i < kBQ * nd; i += kThreads) {
+      const int r = i / nd, d = i % nd, l = q0 + r;
+      qs[(qr + d) * kLd + r] = (l < a.seq && d < dn)
           ? load_in(a.q, (row0 + (long long)l * a.heads) * a.dh + d0 + d,
                     a.bf16)
           : 0.f;
     }
   };
-  if (nck == 1) load_q(0, a.dh);
+  if (qres) load_q(0, 0, a.dh, (a.dh + 7) & ~7);   // once, zero-padded to 8
 
   float m[4], den[4], acc[4][kNg * 4];
 #pragma unroll
@@ -483,7 +498,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int ch = 0; ch < nck; ++ch) {
       const int d0 = ch * kDc, dn = min(kDc, a.dh - d0);
       if (ch > 0) __syncthreads();   // the last chunk's q and k are read
-      if (nck > 1) load_q(d0, dn);
+      if (!qres) load_q(0, d0, dn, kDc);
       for (int i = t; i < kBK * kDc; i += kThreads) {
         const int c = i / kDc, d = i % kDc, l = k0 + c;
         ks[d * kLd + c] = (l < a.seq && d < dn)
@@ -492,8 +507,8 @@ __global__ void __launch_bounds__(kThreads)
             : 0.f;
       }
       if (ch == nck - 1) {
-        for (int i = t; i < kBK * kDs; i += kThreads) {
-          const int c = i / kDs, d = i % kDs, l = k0 + c;
+        for (int i = t; i < kBK * DS; i += kThreads) {
+          const int c = i / DS, d = i % DS, l = k0 + c;
           vs[c * kLv + d] = (l < a.seq && d < dvn)
               ? load_in(a.v,
                         (row0 + (long long)l * a.heads) * a.dv + dv0 + d,
@@ -502,11 +517,12 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       __syncthreads();
+      const float* qc = qs + (qres ? d0 : 0) * kLd;
       const int dn8 = (dn + 7) & ~7;   // zero-padded to 8 in shared memory
 #pragma unroll 8
       for (int d = 0; d < dn8; ++d) {
         const float4 qv =
-            *reinterpret_cast<const float4*>(qs + d * kLd + ty * 4);
+            *reinterpret_cast<const float4*>(qc + d * kLd + ty * 4);
         const float4 kv =
             *reinterpret_cast<const float4*>(ks + d * kLd + tx * 4);
         const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
@@ -592,16 +608,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kRing, int DS>
+int launch_wide_slice(const Args& a, const RingSend& ring, unsigned grid,
+                      cudaStream_t s) {
+  const size_t bytes = wide_smem_floats<DS>() * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_wide_kernel<kRing, DS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_attention_wide_kernel<kRing, DS><<<grid, kThreads, bytes, s>>>(a,
+                                                                        ring);
+  return (int)cudaGetLastError();
+}
+
 template <bool kRing>
 int launch_wide(const Args& a, const RingSend& ring, unsigned grid,
                 cudaStream_t s) {
-  const size_t bytes = wide_smem_floats() * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_wide_kernel<kRing>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  flash_attention_wide_kernel<kRing><<<grid, kThreads, bytes, s>>>(a, ring);
-  return (int)cudaGetLastError();
+  return wide_slice(a.dv) == kDs
+             ? launch_wide_slice<kRing, kDs>(a, ring, grid, s)
+             : launch_wide_slice<kRing, 128>(a, ring, grid, s);
 }
 
 }  // namespace
@@ -613,7 +638,7 @@ extern "C" {
 // out (W, L, H, dv) float32, m_out and d_out (W, L, H) float32 or both null;
 // all contiguous, dh, dv >= 1; dh and dv <= 128 take the instances of
 // flash_attention_kernel, a wider head flash_attention_wide_kernel
-// (ceil(dv / 128) blocks a query tile). A non-null
+// (ceil(dv / 256) blocks a query tile). A non-null
 // `tiles` (one uint64 on the device) gains the KV tiles the blocks loaded.
 // A non-null k_next and v_next (shaped as k and v) take the ring send, with
 // cpr copy blocks a row; the rows are workers base .. base + w - 1 of
@@ -669,7 +694,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     ring.cid = (unsigned)cid;
   }
   const bool wide = dh > 128 || dv > 128;
-  const long long grid = a.w_h * a.n_q * (wide ? (dv + kDs - 1) / kDs : 1) +
+  const int ds = wide_slice(dv);
+  const long long grid = a.w_h * a.n_q * (wide ? (dv + ds - 1) / ds : 1) +
                          (send ? (long long)ring.rows * ring.cpr : 0);
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -3,8 +3,9 @@
 // by the outer-product Cholesky, then solve L y = b and L^T x = y. All in
 // float32. Three kernels: one warp a system in registers for K <= 64
 // (spd_solve_kernel), one block a system in shared memory for 64 < K <= 338
-// (spd_solve_block_kernel, after the first), and for a wider K the second's
-// steps on a workspace in device memory (spd_solve_global_kernel, last).
+// (spd_solve_block_kernel, after the first), and for a wider K a
+// panel-blocked Cholesky on a workspace in device memory with the same
+// arithmetic (spd_solve_global_kernel, last).
 //
 // Replaces: harp_tpu/ops/pallas_kernels.py::_chol_solve_kernel (the TPU
 // kernel behind spd_solve_pallas). It computes the same function in the same
@@ -298,91 +299,314 @@ spd_solve_block_kernel(const float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// K > 338: the one-block kernel's steps, the triangle in device memory.
+// K > 338: a panel-blocked Cholesky, the triangle in device memory.
 //
 // Past K = 338 the packed lower triangle no longer fits one block's shared
-// memory. This kernel runs spd_solve_block_kernel's steps in the same order
-// (the same arithmetic, so it gives the same x bit for bit wherever both
-// run) with the triangle in a workspace in device memory and the right-hand
-// side and column j of L, 2 K floats, still in shared memory. The grid is
-// persistent: each block loops over systems blockIdx.x, blockIdx.x + grid,
-// ..., so the workspace is one triangle a block, K (K + 1) / 2 floats (525 KB
-// at K = 512), not one a system. Within a block the barriers order its
-// device-memory writes before the next step's reads, as they do for shared
-// memory. The grid (spd_solve_global_grid) is the card's resident blocks,
-// at most N.
+// memory, so it lives in a workspace in device memory, one triangle a
+// resident block: the grid is persistent (each block loops over systems
+// blockIdx.x, blockIdx.x + grid, ...; spd_solve_global_grid, the card's
+// resident blocks, at most N), so the workspace is at most half of A's bytes.
+// The first panel reads A itself; every later read is of the workspace, which
+// ends holding L. The factorization runs over panels of kPanel = nb columns
+// [j0, j0 + nb), each in three steps, with a barrier after each:
+//   (a) the nb x nb diagonal block, staged through shared memory, is
+//       factored by one warp, nb / 32 rows a lane in registers, with the
+//       one-block kernel's step arithmetic (d, dinv = 1 / sqrtf(d), ljj =
+//       d dinv, l = a dinv; the rank-1 update of the rest of the block,
+//       l_mj by a shuffle from the lane of row m), the forward substitution
+//       of its rows beside it (y_j = r_j / ljj, r_q -= l_qj y_j); then its
+//       L goes back to the workspace and, transposed, to shared memory for
+//       (b);
+//   (b) the panel rows below it: a thread a row, the row's nb entries in
+//       registers, right-looking over the panel's columns (l_ij = a_ij
+//       dinv_j, then a_im -= l_ij l_mj for the panel's m > j, and r_i -=
+//       l_ij y_j), each row independent of the others;
+//   (c) the trailing lower triangle, rows and columns >= j0 + nb, in 64 x 64
+//       tiles: a thread holds a 4 x 4 register tile of it (rows 4 ty ..,
+//       columns tx + 16 c, so a warp's loads and stores are 16 consecutive
+//       floats of a row), the tile's two 64-row blocks of the panel's L are
+//       staged in shared memory (4 threads a row, columns interleaved, so
+//       the transposed stores hit 32 banks), and each element gets the
+//       panel's nb updates in ascending j.
+// Each element of the triangle thus gets exactly the one-block kernel's
+// chain, a_im = fmaf(-l_ij, l_mj, a_im) for j = 0, 1, ... in order, and r
+// its forward chain, so L, y and x are that kernel's bit for bit wherever
+// both run (no atomics, no TF32; two runs are bitwise equal). The back
+// substitution runs over the same panels from the last: one warp solves the
+// panel's unknowns (x_p = r_p / L[p][p], r_q -= L[p][q] x_p, p descending,
+// r_p by a shuffle),
+// then every thread takes the panel's nb updates of one unknown above it, p
+// descending: each r_i gets the one-block kernel's chain, and x goes to
+// device memory as its panel is solved.
 //
-// What bounds it: the bound's count is the one-block kernel's (operations
-// from K of about 140 at N = 8192); the kernel is held by the rank-1
-// updates' read-modify-writes in device memory, K^3 / 6 a system, and by
-// 3 K barriers a system. A thread-block cluster that holds the triangle in
-// its blocks' distributed shared memory (up to 16 x 227 KB) is the lever
-// for a faster one. The widest K: the two K-vectors in shared memory,
-// K <= 29,056.
+// What bounds it: the bound's count is the one-block kernel's (operations at
+// these widths). The trailing triangle is read and written once a panel, not
+// once a column: about K^3 / (6 nb) element read-modify-writes a system
+// instead of K^3 / 6, and 3 + 2 t barriers a panel with t its trailing
+// tiles instead of 3 a column. nb = 32 was measured against 64 on the card
+// (PERF.md): at 64 the warp's step (a) holds two 64-float rows a lane and
+// step (b) 64 floats a thread, which spill (255 registers and a 512-byte
+// stack frame), and it is slower at every K timed. The workspace's traffic
+// no longer holds it: the serial steps (a), (b) and the back substitution
+// (one warp, or one row a thread, between barriers) take about as long as
+// the trailing products. Shared memory: b, then y and x (K floats), and the
+// panel's staging area (global_stage_floats, 4,416 floats), which would take
+// K past 52,000; SPD_MAX_K_GLOBAL = 29,056 stays the stated limit.
 // ---------------------------------------------------------------------------
 
 __host__ __device__ __forceinline__ long long tri_ll(long long i) {
   return i * (i + 1) / 2;
 }
 
+constexpr int kPanel = 32;             // nb: the columns of a panel
+constexpr int kTile = 64;              // trailing tiles are kTile x kTile
+constexpr int kTileLd = kTile + 4;     // a staged row block, transposed
+static_assert(kBlockThreads == 256 && kTile == 64,
+              "a 16 x 16 thread grid, 4 x 4 elements a thread; 4 threads "
+              "stage each of a tile's 64 rows");
+static_assert(kPanel % 32 == 0, "whole warps over a panel's columns");
+
+// Floats of the staging area: the diagonal block (nb x (nb + 1)) and its L
+// transposed (nb x nb) in (a) and (b), or the two staged row blocks of (c)
+// (2 x nb x kTileLd), whichever is larger; then dinv and y of the panel.
+__host__ __device__ constexpr int global_stage_floats() {
+  return (kPanel * (kPanel + 1) + kPanel * kPanel > 2 * kPanel * kTileLd
+              ? kPanel * (kPanel + 1) + kPanel * kPanel
+              : 2 * kPanel * kTileLd) +
+         2 * kPanel;
+}
+
+__host__ __device__ __forceinline__ size_t global_smem_floats(int k) {
+  return (size_t)((k + 3) & ~3) + global_stage_floats();
+}
+
 __global__ void __launch_bounds__(kBlockThreads)
 spd_solve_global_kernel(const float* __restrict__ a,
                         const float* __restrict__ b, float* __restrict__ x,
                         float* ws, long long n, int k) {
-  extern __shared__ float smem[];
-  float* r = smem;              // b, then y
-  float* lc = r + k;            // column j of L at step j, then x
-  float* t = ws + (size_t)blockIdx.x * tri_ll(k);  // the triangle, then L
+  constexpr int nb = kPanel, ld = kPanel + 1;
+  constexpr int kRows = nb / 32;  // the diagonal block's rows a lane
+  extern __shared__ float4 smem4[];
+  float* r = reinterpret_cast<float*>(smem4);   // b, then y, then x's work
+  float* st = r + ((k + 3) & ~3);
+  float* dg = st;                 // (a): the diagonal block, [q][m], ld
+  float* lt = st + nb * ld;       // (a)-(b): its L transposed, lt[j][m]
+  float* li = st;                 // (c): the tile's rows' L, [j][row]
+  float* lm = st + nb * kTileLd;  // (c): its columns' L, [j][perm(col)]
+  float* dv = st + global_stage_floats() - 2 * nb;   // the panel's dinv
+  float* yv = dv + nb;                               // its y, then its x
+  float* t = ws + (size_t)blockIdx.x * tri_ll(k);    // the triangle, then L
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;
 
   for (long long sys = blockIdx.x; sys < n; sys += gridDim.x) {
     const float* as = a + sys * k * k;
-    for (int i = warp; i < k; i += kBlockWarps) {
-      const float* row = as + (size_t)i * k;
-      float* dst = t + tri_ll(i);
-      for (int m = lane; m <= i; m += 32) dst[m] = row[m];
-    }
     for (int i = tid; i < k; i += kBlockThreads) r[i] = b[sys * k + i];
-    __syncthreads();
 
-    for (int j = 0; j < k; ++j) {
-      const float d = t[tri_ll(j) + j];
-      const float dinv = 1.0f / sqrtf(d);
-      const float ljj = d * dinv;               // L[j][j]
-      const float yj = r[j] / ljj;
-      for (int i = j + tid; i < k; i += kBlockThreads) {
-        const float l = i == j ? ljj : t[tri_ll(i) + j] * dinv;
-        lc[i] = l;
-        if (i > j) {
-          t[tri_ll(i) + j] = l;
-          r[i] = fmaf(-l, yj, r[i]);
+    for (int j0 = 0; j0 < k; j0 += nb) {
+      const int nbp = min(nb, k - j0);
+      // row i's entries: A in the first panel, the workspace after it
+      auto src = [&](int i) -> const float* {
+        return j0 == 0 ? as + (size_t)i * k : t + tri_ll(i);
+      };
+
+      // (a) the diagonal block
+      __syncthreads();            // the last panel's staged rows are read
+      for (int e = tid; e < nb * nb; e += kBlockThreads) {
+        const int q = e / nb, m = e % nb;
+        if (q < nbp && m <= q) dg[q * ld + m] = src(j0 + q)[j0 + m];
+      }
+      __syncthreads();
+      if (warp == 0) {            // rows j0 + lane + 32 u, in registers
+        float row[kRows][nb], rq[kRows], yq[kRows];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const int q = lane + 32 * u;
+#pragma unroll
+          for (int m = 0; m < nb; ++m)
+            row[u][m] = q < nbp && m <= q ? dg[q * ld + m] : 0.f;
+          rq[u] = q < nbp ? r[j0 + q] : 0.f;
+          yq[u] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < nb; ++j) {
+          if (j < nbp) {
+            const float d = __shfl_sync(kFull, row[j / 32][j], j % 32);
+            const float dinv = 1.0f / sqrtf(d);
+            const float ljj = d * dinv;           // L[j][j]
+            const float yj = __shfl_sync(kFull, rq[j / 32], j % 32) / ljj;
+            float l[kRows];                       // l_qj below the pivot
+#pragma unroll
+            for (int u = 0; u < kRows; ++u) {
+              const int q = lane + 32 * u;
+              l[u] = row[u][j] * dinv;
+              if (q > j) {
+                row[u][j] = l[u];
+                rq[u] = fmaf(-l[u], yj, rq[u]);
+              } else if (q == j) {
+                row[u][j] = ljj;
+                yq[u] = yj;
+                dv[j] = dinv;
+                yv[j] = yj;
+              }
+            }
+#pragma unroll
+            for (int m = j + 1; m < nb; ++m) {   // a_qm -= l_qj l_mj
+              const float lm = __shfl_sync(kFull, l[m / 32], m % 32);
+#pragma unroll
+              for (int u = 0; u < kRows; ++u)
+                if (lane + 32 * u >= m) row[u][m] = fmaf(-l[u], lm, row[u][m]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const int q = lane + 32 * u;
+          if (q < nbp) {
+            r[j0 + q] = yq[u];
+            float* o = t + tri_ll(j0 + q) + j0;
+#pragma unroll
+            for (int m = 0; m < nb; ++m)
+              if (m <= q) o[m] = row[u][m];
+          }
+#pragma unroll
+          for (int j = 0; j < nb; ++j)          // lt[j][q] = l_qj
+            lt[j * nb + q] = q > j && q < nbp ? row[u][j] : 0.f;
         }
       }
       __syncthreads();
-      if (tid == 0) t[tri_ll(j) + j] = ljj;     // nobody reads it below
-      for (int i = j + 1 + warp; i < k; i += kBlockWarps) {
-        const float li = lc[i];
-        float* row = t + tri_ll(i);
-        for (int m = j + 1 + lane; m <= i; m += 32)
-          row[m] = fmaf(-li, lc[m], row[m]);
+
+      // (b) the panel rows below it (only a full panel has any)
+      for (int i = j0 + nb + tid; i < k; i += kBlockThreads) {
+        const float* s = src(i) + j0;
+        float row[nb];
+#pragma unroll
+        for (int m = 0; m < nb; ++m) row[m] = s[m];
+        float ri = r[i];
+#pragma unroll
+        for (int j = 0; j < nb; ++j) {
+          const float l = row[j] * dv[j];
+          row[j] = l;
+          ri = fmaf(-l, yv[j], ri);
+#pragma unroll
+          for (int m4 = (j + 1) / 4; m4 < nb / 4; ++m4) {
+            const float4 w = *reinterpret_cast<const float4*>(lt + j * nb +
+                                                              4 * m4);
+            const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (4 * m4 + e > j)
+                row[4 * m4 + e] = fmaf(-l, wv[e], row[4 * m4 + e]);
+          }
+        }
+        float* o = t + tri_ll(i) + j0;
+#pragma unroll
+        for (int m = 0; m < nb; ++m) o[m] = row[m];
+        r[i] = ri;
       }
-      __syncthreads();
+
+      // (c) the trailing lower triangle, rows and columns >= s0
+      const int s0 = j0 + nb;
+      const int nt = s0 < k ? (k - s0 + kTile - 1) / kTile : 0;
+      int ti = 0, tm = 0;
+      for (int tile = 0; tile < nt * (nt + 1) / 2; ++tile) {
+        const int i0 = s0 + ti * kTile, m0 = s0 + tm * kTile;
+        float acc[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + ty * 4 + u;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int m = m0 + tx + 16 * c;
+            acc[u][c] = i < k && m <= i ? src(i)[m] : 0.f;
+          }
+        }
+        __syncthreads();          // (b) or the last tile is done with st
+        {                         // 4 threads a row, columns jq + 4 q
+          const int rr = tid >> 2, jq = tid & 3;
+          const int ii = i0 + rr, mm = m0 + rr;
+          const float* pi = t + tri_ll(ii) + j0 + jq;
+          const float* pm = t + tri_ll(mm) + j0 + jq;
+          float* di = li + jq * kTileLd + rr;
+          float* dm = lm + jq * kTileLd + (rr & 15) * 4 + (rr >> 4);
+#pragma unroll
+          for (int q = 0; q < nb / 4; ++q) {
+            di[4 * q * kTileLd] = ii < k ? pi[4 * q] : 0.f;
+            dm[4 * q * kTileLd] = mm < k ? pm[4 * q] : 0.f;
+          }
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int j = 0; j < nb; ++j) {
+          const float4 u4 =
+              *reinterpret_cast<const float4*>(li + j * kTileLd + ty * 4);
+          const float4 v4 =
+              *reinterpret_cast<const float4*>(lm + j * kTileLd + tx * 4);
+          const float ua[4] = {u4.x, u4.y, u4.z, u4.w};
+          const float va[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[u][c] = fmaf(-ua[u], va[c], acc[u][c]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + ty * 4 + u;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int m = m0 + tx + 16 * c;
+            if (i < k && m <= i) t[tri_ll(i) + m] = acc[u][c];
+          }
+        }
+        if (++tm > ti) {
+          ++ti;
+          tm = 0;
+        }
+      }
     }
 
-    for (int i = tid; i < k; i += kBlockThreads) r[i] = r[i] / t[tri_ll(i) + i];
-    __syncthreads();
-    for (int p = k - 1; p >= 0; --p) {
-      const float* row = t + tri_ll(p);         // row p of L
-      const float xp = r[p] / row[p];
-      if (tid == 0) lc[p] = xp;
-      for (int i = tid; i < p; i += kBlockThreads)
-        r[i] = fmaf(-row[i], xp, r[i]);
+    // the back substitution L^T x = y, panel by panel from the last
+    for (int p1 = k; p1 > 0;) {
+      const int p0 = (p1 - 1) / nb * nb, nbp = p1 - p0;
+      __syncthreads();            // the last panel's y / x and r are read
+      for (int e = tid; e < nb * nb; e += kBlockThreads) {
+        const int q = e / nb, m = e % nb;
+        if (q < nbp && m <= q) dg[q * ld + m] = t[tri_ll(p0 + q) + p0 + m];
+      }
       __syncthreads();
+      if (warp == 0) {            // unknowns p0 + lane + 32 u
+        float rq[kRows];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+          rq[u] = lane + 32 * u < nbp ? r[p0 + lane + 32 * u] : 0.f;
+#pragma unroll
+        for (int p = nb - 1; p >= 0; --p) {
+          if (p < nbp) {
+            const float xp =
+                __shfl_sync(kFull, rq[p / 32], p % 32) / dg[p * ld + p];
+#pragma unroll
+            for (int u = 0; u < kRows; ++u) {
+              const int q = lane + 32 * u;
+              if (q < p) rq[u] = fmaf(-dg[p * ld + q], xp, rq[u]);
+              else if (q == p) yv[p] = xp;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < p0; i += kBlockThreads) {
+        float ri = r[i];
+        for (int p = nbp - 1; p >= 0; --p)
+          ri = fmaf(-t[tri_ll(p0 + p) + i], yv[p], ri);
+        r[i] = ri;
+      }
+      for (int q = tid; q < nbp; q += kBlockThreads)
+        x[sys * k + p0 + q] = yv[q];
+      p1 = p0;
     }
-    for (int i = tid; i < k; i += kBlockThreads) x[sys * k + i] = lc[i];
-    __syncthreads();                            // r, lc and t are reused
   }
 }
 
@@ -441,7 +665,7 @@ int spd_solve_global_grid(long long n, int k) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t bytes = 2 * (size_t)k * sizeof(float);
+  const size_t bytes = global_smem_floats(k) * sizeof(float);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(spd_solve_global_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -456,14 +680,14 @@ int spd_solve_global_grid(long long n, int k) {
 }
 
 // Solve the n systems on `stream` with the global-memory kernel: the same
-// operands, k > 338 (checked by the caller), on `grid` blocks
-// (spd_solve_global_grid) with ws (grid, k (k + 1) / 2) float32. Returns
+// operands, k > 338 (checked by the caller; any k >= 1 runs), on `grid`
+// blocks (spd_solve_global_grid) with ws (grid, k (k + 1) / 2) float32. Returns
 // cudaGetLastError() after the launch (0 on success).
 int spd_solve_global_launch(const void* a, const void* b, void* x, void* ws,
                             long long n, int k, int grid, void* stream) {
   if (n == 0) return 0;
   if (grid < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = 2 * (size_t)k * sizeof(float);
+  const size_t bytes = global_smem_floats(k) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       spd_solve_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);

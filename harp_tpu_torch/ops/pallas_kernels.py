@@ -23,13 +23,15 @@ Ported:
 * the batched SPD solve of ALS. ``spd_solve_cuda`` launches ``csrc/
   spd_solve.cu``: one warp a system, the factor in registers, at K <= 64;
   one block a system, the packed lower triangle in shared memory, at
-  64 < K <= 338; past it the same steps with the triangle in device
-  memory, on a persistent grid. ``spd_solve_plain`` is the TPU kernel's
-  Cholesky and substitutions, vectorized over the batch;
+  64 < K <= 338; past it a panel-blocked Cholesky with the triangle in
+  device memory and register-tiled trailing updates, on a persistent grid,
+  bitwise the one-block kernel's arithmetic. ``spd_solve_plain`` is the TPU
+  kernel's Cholesky and substitutions, vectorized over the batch;
 * flash attention. ``flash_attention_cuda`` launches ``csrc/
   flash_attention.cu`` (running max, denominator and accumulator on chip,
-  the causal trapezoid of KV tiles, any L, any Dh and Dv (past 128, Dh
-  staged in chunks and Dv sliced across the grid), optional stats; with
+  the causal trapezoid of KV tiles, any L, any Dh and Dv (past 128, q
+  kept in shared memory to Dh = 256, k staged in chunks and Dv sliced
+  across the grid in 256 columns), optional stats; with
   ``ring_hop``, copy blocks beside the attention blocks send k and v to the
   right ring neighbour); ``flash_attention_plain`` is a full-row softmax in
   plain PyTorch.
@@ -599,8 +601,10 @@ SPD_MAX_K = 64
 # the largest K of the one-block kernel: the packed lower triangle and two
 # K-vectors must fit one block's shared memory (spd_solve_block_smem_bytes)
 SPD_MAX_K_SMEM = 338
-# the largest K of the global-memory kernel: its two K-vectors (the
-# right-hand side and column j of L) stay in one block's shared memory
+# the largest K of the global-memory kernel, kept from the step-by-step
+# kernel it replaced (whose two K-vectors filled one block's shared memory);
+# the panel-blocked kernel keeps b (K floats) and a staging area of 4,416
+# floats there, which would fit past K = 52,000
 SPD_MAX_K_GLOBAL = 29_056
 
 
@@ -897,7 +901,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q``, ``k``: (L, H, Dh) or stacked (W, L, H, Dh); ``v``: (L, H, Dv) or
     (W, L, H, Dv); one type, float32 or bfloat16, contiguous, on one CUDA
     device; any L, Dh and Dv (a head wider than 128 takes the kernel's wide
-    variant, ceil(Dv / 128) blocks a query tile). A
+    variant, ceil(Dv / 256) blocks a query tile). A
     stacked input is one launch for all workers. Outputs are float32
     whatever the input type.
 

@@ -26,9 +26,12 @@ Batched SPD solve: the kernel and the plain version sum in different orders
 float64 ``torch.linalg.solve`` of the same systems: the kernel within
 max(1e-5, 4x the plain version's own distance from it), relative to max
 |x|. The one-block kernel (64 < K <= 338) and the global-memory kernel
-(K > 338) follow the plain version's steps and are held to it within 1e-4
-of max |x| as well; the two run the same arithmetic, so where both take a
-K they agree bitwise.
+(K > 338, a panel-blocked Cholesky) follow the plain version's steps and are
+held to it within 1e-4 of max |x| as well; the two run the same arithmetic
+(every element's chain of fused multiply-adds in the same order), so where
+both take a K they agree bitwise, at panel edges and at ragged N too. The
+global-memory kernel is held by the same rules at its limit, K =
+``SPD_MAX_K_GLOBAL``, on one system.
 
 Dispatch: where the JAX package takes XLA (K-means on float16 points;
 attention below the flash length), a dispatcher on CUDA tensors launches
@@ -48,7 +51,10 @@ Flash attention: the kernel and the plain version (a full-row softmax) sum
 in different orders, so both are held against a float64 attention of the
 same inputs over sampled query rows of every head: out, m and den within
 max(1e-5, 4x the plain version's own distance), relative to their largest
-entry; heads past 128 (the wide variant) by the same rule. A stacked launch is bitwise the separate ones, and two runs are
+entry; heads past 128 (the wide variant) by the same rule, with q kept in
+shared memory to Dh = 256 and reloaded in chunks past it, and Dv sliced in
+256 columns: a Dv = 512 launch is bitwise two Dv = 256 launches on its
+halves. A stacked launch is bitwise the separate ones, and two runs are
 bitwise equal. The KV tiles the kernel counts as loaded are exactly the
 causal trapezoid of its 64 x 64 tiles (``trapezoid_tiles``, which
 tests/test_torch_attention.py holds against the JAX package's grid).
@@ -477,7 +483,7 @@ def spd_inputs_on(dev, n, k, seed=0):
 
 
 @pytest.mark.parametrize("n,k", [(2048, 339), (1024, 384), (257, 512),
-                                 (3, 700)])
+                                 (3, 700), (3, 2048)])
 def test_spd_solve_global_kernel_matches_plain(cuda, n, k):
     a, b = spd_inputs_on(cuda, n, k, seed=n + k)
     before = dict(pk.launches)
@@ -501,6 +507,56 @@ def test_spd_solve_global_kernel_is_bitwise_the_block_kernel(cuda):
     a, b = spd_inputs_on(cuda, 4099, 300, seed=3)
     assert pk._spd_lib().spd_solve_global_grid(4099, 300) < 4099
     assert torch.equal(pk._spd_solve_global(a, b), pk.spd_solve_cuda(a, b))
+
+
+@pytest.mark.parametrize("n,k", [(1031, 65), (2049, 100)])
+def test_spd_solve_global_kernel_is_bitwise_the_block_kernel_at_panel_edges(
+        cuda, n, k):
+    """K = 65 (two panels and one column) and 100 (a partial last panel),
+    neither a multiple of the panel width, at a ragged N over a grid
+    smaller than N: the global-memory kernel's x is the one-block kernel's
+    bit for bit."""
+    a, b = spd_inputs_on(cuda, n, k, seed=n + k)
+    assert pk._spd_lib().spd_solve_global_grid(n, k) < n
+    assert torch.equal(pk._spd_solve_global(a, b), pk.spd_solve_cuda(a, b))
+
+
+def test_spd_solve_global_kernel_at_two_panels_and_a_column(cuda):
+    """K = 65, two 32-column panels and a column, through the global-memory
+    kernel itself: within 1e-4 of the plain version and within max(1e-5,
+    4x the plain version's distance) of a float64 solve, and two runs
+    bitwise equal."""
+    n, k = 1000, 65
+    a, b = spd_inputs_on(cuda, n, k, seed=k)
+    before = pk.launches["spd_solve_global"]
+    x = pk._spd_solve_global(a, b)
+    torch.cuda.synchronize()
+    assert pk.launches["spd_solve_global"] == before + 1
+    plain = pk.spd_solve_plain(a, b)
+    assert max_rel(x.double(), plain.double()) <= 1e-4
+    exact = torch.linalg.solve(a.double(), b.double())
+    tol = max(1e-5, 4 * max_rel(plain.double(), exact))
+    assert max_rel(x.double(), exact) <= tol
+    assert torch.equal(x, pk._spd_solve_global(a, b))
+
+
+def test_spd_solve_global_kernel_at_its_limit(cuda):
+    """K = SPD_MAX_K_GLOBAL, one system (about 70 s of kernel and three
+    minutes of the plain version on the card): finite, within 1e-4 of the
+    plain version and within max(1e-5, 4x the plain version's distance) of
+    a float64 solve."""
+    k = pk.SPD_MAX_K_GLOBAL
+    a, b = spd_inputs_on(cuda, 1, k, seed=k)
+    before = dict(pk.launches)
+    x = pk.spd_solve_cuda(a, b)
+    torch.cuda.synchronize()
+    assert pk.launches["spd_solve_global"] == before["spd_solve_global"] + 1
+    assert x.shape == (1, k) and bool(torch.isfinite(x).all())
+    exact = torch.linalg.solve(a.double(), b.double())
+    plain = pk.spd_solve_plain(a, b)
+    assert max_rel(x.double(), plain.double()) <= 1e-4
+    tol = max(1e-5, 4 * max_rel(plain.double(), exact))
+    assert max_rel(x.double(), exact) <= tol
 
 
 def test_spd_solve_kernel_refuses_bad_inputs(cuda):
@@ -641,15 +697,66 @@ def test_flash_attention_kernel_loads_the_trapezoid(cuda, l, causal):
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_wide_kernel_loads_the_trapezoid_a_slice(cuda,
                                                                  causal):
-    """Dv = 300 takes the wide variant's three 128-column slices, each of
-    which walks the trapezoid (Dh = 192 in two chunks, one KV tile each)."""
+    """Dv = 300 takes the wide variant's two 256-column slices, each of
+    which walks the trapezoid (Dh = 192, q kept whole, k in two chunks, one
+    KV tile each)."""
     w, h, l = 1, 2, 200
     g = torch.Generator().manual_seed(l)
     q, k = (torch.randn(w, l, h, 192, generator=g).to(cuda) for _ in range(2))
     v = torch.randn(w, l, h, 300, generator=g).to(cuda)
     with pk.count_flash_tiles() as tiles:
         pk.flash_attention_cuda(q, k, v, causal)
-        assert tiles() == 3 * w * h * trapezoid_tiles(l, causal)
+        assert tiles() == 2 * w * h * trapezoid_tiles(l, causal)
+
+
+def test_flash_attention_wide_kernel_takes_one_slice_at_dv256(cuda):
+    """Dh = Dv = 256: one slice, so the scores once and the trapezoid once."""
+    w, h, l = 2, 3, 1000
+    g = torch.Generator().manual_seed(l)
+    q, k, v = (torch.randn(w, l, h, 256, generator=g).to(cuda)
+               for _ in range(3))
+    with pk.count_flash_tiles() as tiles:
+        pk.flash_attention_cuda(q, k, v, True)
+        assert tiles() == w * h * trapezoid_tiles(l, True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_wide_kernel_slices_dv512_in_two(cuda, causal):
+    """Dv = 512: two 256-column slices, each walking the trapezoid; the
+    launch is bitwise two Dv = 256 launches on v's halves (out), and m and
+    den, written by slice 0, are bitwise theirs (every slice computes the
+    same scores)."""
+    l, h = 700, 2
+    g = torch.Generator().manual_seed(l + causal)
+    q, k = (torch.randn(l, h, 256, generator=g).to(cuda) for _ in range(2))
+    v = torch.randn(l, h, 512, generator=g).to(cuda)
+    with pk.count_flash_tiles() as tiles:
+        out, m, den = pk.flash_attention_cuda(q, k, v, causal,
+                                              return_stats=True)
+        assert tiles() == 2 * h * trapezoid_tiles(l, causal)
+    for half in (slice(0, 256), slice(256, 512)):
+        o2, m2, d2 = pk.flash_attention_cuda(q, k, v[..., half].contiguous(),
+                                             causal, return_stats=True)
+        assert torch.equal(out[..., half], o2)
+        assert torch.equal(m, m2) and torch.equal(den, d2)
+
+
+@pytest.mark.parametrize("dh", [256, 257])
+def test_flash_attention_wide_kernel_q_resident_and_chunked(cuda, dh):
+    """Dh = 256 keeps the q tile in shared memory for the whole KV loop,
+    Dh = 257 reloads it in 128-wide chunks beside k: each held against a
+    float64 attention within max(1e-5, 4x the plain version's distance)."""
+    l, h, dv = 1031, 2, 96
+    g = torch.Generator().manual_seed(dh)
+    q, k = (torch.randn(1, l, h, dh, generator=g).to(cuda) for _ in range(2))
+    v = torch.randn(1, l, h, dv, generator=g).to(cuda)
+    got = pk.flash_attention_cuda(q, k, v, True, return_stats=True)
+    plain = pk.flash_attention_plain(q, k, v, True, return_stats=True)
+    rows = sample_rows(l).to(cuda)
+    exact = attention64(q, k, v, True, rows)
+    for a, ref, ex in zip(got, plain, exact):
+        tol = max(1e-5, 4 * max_rel(ref[:, rows].double(), ex))
+        assert max_rel(a[:, rows].double(), ex) <= tol
 
 
 def test_flash_attention_kernel_refuses_bad_inputs(cuda):

@@ -187,9 +187,11 @@ def test_kmeans_and_spd_shared_memory_limits():
     assert tpk.spd_solve_block_smem_bytes(lim) <= tpk.MAX_SMEM_BYTES
     assert tpk.spd_solve_block_smem_bytes(lim + 1) > tpk.MAX_SMEM_BYTES
     assert tpk.spd_solve_block_smem_bytes(128) == 4 * (128 * 129 // 2 + 256)
-    # the global-memory solve keeps its two K-vectors in shared memory
+    # the global-memory solve keeps the right-hand side (K floats, rounded
+    # up to 4) and its panel's staging area (global_stage_floats in
+    # csrc/spd_solve.cu, 4,416 floats) in shared memory: its stated limit fits
     top = tpk.SPD_MAX_K_GLOBAL
-    assert 8 * top <= tpk.MAX_SMEM_BYTES < 8 * (top + 1)
+    assert 4 * (-(-top // 4) * 4 + 4416) <= tpk.MAX_SMEM_BYTES
     assert tpk.spd_solve_global_workspace_bytes(132, 512) == \
         4 * 132 * 131_328
     assert tpk.spd_solve_global_workspace_bytes(1, 339) == 4 * 57_630
