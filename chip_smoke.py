@@ -44,9 +44,12 @@ main path must make no plain call on the card:
     flagship's data at rank 384 with solver="pallas" against the
     "cholesky" fit;
   * attention: the flash kernel against its plain version and a float64
-    reference on sampled query rows at the flagship (causal L=16384, H=8,
-    Dh=64, f32), at H=4, Dh=128, ragged L=8209, Dv=96, bf16 and a stacked
-    W=4 input; ``blocked_attention`` at both flagship shapes (one launch a
+    reference on sampled query rows, and its KV tiles against the
+    trapezoid of its tiles, at the flagship (causal L=16384, H=8, Dh=64,
+    f32), at H=4, Dh=128, ragged L=8209, Dv=96, not causal at L=16384
+    (Dh=64 and 128), bf16 and a stacked W=4 input (the ring's hop shape,
+    causal and not; bf16 and the hop shape timed too);
+    ``blocked_attention`` at both flagship shapes (one launch a
     call, tokens/s two-point), ``ring_attention_mha`` on 4 workers at
     L=32768 causal and not, ``fused_dma=False`` (4 launches a call) and
     ``ulysses_attention``
@@ -206,8 +209,23 @@ ALS_GLOBAL = dict(rank=384, iterations=2)
 SPD_BOTH = dict(k=300, n=8192)
 
 
+# (seconds, tag) at the first line of each phase, for the phase times
+PHASES = []
+
+
 def log(msg: str) -> None:
+    if msg.startswith("["):
+        PHASES.append((time.perf_counter(), msg.split("]")[0] + "]"))
     print(msg, flush=True)
+
+
+def phase_seconds():
+    """Seconds from each phase's first line to the next phase's, longest
+    first (a tag seen twice adds up)."""
+    out = {}
+    for (t0, tag), (t1, _) in zip(PHASES, PHASES[1:]):
+        out[tag] = out.get(tag, 0.0) + t1 - t0
+    return sorted(out.items(), key=lambda kv: -kv[1])
 
 
 def check(ok: bool, what: str) -> None:
@@ -1523,12 +1541,16 @@ def spd_both_phase():
           "the global-memory kernel's x is the one-block kernel's, bitwise")
     block, glob = in_turns(lambda: pk.spd_solve_cuda(a, b),
                            lambda: pk._spd_solve_global(a, b), 3)
+    lib = cuda_time_ms(lambda: library_spd(a, b), reps=3, warmup=1)
+    bound, by = spd_bound(n, k)
     log(f"  one-block {block:.4f} ms, global-memory {glob:.4f} ms "
-        f"({block / glob:.2f}x)")
+        f"({block / glob:.2f}x); cuSOLVER {lib:.4f} ms, bound {bound:.4f} "
+        f"ms ({by})")
     del a, b
     torch.cuda.empty_cache()
     return {"k300_block_ms": block, "k300_global_ms": glob,
-            "k300_bitwise": True}
+            "k300_bitwise": True, "k300_library_ms": lib,
+            "k300_bound_ms": bound, "k300_bound_by": by}
 
 
 def spd_global_phases(data, cfg):
@@ -1786,14 +1808,17 @@ def flash_bound(w, l, h, dh, dv, causal, in_bytes, extra_bytes=0):
     written once (and ``extra_bytes`` more moved), against (2 Dh + 2 Dv) H
     operations a live (query, key) pair, L (L + 1) / 2 pairs causal. The
     float32 path's operations take three TF32 passes (the fastest route to
-    float32 accuracy); with bf16 inputs the q k half runs at the bf16 rate,
-    p v still as three TF32 passes (p stays float32). Returns (ms, what
-    bounds it, the same operations on the float32 CUDA cores in ms)."""
+    float32 accuracy); with bf16 inputs the q k half runs at the bf16 rate
+    and p v takes two TF32 passes (p stays float32, v is exact in TF32: p's
+    hi and lo against v). Returns (ms, what bounds it, the same operations
+    on the float32 CUDA cores in ms)."""
     pairs = w * h * (l * (l + 1) // 2 if causal else l * l)
     moved = w * l * h * ((2 * dh + dv) * in_bytes + dv * 4) + extra_bytes
     qk, pv = 2 * dh * pairs, 2 * dv * pairs
-    t_qk = qk / PEAK_BF16_FLOPS if in_bytes == 2 else 3 * qk / PEAK_TF32_FLOPS
-    t_ops = t_qk + 3 * pv / PEAK_TF32_FLOPS
+    if in_bytes == 2:
+        t_ops = qk / PEAK_BF16_FLOPS + 2 * pv / PEAK_TF32_FLOPS
+    else:
+        t_ops = 3 * (qk + pv) / PEAK_TF32_FLOPS
     t_bytes = moved / PEAK_BYTES_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
@@ -1802,12 +1827,14 @@ def flash_bound(w, l, h, dh, dv, causal, in_bytes, extra_bytes=0):
 
 def library_attention(q, k, v, causal):
     """Yardstick only (never called by the port): PyTorch's
-    scaled_dot_product_attention on the same (L, H, D) tensors, viewed (1,
-    H, L, D) (a 3-D input would send it to its math backend, which holds
-    the whole (H, L, L) score tensor)."""
-    return torch.nn.functional.scaled_dot_product_attention(
-        *(x.transpose(0, 1)[None] for x in (q, k, v)),
-        is_causal=causal)[0].transpose(0, 1)
+    scaled_dot_product_attention on the same (L, H, D) or stacked (W, L, H,
+    D) tensors, viewed (W, H, L, D) (a 3-D input would send it to its math
+    backend, which holds the whole (H, L, L) score tensor)."""
+    lift = (lambda x: x) if q.dim() == 4 else (lambda x: x[None])
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *(lift(x).transpose(1, 2) for x in (q, k, v)),
+        is_causal=causal).transpose(1, 2)
+    return out if q.dim() == 4 else out[0]
 
 
 def hold(name, got, yard, exact):
@@ -1835,6 +1862,13 @@ def flash_case(name, w, l, h, dh, dv, causal, dtype, timed, seed=0):
     with pk.count_flash_tiles() as counted_tiles:
         got = pk.flash_attention_cuda(q, k, v, causal, return_stats=True)
         tiles = counted_tiles()
+    wide = dh > 128 or dv > 128
+    want = (w or 1) * h * pk.trapezoid_tiles(
+        l, causal, pk.FLASH_WIDE_TILES if wide else pk.FLASH_TILES) * (
+        -(-dv // 256) if wide else 1)
+    shape_of = "causal trapezoid" if causal else "rectangle"
+    check(tiles == want, f"the kernel loaded the {shape_of} of its tiles: "
+          f"{tiles} KV tiles ({want})")
     plain = pk.flash_attention_plain(q, k, v, causal, return_stats=True)
     rows = sample_rows(l, seed=seed)
     exact = attention_rows(q, k, v, causal, rows)
@@ -1864,7 +1898,7 @@ def flash_case(name, w, l, h, dh, dv, causal, dtype, timed, seed=0):
             lambda: pk.flash_attention_plain(q, k, v, causal), reps=2,
             warmup=1)
         lib = library_attention(q, k, v, causal)
-        out["library_rel_vs_float64"] = max_rel(lib[None][:, rows],
+        out["library_rel_vs_float64"] = max_rel(lift(lib)[:, rows],
                                                 exact[0])
         out["library_ms"] = cuda_time_ms(
             lambda: library_attention(q, k, v, causal), reps=10, warmup=2)
@@ -1878,8 +1912,14 @@ def flash_case(name, w, l, h, dh, dv, causal, dtype, timed, seed=0):
     return out
 
 
+TIMED_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "max_abs_err", "rel_vs_float64", "tiles")
+
+
 def flash_cases():
-    """The kernel's phases; returns the timed flagship and dh128 cases."""
+    """The kernel's phases; returns the timed flagship and dh128 cases and
+    the readings of the other timed ones (bf16, the ring's two hop shapes)
+    keyed by case."""
     from harp_tpu_torch.ops import pallas_kernels as pk
 
     f, d = ATTN_FLAGSHIP, ATTN_DH128
@@ -1891,21 +1931,29 @@ def flash_cases():
                seed=2)
     flash_case("dv96", None, 4096, 8, 64, 96, True, torch.float32, False,
                seed=3)
-    flash_case("bf16", None, f["l"], f["h"], f["dh"], f["dh"], True,
-               torch.bfloat16, False, seed=4)
+    # not causal at the flagship length: every row sums all 16384 keys,
+    # where a tensor-core sum carried across the KV tiles drifts
+    flash_case("full16k", None, f["l"], f["h"], f["dh"], f["dh"], False,
+               torch.float32, False, seed=9)
+    flash_case("full16k_dh128", None, d["l"], d["h"], d["dh"], d["dh"],
+               False, torch.float32, False, seed=10)
+    timed = {"bf16": flash_case("bf16", None, f["l"], f["h"], f["dh"],
+                                f["dh"], True, torch.bfloat16, True, seed=4)}
     # the ring's hops: W=4 stacked at the local length 8192, hop 0 causal,
     # hops 1-3 not
     r = ATTN_RING
     st = flash_case("stacked", r["workers"], r["l"] // r["workers"], r["h"],
-                    r["dh"], r["dh"], True, torch.float32, False, seed=5)
+                    r["dh"], r["dh"], True, torch.float32, True, seed=5)
     q, k, v = st["inputs"]
     one = [pk.flash_attention_cuda(q[i], k[i], v[i], True) for i in range(4)]
     check(all(torch.equal(st["out"][i], one[i]) for i in range(4)),
           "a stacked W=4 launch is bitwise 4 separate launches")
-    del st
-    flash_case("stacked_full", r["workers"], r["l"] // r["workers"], r["h"],
-               r["dh"], r["dh"], False, torch.float32, False, seed=8)
-    return flag, d128
+    timed["hop_causal"] = st
+    timed["hop_full"] = flash_case(
+        "stacked_full", r["workers"], r["l"] // r["workers"], r["h"],
+        r["dh"], r["dh"], False, torch.float32, True, seed=8)
+    return flag, d128, {tag: {key: case[key] for key in TIMED_KEYS}
+                        for tag, case in timed.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -2027,16 +2075,17 @@ def ring_phase():
                     "tiles": tiles}
         log(f"  KV tiles the kernel loaded in the call: {tiles}")
     # hops 1-3 of the causal call and all 4 of the full one load the whole
-    # square of their block; hop 0 (causal) must load only the trapezoid,
-    # n (n + 1) / 2 of the n x n tiles of each (worker, head)
-    w, h = c["workers"], c["h"]
+    # rectangle of their block; hop 0 (causal) must load only the trapezoid
+    # of the kernel's tiles, for each (worker, head)
+    w, h, local = c["workers"], c["h"], c["l"] // c["workers"]
     hop_full = res["full"]["tiles"] // w
     hop0 = res["causal"]["tiles"] - (w - 1) * hop_full
-    n = round((hop_full / (w * h)) ** 0.5)
-    check(res["full"]["tiles"] == w * w * h * n * n
-          and hop0 == w * h * n * (n + 1) // 2,
-          f"the causal hop loads the trapezoid ({hop0} KV tiles; a full hop "
-          f"{hop_full}, {n} x {n} tiles a worker and head)")
+    full, trap = (pk.trapezoid_tiles(local, cz, pk.FLASH_TILES)
+                  for cz in (False, True))
+    check(hop_full == w * h * full and hop0 == w * h * trap,
+          f"the causal hop loads the trapezoid ({hop0} KV tiles, {trap} a "
+          f"worker and head; a full hop {hop_full}, {full} a worker and head "
+          f"on {pk.FLASH_TILES[0]} x {pk.FLASH_TILES[1]} tiles)")
     per, busy = device_profile(lambda: sharded(
         sess, lambda a, b, d: ra.ring_attention_mha(a, b, d, True,
                                                     fused_dma=False),
@@ -2191,7 +2240,7 @@ def flash_wide_phases():
 def attention_phases():
     """Every flash-attention phase; returns the kernels-line entry of
     flash_attention."""
-    flag, d128 = flash_cases()
+    flag, d128, more = flash_cases()
     blocked = blocked_phase("flagship", flag, ATTN_FLAGSHIP)
     blocked128 = blocked_phase("dh128", d128, ATTN_DH128)
     del d128["out"], d128["inputs"]
@@ -2252,6 +2301,8 @@ def attention_phases():
         "ulysses_library_ms": uly["library_ms"],
         "ulysses_max_abs_err": uly["max_abs_err"],
         "ulysses_tiles": uly["tiles"],
+        **{f"{tag}_{key}": val for tag, case in more.items()
+           for key, val in case.items()},
         "crossover": cross,
         **{f"{tag}_{key}": wide[tag][key] for tag in ("dh256", "mla")
            for key in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -3293,6 +3344,8 @@ def main() -> int:
     attn["plain_on_card"] = plain["flash_attention"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("  phases of 1 s or more, longest first: " + ", ".join(
+        f"{tag} {sec:.1f} s" for tag, sec in phase_seconds() if sec >= 1))
 
     kernels = [{
         "name": "kmeans_stats", "route": "cuda",

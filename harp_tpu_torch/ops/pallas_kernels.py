@@ -29,9 +29,11 @@ Ported:
   kernel's Cholesky and substitutions, vectorized over the batch;
 * flash attention. ``flash_attention_cuda`` launches ``csrc/
   flash_attention.cu`` (running max, denominator and accumulator on chip,
-  the causal trapezoid of KV tiles, any L, any Dh and Dv (past 128, q
-  kept in shared memory to Dh = 256, k staged in chunks and Dv sliced
-  across the grid in 256 columns), optional stats; with
+  the causal trapezoid of KV tiles, any L, any Dh and Dv: to 128 on the
+  tensor cores (three TF32 passes, k and v tiles by asynchronous copies,
+  ``FLASH_TILES``), past 128 on the CUDA cores (q kept in shared memory
+  to Dh = 256, k staged in chunks and Dv sliced across the grid in 256
+  columns, ``FLASH_WIDE_TILES``), optional stats; with
   ``ring_hop``, copy blocks beside the attention blocks send k and v to the
   right ring neighbour); ``flash_attention_plain`` is a full-row softmax in
   plain PyTorch.
@@ -775,6 +777,24 @@ def use_spd_solve_pallas(k: int, device) -> bool:
 
 # the JAX package's dispatch threshold (a TPU crossover, kept as it is)
 FLASH_MIN_L = 8192
+# (query rows, keys) of a tile of the kernel at Dh, Dv <= 128, and of its
+# wide variant past 128: the causal trapezoid of these tiles is what a
+# launch loads (``count_flash_tiles``)
+FLASH_TILES = (128, 64)
+FLASH_WIDE_TILES = (64, 64)
+
+
+def trapezoid_tiles(l: int, causal: bool, tiles=FLASH_TILES) -> int:
+    """KV tiles one (worker, head) loads at length ``l`` on (bq, bk) tiles
+    (the narrow kernel's by default): causal, query tile iq walks the
+    min(n_kv, ceil((iq + 1) bq / bk)) tiles at or below the diagonal (none
+    above it); otherwise all n_q x n_kv of the rectangle."""
+    bq, bk = tiles
+    n_q, n_kv = -(-l // bq), -(-l // bk)
+    if not causal:
+        return n_q * n_kv
+    return sum(min(n_kv, -(-((iq + 1) * bq) // bk)) for iq in range(n_q))
+
 # head packing is a TPU lane layout: two heads share a 128-lane tile when
 # H is even and both widths fit 64 lanes; the port keeps only its check
 _PACK_LANES = 64

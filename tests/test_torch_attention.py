@@ -29,7 +29,6 @@ from harp_tpu_torch.collectives import rotation as trot
 from harp_tpu_torch.ops import pallas_kernels as tpk
 from harp_tpu_torch.parallel import ring_attention as tra
 from harp_tpu_torch.session import HarpSession as TorchSession
-from tests.test_torch_cuda_kernels import FLASH_TILE, trapezoid_tiles
 
 TOL = 1e-5
 _SESSIONS = {}
@@ -165,15 +164,18 @@ def test_flash_attention_plain_matches_blocked_reference():
 
 
 @pytest.mark.parametrize("l", [1, 63, 64, 65, 200, 16384])
-def test_flash_tiles_visited_is_the_tpu_trapezoid(l):
-    """The KV-tile count the card test demands of the kernel
-    (``trapezoid_tiles``) is the length of the JAX package's trapezoid grid
-    at the kernel's tiles (64 x 64)."""
-    t = FLASH_TILE
+@pytest.mark.parametrize("tiles", [tpk.FLASH_TILES, tpk.FLASH_WIDE_TILES,
+                                   (64, 128)])
+def test_flash_tiles_visited_is_the_tpu_trapezoid(l, tiles):
+    """The KV-tile count that the card tests and ``chip_smoke.py`` demand of
+    the kernel (``trapezoid_tiles``) is the length of the JAX package's
+    trapezoid grid at the kernel's tiles (128 query rows by 64 keys; the
+    wide variant's 64 x 64), and at a tile with more keys than rows."""
+    bq, bk = tiles
     for causal in (False, True):
-        iq_of, _ = jpk._flash_grid_layout(-(-l // t), -(-l // t), t, t,
+        iq_of, _ = jpk._flash_grid_layout(-(-l // bq), -(-l // bk), bq, bk,
                                           causal)
-        assert trapezoid_tiles(l, causal) == len(iq_of)
+        assert tpk.trapezoid_tiles(l, causal, tiles) == len(iq_of)
 
 
 @pytest.mark.parametrize("causal", [False, True])

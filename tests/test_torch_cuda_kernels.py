@@ -56,8 +56,9 @@ shared memory to Dh = 256 and reloaded in chunks past it, and Dv sliced in
 256 columns: a Dv = 512 launch is bitwise two Dv = 256 launches on its
 halves. A stacked launch is bitwise the separate ones, and two runs are
 bitwise equal. The KV tiles the kernel counts as loaded are exactly the
-causal trapezoid of its 64 x 64 tiles (``trapezoid_tiles``, which
-tests/test_torch_attention.py holds against the JAX package's grid).
+causal trapezoid of its tiles (``pk.trapezoid_tiles``: 128 query rows by 64
+keys to Dh, Dv = 128, 64 x 64 in the wide variant; tests/
+test_torch_attention.py holds the formula against the JAX package's grid).
 
 Ring DMA: the hop and the allgather are bitwise ``torch.roll`` and the
 stacked copy for every dtype and for a ragged byte count, one launch a
@@ -606,10 +607,17 @@ def sample_rows(l, n=256, seed=0):
     (1, 2048, 8, 64, 64, True, torch.bfloat16),     # bf16 inputs
     (3, 700, 3, 32, 48, False, torch.float32),      # stacked, odd W H
     (1, 130, 2, 100, 20, True, torch.float32),      # odd widths
+    (1, 300, 2, 33, 17, True, torch.float32),       # unaligned: no cp.async
+    (2, 300, 3, 20, 12, False, torch.bfloat16),     # unaligned bf16 rows
     (1, 1031, 2, 256, 256, True, torch.float32),    # wide: Dh = Dv = 256
     (1, 700, 2, 192, 128, True, torch.bfloat16),    # wide: MLA's 192 / 128
     (2, 300, 3, 512, 512, False, torch.float32),    # wide, stacked, 512
     (1, 130, 2, 100, 200, True, torch.float32),     # wide Dv only, odd
+    # not causal at L = 4096: every row sums all 4096 keys, the shape where
+    # a tensor-core sum carried across the KV tiles drifts past the check
+    *((2, 4096, 2, dh, dv, False, dtype)
+      for dh, dv in ((32, 48), (64, 96), (96, 64), (128, 80))
+      for dtype in (torch.float32, torch.bfloat16)),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, w, l, h, dh, dv, causal,
                                               dtype):
@@ -634,9 +642,6 @@ def test_flash_attention_kernel_matches_plain(cuda, w, l, h, dh, dv, causal,
         one = pk.flash_attention_cuda(q[wi], k[wi], v[wi], causal,
                                       return_stats=True)
         assert all(torch.equal(a[wi], b) for a, b in zip((out, m, den), one))
-
-
-FLASH_TILE = 64   # the kernel's query and key tile
 
 
 @pytest.mark.parametrize("dh,dv", [(64, 48), (256, 256)])
@@ -672,15 +677,7 @@ def test_flash_attention_ring_hop_sends_kv_bitwise(cuda, causal, dtype, dh,
         assert torch.equal(nxt, ring_dma.hop_cuda(x, 1, group))
 
 
-def trapezoid_tiles(l, causal, tile=FLASH_TILE):
-    """KV tiles one (worker, head) loads at length ``l``: causal, query
-    tile iq walks the min(n, iq + 1) tiles at or below the diagonal (none
-    above it); otherwise all n of the n x n square."""
-    n = -(-l // tile)
-    return sum(min(n, iq + 1) for iq in range(n)) if causal else n * n
-
-
-@pytest.mark.parametrize("l", [1, 63, 64, 65, 200, 8209])
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 127, 128, 129, 200, 8209])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_kernel_loads_the_trapezoid(cuda, l, causal):
     w, h = 2, 3
@@ -689,9 +686,9 @@ def test_flash_attention_kernel_loads_the_trapezoid(cuda, l, causal):
                for _ in range(3))
     with pk.count_flash_tiles() as tiles:
         pk.flash_attention_cuda(q, k, v, causal)
-        assert tiles() == w * h * trapezoid_tiles(l, causal)
+        assert tiles() == w * h * pk.trapezoid_tiles(l, causal)
         pk.flash_attention_cuda(q, k, v, causal)
-        assert tiles() == 2 * w * h * trapezoid_tiles(l, causal)
+        assert tiles() == 2 * w * h * pk.trapezoid_tiles(l, causal)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -706,7 +703,8 @@ def test_flash_attention_wide_kernel_loads_the_trapezoid_a_slice(cuda,
     v = torch.randn(w, l, h, 300, generator=g).to(cuda)
     with pk.count_flash_tiles() as tiles:
         pk.flash_attention_cuda(q, k, v, causal)
-        assert tiles() == 2 * w * h * trapezoid_tiles(l, causal)
+        assert tiles() == 2 * w * h * pk.trapezoid_tiles(
+            l, causal, pk.FLASH_WIDE_TILES)
 
 
 def test_flash_attention_wide_kernel_takes_one_slice_at_dv256(cuda):
@@ -717,7 +715,8 @@ def test_flash_attention_wide_kernel_takes_one_slice_at_dv256(cuda):
                for _ in range(3))
     with pk.count_flash_tiles() as tiles:
         pk.flash_attention_cuda(q, k, v, True)
-        assert tiles() == w * h * trapezoid_tiles(l, True)
+        assert tiles() == w * h * pk.trapezoid_tiles(
+            l, True, pk.FLASH_WIDE_TILES)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -733,7 +732,8 @@ def test_flash_attention_wide_kernel_slices_dv512_in_two(cuda, causal):
     with pk.count_flash_tiles() as tiles:
         out, m, den = pk.flash_attention_cuda(q, k, v, causal,
                                               return_stats=True)
-        assert tiles() == 2 * h * trapezoid_tiles(l, causal)
+        assert tiles() == 2 * h * pk.trapezoid_tiles(
+            l, causal, pk.FLASH_WIDE_TILES)
     for half in (slice(0, 256), slice(256, 512)):
         o2, m2, d2 = pk.flash_attention_cuda(q, k, v[..., half].contiguous(),
                                              causal, return_stats=True)
