@@ -112,6 +112,7 @@ import dataclasses
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -335,6 +336,43 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int, rounds: int = 3) -> float:
+    """Median over ``rounds`` of the host µs a call of ``fn`` (perf_counter
+    over ``reps`` calls, no device sync inside the loop)."""
+    for _ in range(min(reps, 200)):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def spmd_loop_us(sess, fn, x, reps: int) -> float:
+    """Host µs a call of ``fn(x)`` made ``reps`` times inside one
+    ``HarpSession.spmd`` call (the group bound, as a rotation runs)."""
+    def loop(a):
+        y = None
+        for _ in range(reps):
+            y = fn(a)
+        return y
+
+    rep = sess.replicate()
+    sess.run(loop, x, in_specs=(rep,), out_specs=rep)      # warm-up
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sess.run(loop, x, in_specs=(rep,), out_specs=rep)
+        out.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(out)
 
 
 # --------------------------------------------------------------------------- #
@@ -2349,7 +2387,9 @@ def as_is(sess, fn, *xs, outs=1):
 
 def ringdma_stacked():
     """[ringdma:stacked]: W=4 in one process, every result bitwise the
-    plain version's; kernel times against the bound and torch.roll."""
+    plain version's; kernel times against the bound and torch.roll, and the
+    host µs a call of the wrappers, of ``ring_dma.hop`` inside
+    ``HarpSession.spmd`` and of their yardsticks."""
     from harp_tpu_torch import HarpSession
     from harp_tpu_torch.ops import ring_dma
 
@@ -2406,6 +2446,31 @@ def ringdma_stacked():
         ms = sum(v for k, v in per.items() if k.startswith(name)) / 20
         (ag if tag.startswith("ag_") else hop)[tag.replace("ag_", "")] = (
             ms if per else None)
+    # the host's µs a call (perf_counter, no sync): what paces calls made
+    # back to back while the device needs a few µs
+    reps = 2000
+    hop["host_us"] = host_us(lambda: ring_dma.hop_cuda(f32, 1, g), reps)
+    hop["host_us_spmd"] = spmd_loop_us(
+        sess, lambda a: ring_dma.hop(a, 1), f32, reps)
+    hop["library_host_us"] = host_us(lambda: torch.roll(f32, 1, 0), reps)
+    ag["host_us"] = host_us(lambda: ring_dma.ring_allgather_cuda(f32, g),
+                            reps)
+    ag["host_us_spmd"] = spmd_loop_us(sess, ring_dma.ring_allgather, f32,
+                                      reps)
+    ag["library_host_us"] = host_us(lambda: f32.flatten(0, 1).clone(), reps)
+    steps = ring_host_steps(f32, g, reps)
+    hop["host_us_steps"] = {k: v for k, v in steps.items()
+                            if not k.startswith("ag_")}
+    ag["host_us_steps"] = {k[3:]: v for k, v in steps.items()
+                           if k.startswith("ag_")}
+    log("  host us a step, alone: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in steps.items()))
+    log(f"  host us a call, 1 MiB a worker: hop_cuda {hop['host_us']:.3f}, "
+        f"ring_dma.hop in HarpSession.spmd {hop['host_us_spmd']:.3f}, "
+        f"torch.roll {hop['library_host_us']:.3f}; ring_allgather_cuda "
+        f"{ag['host_us']:.3f}, ring_allgather in HarpSession.spmd "
+        f"{ag['host_us_spmd']:.3f}, flatten-and-copy "
+        f"{ag['library_host_us']:.3f}")
     log(f"  device time a launch (profiler): hop {hop['device_ms']} ms, "
         f"4 KiB hop {hop['device_ms_4kib']} ms, allgather "
         f"{ag['device_ms']} ms")
@@ -2417,6 +2482,39 @@ def ringdma_stacked():
         f"flatten-and-copy {ag['library_ms']:.6f} ms, bound "
         f"{ag['bound_ms']:.6f} ms (bytes)")
     return hop, ag
+
+
+def ring_host_steps(x, group, reps):
+    """Host µs a call of each step of the stacked ``hop_cuda`` and
+    ``ring_allgather_cuda`` on ``x``, alone: the checks, the output's
+    allocation, the device index, the raw stream and the ctypes call of the
+    stacked entry (into a preallocated output)."""
+    from harp_tpu_torch.ops import ring_dma
+
+    lib = ring_dma._lib()
+    dev = x.get_device()
+    rows, nb = x.shape[0], x[0].numel() * x.element_size()
+    out, gathered = torch.empty_like(x), x.flatten(0, 1).clone()
+    shape = (group.num_workers * x.shape[1],) + x.shape[2:]
+
+    def check():
+        ring_dma._check(x, group, "hop")
+        return x.is_cuda
+
+    steps = {
+        "check": check,
+        "contiguous_empty_like": lambda: torch.empty_like(x.contiguous()),
+        "get_device": x.get_device,
+        "stream_raw": lambda: ring_dma._stream(dev),
+        "launch_stacked": lambda: lib.ring_dma_hop_stacked(
+            x.data_ptr(), out.data_ptr(), nb, rows, 1, dev,
+            ring_dma._stream(dev)),
+        "ag_new_empty": lambda: x.new_empty(shape),
+        "ag_launch_stacked": lambda: lib.ring_dma_allgather_stacked(
+            x.data_ptr(), gathered.data_ptr(), nb * rows, dev,
+            ring_dma._stream(dev)),
+    }
+    return {k: host_us(fn, reps) for k, fn in steps.items()}
 
 
 def in_turns(fn_a, fn_b, reps, warmup=2):
@@ -3102,6 +3200,9 @@ def ringdma_phases():
         "library_ms": hop["library_ms"], "ms_4kib": hop["ms_4kib"],
         "library_ms_4kib": hop["library_ms_4kib"],
         "device_ms": hop["device_ms"], "device_ms_4kib": hop["device_ms_4kib"],
+        "host_us": hop["host_us"], "host_us_spmd": hop["host_us_spmd"],
+        "library_host_us": hop["library_host_us"],
+        "host_us_steps": hop["host_us_steps"],
         "mp_launches": mp[0]["launches"]["ring_dma_hop"],
         "mp_ms_by_bytes": {b: [mp[i]["sizes"][str(b)]["hop_ms"] for i in mp]
                            for b in RING_MP_BYTES},
@@ -3139,6 +3240,9 @@ def ringdma_phases():
         "ms": ag["ms"], "plain_ms": ag["plain_ms"],
         "bound_ms": ag["bound_ms"], "bound_by": "bytes",
         "library_ms": ag["library_ms"], "device_ms": ag["device_ms"],
+        "host_us": ag["host_us"], "host_us_spmd": ag["host_us_spmd"],
+        "library_host_us": ag["library_host_us"],
+        "host_us_steps": ag["host_us_steps"],
         "mp_ms_by_bytes": {b: [mp[i]["sizes"][str(b)]["allgather_ms"]
                                for i in mp] for b in RING_MP_BYTES},
         "mp_ms_1mib": mp[0]["sizes"][mb]["allgather_ms"],

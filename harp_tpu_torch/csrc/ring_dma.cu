@@ -15,6 +15,13 @@
 //   * Stacked group (one process): every neighbour is in this launch, so a
 //     hop is one copy x[r] -> out[(r + s) mod W]; stream order plays the
 //     credit's role and the handshake is skipped (barrier=False on the TPU).
+//     Its kernels (ring_hop_stacked_kernel, ring_allgather_stacked_kernel)
+//     take no plan: a call moves a few MiB in a few us, so the host's launch
+//     path sets the pace of calls made back to back, and the stacked entries
+//     (ring_dma_hop_stacked, ring_dma_allgather_stacked) keep it short: seven
+//     or five arguments, all pointer-sized (ctypes passes an int as a
+//     c_void_p without building an object for it), the grid sized here
+//     (ring_dma_grid), a parameter block of 32 bytes or less.
 //   * Process group: a neighbour in this process is copied straight into
 //     `out`; a neighbour in another process is reached through the CUDA IPC
 //     mapping of its workspace (ops/ring_dma.py). For that edge the kernel
@@ -80,7 +87,7 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads) ring_hop_kernel(
     const char* __restrict__ x, char* __restrict__ out, long long bytes,
-    int nrows, int base, int nworkers, int shift, HopPlan plan, int remote,
+    int nrows, int base, int nworkers, int shift, HopPlan plan,
     unsigned long long ready_target, unsigned long long arrive_target,
     unsigned* err, unsigned cid) {
   const int r = blockIdx.y;
@@ -89,10 +96,6 @@ __global__ void __launch_bounds__(kThreads) ring_hop_kernel(
   const long long nthreads = (long long)gridDim.x * kThreads;
   const char* src = x + (long long)r * bytes;
   const int d = ring_neighbor(g, nworkers, shift) - base;
-  if (!remote) {
-    copy_share(out + (long long)d * bytes, src, bytes, tid, nthreads);
-    return;
-  }
   const int from = ring_mod((long long)g - shift, nworkers) - base;
   give_credit(plan.credit_to[r]);
   char* dst;
@@ -115,6 +118,24 @@ __global__ void __launch_bounds__(kThreads) ring_hop_kernel(
   }
 }
 
+// The hop of a stacked group: row r's block to row (r + shift) mod nrows.
+__global__ void __launch_bounds__(kThreads) ring_hop_stacked_kernel(
+    const char* __restrict__ x, char* __restrict__ out, long long bytes,
+    int nrows, int shift) {
+  const int r = blockIdx.y;
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long nthreads = (long long)gridDim.x * kThreads;
+  copy_share(out + (long long)ring_neighbor(r, nrows, shift) * bytes,
+             x + (long long)r * bytes, bytes, tid, nthreads);
+}
+
+// The allgather of a stacked group: its rows are every worker, in order.
+__global__ void __launch_bounds__(kThreads) ring_allgather_stacked_kernel(
+    const char* __restrict__ x, char* __restrict__ out, long long bytes) {
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  copy_share(out, x, bytes, tid, (long long)gridDim.x * kThreads);
+}
+
 __global__ void __launch_bounds__(kThreads) ring_allgather_kernel(
     const char* __restrict__ x, char* __restrict__ out, long long chunk,
     long long stride, int nproc, int proc, AgPlan plan,
@@ -122,20 +143,17 @@ __global__ void __launch_bounds__(kThreads) ring_allgather_kernel(
     unsigned* err, unsigned cid) {
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long nthreads = (long long)gridDim.x * kThreads;
-  if (nproc > 1) {
-    give_credit(plan.credit_to);
-    if (!block_wait(plan.my_ready, ready_target, err,
-                    kErrReady * 1000 + cid))
+  give_credit(plan.credit_to);
+  if (!block_wait(plan.my_ready, ready_target, err, kErrReady * 1000 + cid))
+    return;
+  for (int t = 0; t < nproc - 1; ++t) {
+    const int q = ring_mod((long long)proc - t, nproc);
+    const char* src = t == 0 ? x : plan.my_region + q * stride;
+    copy_share(plan.right_region + q * stride, src, chunk, tid, nthreads);
+    signal_arrival(plan.right_arrive + t);
+    if (!block_wait(plan.my_arrive + t, ag_target, err,
+                    kErrArrive * 1000 + cid))
       return;
-    for (int t = 0; t < nproc - 1; ++t) {
-      const int q = ring_mod((long long)proc - t, nproc);
-      const char* src = t == 0 ? x : plan.my_region + q * stride;
-      copy_share(plan.right_region + q * stride, src, chunk, tid, nthreads);
-      signal_arrival(plan.right_arrive + t);
-      if (!block_wait(plan.my_arrive + t, ag_target, err,
-                      kErrArrive * 1000 + cid))
-        return;
-    }
   }
   for (int q = 0; q < nproc; ++q) {
     const char* src = q == proc ? x : plan.my_region + q * stride;
@@ -189,6 +207,22 @@ __global__ void __launch_bounds__(kThreads) ring_recv_kernel(
 }
 
 int g_resident[64];   // resident blocks of the launch, per device (0 = unknown)
+
+// Launch on `device`, whatever device is current on this thread (PyTorch
+// may have another one current), and put the current one back: one
+// cudaGetDevice a call, a cudaSetDevice each way only when they differ.
+// Returns the launch's cudaGetLastError().
+template <class Launch>
+int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e == cudaSuccess && prev != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  launch();
+  e = cudaGetLastError();
+  if (prev != device) cudaSetDevice(prev);
+  return (int)e;
+}
 
 }  // namespace
 
@@ -292,28 +326,59 @@ int ring_dma_free_error_word(int device, void* host) {
   return (int)e;
 }
 
-// One hop of `nrows` rows of `bytes` each, x -> out, on `stream`. `plan` is
-// null (and `remote` 0) on a stacked group. Returns cudaGetLastError().
+// One hop of a stacked group's `nrows` rows of `bytes` each, x -> out, on
+// `stream` of `device`. Returns cudaGetLastError().
+int ring_dma_hop_stacked(const void* x, void* out, long long bytes,
+                         long long nrows, long long shift, long long device,
+                         void* stream) {
+  const int rows = (int)nrows, dev = (int)device;
+  const int grid = ring_dma_grid(dev, bytes, rows, 1);
+  if (grid < 1) return -grid;
+  return on_device(dev, [&] {
+    ring_hop_stacked_kernel<<<dim3(grid, rows), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const char*>(x), static_cast<char*>(out), bytes, rows,
+        (int)shift);
+  });
+}
+
+// The allgather of a stacked group: its `bytes` of x into out, on `stream`
+// of `device`. Returns cudaGetLastError().
+int ring_dma_allgather_stacked(const void* x, void* out, long long bytes,
+                               long long device, void* stream) {
+  const int dev = (int)device;
+  const int grid = ring_dma_grid(dev, bytes, 1, 1);
+  if (grid < 1) return -grid;
+  return on_device(dev, [&] {
+    ring_allgather_stacked_kernel<<<grid, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const char*>(x), static_cast<char*>(out), bytes);
+  });
+}
+
+// One hop of a process group's `nrows` rows of `bytes` each, x -> out, on
+// `stream` of `device`, with its `plan`. Returns cudaGetLastError().
 int ring_dma_hop_launch(const void* x, void* out, long long bytes,
                         int nrows, int base, int nworkers,
-                        int shift, int grid, const void* plan, int remote,
+                        int shift, int grid, const void* plan,
                         unsigned long long ready_target,
                         unsigned long long arrive_target, void* err, int cid,
-                        void* stream) {
+                        int device, void* stream) {
   HopPlan p{};
-  if (plan != nullptr) memcpy(&p, plan, sizeof(p));
-  dim3 blocks(grid, nrows);
-  ring_hop_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(x), static_cast<char*>(out), bytes, nrows,
-      base, nworkers, shift, p, remote, ready_target, arrive_target,
-      static_cast<unsigned*>(err), (unsigned)cid);
-  return (int)cudaGetLastError();
+  memcpy(&p, plan, sizeof(p));
+  return on_device(device, [&] {
+    ring_hop_kernel<<<dim3(grid, nrows), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const char*>(x), static_cast<char*>(out), bytes, nrows,
+        base, nworkers, shift, p, ready_target, arrive_target,
+        static_cast<unsigned*>(err), (unsigned)cid);
+  });
 }
 
 // The receive of an in-kernel send (ring_recv_kernel) for `nrows` rows on
-// `stream`: `plan` is the sending call's plan; `sent` null, or the tiles the
-// sending launch sent (nrows, tiles) and `left` the rows they were left in.
-// Returns cudaGetLastError().
+// `stream` of `device`: `plan` is the sending call's plan; `sent` null, or
+// the tiles the sending launch sent (nrows, tiles) and `left` the rows they
+// were left in. Returns cudaGetLastError().
 int ring_dma_recv_launch(int nrows, int base, int nworkers, int grid,
                          const void* plan, void* dst0,
                          long long bytes0, void* dst1, long long bytes1,
@@ -321,34 +386,38 @@ int ring_dma_recv_launch(int nrows, int base, int nworkers, int grid,
                          int tiles, long long tile_bytes,
                          unsigned long long ready_target,
                          unsigned long long arrive_target, void* err, int cid,
-                         void* stream) {
+                         int device, void* stream) {
   HopPlan p{};
   memcpy(&p, plan, sizeof(p));
-  dim3 blocks(grid, nrows);
-  ring_recv_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nrows, base, nworkers, p, static_cast<char*>(dst0), bytes0,
-      static_cast<char*>(dst1), bytes1, off1, static_cast<const char*>(left),
-      static_cast<const int*>(sent), tiles, tile_bytes, ready_target,
-      arrive_target, static_cast<unsigned*>(err), (unsigned)cid);
-  return (int)cudaGetLastError();
+  return on_device(device, [&] {
+    ring_recv_kernel<<<dim3(grid, nrows), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        nrows, base, nworkers, p, static_cast<char*>(dst0), bytes0,
+        static_cast<char*>(dst1), bytes1, off1,
+        static_cast<const char*>(left), static_cast<const int*>(sent), tiles,
+        tile_bytes, ready_target, arrive_target, static_cast<unsigned*>(err),
+        (unsigned)cid);
+  });
 }
 
-// One allgather of this process's chunk (`chunk` bytes) into out (nproc
-// chunks), on `stream`. `plan` is null when nproc == 1.
+// One allgather of this process's chunk (`chunk` bytes) into out (nproc > 1
+// chunks), on `stream` of `device`, with the process group's `plan`.
+// Returns cudaGetLastError().
 int ring_dma_allgather_launch(const void* x, void* out, long long chunk,
                               long long stride, int nproc, int proc, int grid,
                               const void* plan,
                               unsigned long long ready_target,
                               unsigned long long ag_target, void* err, int cid,
-                              void* stream) {
+                              int device, void* stream) {
   AgPlan p{};
-  if (plan != nullptr) memcpy(&p, plan, sizeof(p));
-  ring_allgather_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(x), static_cast<char*>(out), chunk, stride,
-      nproc, proc, p, ready_target, ag_target, static_cast<unsigned*>(err),
-      (unsigned)cid);
-  return (int)cudaGetLastError();
+  memcpy(&p, plan, sizeof(p));
+  return on_device(device, [&] {
+    ring_allgather_kernel<<<grid, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const char*>(x), static_cast<char*>(out), chunk, stride,
+        nproc, proc, p, ready_target, ag_target, static_cast<unsigned*>(err),
+        (unsigned)cid);
+  });
 }
 
 }  // extern "C"

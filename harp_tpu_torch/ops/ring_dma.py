@@ -22,8 +22,14 @@ Here a worker is a row of a process's stacked group (``parallel/mesh.py``):
 On a CUDA tensor each launches its hand-written kernel (``csrc/ring_dma.cu``
 on the device functions of ``csrc/ring_dma.cuh``): on a stacked group one
 launch copies every row to its neighbour's row, stream order standing in for
-the handshake; on a process group (several processes on one card) the
-kernel writes a block owned by another process straight into that process's
+the handshake. That launch moves a few MiB in a few µs of device time, so
+back-to-back calls run at the pace of the host's path to it, which is kept
+short: the checks once a call, the raw handle of PyTorch's current stream
+(no ``Stream`` object) and one ctypes call of a stacked entry with seven
+pointer-sized arguments, which sizes the grid and makes the tensor's device
+current (only when it is not) in C (``chip_smoke.py`` reads its host µs a
+call). On a process group (several processes on one card) the kernel
+writes a block owned by another process straight into that process's
 *symmetric workspace*, mapped here through CUDA IPC, after the handshake,
 and the receiver copies it out of its receive slot. On a CPU tensor each
 runs its plain version (:func:`hop_plain`, :func:`ring_allgather_plain`):
@@ -162,12 +168,16 @@ def _lib() -> ctypes.CDLL:
                 "ring_dma_copy_header": [i, _vp, _vp],
                 "ring_dma_error_word": [i, pp, pp],
                 "ring_dma_free_error_word": [i, _vp],
-                "ring_dma_hop_launch": [_vp, _vp, ll, i, i, i, i, i, _vp, i,
-                                        ull, ull, _vp, i, _vp],
+                # every argument pointer-sized: c_void_p converts an int
+                # without building a ctypes object (c_int and c_longlong do)
+                "ring_dma_hop_stacked": [_vp] * 7,
+                "ring_dma_allgather_stacked": [_vp] * 5,
+                "ring_dma_hop_launch": [_vp, _vp, ll, i, i, i, i, i, _vp, ull,
+                                        ull, _vp, i, i, _vp],
                 "ring_dma_allgather_launch": [_vp, _vp, ll, ll, i, i, i, _vp,
-                                              ull, ull, _vp, i, _vp],
+                                              ull, ull, _vp, i, i, _vp],
                 "ring_dma_recv_launch": [i, i, i, i, _vp, _vp, ll, _vp, ll, ll,
-                                         _vp, _vp, i, ll, ull, ull, _vp, i,
+                                         _vp, _vp, i, ll, ull, ull, _vp, i, i,
                                          _vp]}.items():
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = i
@@ -185,15 +195,22 @@ def _ok(err: int, what: str) -> None:
         raise RuntimeError(f"ring_dma: {what} failed: CUDA error {err}")
 
 
-def _grid(lib, device: torch.device, nbytes: int, rows: int,
+def _grid(lib, device: int, nbytes: int, rows: int,
           group: mesh_lib.WorkerGroup) -> int:
-    """Blocks a row of a launch: its share of what the card holds at once,
-    split over the rows and over the processes sharing the card."""
-    g = lib.ring_dma_grid(device.index or 0, nbytes, rows,
-                          group.num_processes)
+    """Blocks a row of a process group's launch: its share of what the card
+    holds at once, split over the rows and over the processes sharing the
+    card (a stacked entry sizes its own grid by the same rule)."""
+    g = lib.ring_dma_grid(device, nbytes, rows, group.num_processes)
     if g < 1:
         raise RuntimeError(f"ring_dma grid query failed: CUDA error {-g}")
     return g
+
+
+def _stream(device: int) -> int:
+    """The raw handle of PyTorch's current stream on ``device``, read
+    without building a ``torch.cuda.Stream`` (the call PyTorch's own Triton
+    launchers make; a card test pins it to the public call's handle)."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 class _Workspace:
@@ -209,6 +226,7 @@ class _Workspace:
         self.data_bytes = 0
         self.calls = collections.Counter()     # collective id -> calls
         self.arrivals = collections.Counter()  # collective id -> arrivals
+        self.plans: Dict[tuple, _HopPlan] = {}  # (cid, stride, shift) -> plan
         host, dev = _vp(), _vp()
         _ok(self.lib.ring_dma_error_word(self.dev, ctypes.byref(host),
                                          ctypes.byref(dev)), "error word")
@@ -225,6 +243,7 @@ class _Workspace:
         torch.cuda.synchronize(self.dev)
         dist.barrier()          # no kernel touches an old region any more
         old = self.bases.get(self.group.rank)
+        self.plans.clear()      # their pointers name the old regions
         self._close_peers()
         dist.barrier()          # every old mapping is closed before a free
         base, handle = _vp(), ctypes.create_string_buffer(64)
@@ -266,6 +285,7 @@ class _Workspace:
         _ok(self.lib.ring_dma_free_error_word(self.dev, self.err_host),
             "error word free")
         self.bases = {}
+        self.plans.clear()
         self.data_bytes = 0
 
     def counter(self, proc: int, cid: int, field: int, idx: int) -> int:
@@ -328,7 +348,18 @@ def _hop_plan(ws: _Workspace, group: mesh_lib.WorkerGroup, cid: int,
               stride: int, shift: int) -> _HopPlan:
     """The pointers of one hop call of ``shift`` for each of this process's
     rows: its sender's ready counter and its receiver's arrival counter and
-    receive slot (``stride`` bytes a row), its own counters and slot."""
+    receive slot (``stride`` bytes a row), its own counters and slot. Built
+    once a (collective id, stride, shift) and kept in ``ws.plans`` until
+    the workspace grows or closes."""
+    key = (cid, stride, shift)
+    p = ws.plans.get(key)
+    if p is None:
+        p = ws.plans[key] = _new_hop_plan(ws, group, cid, stride, shift)
+    return p
+
+
+def _new_hop_plan(ws: _Workspace, group: mesh_lib.WorkerGroup, cid: int,
+                  stride: int, shift: int) -> _HopPlan:
     p = _HopPlan()
     rows = group.workers_per_process
     base, w, me = group.first_worker, group.num_workers, group.rank
@@ -362,7 +393,7 @@ class SendPlan:
 
     def __init__(self, group: mesh_lib.WorkerGroup, device: torch.device,
                  name: str, row_bytes: int, blocks: int):
-        self.group, self.device, self.row_bytes = group, device, row_bytes
+        self.group, self.row_bytes = group, row_bytes
         self.plan = None
         if not group.process_group:
             return
@@ -408,17 +439,16 @@ class SendPlan:
         rows = group.workers_per_process
         b0 = dst0[0].numel() * dst0.element_size()
         b1 = 0 if dst1 is None else dst1[0].numel() * dst1.element_size()
-        grid = _grid(lib, self.device, self.row_bytes, rows, group)
-        with torch.cuda.device(self.device):
-            e = lib.ring_dma_recv_launch(
-                rows, group.first_worker, group.num_workers, grid,
-                ctypes.byref(self.plan), dst0.data_ptr(), b0,
-                None if dst1 is None else dst1.data_ptr(), b1, off1,
-                None if left is None else left.data_ptr(),
-                None if sent is None else sent.data_ptr(),
-                0 if sent is None else sent.shape[1], tile_bytes,
-                self.ready, self.arrive, self.err, self.cid,
-                torch.cuda.current_stream(self.device).cuda_stream)
+        dev = dst0.get_device()
+        grid = _grid(lib, dev, self.row_bytes, rows, group)
+        e = lib.ring_dma_recv_launch(
+            rows, group.first_worker, group.num_workers, grid,
+            ctypes.byref(self.plan), dst0.data_ptr(), b0,
+            None if dst1 is None else dst1.data_ptr(), b1, off1,
+            None if left is None else left.data_ptr(),
+            None if sent is None else sent.data_ptr(),
+            0 if sent is None else sent.shape[1], tile_bytes,
+            self.ready, self.arrive, self.err, self.cid, dev, _stream(dev))
         _ok(e, "ring_dma receive launch")
         launches["ring_recv"] += 1
 
@@ -432,6 +462,12 @@ def hop_cuda(x: torch.Tensor, shift: int = 1,
     _check(x, group, "hop")
     if not x.is_cuda:
         raise ValueError(f"hop_cuda needs a CUDA tensor, got {x.device}")
+    return _hop_cuda(x, shift, group)
+
+
+def _hop_cuda(x: torch.Tensor, shift: int,
+              group: mesh_lib.WorkerGroup) -> torch.Tensor:
+    """:func:`hop_cuda` of a CUDA ``x`` that passed ``_check``."""
     lib = _lib()
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -439,9 +475,12 @@ def hop_cuda(x: torch.Tensor, shift: int = 1,
     nb = x.numel() // rows * x.element_size()
     if nb == 0:
         return out
-    grid = _grid(lib, x.device, nb, rows, group)
-    plan, remote, ready, arrive, err, cid = None, 0, 0, 0, None, 0
-    if group.process_group:
+    dev = x.get_device()
+    if not group.process_group:
+        e = lib.ring_dma_hop_stacked(x.data_ptr(), out.data_ptr(), nb, rows,
+                                     shift, dev, _stream(dev))
+    else:
+        grid = _grid(lib, dev, nb, rows, group)
         _check_rows(rows)
         ws = _workspace(group, x.device)
         stride = _round_up(nb, _ALIGN)
@@ -449,14 +488,12 @@ def hop_cuda(x: torch.Tensor, shift: int = 1,
         cid = _next_hop_id()
         ws.calls[cid] += 1
         ws.arrivals[cid] += grid
-        p = _hop_plan(ws, group, cid, stride, shift)
-        plan, remote = ctypes.byref(p), 1
-        ready, arrive, err = ws.calls[cid], ws.arrivals[cid], ws.err_dev
-    with torch.cuda.device(x.device):
+        plan = _hop_plan(ws, group, cid, stride, shift)
         e = lib.ring_dma_hop_launch(
             x.data_ptr(), out.data_ptr(), nb, rows, group.first_worker,
-            group.num_workers, shift, grid, plan, remote, ready, arrive, err,
-            cid, torch.cuda.current_stream(x.device).cuda_stream)
+            group.num_workers, shift, grid, ctypes.byref(plan),
+            ws.calls[cid], ws.arrivals[cid], ws.err_dev, cid, dev,
+            _stream(dev))
     _ok(e, "ring_dma hop launch")
     launches["ring_dma_hop"] += 1
     return out
@@ -472,20 +509,30 @@ def ring_allgather_cuda(x: torch.Tensor,
     if not x.is_cuda:
         raise ValueError(f"ring_allgather_cuda needs a CUDA tensor, got "
                          f"{x.device}")
+    return _allgather_cuda(x, group)
+
+
+def _allgather_cuda(x: torch.Tensor,
+                    group: mesh_lib.WorkerGroup) -> torch.Tensor:
+    """:func:`ring_allgather_cuda` of a CUDA ``x`` that passed ``_check``."""
     lib = _lib()
     x = x.contiguous()
-    out = torch.empty((group.num_workers,) + tuple(x.shape[1:]),
-                      dtype=x.dtype, device=x.device)
+    n = group.num_processes
+    # made in its final shape: a flatten would cost one more op a call
+    out = x.new_empty((group.num_workers * x.shape[1],) + x.shape[2:])
     chunk = x.numel() * x.element_size()
     if chunk == 0:
-        return out.flatten(0, 1)
-    grid = _grid(lib, x.device, chunk, 1, group)
-    n, me = group.num_processes, group.rank
-    plan, stride, ready, arrive, err, cid = None, 0, 0, 0, None, 0
-    if group.process_group:
+        return out
+    dev = x.get_device()
+    if n == 1:
+        e = lib.ring_dma_allgather_stacked(x.data_ptr(), out.data_ptr(),
+                                           chunk, dev, _stream(dev))
+    else:
+        grid = _grid(lib, dev, chunk, 1, group)
         if n - 1 > _MAX_STEPS:
             raise ValueError(f"the relay takes at most {_MAX_STEPS + 1} "
                              f"processes, got {n}")
+        me = group.rank
         ws = _workspace(group, x.device)
         stride = _round_up(chunk, _ALIGN)
         ws.ensure(n * stride)
@@ -498,16 +545,13 @@ def ring_allgather_cuda(x: torch.Tensor,
                     ws.counter(me, cid, _READY, 0),
                     ws.counter(right, cid, _AG, 0),
                     ws.counter(me, cid, _AG, 0))
-        plan = ctypes.byref(p)
-        ready, arrive, err = ws.calls[cid], ws.arrivals[cid], ws.err_dev
-    with torch.cuda.device(x.device):
         e = lib.ring_dma_allgather_launch(
-            x.data_ptr(), out.data_ptr(), chunk, stride, n, me, grid, plan,
-            ready, arrive, err, cid,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), out.data_ptr(), chunk, stride, n, me, grid,
+            ctypes.byref(p), ws.calls[cid], ws.arrivals[cid], ws.err_dev,
+            cid, dev, _stream(dev))
     _ok(e, "ring_dma allgather launch")
     launches["ring_allgather"] += 1
-    return out.flatten(0, 1)
+    return out
 
 
 def hop(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
@@ -521,8 +565,8 @@ def hop(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     receive slots are reused from call to call)."""
     group = mesh_lib.current_group()
     _check(x, group, "hop")
-    if x.device.type == "cuda":
-        return hop_cuda(x, shift, group)
+    if x.is_cuda:
+        return _hop_cuda(x, shift, group)
     if x.device.type == "cpu":
         return hop_plain(x, shift, group)
     raise ValueError(f"hop runs on cuda or cpu, not {x.device}")
@@ -556,8 +600,8 @@ def ring_allgather(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("ring_allgather needs at least one axis to tile")
     if group.num_workers == 1:
         return x.flatten(0, 1).clone()
-    if x.device.type == "cuda":
-        return ring_allgather_cuda(x, group)
+    if x.is_cuda:
+        return _allgather_cuda(x, group)
     if x.device.type == "cpu":
         return ring_allgather_plain(x, group)
     raise ValueError(f"ring_allgather runs on cuda or cpu, not {x.device}")

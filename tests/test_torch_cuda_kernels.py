@@ -62,7 +62,9 @@ test_torch_attention.py holds the formula against the JAX package's grid).
 
 Ring DMA: the hop and the allgather are bitwise ``torch.roll`` and the
 stacked copy for every dtype and for a ragged byte count, one launch a
-call; ``parallel/mp_smoke.py`` as 2 processes x 2 workers on the card holds
+call, and on a stream of the caller's, behind the kernel that wrote their
+input; the raw stream handle they read is ``current_stream()``'s;
+``parallel/mp_smoke.py`` as 2 processes x 2 workers on the card holds
 the kernels between processes bitwise to the stacked group, the in-kernel
 sends among them.
 
@@ -817,6 +819,47 @@ def test_ring_allgather_kernel_matches_the_copy(cuda, dtype):
     got = ring_dma.ring_allgather_cuda(x, WorkerGroup(4, cuda))
     assert ring_dma.launches["ring_allgather"] == before + 1
     assert torch.equal(got, x.flatten(0, 1))
+
+
+def test_ring_kernels_launch_on_the_current_stream(cuda):
+    """The stacked hop and allgather under ``torch.cuda.stream(s)``, called
+    right after a kernel on s writes x (behind a wait of some 25 ms on s):
+    bitwise ``torch.roll`` and the copy of what that kernel wrote, so each
+    launch was queued on s, behind the write."""
+    from harp_tpu_torch.ops import ring_dma
+    from harp_tpu_torch.parallel.mesh import WorkerGroup
+
+    group = WorkerGroup(4, cuda)
+    src = _ring_block(cuda, torch.float32, n=1 << 18, seed=5)
+    for call, want in ((lambda x: ring_dma.hop_cuda(x, 1, group),
+                        lambda x: torch.roll(x, 1, 0)),
+                       (lambda x: ring_dma.ring_allgather_cuda(
+                           x.reshape(4, 1, -1), group),
+                        lambda x: x.clone())):
+        x = torch.zeros_like(src)
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(50_000_000)
+            x.copy_(src)
+            got = call(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want(src))
+
+
+def test_ring_dma_raw_stream_is_the_current_stream(cuda):
+    """``ring_dma._stream`` (PyTorch's private raw-stream call) names the
+    stream ``torch.cuda.current_stream()`` does, on a stream of its own and
+    on the default one: a torch that changes the call fails here."""
+    from harp_tpu_torch.ops import ring_dma
+
+    dev = torch.cuda.current_device()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        assert ring_dma._stream(dev) == s.cuda_stream
+        assert ring_dma._stream(dev) == torch.cuda.current_stream().cuda_stream
+    assert ring_dma._stream(dev) == torch.cuda.current_stream().cuda_stream
+    assert ring_dma._stream(dev) != s.cuda_stream
 
 
 def test_ring_dma_kernels_between_processes(cuda):

@@ -215,6 +215,74 @@ def test_ring_dma_errors():
     assert tdma.COLLECTIVE_IDS == jdma.COLLECTIVE_IDS
 
 
+class _FakeWorkspaceLib:
+    """The workspace calls of the ring-DMA library, answered on the host:
+    each allocation and each mapping gets a fresh address range."""
+
+    def __init__(self):
+        self.next = 1 << 40
+
+    def _address(self, ref):
+        ref._obj.value = self.next
+        self.next += 1 << 32
+        return 0
+
+    def ring_dma_header_bytes(self):
+        return 131072
+
+    def ring_dma_counters_per_id(self):
+        return 48
+
+    def ring_dma_alloc(self, dev, size, base, handle):
+        return self._address(base)
+
+    def ring_dma_open(self, dev, handle, base):
+        return self._address(base)
+
+    def __getattr__(self, name):    # error word, copy, close, free
+        return lambda *args: 0
+
+
+def test_hop_plan_is_cached_until_the_workspace_moves(monkeypatch):
+    """A process group's hop plan is built once a (collective id, stride,
+    shift), holds exactly the pointers a fresh build gives, and is dropped
+    when the workspace grows (its regions move) or closes."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(tdma, "_lib", _FakeWorkspaceLib)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(dist, "barrier", lambda *a: None)
+    monkeypatch.setattr(dist, "all_gather_object",
+                        lambda out, obj: out.__setitem__(slice(None),
+                                                         [obj] * len(out)))
+    from harp_tpu_torch.parallel.mesh import WorkerGroup
+
+    group = WorkerGroup(8, torch.device("cpu"), num_processes=2, rank=1)
+    ws = tdma._Workspace(group, torch.device("cpu"))
+    ws.ensure(4 * 512)
+
+    def fresh(*key):
+        return bytes(tdma._new_hop_plan(ws, group, *key))
+
+    plan = tdma._hop_plan(ws, group, 16, 512, 1)
+    assert tdma._hop_plan(ws, group, 16, 512, 1) is plan
+    assert bytes(plan) == fresh(16, 512, 1)
+    keys = [(17, 512, 1), (16, 256, 1), (16, 512, -1), (16, 512, 3)]
+    for key in keys:
+        other = tdma._hop_plan(ws, group, *key)
+        assert other is not plan and bytes(other) == fresh(*key)
+        assert bytes(other) != bytes(plan)
+    assert len(ws.plans) == 1 + len(keys)
+    ws.ensure(4 * 512)                  # fits: nothing moves
+    assert tdma._hop_plan(ws, group, 16, 512, 1) is plan
+    ws.ensure(64 << 20)                 # grows: every region moves
+    assert not ws.plans
+    moved = tdma._hop_plan(ws, group, 16, 512, 1)
+    assert bytes(moved) == fresh(16, 512, 1) and bytes(moved) != bytes(plan)
+    ws.close()
+    assert not ws.plans
+
+
 # --------------------------------------------------------------------------- #
 # Fused rotations: bitwise the JAX fused schedule and the unfused port
 # --------------------------------------------------------------------------- #
