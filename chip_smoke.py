@@ -22,6 +22,11 @@ main path must make no plain call on the card:
     flagship 32768 x 32768 ratings, 1%, rank 32, 8 minibatches a hop, 10
     epochs, against the same fit through the plain hop; then the stacked
     W=4 variants (1 and 2 slices, dense and sparse) at 4096 x 4096, 5%;
+    the narrow hop's geometry (column tile, cluster, chunk rows, stages,
+    clusters the card runs at once), its split by kernel under the profiler
+    and, where ``build/parent/dense_mf_hop.cu`` holds the parent commit's
+    source, its time in turns against the parent's kernel (flagship, rank
+    128, the W=4 send);
     past the narrow kernel's rank 128, the wide hop at rank 256 (timed) and
     a ragged 136 on the flagship's slab and at 1024 on a 4096 x 4096
     corner of it, the flagship fit at rank 256 (W=1, against the plain-hop
@@ -188,6 +193,13 @@ KMEANS_WIDE_MP = dict(n=1 << 20, k=1024, d=128, iterations=3, seed=31,
 # 8192 systems; explicit solver="pallas" fits at these ranks on its data
 SPD_WIDE = (96, 128)
 ALS_WIDE_ITERATIONS = 5
+# The parent commit's dense-MF hop source, timed in turns against this tree's
+# kernel where it is present (git show <parent>:harp_tpu_torch/csrc/
+# dense_mf_hop.cu > build/parent/dense_mf_hop.cu); a checkout without it
+# times this tree's kernel alone
+PARENT_MF_SRC = os.path.join("build", "parent", "dense_mf_hop.cu")
+# warmed launches of one hop under the profiler for its kernel split
+MF_SPLIT_REPS = 5
 # the widths past the narrow kernels: the dense-MF hop at rank 256 and a
 # ragged 136 on the SGD-MF flagship's data (and 1024, the top of the range,
 # on a 4096 x 4096 corner of it), the flagship fit at rank 256, W=1
@@ -794,6 +806,100 @@ def mf_hop_bound(nw, rpw, cpb, k, nmb_fine, extra_bytes=0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+PARENT_MF = {}
+
+
+def start_parent_mf_build():
+    """Start nvcc on ``PARENT_MF_SRC`` (flags and headers of this tree's
+    build) beside the other builds, if the source is there."""
+    from harp_tpu_torch.ops import _cuda_build
+
+    if not os.path.exists(PARENT_MF_SRC):
+        return
+    out = os.path.join(os.path.dirname(PARENT_MF_SRC), "libdense_mf_hop.so")
+    cmd = [_cuda_build._nvcc(), *_cuda_build._flags("dense_mf_hop"), "-I",
+           str(_cuda_build.CSRC), "-o", out, PARENT_MF_SRC]
+    PARENT_MF["proc"] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+    PARENT_MF["path"] = out
+
+
+def parent_mf_lib():
+    """The parent's dense-MF library (its launch entry bound as the parent's
+    wrapper bound it), or None without its source."""
+    import ctypes
+
+    proc = PARENT_MF.pop("proc", None)
+    if proc is not None:
+        log_text, _ = proc.communicate()
+        check(proc.returncode == 0, f"the parent's dense_mf_hop.cu builds "
+              f"({log_text[-2000:] if proc.returncode else 'ok'})")
+        lib = ctypes.CDLL(PARENT_MF["path"])
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.dense_mf_hop_col_tile.argtypes = [i]
+        lib.dense_mf_hop_col_tile.restype = i
+        lib.dense_mf_hop_launch.argtypes = ([vp] * 11 + [i] * 7 + [
+            f, f, vp, vp, vp, i, i, i, ctypes.c_ulonglong, vp])
+        lib.dense_mf_hop_launch.restype = i
+        PARENT_MF["lib"] = lib
+    return PARENT_MF.get("lib")
+
+
+def parent_hop(lib, slab, buckets, w, h, rc, cc, nmb, lr, lam, group=None):
+    """One hop through the parent's narrow kernel (its wrapper's buffers:
+    the (W, n_ct, rpw, KP) workspace); with ``group`` (stacked) its ring
+    send too. K must be a narrow padded rank."""
+    nw, n_blocks, rpw, cpb = slab.shape
+    kp = w.shape[-1]
+    n_ct = -(-cpb // lib.dense_mf_hop_col_tile(kp))
+    new = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
+                                 device=slab.device)
+    w_out, h_out = new(nw, rpw, kp), new(nw, cpb, kp)
+    ws, sse_part, sse = new(nw, n_ct, rpw, kp), new(nw, n_ct), new(nw)
+    h_next = None if group is None else torch.empty_like(h_out)
+    ring = ((None, None, 0, 0, 1, 0, None) if group is None else
+            (h_next.data_ptr(), None, 0, 0, group.num_workers, 0, None))
+    err = lib.dense_mf_hop_launch(
+        slab.data_ptr(), buckets.data_ptr(), w.data_ptr(), h.data_ptr(),
+        rc.data_ptr(), cc.data_ptr(), w_out.data_ptr(), h_out.data_ptr(),
+        ws.data_ptr(), sse_part.data_ptr(), sse.data_ptr(), nw, n_blocks,
+        rpw, cpb, kp, nmb, cc.shape[2], float(lr), float(lam),
+        torch.cuda.current_stream().cuda_stream, *ring)
+    if err:
+        raise RuntimeError(f"the parent's dense_mf_hop launch: CUDA {err}")
+    return (w_out, h_out, sse) if group is None else (w_out, h_out, sse,
+                                                      h_next)
+
+
+def hop_split(fn, reps=MF_SPLIT_REPS):
+    """ms a call of each kernel ``fn`` launches: ``reps`` warmed calls under
+    the profiler, divided."""
+    fn()
+    torch.cuda.synchronize()
+    per, _ = device_profile(lambda: [fn() for _ in range(reps)])
+    return {name: ms / reps for name, ms in per.items()}
+
+
+def mf_geometry(kp, nw, cpb):
+    """The narrow kernel's geometry at padded rank ``kp`` as the library
+    states it, and whether a launch of ``nw`` workers at ``cpb`` columns
+    fits the clusters the card runs at once (one wave)."""
+    import ctypes
+
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    lib = pk._mf_lib()
+    out = (ctypes.c_int * 4)()
+    check(lib.dense_mf_hop_geometry(kp, out) == 0, f"geometry of KP={kp}")
+    rows, stages, active, cluster = list(out)
+    tile = lib.dense_mf_hop_col_tile(kp)
+    n_cl = -(-cpb // (tile * cluster))
+    return {"col_tile": tile, "cluster": cluster, "rows": rows,
+            "stages": stages, "max_active_clusters": active,
+            "clusters": n_cl * nw, "one_wave": n_cl * nw <= active,
+            "smem": lib.dense_mf_hop_smem_bytes(kp)}
+
+
 def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed):
     from harp_tpu_torch.ops import pallas_kernels as pk
 
@@ -823,10 +929,18 @@ def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed):
     check(all(torch.equal(a, b) for a, b in zip((w1, h1, sse1), again)),
           "two kernel runs bitwise equal")
     if timed:
-        out["ms"] = cuda_time_ms(lambda: pk.dense_mf_hop_cuda(*args),
-                                 reps=10, warmup=2)
+        kp = pk.mf_padded_rank(k)
+        hop = lambda: pk.dense_mf_hop_cuda(*args)  # noqa: E731
+        parent = parent_mf_lib() if kp == k and kp in pk.MF_RANKS else None
+        if parent is not None:
+            out["turns_ms"] = in_turns4(lambda: parent_hop(parent, *args),
+                                        hop, 10)
+            p1, n1, n2, p2 = out["turns_ms"]
+            out["parent_ms"], out["ms"] = (p1 + p2) / 2, (n1 + n2) / 2
+        else:
+            out["ms"] = cuda_time_ms(hop, reps=10, warmup=2)
         out["plain_ms"] = cuda_time_ms(lambda: pk.dense_mf_hop_plain(*args),
-                                       reps=3, warmup=1)
+                                       reps=2, warmup=1)
         out["library_ms"] = (cuda_time_ms(lambda: library_hop(*args), reps=3,
                                           warmup=1) if nw == 1 else None)
         out["bound_ms"], out["bound_by"] = mf_hop_bound(
@@ -835,24 +949,38 @@ def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed):
             f"library {out['library_ms']:.4f} ms, bound "
             f"{out['bound_ms']:.4f} ms ({out['bound_by']}), "
             f"{out['ms'] / out['bound_ms']:.2f}x the bound")
-        kp = pk.mf_padded_rank(k)
+        if parent is not None:
+            log(f"  in turns, parent / new / new / parent: " + " / ".join(
+                f"{ms:.4f}" for ms in out["turns_ms"]) + f" ms (the parent's "
+                f"kernel {out['parent_ms']:.4f}, this tree's "
+                f"{out['ms']:.4f})")
         lib = pk._mf_lib()
-        n_ct = -(-cpb // lib.dense_mf_hop_col_tile(kp))
         if kp in pk.MF_WIDE_RANKS:
+            n_ct = -(-cpb // lib.dense_mf_hop_col_tile(kp))
             nbytes = 2 * sum(np.prod(shape) for shape in
                              pk.dense_mf_wide_shapes(nw, rpw, cpb, kp, nmb))
             ws = (f"wide path: Wb, G and the stripe snapshots "
                   f"{nbytes / 1e9:.3f} GB written and read, {n_ct} column "
-                  f"tiles")
+                  f"tiles; {lib.dense_mf_hop_smem_bytes(kp)} B of shared "
+                  f"memory a block")
         else:
-            ws = (f"dW workspace {n_ct} tiles, "
-                  f"{nw * n_ct * rpw * kp * 4 / 1e9:.3f} GB written and read")
-        per, _ = device_profile(lambda: pk.dense_mf_hop_cuda(*args))
-        log(f"  one launch under the profiler: " + ", ".join(
-            f"{name} {ms:.4f} ms" for name, ms in per.items()) +
-            f"; {ws}; {lib.dense_mf_hop_smem_bytes(kp)} B of shared memory "
-            f"a block")
-        out["split_ms"] = per
+            geo = mf_geometry(kp, nw, cpb)
+            wb_shape, ws_shape = pk.dense_mf_narrow_shapes(nw, rpw, cpb, kp,
+                                                           nmb)
+            out["geometry"] = geo
+            ws = (f"{geo['col_tile']} columns a block in clusters of "
+                  f"{geo['cluster']} ({geo['clusters']} clusters, "
+                  f"{geo['max_active_clusters']} at once on the card: "
+                  f"{'one wave' if geo['one_wave'] else 'more than one wave'}"
+                  f"), {geo['rows']} rows a chunk, {geo['stages']} stages, "
+                  f"{geo['smem']} B of shared memory a block; dW workspace "
+                  f"{ws_shape[1]} partials a worker, "
+                  f"{np.prod(ws_shape) * 4 / 1e9:.4f} GB written and read; "
+                  f"Wb {np.prod(wb_shape) * 2 / 1e9:.4f} GB")
+        out["split_ms"] = hop_split(hop)
+        log(f"  {MF_SPLIT_REPS} warmed launches under the profiler, a "
+            f"launch: " + ", ".join(f"{n} {ms:.4f} ms" for n, ms in
+                                     out["split_ms"].items()) + f"; {ws}")
     return out
 
 
@@ -947,7 +1075,8 @@ def mf_flagship(cfg, state, nnz):
 
     epochs = 5
     per, busy = device_profile(build(epochs))
-    prof = {"hop_kernel_ms": None, "w_reduce_ms": None, "busy_share": busy}
+    prof = {"hop_kernel_ms": None, "w_reduce_ms": None, "wb_kernel_ms": None,
+            "busy_share": busy}
     if busy is None:
         log("  profile: the profiler saw no device activity (not measured)")
     else:
@@ -958,6 +1087,8 @@ def mf_flagship(cfg, state, nnz):
                 prof["hop_kernel_ms"] = ms / epochs
             elif name.startswith("dense_mf_w_kernel"):
                 prof["w_reduce_ms"] = ms / epochs
+            elif name.startswith("dense_mf_wbf16_kernel"):
+                prof["wb_kernel_ms"] = ms / epochs
         log(f"  profile: device busy {100 * busy:.2f}% of the span from the "
             f"first kernel's start to the last one's end")
     return {"launches": launches, "ratings_per_s": tp["rate"],
@@ -1073,12 +1204,18 @@ def mf_phases():
         "rank128_bound_ms": r128["bound_ms"],
         "rank128_library_ms": r128["library_ms"],
         "split_ms": flag["split_ms"], "rank128_split_ms": r128["split_ms"],
+        "parent_ms": flag.get("parent_ms"),
+        "rank128_parent_ms": r128.get("parent_ms"),
+        "turns_ms": flag.get("turns_ms"),
+        "rank128_turns_ms": r128.get("turns_ms"),
+        "geometry": flag["geometry"], "rank128_geometry": r128["geometry"],
         "fit_ratings_per_s": fit["ratings_per_s"],
         "fit_per_epoch_ms": fit["per_epoch_ms"],
         "fit_rmse_rel_vs_plain": fit["rmse_rel_vs_plain"],
         "fit_factor_rel_vs_plain": fit["factor_rel_vs_plain"],
         "fit_hop_kernel_ms": fit["hop_kernel_ms"],
         "fit_w_reduce_ms": fit["w_reduce_ms"],
+        "fit_wb_kernel_ms": fit["wb_kernel_ms"],
         "fit_device_busy_share": fit["busy_share"],
         **{f"rank{MF_WIDE['rank']}_{key}": wide["rank"][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2517,12 +2654,18 @@ def ring_host_steps(x, group, reps):
     return {k: host_us(fn, reps) for k, fn in steps.items()}
 
 
+def in_turns4(fn_a, fn_b, reps, warmup=2):
+    """CUDA-event ms of ``fn_a`` and ``fn_b`` timed in turns: the readings
+    (a, b, b, a)."""
+    a1 = cuda_time_ms(fn_a, reps, warmup)
+    b1, b2 = (cuda_time_ms(fn_b, reps, warmup) for _ in range(2))
+    return a1, b1, b2, cuda_time_ms(fn_a, reps, warmup)
+
+
 def in_turns(fn_a, fn_b, reps, warmup=2):
     """CUDA-event ms of ``fn_a`` and ``fn_b`` timed in turns (a, b, b, a),
     each the mean of its two readings."""
-    a1 = cuda_time_ms(fn_a, reps, warmup)
-    b1, b2 = (cuda_time_ms(fn_b, reps, warmup) for _ in range(2))
-    a2 = cuda_time_ms(fn_a, reps, warmup)
+    a1, b1, b2, a2 = in_turns4(fn_a, fn_b, reps, warmup)
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -2563,7 +2706,21 @@ def mfhop_ring_phase(state):
     log(f"  ring_hop {ms:.4f} ms, the pair {pair_ms:.4f} ms, bound "
         f"{bound:.4f} ms ({by}; the hop's alone {hop_bound:.4f} ms, plus "
         f"the write of h_next)")
-    return {"ms": ms, "pair_ms": pair_ms, "bound_ms": bound, "bound_by": by}
+    out = {"ms": ms, "pair_ms": pair_ms, "bound_ms": bound, "bound_by": by}
+    parent = parent_mf_lib()
+    if parent is not None:
+        prev = parent_hop(parent, *args, group=g)
+        check(torch.equal(prev[3], torch.roll(prev[1], 1, 0)),
+              "the parent's send: h_next is its h' rolled by one worker")
+        out["turns_ms"] = in_turns4(
+            lambda: parent_hop(parent, *args, group=g), ring, 10)
+        p1, n1, n2, p2 = out["turns_ms"]
+        out["parent_ms"], out["ms_in_turns"] = (p1 + p2) / 2, (n1 + n2) / 2
+        log(f"  in turns, parent / new / new / parent: " + " / ".join(
+            f"{ms:.4f}" for ms in out["turns_ms"]) + f" ms (the parent's "
+            f"ring_hop {out['parent_ms']:.4f}, this tree's "
+            f"{out['ms_in_turns']:.4f})")
+    return out
 
 
 def flash_ring_phase():
@@ -3410,6 +3567,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    start_parent_mf_build()
     built = _cuda_build.build_all()
     log(f"[build] {time.perf_counter() - t0:.2f} s: " + ", ".join(
         f"{k} ({'built' if v['built'] else 'cached'} {v['seconds']:.2f} s)"
@@ -3417,6 +3575,9 @@ def main() -> int:
     for name, v in built.items():
         for fn, regs, spill in ptxas_usage(v["log"]):
             log(f"  {name}: {fn}: {regs}; {spill}")
+            if fn.startswith("dense_mf_hop_kernel"):
+                check(" 0 bytes spill stores, 0 bytes spill loads" in
+                      f" {spill}", f"{fn} spills nothing")
 
     f = FLAGSHIP
     flag = estep_case("flagship", f["n"], f["k"], f["d"], f["k"],

@@ -16,7 +16,8 @@ Ported:
   dense_mf_hop.cu`` (the masked stripe-GEMM update of every stacked
   worker's H block against its slab bucket, pred and G kept on chip; with
   ``ring_hop``, each block also sends its final H tile to the right ring
-  neighbour), at K <= 128, and past it the wide path (the rank split over
+  neighbour), at K <= 128 in clusters of blocks that sum dW through
+  distributed shared memory, and past it the wide path (the rank split over
   the warps, dW by a GEMM kernel after the hop) up to ``MF_MAX_K``;
   ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch, followed by
   ``ring_dma.hop_plain`` with ``ring_hop``;
@@ -364,6 +365,28 @@ def mf_padded_rank(k: int) -> int:
     return next((r for r in MF_RANKS + MF_WIDE_RANKS if 1 <= k <= r), 0)
 
 
+# the narrow kernel's column tile and cluster size per padded rank: twins of
+# Geom<KT>::CT and Geom<KT>::C in csrc/dense_mf_hop.cu (the card tests hold
+# them to dense_mf_hop_col_tile and dense_mf_hop_cluster)
+MF_NARROW_TILES = {16: (256, 2), 32: (256, 2), 64: (128, 2), 128: (128, 2)}
+MF_CHUNK_ROWS = 64            # Geom<KT>::R, rows a chunk
+
+
+def dense_mf_narrow_shapes(nw: int, rpw: int, cpb: int, kp: int,
+                           nmb: int) -> Tuple[tuple, tuple]:
+    """Shapes of the narrow kernel's device buffers for one hop at padded
+    rank ``kp`` <= 128, in the order ``dense_mf_hop_launch`` takes them:
+    Wb (W, nmb, ceil(rpw / nmb / 64) 64, KP) bf16 (each stripe's rows in
+    chunks of 64 as the kernel's shared memory holds them, one copy a
+    chunk, zero past the stripe) and the dW workspace (W, ceil(n_ct / C),
+    rpw, KP) float32, one partial a cluster of C column tiles (n_ct =
+    ceil(cpb / CT)); the grid pads the column tiles to a multiple of C."""
+    col_tile, cluster = MF_NARROW_TILES[kp]
+    n_cl = -(-cpb // (col_tile * cluster))
+    return ((nw, nmb, -(-(rpw // nmb) // MF_CHUNK_ROWS) * MF_CHUNK_ROWS, kp),
+            (nw, n_cl, rpw, kp))
+
+
 def dense_mf_wide_shapes(nw: int, rpw: int, cpb: int, kp: int,
                          nmb: int) -> Tuple[tuple, ...]:
     """Shapes of the wide path's bf16 device buffers for one hop, in the
@@ -456,7 +479,11 @@ def _mf_lib() -> ctypes.CDLL:
         lib.dense_mf_hop_col_tile.restype = i
         lib.dense_mf_hop_smem_bytes.argtypes = [i]
         lib.dense_mf_hop_smem_bytes.restype = ctypes.c_longlong
-        lib.dense_mf_hop_launch.argtypes = ([vp] * 11 + [i] * 7
+        lib.dense_mf_hop_cluster.argtypes = [i]
+        lib.dense_mf_hop_cluster.restype = i
+        lib.dense_mf_hop_geometry.argtypes = [i, ctypes.POINTER(i)]
+        lib.dense_mf_hop_geometry.restype = i
+        lib.dense_mf_hop_launch.argtypes = ([vp] * 12 + [i] * 7
                                             + [f, f, vp, vp, vp, i, i, i,
                                                ctypes.c_ulonglong, vp])
         lib.dense_mf_hop_launch.restype = i
@@ -490,10 +517,10 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
     regularizer counts, ``col_cnt`` summed over ``nmb_fine // nmb`` adjacent
     fine stripes per stripe. All on one CUDA device and contiguous. 1 <= K
     <= ``MF_MAX_K``, zero-padded here to :func:`mf_padded_rank` (exact): up
-    to 128 one launch of the hop kernel and one of the W reduction, past it
-    the wide path (a Wb launch, the hop, the dW GEMM with the W update); a
-    larger K raises. With ``ring_hop`` W is the group's workers a
-    process."""
+    to 128 a Wb launch, the hop kernel in clusters along the column tiles
+    and the W reduction, past it the wide path (a Wb launch, the hop, the
+    dW GEMM with the W update); a larger K raises. With ``ring_hop`` W is
+    the group's workers a process."""
     args = (slab, buckets, w, h, row_cnt, col_cnt)
     if not all(t.is_cuda and t.device == slab.device for t in args):
         raise ValueError("dense_mf_hop_cuda needs every tensor on one CUDA "
@@ -535,8 +562,10 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
                                                          nmb))
             launch = lib.dense_mf_hop_wide_launch
         else:
-            ws = (torch.empty((nw, n_ct, rpw, kp), dtype=torch.float32,
-                              device=dev),)
+            wb_shape, ws_shape = dense_mf_narrow_shapes(nw, rpw, cpb, kp,
+                                                        nmb)
+            ws = (torch.empty(wb_shape, dtype=torch.bfloat16, device=dev),
+                  torch.empty(ws_shape, dtype=torch.float32, device=dev))
             launch = lib.dense_mf_hop_launch
         sse_part = torch.empty((nw, n_ct), dtype=torch.float32, device=dev)
         sse = torch.empty((nw,), dtype=torch.float32, device=dev)

@@ -304,6 +304,13 @@ def max_rel(a, b):
     (1, 1, 1024, 2048, 128, 4, 4, [0]),         # rank 128
     (1, 2, 512, 1024, 64, 2, 4, [1]),           # K=64, coarser budget
     (4, 8, 512, 512, 32, 4, 8, [5, 2, 7, 0]),   # stacked, per-worker buckets
+    (1, 1, 512, 2100, 32, 4, 4, [0]),           # 9 tiles: a padded cluster
+    (1, 1, 256, 256, 32, 2, 2, [0]),            # one tile and a pad block
+    (1, 1, 512, 4352, 16, 4, 4, [0]),           # rank 16, 17 tiles
+    (1, 1, 512, 2176, 64, 4, 4, [0]),           # rank 64, 17 tiles
+    (1, 1, 520, 1000, 128, 4, 4, [0]),          # rank 128, ragged chunks
+    (1, 1, 260, 1001, 100, 4, 4, [0]),          # K=100, odd cpb, 32-row chunks
+    (4, 4, 256, 4096, 32, 4, 4, [3, 0, 2, 1]),  # stacked, 16 tiles a worker
     (1, 1, 1024, 2048, 256, 4, 4, [0]),         # wide path, rank 256
     (1, 1, 520, 1001, 136, 4, 4, [0]),          # wide, K=136, odd cpb
     (1, 1, 512, 1024, 512, 4, 4, [0]),          # wide, rank 512
@@ -334,17 +341,19 @@ def test_dense_mf_hop_kernel_matches_plain(cuda, nw, n_blocks, rpw, cpb, k,
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("k", [32, 20, 256, 200])
-def test_dense_mf_hop_ring_hop_sends_h_bitwise(cuda, k):
+@pytest.mark.parametrize("k,cpb", [(32, 1000), (20, 1000), (256, 1000),
+                                   (200, 1000), (32, 2100), (128, 1100)])
+def test_dense_mf_hop_ring_hop_sends_h_bitwise(cuda, k, cpb):
     """W=4 stacked, per-worker buckets, K=32 and K=20 (padded to 32), and
-    the wide path at K=256 and 200 (padded to 256): the send changes no
-    other output, and h_next is h' rolled by one worker, bitwise the
-    kernel-plus-``ring_dma.hop`` pair it replaces."""
+    the wide path at K=256 and 200 (padded to 256); at K=32 with 9 column
+    tiles and K=128 with 9, each a grid padded to two clusters: the send
+    changes no other output, and h_next is h' rolled by one worker, bitwise
+    the kernel-plus-``ring_dma.hop`` pair it replaces."""
     from harp_tpu_torch.ops import ring_dma
     from harp_tpu_torch.parallel.mesh import WorkerGroup
 
     v, w, h, rc, cc = (x.to(cuda) for x in mf_hop_inputs(
-        4, 8, 512, 1000, k, 8, seed=k))
+        4, 8, 512, cpb, k, 8, seed=k))
     b = torch.tensor([5, 2, 7, 0], dtype=torch.int32, device=cuda)
     args = (v, b, w, h, rc, cc, 4, 0.05, 0.01)
     plain = pk.dense_mf_hop_cuda(*args)
@@ -359,6 +368,22 @@ def test_dense_mf_hop_ring_hop_sends_h_bitwise(cuda, k):
         assert torch.equal(a, c)
     assert torch.equal(got[3], torch.roll(got[1], 1, 0))
     assert torch.equal(got[3], ring_dma.hop_cuda(plain[1], 1, group))
+
+
+@pytest.mark.parametrize("kp", [16, 32, 64, 128])
+def test_dense_mf_narrow_twin_matches_the_library(cuda, kp):
+    """``MF_NARROW_TILES`` and ``MF_CHUNK_ROWS`` (and so
+    ``dense_mf_narrow_shapes``) are the library's column tile, cluster size
+    and rows a chunk."""
+    import ctypes
+
+    lib = pk._mf_lib()
+    assert (lib.dense_mf_hop_col_tile(kp),
+            lib.dense_mf_hop_cluster(kp)) == pk.MF_NARROW_TILES[kp]
+    assert lib.dense_mf_hop_cluster(kp) > 1
+    geo = (ctypes.c_int * 4)()
+    assert lib.dense_mf_hop_geometry(kp, geo) == 0
+    assert geo[0] == pk.MF_CHUNK_ROWS and geo[3] == pk.MF_NARROW_TILES[kp][1]
 
 
 def test_dense_mf_hop_ring_sends_survive_a_held_back_rank(cuda):

@@ -275,6 +275,42 @@ def test_dense_mf_hop_dispatcher_sends_cpu_tensors_to_plain():
         tpk.dense_mf_hop(*args[:6], 3, 0.05, 0.01)
 
 
+def test_dense_mf_narrow_workspace_at_the_flagship():
+    """The flagship (W=1, 32768 x 32768, K=32, 8 stripes): Wb holds each
+    stripe's 4096 rows, and the dW workspace one partial a cluster of column
+    tiles, ceil(128 / C) 32768 32 4 bytes, 1/C of one partial a tile."""
+    col_tile, cluster = tpk.MF_NARROW_TILES[32]
+    wb, ws = tpk.dense_mf_narrow_shapes(1, 32768, 32768, 32, 8)
+    n_ct = 32768 // col_tile
+    assert n_ct == 128 and cluster > 1
+    assert wb == (1, 8, 4096, 32)
+    assert ws == (1, -(-n_ct // cluster), 32768, 32)
+    assert np.prod(ws) * 4 == -(-128 // cluster) * 32768 * 32 * 4
+    assert np.prod(ws) * cluster == n_ct * 32768 * 32
+
+
+@pytest.mark.parametrize("nw,rpw,cpb,kp,nmb", [
+    (1, 1024, 3000, 32, 4), (1, 520, 1001, 16, 4), (1, 512, 2100, 32, 4),
+    (1, 256, 256, 32, 2), (1, 512, 4352, 16, 4), (1, 512, 2176, 64, 4),
+    (1, 520, 1000, 128, 4), (4, 256, 4096, 32, 4), (2, 64, 1, 128, 1),
+])
+def test_dense_mf_narrow_shapes_pad_exactly(nw, rpw, cpb, kp, nmb):
+    """At ragged cpb the grid pads the column tiles to whole clusters with
+    fewer pad blocks than a cluster, the workspace holds one partial a
+    cluster a worker, and Wb each stripe's rows in whole chunks with less
+    than a chunk of padding."""
+    col_tile, cluster = tpk.MF_NARROW_TILES[kp]
+    wb, ws = tpk.dense_mf_narrow_shapes(nw, rpw, cpb, kp, nmb)
+    n_ct = -(-cpb // col_tile)
+    n_cl = ws[1]
+    assert ws == (nw, n_cl, rpw, kp)
+    assert 0 <= n_cl * cluster - n_ct < cluster
+    assert (n_cl - 1) * cluster < n_ct <= n_cl * cluster
+    rows = wb[2]
+    assert wb == (nw, nmb, rows, kp) and rows % tpk.MF_CHUNK_ROWS == 0
+    assert 0 <= rows - rpw // nmb < tpk.MF_CHUNK_ROWS
+
+
 # --------------------------------------------------------------------------- #
 # Rotation schedule
 # --------------------------------------------------------------------------- #
