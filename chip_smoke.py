@@ -37,17 +37,22 @@ main path must make no plain call on the card:
     solver; explicit ALS (sparse layout) at the same size, ``run als``, and
     the stacked W=4 variants (dense and sparse, implicit and explicit) at
     2048 x 2048 against the "cholesky" fit and the port's CPU fit, each
-    with a float64-solve fit as the yardstick; the flagship's data at rank 96
-    and 128 with an explicit ``solver="pallas"`` (the one-block solve, two
-    launches an iteration) against the "cholesky" fit. The SPD solve is held
-    against its plain version and a float64 solve on the flagship's own
-    normal equations and at K = 10 (N odd), 33, 64, 65, 96, 128 and 256
-    (K = 96 and 128 timed against cuSOLVER, the plain version and the
-    bound); past K = 338 the global-memory solve (panel-blocked) at K =
-    339 and 384 (N = 8192) and 512 (N = 2048), timed, at K = 300 (N =
-    8192) bitwise the one-block solve and timed against it, and the
-    flagship's data at rank 384 with solver="pallas" against the
-    "cholesky" fit;
+    with a float64-solve fit as the yardstick; the flagship's data at rank 64
+    with the default ``solver="auto"`` and at 96 and 128 with
+    ``solver="pallas"`` (the shared-memory solve, two launches an
+    iteration) against the "cholesky" fit. The SPD solve is held against
+    its plain version and a float64 solve on the flagship's own normal
+    equations and at K = 10 (N odd), 33, 64, 65, 96, 128 and 256 (K = 64,
+    96 and 128 timed against cuSOLVER, the plain version and the bound);
+    ``[spd:sweep]`` at K = 33 to 338 (N = 8192): the routed kernel bitwise
+    the global-memory kernel, timed in turns against the parent commit's
+    route where ``build/parent/spd_solve.cu`` holds its source, beside the
+    global-memory kernel, cuSOLVER, the bound and every geometry of the
+    shared-memory kernel; past its limit the global-memory solve
+    (panel-blocked) at K = 339 and 384 (N = 8192) and 512 (N = 2048),
+    timed, at K = 300 (N = 8192) bitwise the shared-memory solve and timed
+    against it, and the flagship's data at rank 384 with solver="pallas"
+    against the "cholesky" fit;
   * attention: the flash kernel against its plain version and a float64
     reference on sampled query rows, and its KV tiles against the
     trapezoid of its tiles, at the flagship (causal L=16384, H=8, Dh=64,
@@ -189,15 +194,20 @@ KMEANS_WIDE = dict(n=1 << 20, k=1024, d=128, iterations=5, epochs=(2, 6),
                    variants_n=65_536)
 KMEANS_WIDE_MP = dict(n=1 << 20, k=1024, d=128, iterations=3, seed=31,
                       on_card=True)
-# SPD solve past K = 64 (the one-block kernel): timed at the ALS flagship's
-# 8192 systems; explicit solver="pallas" fits at these ranks on its data
+# SPD solve past K = 64 (the shared-memory kernel): timed at the ALS
+# flagship's 8192 systems; fits on its data at these ranks, with the solver
+# each takes (rank 64: the default "auto", the route ALS takes there)
 SPD_WIDE = (96, 128)
+ALS_WIDE = {64: "auto", 96: "pallas", 128: "pallas"}
 ALS_WIDE_ITERATIONS = 5
-# The parent commit's dense-MF hop source, timed in turns against this tree's
-# kernel where it is present (git show <parent>:harp_tpu_torch/csrc/
-# dense_mf_hop.cu > build/parent/dense_mf_hop.cu); a checkout without it
-# times this tree's kernel alone
-PARENT_MF_SRC = os.path.join("build", "parent", "dense_mf_hop.cu")
+# [spd:sweep]: N systems at each K, through the route the wrapper takes
+SPD_SWEEP = dict(ks=(33, 48, 64, 65, 96, 128, 192, 256, 338), n=8192)
+# The parent commit's sources, each timed in turns against this tree's
+# kernel where it is present (git show <parent>:harp_tpu_torch/csrc/<name>.cu
+# > build/parent/<name>.cu); a checkout without one times this tree's
+# kernel alone
+PARENT_DIR = os.path.join("build", "parent")
+PARENT_SOURCES = ("dense_mf_hop", "spd_solve")
 # warmed launches of one hop under the profiler for its kernel split
 MF_SPLIT_REPS = 5
 # the widths past the narrow kernels: the dense-MF hop at rank 256 and a
@@ -212,13 +222,13 @@ MF_WIDE = dict(rank=256, ragged=136, top=1024, top_rows=4096, epochs=(2, 6),
 # 512 at L=8192, the top of the checked range
 ATTN_WIDE = dict(l=16384, h=4, dh=256, ring_l=32768, mla=(192, 128),
                  ragged_l=8209, top=512, top_l=8192, top_h=2)
-# the SPD solve past K = 338 (the global-memory kernel): N systems at each
+# the SPD solve past K = 307 (the global-memory kernel): N systems at each
 # K, timed (the plain version by its one checked call); ALS on the implicit
 # flagship's data at rank 384 with solver="pallas", 2 iterations
 SPD_GLOBAL = {339: 8192, 384: 8192, 512: 2048}
 ALS_GLOBAL = dict(rank=384, iterations=2)
-# a K both the one-block and the global-memory solve take: N systems, the
-# two bitwise equal and timed against each other
+# a K both the shared-memory and the global-memory solve take: N systems,
+# the two bitwise equal and timed against each other
 SPD_BOTH = dict(k=300, n=8192)
 
 
@@ -806,43 +816,68 @@ def mf_hop_bound(nw, rpw, cpb, k, nmb_fine, extra_bytes=0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-PARENT_MF = {}
+PARENT = {}
 
 
-def start_parent_mf_build():
-    """Start nvcc on ``PARENT_MF_SRC`` (flags and headers of this tree's
-    build) beside the other builds, if the source is there."""
+def start_parent_builds():
+    """Start nvcc on each parent source in ``PARENT_DIR`` (flags and
+    headers of this tree's build) beside the other builds; log the ones
+    that are absent."""
     from harp_tpu_torch.ops import _cuda_build
 
-    if not os.path.exists(PARENT_MF_SRC):
-        return
-    out = os.path.join(os.path.dirname(PARENT_MF_SRC), "libdense_mf_hop.so")
-    cmd = [_cuda_build._nvcc(), *_cuda_build._flags("dense_mf_hop"), "-I",
-           str(_cuda_build.CSRC), "-o", out, PARENT_MF_SRC]
-    PARENT_MF["proc"] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True)
-    PARENT_MF["path"] = out
+    for name in PARENT_SOURCES:
+        src = os.path.join(PARENT_DIR, f"{name}.cu")
+        if not os.path.exists(src):
+            log(f"[parent] no {src}: {name} is timed without the parent's "
+                f"kernel beside it")
+            continue
+        out = os.path.join(PARENT_DIR, f"lib{name}.so")
+        cmd = [_cuda_build._nvcc(), *_cuda_build._flags(name), "-I",
+               str(_cuda_build.CSRC), "-o", out, src]
+        PARENT[name] = {"proc": subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            "path": out}
 
 
-def parent_mf_lib():
-    """The parent's dense-MF library (its launch entry bound as the parent's
-    wrapper bound it), or None without its source."""
+def bind_parent(name, lib):
+    """The parent's launch entries, bound as the parent's wrapper bound
+    them."""
     import ctypes
 
-    proc = PARENT_MF.pop("proc", None)
-    if proc is not None:
-        log_text, _ = proc.communicate()
-        check(proc.returncode == 0, f"the parent's dense_mf_hop.cu builds "
-              f"({log_text[-2000:] if proc.returncode else 'ok'})")
-        lib = ctypes.CDLL(PARENT_MF["path"])
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "dense_mf_hop":
         lib.dense_mf_hop_col_tile.argtypes = [i]
         lib.dense_mf_hop_col_tile.restype = i
         lib.dense_mf_hop_launch.argtypes = ([vp] * 11 + [i] * 7 + [
             f, f, vp, vp, vp, i, i, i, ctypes.c_ulonglong, vp])
         lib.dense_mf_hop_launch.restype = i
-        PARENT_MF["lib"] = lib
-    return PARENT_MF.get("lib")
+    else:
+        ll = ctypes.c_longlong
+        for fn in (lib.spd_solve_launch, lib.spd_solve_block_launch):
+            fn.argtypes = [vp, vp, vp, ll, i, vp]
+            fn.restype = i
+        lib.spd_solve_global_grid.argtypes = [ll, i]
+        lib.spd_solve_global_grid.restype = i
+        lib.spd_solve_global_launch.argtypes = [vp] * 4 + [ll, i, i, vp]
+        lib.spd_solve_global_launch.restype = i
+
+
+def parent_lib(name):
+    """The parent's library of kernel ``name``, or None without its
+    source."""
+    import ctypes
+
+    entry = PARENT.get(name)
+    if entry is None:
+        return None
+    proc = entry.pop("proc", None)
+    if proc is not None:
+        log_text, _ = proc.communicate()
+        check(proc.returncode == 0, f"the parent's {name}.cu builds "
+              f"({log_text[-2000:] if proc.returncode else 'ok'})")
+        entry["lib"] = ctypes.CDLL(entry["path"])
+        bind_parent(name, entry["lib"])
+    return entry["lib"]
 
 
 def parent_hop(lib, slab, buckets, w, h, rc, cc, nmb, lr, lam, group=None):
@@ -931,7 +966,8 @@ def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed):
     if timed:
         kp = pk.mf_padded_rank(k)
         hop = lambda: pk.dense_mf_hop_cuda(*args)  # noqa: E731
-        parent = parent_mf_lib() if kp == k and kp in pk.MF_RANKS else None
+        parent = (parent_lib("dense_mf_hop") if kp == k and kp in pk.MF_RANKS
+                  else None)
         if parent is not None:
             out["turns_ms"] = in_turns4(lambda: parent_hop(parent, *args),
                                         hop, 10)
@@ -1508,6 +1544,134 @@ def spd_phases(state, cfg):
     return flag, k64, wide, gemm
 
 
+def parent_spd(lib, a, b):
+    """One solve through the parent commit's route: its one-warp kernel to
+    K = 64, its one-block kernel past it (to K = 338)."""
+    n, k = b.shape
+    x = torch.empty(n, k, device=a.device)
+    launch = lib.spd_solve_launch if k <= 64 else lib.spd_solve_block_launch
+    err = launch(a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k,
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's spd_solve launch: CUDA {err}")
+    return x
+
+
+def parent_spd_global(lib, a, b):
+    """One solve through the parent commit's global-memory kernel, on its
+    own persistent grid and workspace."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    n, k = b.shape
+    x = torch.empty(n, k, device=a.device)
+    grid = lib.spd_solve_global_grid(n, k)
+    ws = torch.empty(pk.spd_solve_global_workspace_bytes(grid, k) // 4,
+                     device=a.device)
+    err = lib.spd_solve_global_launch(
+        a.data_ptr(), b.data_ptr(), x.data_ptr(), ws.data_ptr(), n, k, grid,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the parent's spd_solve_global launch: CUDA {err}")
+    return x
+
+
+def spd_geometry(k):
+    """The shared-memory solve's geometry at rank K as the wrapper launches
+    it: panel columns, threads and registers a thread, resident blocks an
+    SM and shared-memory bytes a block (one system's triangle and b, and
+    the staging area)."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    threads, regs = pk.spd_solve_block_geometry(k)
+    return {"nb": pk.SPD_PANEL, "threads": threads, "regs": regs,
+            "blocks_per_sm": pk.spd_solve_block_per_sm(k, threads, regs),
+            "smem": pk.spd_solve_block_smem_bytes(k)}
+
+
+def spd_sweep_phase():
+    """[spd:sweep]: at each K of ``SPD_SWEEP`` (N systems), the route the
+    wrapper takes, bitwise the global-memory kernel (which takes any K);
+    timed in turns against the parent commit's route (parent / new / new /
+    parent) where its source is in ``PARENT_DIR``, beside the
+    global-memory kernel, cuSOLVER, the bound and every geometry of the
+    shared-memory kernel that fits. Returns {K: readings}."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    n = SPD_SWEEP["n"]
+    parent = parent_lib("spd_solve")
+    log(f"[spd:sweep] N={n}, K = " + ", ".join(
+        str(k) for k in SPD_SWEEP["ks"]) + f"; the shared-memory kernel to "
+        f"K = {pk.SPD_MAX_K_SMEM}, the global-memory kernel past it")
+    if parent is not None:
+        a, b = random_spd(n, 32, seed=32)
+        check(torch.equal(pk.spd_solve_cuda(a, b), parent_spd(parent, a, b)),
+              "K = 32: the one-warp kernel's x is the parent's, bitwise")
+    out = {}
+    for k in SPD_SWEEP["ks"]:
+        a, b = random_spd(n, k, seed=k, chunk=512)
+        variant = pk.spd_solve_variant(k)
+        x = pk.spd_solve_cuda(a, b)
+        check(bool(torch.isfinite(x).all())
+              and torch.equal(x, pk._spd_solve_global(a, b)),
+              f"K = {k}: the {variant} kernel's x is finite and bitwise the "
+              f"global-memory kernel's")
+        row = {"variant": variant}
+        reps = 10 if k <= 128 else 3
+
+        def route():
+            return pk.spd_solve_cuda(a, b)
+
+        if parent is not None:
+            row["parent_bitwise"] = bool(torch.equal(x, parent_spd(parent, a,
+                                                                   b)))
+            check(row["parent_bitwise"], f"K = {k}: x is the parent's "
+                  f"{'one-warp' if k <= 64 else 'one-block'} kernel's, "
+                  f"bitwise")
+            row["turns_ms"] = in_turns4(lambda: parent_spd(parent, a, b),
+                                        route, reps)
+            p1, n1, n2, p2 = row["turns_ms"]
+            row["parent_ms"], row["ms"] = (p1 + p2) / 2, (n1 + n2) / 2
+        else:
+            row["ms"] = cuda_time_ms(route, reps=reps, warmup=2)
+        row["global_ms"] = cuda_time_ms(lambda: pk._spd_solve_global(a, b),
+                                        reps=reps, warmup=1)
+        row["library_ms"] = cuda_time_ms(lambda: library_spd(a, b),
+                                         reps=reps, warmup=1)
+        row["bound_ms"], row["bound_by"] = spd_bound(n, k)
+        line = (f"  K={k} {variant}: {row['ms']:.4f} ms ("
+                f"{row['ms'] / row['bound_ms']:.2f}x its bound "
+                f"{row['bound_ms']:.4f}, {row['bound_by']})")
+        if parent is not None:
+            line += (f"; parent / new / new / parent " + " / ".join(
+                f"{ms:.4f}" for ms in row["turns_ms"]) + f" ms ("
+                f"{row['parent_ms'] / row['ms']:.2f}x), parent's x "
+                f"{'bitwise' if row['parent_bitwise'] else 'not bitwise'}")
+        line += (f"; global-memory {row['global_ms']:.4f}, cuSOLVER "
+                 f"{row['library_ms']:.4f}")
+        log(line)
+        if variant == "spd_solve_block":
+            row["geometry"] = g = spd_geometry(k)
+            row["geometry_ms"] = {}
+            for threads, regs in pk.SPD_BLOCK_SHAPES:
+                row["geometry_ms"][f"{threads}/{regs}"] = cuda_time_ms(
+                    lambda: pk._spd_solve_block(a, b, threads, regs),
+                    reps=max(3, reps // 2), warmup=1)
+            log(f"    geometry: nb {g['nb']}, {g['threads']} threads, "
+                f"{g['regs']} registers, one buffer, "
+                f"{g['blocks_per_sm']} blocks an SM, {g['smem']} bytes; "
+                f"threads/registers: " + ", ".join(
+                    f"{key} {ms:.4f}" for key, ms in
+                    row["geometry_ms"].items()) + " ms")
+        out[k] = row
+        del a, b, x
+        torch.cuda.empty_cache()
+    if parent is not None:
+        slower = [k for k, r in out.items() if r["ms"] > r["parent_ms"]]
+        log(f"  K where the route is slower than the parent's: "
+            f"{slower or 'none'}")
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Main path: ALS fits
 # --------------------------------------------------------------------------- #
@@ -1575,10 +1739,11 @@ SPD_COUNTERS = ("spd_solve", "spd_solve_block", "spd_solve_global")
 
 
 def spd_counter(k):
-    """The launch counter of the SPD-solve variant that takes rank K."""
+    """The launch counter of the SPD-solve variant that takes rank K (the
+    wrapper's own routing)."""
     from harp_tpu_torch.ops import pallas_kernels as pk
 
-    return SPD_COUNTERS[(k > pk.SPD_MAX_K) + (k > pk.SPD_MAX_K_SMEM)]
+    return pk.spd_solve_variant(k)
 
 
 def als_fit_checked(sess, cfg, data, layout, path):
@@ -1677,17 +1842,19 @@ def als_flagship(data, cfg):
 
 
 def als_wide(data, cfg):
-    """[als:rank96], [als:rank128]: the implicit flagship's data with an
-    explicit solver="pallas" past K = 64, so the one-block solve, held
-    against the "cholesky" fit under the ALS rule (PERF.md section 2)."""
+    """[als:rank64], [als:rank96], [als:rank128]: the implicit flagship's
+    data at ranks the shared-memory solve takes, rank 64 with the default
+    solver="auto" (the route ALS takes there) and 96 and 128 with an
+    explicit solver="pallas", held against the "cholesky" fit under the ALS
+    rule (PERF.md section 2)."""
     from harp_tpu_torch import HarpSession
 
     out = {}
-    for rank in SPD_WIDE:
-        wcfg = dataclasses.replace(cfg, rank=rank, solver="pallas",
+    for rank, solver in ALS_WIDE.items():
+        wcfg = dataclasses.replace(cfg, rank=rank, solver=solver,
                                    iterations=ALS_WIDE_ITERATIONS)
         log(f"[als:rank{rank}] implicit, the flagship's data, rank {rank}, "
-            f"solver='pallas', {wcfg.iterations} iterations, W=1")
+            f"solver={solver!r}, {wcfg.iterations} iterations, W=1")
         sess = HarpSession(num_workers=1)
         launches, fit, r_rel, f_rel, _ = als_fit_checked(
             sess, wcfg, data, "dense", f"[als:rank{rank}]")
@@ -1704,21 +1871,22 @@ def als_wide(data, cfg):
 
 def spd_both_phase():
     """[spd:wide:K300]: at a K both take, the global-memory kernel (called
-    directly) against the one-block kernel the dispatcher launches there:
-    bitwise equal, and both timed in turns."""
+    directly) against the shared-memory kernel the dispatcher launches
+    there: bitwise equal, and both timed in turns."""
     from harp_tpu_torch.ops import pallas_kernels as pk
 
     k, n = SPD_BOTH["k"], SPD_BOTH["n"]
     log(f"[spd:wide:K{k}] N={n}: the global-memory kernel against the "
-        f"one-block kernel")
+        f"shared-memory kernel")
     a, b = random_spd(n, k, seed=k, chunk=512)
     check(torch.equal(pk._spd_solve_global(a, b), pk.spd_solve_cuda(a, b)),
-          "the global-memory kernel's x is the one-block kernel's, bitwise")
+          "the global-memory kernel's x is the shared-memory kernel's, "
+          "bitwise")
     block, glob = in_turns(lambda: pk.spd_solve_cuda(a, b),
                            lambda: pk._spd_solve_global(a, b), 3)
     lib = cuda_time_ms(lambda: library_spd(a, b), reps=3, warmup=1)
     bound, by = spd_bound(n, k)
-    log(f"  one-block {block:.4f} ms, global-memory {glob:.4f} ms "
+    log(f"  shared-memory {block:.4f} ms, global-memory {glob:.4f} ms "
         f"({block / glob:.2f}x); cuSOLVER {lib:.4f} ms, bound {bound:.4f} "
         f"ms ({by})")
     del a, b
@@ -1729,20 +1897,36 @@ def spd_both_phase():
 
 
 def spd_global_phases(data, cfg):
-    """[spd:wide] and [als:rank384]: the solve past K = 338 (the
+    """[spd:wide] and [als:rank384]: the solve past K = 307 (the
     global-memory kernel) alone at SPD_GLOBAL's K and N, timed against
     cuSOLVER, the plain version and the bound, and at SPD_BOTH against the
-    one-block kernel; then the implicit flagship's data at rank 384 with
-    solver="pallas", held against the "cholesky" fit under the ALS rule.
-    Returns the kernels-line entry of spd_solve_global."""
+    shared-memory kernel, and, where the parent commit's source is in
+    ``PARENT_DIR``, bitwise and in turns against its global-memory kernel;
+    then the implicit flagship's data at rank 384 with solver="pallas",
+    held against the "cholesky" fit under the ALS rule. Returns the
+    kernels-line entry of spd_solve_global."""
     from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.ops import pallas_kernels as pk
 
     both = spd_both_phase()
+    parent = parent_lib("spd_solve")
     cases = {}
     for k, n in SPD_GLOBAL.items():
         a, b = random_spd(n, k, seed=k, chunk=512)
-        cases[k] = spd_case(f"wide:K{k}", a, b, timed=True, reps=3,
-                            plain_reps=0)
+        cases[k] = c = spd_case(f"wide:K{k}", a, b, timed=True, reps=3,
+                                plain_reps=0)
+        if parent is not None:
+            check(torch.equal(pk._spd_solve_global(a, b),
+                              parent_spd_global(parent, a, b)),
+                  f"K = {k}: x is the parent's global-memory kernel's, "
+                  f"bitwise")
+            c["turns_ms"] = in_turns4(lambda: parent_spd_global(parent, a, b),
+                                      lambda: pk._spd_solve_global(a, b), 3)
+            p1, n1, n2, p2 = c["turns_ms"]
+            c["parent_ms"] = (p1 + p2) / 2
+            log(f"  parent / new / new / parent " + " / ".join(
+                f"{ms:.4f}" for ms in c["turns_ms"]) + f" ms (the parent "
+                f"{c['parent_ms'] / ((n1 + n2) / 2):.3f}x the new)")
         del a, b
         torch.cuda.empty_cache()
     g = ALS_GLOBAL
@@ -1777,8 +1961,9 @@ def spd_global_phases(data, cfg):
     }
     for k, c in cases.items():
         for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "max_abs_err"):
-            entry[f"k{k}_{key}"] = c[key]
+                    "max_abs_err", "parent_ms", "turns_ms"):
+            if key in c:
+                entry[f"k{k}_{key}"] = c[key]
         entry[f"k{k}_n"] = SPD_GLOBAL[k]
     return entry
 
@@ -1857,7 +2042,7 @@ def als_variants():
 
 def als_phases():
     """Every SPD-solve and ALS phase; returns the kernels-line entries of
-    the SPD solve's three variants (one warp, one block a system, the
+    the SPD solve's three variants (one warp, the shared-memory kernel, the
     global-memory kernel)."""
     from harp_tpu_torch import HarpSession
     from harp_tpu_torch.io import datagen
@@ -1878,6 +2063,7 @@ def als_phases():
         f"duplicates dropped, layout {model.last_layout_stats['layout']}")
     flag, k64, wide, gemm = spd_phases(state, cfg)
     del state
+    sweep = spd_sweep_phase()
     fit = als_flagship(data, cfg)
     log(f"  kernel {flag['ms']:.4f} ms per solve (two an iteration) against "
         f"a bound of {flag['bound_ms']:.4f} ms ({flag['bound_by']}); fit "
@@ -1899,11 +2085,16 @@ def als_phases():
         **{key: wide[top][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "rel_vs_float64", "plain_rel_vs_float64")},
+        **{key: sweep[top][key] for key in ("parent_ms", "turns_ms")
+           if key in sweep[top]},
+        "geometry": sweep[top]["geometry"],
+        "sweep": {str(k): row for k, row in sweep.items()},
     }
-    for rank in SPD_WIDE:
+    for rank, case in ((64, k64), *((r, wide[r]) for r in SPD_WIDE)):
         for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "max_abs_err"):
-            block[f"k{rank}_{key}"] = wide[rank][key]
+            block[f"k{rank}_{key}"] = case[key]
+    for rank in ALS_WIDE:
         for key, val in wide_fits[rank].items():
             block[f"fit_rank{rank}_{key}"] = (
                 val["spd_solve_block"] if key == "launches" else val)
@@ -1917,9 +2108,6 @@ def als_phases():
         "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
         "rel_vs_float64": flag["rel_vs_float64"],
         "plain_rel_vs_float64": flag["plain_rel_vs_float64"],
-        "k64_ms": k64["ms"], "k64_plain_ms": k64["plain_ms"],
-        "k64_bound_ms": k64["bound_ms"], "k64_bound_by": k64["bound_by"],
-        "k64_library_ms": k64["library_ms"],
         "gemm_bf16_out_f32_ms": gemm["bf16_out_f32_ms"],
         "gemm_f32_ms": gemm["f32_ms"],
         "fit_iters_per_s": fit["iters_per_s"],
@@ -2707,7 +2895,7 @@ def mfhop_ring_phase(state):
         f"{bound:.4f} ms ({by}; the hop's alone {hop_bound:.4f} ms, plus "
         f"the write of h_next)")
     out = {"ms": ms, "pair_ms": pair_ms, "bound_ms": bound, "bound_by": by}
-    parent = parent_mf_lib()
+    parent = parent_lib("dense_mf_hop")
     if parent is not None:
         prev = parent_hop(parent, *args, group=g)
         check(torch.equal(prev[3], torch.roll(prev[1], 1, 0)),
@@ -3567,7 +3755,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    start_parent_mf_build()
+    start_parent_builds()
     built = _cuda_build.build_all()
     log(f"[build] {time.perf_counter() - t0:.2f} s: " + ", ".join(
         f"{k} ({'built' if v['built'] else 'cached'} {v['seconds']:.2f} s)"

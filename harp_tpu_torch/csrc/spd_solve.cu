@@ -1,16 +1,21 @@
 // Batched small SPD solve for Hopper (sm_90a): for each of N independent
 // systems A x = b with A (K, K) symmetric positive definite, factor A = L L^T
 // by the outer-product Cholesky, then solve L y = b and L^T x = y. All in
-// float32. Three kernels: one warp a system in registers for K <= 64
-// (spd_solve_kernel), one block a system in shared memory for 64 < K <= 338
-// (spd_solve_block_kernel, after the first), and for a wider K a
-// panel-blocked Cholesky on a workspace in device memory with the same
-// arithmetic (spd_solve_global_kernel, last).
+// float32. One kernel for each of three ranges of K (the host routes,
+// pallas_kernels.spd_solve_variant):
+//   K <= 32        one warp a system in registers (spd_solve_kernel);
+//   33 <= K <= 307 one block a system, the packed triangle resident in
+//                  shared memory, a panel-blocked Cholesky
+//                  (spd_solve_block_kernel);
+//   K > 307        a panel-blocked Cholesky on a triangle in device memory
+//                  (spd_solve_global_kernel).
+// The last two are separate code with the same chains of operations, so
+// wherever both take a K their x is the same bit for bit.
 //
 // Replaces: harp_tpu/ops/pallas_kernels.py::_chol_solve_kernel (the TPU
 // kernel behind spd_solve_pallas). It computes the same function in the same
 // order of steps: at step j the running Schur complement's column j, times
-// rsqrt of its pivot, is column j of L (rows >= j), and the rank-1 update
+// 1 / sqrt of its pivot, is column j of L (rows >= j), and the rank-1 update
 // A <- A - l_j l_j^T follows; the forward substitution runs column by column
 // beside the factorization (y_j = r_j / L[j][j], r <- r - l_j y_j, the
 // kernel's order) and the back substitution row by row of L, from the last
@@ -19,308 +24,504 @@
 // multiple of 8 and N to a multiple of 256 with identity systems and
 // transposes A to (K, K, N) so the batch lies on the 128 lanes, each a full
 // extra pass over A. Here A is read as it is, (N, K, K) row-major, and the
-// kernel masks K and the ragged end of N itself.
+// kernels mask K and the ragged end of N themselves.
 //
-// What bounds it on this card: bytes. At the ALS flagship (N = 8192
-// systems, K = 32) A is 33.55 MB and b and x 1.05 MB each, 35.65 MB over
-// 3.35 TB/s = 10.6 us, against about (K^3 / 3 + 2 K^2) N = 1e8 multiply-adds
-// (3.2 us of float32 operations at 67 TFLOP/s). At K = 64 the bytes are 4x
-// (40 us) and the operations 8x.
-//
-// Design: one warp per system, several warps a block, a grid over N; no
-// shared memory, no atomics, no sum across blocks, so two runs are bitwise
-// equal. Lane r holds column r of the system in registers (K <= 32; lanes
-// r and r + 32 for 33 <= K <= 64), so the warp reads A row by row, 32
-// consecutive floats a load. Each lane keeps the symmetric mirror of the
-// lower triangle: entry i of column r is A[i][r] for i >= r and A[r][i]
-// above. The symmetric updates keep the running complement bitwise
-// symmetric (fma(-l_i, l_r, a) is fma(-l_r, l_i, a)), so at step j every
-// lane finds l_j at its own row, A[j][r] / sqrt(pivot), in its own
-// registers; only l_j's other entries travel, one __shfl_sync each from the
-// lane that owns column j. That is K (K + 1) / 2 shuffles a system for the
-// factorization and K for each substitution. After step j lane j's column
-// holds column j of L, and lane r's right-hand side holds y_r and then x_r.
-// Rows are indexed at compile time only (registers, not local memory): at
-// K <= 32 the steps are unrolled and only the lower triangle is computed;
-// at K <= 64 the steps are a runtime loop that sweeps all rows under a
-// predicate, twice the shuffles of the triangle but a small body (a full
-// unroll there took nvcc over 100 s and still spilled the array to local
-// memory). Making it fast (several systems a warp at small K, staging A
-// through shared memory with cp.async) is later work.
+// What bounds it on this card: bytes at the ALS flagship (N = 8192 systems,
+// K = 32: A's lower triangle 17 MB and b and x 1 MB each, about 6.9 us at
+// 3.35 TB/s, against 1e8 multiply-adds); from K = 128 on, operations
+// ((K^3 / 3 + 2 K^2) N float32 operations at 67 TFLOP/s). What holds the
+// kernels above that bound is the serial chain of the Cholesky: K pivots,
+// each a square root and a reciprocal that the next column waits for (about
+// 260 cycles a column for one warp, with the column's updates), and K
+// divisions of the back substitution, each waiting on the one before.
 //
 // The host binding is a plain C interface loaded with ctypes
 // (harp_tpu_torch/ops/_cuda_build.py).
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// v[p] for a part index p (0 or 1) that may be a runtime value: a register
-// select, never an indexed load from local memory.
-template <int NC>
-__device__ __forceinline__ float pick(const float (&v)[NC], int p) {
-  return (NC == 1 || p == 0) ? v[0] : v[NC - 1];
-}
+// ---------------------------------------------------------------------------
+// One warp a system, K <= 32.
+//
+// One warp per system, four warps a block, a grid over N; no shared memory,
+// no atomics, no sum across blocks, so two runs are bitwise equal. Lane r
+// holds column r of the system in registers, so the warp reads A row by row,
+// 32 consecutive floats a load. Each lane keeps the symmetric mirror of the
+// lower triangle: entry i of column r is A[i][r] for i >= r and A[r][i]
+// above. The symmetric updates keep the running complement bitwise symmetric
+// (fma(-l_i, l_r, a) is fma(-l_r, l_i, a)), so at step j every lane finds
+// l_j at its own row, A[j][r] / sqrt(pivot), in its own registers; only
+// l_j's other entries travel, one __shfl_sync each from the lane that owns
+// column j: K (K + 1) / 2 shuffles a system for the factorization and K for
+// each substitution. After step j lane j's column holds column j of L, and
+// lane r's right-hand side holds y_r and then x_r. The steps are unrolled,
+// so every row index is a compile-time constant (registers, not local
+// memory) and only the lower triangle is computed.
+// ---------------------------------------------------------------------------
 
-// Row j of each of the lane's columns, for a row index j that may be a
-// runtime value: a chain of selects over the compile-time rows, which folds
-// to register reads when j is a compile-time constant.
-template <int NC>
-__device__ __forceinline__ void row_of(const float (&c)[NC][32 * NC], int j,
-                                       float (&out)[NC]) {
-#pragma unroll
-  for (int q = 0; q < NC; ++q) out[q] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 32 * NC; ++i) {
-    if (i == j) {
-#pragma unroll
-      for (int q = 0; q < NC; ++q) out[q] = c[q][i];
-    }
-  }
-}
+constexpr int kWarpBlock = 128;
+constexpr int kWarps = kWarpBlock / 32;
 
 // Step j of the factorization, with the forward substitution beside it.
-template <int NC>
-__device__ __forceinline__ void factor_step(float (&c)[NC][32 * NC],
-                                            float (&r)[NC], int j, int k,
-                                            int lane) {
-  const int src = j & 31, part = j >> 5;   // column j: lane src, part part
-  float cj[NC];
-  row_of<NC>(c, j, cj);
-  const float d = __shfl_sync(kFull, pick<NC>(cj, part), src);  // pivot
+__device__ __forceinline__ void factor_step(float (&c)[32], float& r, int j,
+                                            int k, int lane) {
+  const float cj = c[j];
+  const float d = __shfl_sync(kFull, cj, j);                 // pivot
   const float dinv = 1.0f / sqrtf(d);
-  const float ljj = d * dinv;                                   // L[j][j]
-  const float yj = __shfl_sync(kFull, pick<NC>(r, part), src) / ljj;
-  float mine[NC];                                               // l_j[col]
+  const float ljj = d * dinv;                                // L[j][j]
+  const float yj = __shfl_sync(kFull, r, j) / ljj;
+  const float mine = cj * dinv;                              // l_j[lane]
 #pragma unroll
-  for (int q = 0; q < NC; ++q) mine[q] = cj[q] * dinv;
-#pragma unroll
-  for (int i = 1; i < 32 * NC; ++i) {
+  for (int i = 1; i < 32; ++i) {
     if (i > j && i < k) {
-      float own[NC];
-#pragma unroll
-      for (int q = 0; q < NC; ++q) own[q] = c[q][i];
-      const float t = __shfl_sync(kFull, pick<NC>(own, part), src) * dinv;
-#pragma unroll
-      for (int q = 0; q < NC; ++q)
-        if (lane + 32 * q > j) c[q][i] = fmaf(-t, mine[q], c[q][i]);
+      const float t = __shfl_sync(kFull, c[i], j) * dinv;
+      if (lane > j) c[i] = fmaf(-t, mine, c[i]);
     }
   }
+  if (lane == j) {                          // becomes column j of L
 #pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    const int col = lane + 32 * q;
-    if (col == j) {                        // becomes column j of L
-#pragma unroll
-      for (int i = 0; i < 32 * NC; ++i)
-        if (i >= j && i < k) c[q][i] *= dinv;
-      r[q] = yj;
-    } else if (col > j) {
-      r[q] = fmaf(-mine[q], yj, r[q]);
-    }
+    for (int i = 0; i < 32; ++i)
+      if (i >= j && i < k) c[i] *= dinv;
+    r = yj;
+  } else if (lane > j) {
+    r = fmaf(-mine, yj, r);
   }
 }
 
 // Step p of the back substitution L^T x = y: lane col holds L[p][col] for
 // p >= col, and the owner of column p holds L[p][p].
-template <int NC>
-__device__ __forceinline__ void back_step(const float (&c)[NC][32 * NC],
-                                          float (&r)[NC], int p, int lane) {
-  const int src = p & 31, part = p >> 5;
-  float cp[NC];
-  row_of<NC>(c, p, cp);
-  const float xp =
-      __shfl_sync(kFull, pick<NC>(r, part) / pick<NC>(cp, part), src);
-#pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    const int col = lane + 32 * q;
-    if (col < p) r[q] = fmaf(-cp[q], xp, r[q]);
-    else if (col == p) r[q] = xp;
-  }
+__device__ __forceinline__ void back_step(const float (&c)[32], float& r,
+                                          int p, int lane) {
+  const float cp = c[p];
+  const float xp = __shfl_sync(kFull, r / cp, p);
+  if (lane < p) r = fmaf(-cp, xp, r);
+  else if (lane == p) r = xp;
 }
 
-// NC columns a lane: K <= 32 * NC. At NC = 1 the steps are unrolled, so
-// every row index is a compile-time constant and the loops over rows keep
-// only the lower triangle; at NC = 2 the steps are a runtime loop over
-// rows indexed through selects, which keeps the 128-entry register array in
-// registers and the code small.
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarpBlock)
 spd_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  float* __restrict__ x, long long n, int k) {
-  constexpr int kMax = 32 * NC;
   const int lane = threadIdx.x & 31;
   const long long sys = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (sys >= n) return;                    // the whole warp leaves together
   const float* as = a + sys * k * k;
-  const float* bs = b + sys * k;
 
-  float c[NC][kMax];   // c[q][i]: row i of the lane's column lane + 32 q
-  float r[NC];         // the lane's entry of the right-hand side
+  float c[32];   // c[i]: row i of the lane's column
+  float r = lane < k ? b[sys * k + lane] : 0.0f;
 #pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    const int col = lane + 32 * q;
-    r[q] = col < k ? bs[col] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < kMax; ++i) {
-      float v = 0.0f;
-      if (i < k && col < k) v = as[i >= col ? i * k + col : col * k + i];
-      c[q][i] = v;
-    }
-  }
-
-  if constexpr (NC == 1) {
-#pragma unroll
-    for (int j = 0; j < kMax; ++j)
-      if (j < k) factor_step<NC>(c, r, j, k, lane);
-#pragma unroll
-    for (int p = kMax - 1; p >= 0; --p)
-      if (p < k) back_step<NC>(c, r, p, lane);
-  } else {
-#pragma unroll 1
-    for (int j = 0; j < k; ++j) factor_step<NC>(c, r, j, k, lane);
-#pragma unroll 1
-    for (int p = k - 1; p >= 0; --p) back_step<NC>(c, r, p, lane);
+  for (int i = 0; i < 32; ++i) {
+    float v = 0.0f;
+    if (i < k && lane < k) v = as[i >= lane ? i * k + lane : lane * k + i];
+    c[i] = v;
   }
 #pragma unroll
-  for (int q = 0; q < NC; ++q) {
-    const int col = lane + 32 * q;
-    if (col < k) x[sys * k + col] = r[q];
-  }
+  for (int j = 0; j < 32; ++j)
+    if (j < k) factor_step(c, r, j, k, lane);
+#pragma unroll
+  for (int p = 31; p >= 0; --p)
+    if (p < k) back_step(c, r, p, lane);
+  if (lane < k) x[sys * k + lane] = r;
 }
 
-// ---------------------------------------------------------------------------
-// One block a system, 64 < K <= 338.
-//
-// Above K = 64 a system no longer fits one warp's registers, so a block holds
-// it in shared memory: the packed lower triangle of A (row i at i (i + 1) / 2,
-// K (K + 1) / 2 floats), the right-hand side and column j of L, which fit the
-// 232,448 bytes a block may use up to K = 338 (block_smem_floats; the host's
-// twin is pallas_kernels.spd_solve_block_smem_bytes). The steps are the TPU
-// kernel's, in its order, each ended by a __syncthreads():
-//   1. step j of the outer-product Cholesky: every thread reads the pivot,
-//      the threads over rows i >= j scale the Schur complement's column j by
-//      1 / sqrt(pivot) into column j of L (kept in place and copied to lc)
-//      and take the forward substitution's r_i -= L[i][j] y_j beside it;
-//      then the rank-1 update of the unfinished triangle, a[i][m] -=
-//      L[i][j] L[m][j] for j < m <= i: a warp a row, its lanes over m, so a
-//      warp's reads and writes are 32 consecutive floats (no bank conflict)
-//      and L[i][j] is a register;
-//   2. y_i = r_i / L[i][i] for every i at once: no step after step i
-//      changes r_i, so this is the TPU kernel's y_i, which it divides out
-//      at step i (step j also needs y_j for its own update, and each
-//      thread computes it the same way);
-//   3. the back substitution row by row of L from the last unknown:
-//      x_p = y_p / L[p][p], then r_i -= L[p][i] x_p for i < p.
-// Like the warp kernel it reads A as it is, (N, K, K) row-major, only its
-// lower triangle, and uses no atomics: two runs are bitwise equal.
-//
-// What bounds it on this card: operations, in the bound's count. At N = 8192
-// and K = 128 the Cholesky and the substitutions are (2 K^3 / 3 + 4 K^2) N =
-// 1.2e10 float32 operations (0.18 ms at 67 TFLOP/s) against 0.08 ms of the
-// lower triangle's bytes. The kernel is held instead by shared memory: each
-// multiply-add of the update reads and writes a[i][m] and reads L[m][j], so
-// it runs at about a third of the shared-memory rate, and by the 3 K
-// barriers of one block. A register-tiled update is later work.
-// ---------------------------------------------------------------------------
-
-constexpr int kBlockThreads = 256;
-constexpr int kBlockWarps = kBlockThreads / 32;
-
-__host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
-
-__host__ __device__ __forceinline__ size_t block_smem_floats(int k) {
-  return (size_t)k * (k + 1) / 2 + 2 * (size_t)k;
-}
-
-__global__ void __launch_bounds__(kBlockThreads)
-spd_solve_block_kernel(const float* __restrict__ a,
-                       const float* __restrict__ b, float* __restrict__ x,
-                       int k) {
-  extern __shared__ float smem[];
-  float* t = smem;              // the packed lower triangle, then L
-  float* r = t + tri(k);        // b, then y
-  float* lc = r + k;            // column j of L at step j, then x
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long sys = blockIdx.x;
-  const float* as = a + sys * k * k;
-
-  for (int i = warp; i < k; i += kBlockWarps) {
-    const float* row = as + (size_t)i * k;
-    float* dst = t + tri(i);
-    for (int m = lane; m <= i; m += 32) dst[m] = row[m];
-  }
-  for (int i = tid; i < k; i += kBlockThreads) r[i] = b[sys * k + i];
-  __syncthreads();
-
-  for (int j = 0; j < k; ++j) {
-    const float d = t[tri(j) + j];
-    const float dinv = 1.0f / sqrtf(d);
-    const float ljj = d * dinv;                 // L[j][j]
-    const float yj = r[j] / ljj;
-    for (int i = j + tid; i < k; i += kBlockThreads) {
-      const float l = i == j ? ljj : t[tri(i) + j] * dinv;
-      lc[i] = l;
-      if (i > j) {
-        t[tri(i) + j] = l;
-        r[i] = fmaf(-l, yj, r[i]);
-      }
-    }
-    __syncthreads();
-    if (tid == 0) t[tri(j) + j] = ljj;          // nobody reads it below
-    for (int i = j + 1 + warp; i < k; i += kBlockWarps) {
-      const float li = lc[i];
-      float* row = t + tri(i);
-      for (int m = j + 1 + lane; m <= i; m += 32)
-        row[m] = fmaf(-li, lc[m], row[m]);
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < k; i += kBlockThreads) r[i] = r[i] / t[tri(i) + i];
-  __syncthreads();
-  for (int p = k - 1; p >= 0; --p) {
-    const float* row = t + tri(p);              // row p of L
-    const float xp = r[p] / row[p];
-    if (tid == 0) lc[p] = xp;
-    for (int i = tid; i < p; i += kBlockThreads)
-      r[i] = fmaf(-row[i], xp, r[i]);
-    __syncthreads();
-  }
-  for (int i = tid; i < k; i += kBlockThreads) x[sys * k + i] = lc[i];
-}
 
 // ---------------------------------------------------------------------------
-// K > 338: a panel-blocked Cholesky, the triangle in device memory.
+// 33 <= K <= 307: a panel-blocked Cholesky, the triangle in shared memory.
 //
-// Past K = 338 the packed lower triangle no longer fits one block's shared
-// memory, so it lives in a workspace in device memory, one triangle a
-// resident block: the grid is persistent (each block loops over systems
-// blockIdx.x, blockIdx.x + grid, ...; spd_solve_global_grid, the card's
-// resident blocks, at most N), so the workspace is at most half of A's bytes.
-// The first panel reads A itself; every later read is of the workspace, which
-// ends holding L. The factorization runs over panels of kPanel = nb columns
-// [j0, j0 + nb), each in three steps, with a barrier after each:
-//   (a) the nb x nb diagonal block, staged through shared memory, is
-//       factored by one warp, nb / 32 rows a lane in registers, with the
-//       one-block kernel's step arithmetic (d, dinv = 1 / sqrtf(d), ljj =
-//       d dinv, l = a dinv; the rank-1 update of the rest of the block,
-//       l_mj by a shuffle from the lane of row m), the forward substitution
-//       of its rows beside it (y_j = r_j / ljj, r_q -= l_qj y_j); then its
-//       L goes back to the workspace and, transposed, to shared memory for
-//       (b);
+// One block solves one system at a time on its packed lower triangle t (row
+// i at i (i + 1) / 2), resident in shared memory. A persistent grid (the
+// resident blocks, at most N; spd_solve_block_per_sm) loops over systems
+// blockIdx.x, blockIdx.x + grid, ... Each system's lower-triangle rows and b
+// come in by cp.async (4 bytes each: a row of A and its packed place are not
+// 16-byte aligned alike), a warp a row, so a warp's copies read 32
+// consecutive floats. The back substitution copies the next system's rows
+// into t as it frees them, from the last panel up, so only the first
+// panel's rows and b are waited for.
+//
+// The factorization runs over panels of kPanel = nb = 32 columns [j0, j0 +
+// nb), each in three steps, with a barrier after each:
+//   (a) the nb x nb diagonal block is factored by one warp, a row a lane in
+//       registers read in place (32 rows that start at a multiple of 32 lie
+//       in 32 different banks: the triangular numbers T(0) .. T(31) are all
+//       different mod 32): d, dinv = 1 / sqrtf(d), ljj = d dinv, l = a dinv;
+//       the rank-1 update of the rest of the block, l_mj read four at a
+//       time from column j, which the lanes set out in shared memory; the
+//       forward substitution of its rows beside it (y_j = r_j / ljj, r_q -=
+//       l_qj y_j). Its L goes back to t and, transposed, to the staging area
+//       for (b);
 //   (b) the panel rows below it: a thread a row, the row's nb entries in
 //       registers, right-looking over the panel's columns (l_ij = a_ij
 //       dinv_j, then a_im -= l_ij l_mj for the panel's m > j, and r_i -=
-//       l_ij y_j), each row independent of the others;
+//       l_ij y_j), each row independent of the others; each row's L also
+//       goes to a staged copy of the panel, laid out for (c);
+//   (c) the trailing lower triangle, rows and columns >= j0 + nb, in 32 x 32
+//       tiles, one to each group of 64 threads in turn, a thread a 4 x 4
+//       register tile, both operands float4 reads of the staged panel, no
+//       barrier between tiles; each element gets the panel's nb updates in
+//       ascending j.
+// Each element of the triangle thus gets a_im = fmaf(-l_ij, l_mj, a_im) for
+// j = 0, 1, ... in order, and r its forward chain, as the TPU kernel's steps
+// give them and as the global-memory kernel below computes them; no atomics,
+// no TF32, and two runs are bitwise equal. The back substitution runs over
+// the same panels from the last: one warp solves the panel's unknowns (x_p =
+// r_p / L[p][p], r_q -= L[p][q] x_p, p descending; lane p divides and shares
+// x_p), then every thread takes the panel's nb updates of one unknown above
+// it, p descending, and x goes to device memory as its panel is solved.
+//
+// nb = 32: step (a) is one warp, a row a lane; at nb = 64 the warp's two
+// rows a lane and step (b)'s 64 floats a thread spill.
+//
+// Shared memory a block (block_smem_floats): the triangle and b, each
+// rounded up to 4 floats, and the staging area (block_stage_floats); K = 307
+// is the last that fits the 232,448 bytes a block may use.
+//
+// What holds it: the serial chain (step (a) and the back substitution's
+// warp, K pivots and K divisions a system, one after another) while the
+// block's other warps wait at a barrier; the resident blocks overlap one
+// system's serial steps with the others' trailing updates, so what counts
+// is how many fit an SM. Three instances: 128 threads at 64 registers (8
+// blocks an SM), 128 threads at 128 (4), 256 threads at 128 (2); the host
+// picks one by K (pallas_kernels.spd_solve_block_geometry, from the
+// [spd:sweep] timings of chip_smoke.py on an H100: 128 threads and 64
+// registers to K = 96, where 7 to 8 blocks an SM fit; 128 registers to K =
+// 128, where shared memory allows 4 and the smaller instance spills; 256
+// threads above, where it allows 1 or 2).
+// ---------------------------------------------------------------------------
+
+constexpr int kPanel = 32;             // nb: the columns of a panel
+static_assert(kPanel == 32, "step (a) is one warp, a row a lane");
+
+__host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
+
+__host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+
+// The row stride of the staged panel: its trailing rows (K - nb at the
+// first panel), rounded up to whole 32-row blocks.
+__host__ __device__ __forceinline__ int panel_ld(int k) {
+  return (k - kPanel + 31) & ~31;
+}
+
+// Floats of the staging area: the diagonal block's L transposed (nb x nb),
+// the panel's L below it (nb x panel_ld), then dinv and y of the panel.
+__host__ __device__ __forceinline__ int block_stage_floats(int k) {
+  return kPanel * kPanel + kPanel * panel_ld(k) + 2 * kPanel;
+}
+
+// One system's triangle, then b.
+__host__ __device__ __forceinline__ int block_buffer_floats(int k) {
+  return round4(tri(k)) + round4(k);
+}
+
+__host__ __device__ __forceinline__ size_t block_smem_floats(int k) {
+  return (size_t)block_buffer_floats(k) + block_stage_floats(k);
+}
+
+// Position of trailing row r (from the panel's end) in a staged row of the
+// panel: 32-row blocks, and in each the rows r, r + 8, r + 16, r + 24 side
+// by side, so that a thread's four rows (or columns) of a 32 x 32 tile are
+// one float4.
+__device__ __forceinline__ int panel_pos(int r) {
+  return (r & ~31) + ((r & 7) << 2) + ((r >> 3) & 3);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// cp.async of rows [lo, hi) of one system's lower triangle (as: its A) to
+// their packed places in t, a warp a row: a warp's copies read 32
+// consecutive floats.
+template <int kThreads>
+__device__ __forceinline__ void load_rows(const float* __restrict__ as,
+                                          float* t, int lo, int hi, int k) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = lo + warp; i < hi; i += kThreads / 32) {
+    const float* row = as + (size_t)i * k;
+    float* dst = t + tri(i);
+    for (int m = lane; m <= i; m += 32) cp_async4(dst + m, row + m);
+  }
+}
+
+// One system. t: its packed lower triangle, holding A's. r: b, then y, then
+// the back substitution's work. st: the staging area, 16-byte aligned
+// (block_stage_floats(k) floats). Writes x (xs). next: the next system's A
+// (or null), whose rows past the first panel the back substitution copies
+// into t as it frees them.
+template <int kThreads>
+__device__ __forceinline__ void panel_solve(float* t, float* r, float* st,
+                                            float* __restrict__ xs, int k,
+                                            const float* __restrict__ next) {
+  constexpr int nb = kPanel;
+  static_assert(kThreads == 128 || kThreads == 256,
+                "whole groups of 64 threads over (c)'s 32 x 32 tiles");
+  const int sl = panel_ld(k);
+  float* lt = st;                // (a)-(b): the diagonal block's L^T
+  float* ls = st + nb * nb;      // (b)-(c): the panel's L, [j][panel_pos]
+  float* dv = ls + nb * sl;      // the panel's dinv
+  float* yv = dv + nb;           // its y, then its x
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  auto row_of = [&](int i) -> float* { return t + tri(i); };
+
+  for (int j0 = 0; j0 < k; j0 += nb) {
+    const int nbp = min(nb, k - j0);
+    const int s0 = j0 + nb;
+
+    // (a) the diagonal block
+    __syncthreads();            // the last panel's trailing update is done
+    if (warp == 0) {
+      // lane q: row j0 + q in registers, and its pivot dq on its own, so
+      // that step j + 1's pivot waits on one update of step j, not on all
+      // of them. The steps stop at a short panel's end (K = 33 and 65 have
+      // a one-column last panel); the rows past it, rows of the identity,
+      // are never written back. Entries above the diagonal (m > q) take the
+      // updates too and are never read: no predicate a column.
+      const int q = lane;
+      float row[nb], rq = 0.f, dq = 1.f, yq = 0.f, dinvq = 0.f;
+#pragma unroll
+      for (int m = 0; m < nb; ++m) {
+        float v = m == q ? 1.f : 0.f;
+        if (q < nbp && m <= q) v = row_of(j0 + q)[j0 + m];
+        row[m] = v;
+      }
+      if (q < nbp) {
+        rq = r[j0 + q];
+        dq = row_of(j0 + q)[j0 + q];
+      }
+#pragma unroll
+      for (int j = 0; j < nb; ++j) {
+        if (j >= nbp) break;
+        const float d = __shfl_sync(kFull, dq, j);   // row j's pivot
+        const float dinv = 1.0f / sqrtf(d);
+        const float ljj = d * dinv;                  // L[j][j]
+        const float yj = __shfl_sync(kFull, rq, j) / ljj;
+        const float l = row[j] * dinv;               // l_qj below the pivot
+        const bool below = q > j;
+        dq = below ? fmaf(-l, l, dq) : dq;           // a_qq -= l_qj l_qj
+        row[j] = below ? l : q == j ? ljj : row[j];
+        rq = below ? fmaf(-l, yj, rq) : rq;
+        yq = q == j ? yj : yq;
+        dinvq = q == j ? dinv : dinvq;
+        // a_qm -= l_qj l_mj (m > q: unread), l_mj four at a time from
+        // column j of the block, set out in lt (two alternating columns)
+        float* lb = lt + (j & 1) * nb;
+        lb[q] = l;
+        __syncwarp();
+#pragma unroll
+        for (int m4 = (j + 1) / 4; m4 < nb / 4; ++m4) {
+          const float4 w = *reinterpret_cast<const float4*>(lb + 4 * m4);
+          const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * m4 + e > j)
+              row[4 * m4 + e] = fmaf(-l, wv[e], row[4 * m4 + e]);
+        }
+      }
+      __syncwarp();                 // the last columns are read
+      if (q < nbp) {
+        r[j0 + q] = yq;
+        dv[q] = dinvq;
+        yv[q] = yq;
+        float* o = row_of(j0 + q) + j0;
+#pragma unroll
+        for (int m = 0; m < nb; ++m)
+          if (m <= q) o[m] = row[m];
+      }
+#pragma unroll
+      for (int j = 0; j < nb; ++j)                  // lt[j][q] = l_qj
+        lt[j * nb + q] = q > j && q < nbp ? row[j] : 0.f;
+    }
+    __syncthreads();
+
+    // (b) the panel rows below it (only a full panel has any), each also to
+    // the staged panel for (c)
+    for (int i = s0 + tid; i < k; i += kThreads) {
+      float* o = row_of(i) + j0;
+      float row[nb];
+#pragma unroll
+      for (int m = 0; m < nb; ++m) row[m] = o[m];
+      float ri = r[i];
+#pragma unroll
+      for (int j = 0; j < nb; ++j) {
+        const float l = row[j] * dv[j];
+        row[j] = l;
+        ri = fmaf(-l, yv[j], ri);
+#pragma unroll
+        for (int m4 = (j + 1) / 4; m4 < nb / 4; ++m4) {
+          const float4 w =
+              *reinterpret_cast<const float4*>(lt + j * nb + 4 * m4);
+          const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * m4 + e > j)
+              row[4 * m4 + e] = fmaf(-l, wv[e], row[4 * m4 + e]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < nb; ++m) o[m] = row[m];
+      float* p = ls + panel_pos(i - s0);
+#pragma unroll
+      for (int m = 0; m < nb; ++m) p[m * sl] = row[m];
+      r[i] = ri;
+    }
+
+    // (c) the trailing lower triangle, rows and columns >= s0: 32 x 32
+    // tiles, one to each group of 64 threads in turn, a thread's rows i0 +
+    // gy + 8 u and columns m0 + gx + 8 c
+    __syncthreads();            // (b)'s rows are staged
+    const int g = tid >> 6, gx = tid & 7, gy = (tid >> 3) & 7;
+    const int nt = (k - s0 + 31) >> 5;           // 32-row blocks
+    for (int tile = g; tile < nt * (nt + 1) / 2; tile += kThreads / 64) {
+      int bi = 0;                                // tile = bi (bi + 1) / 2 + bm
+      while ((bi + 1) * (bi + 2) / 2 <= tile) ++bi;
+      const int i0 = s0 + 32 * bi, m0 = s0 + 32 * (tile - bi * (bi + 1) / 2);
+      float acc[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + gy + 8 * u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int m = m0 + gx + 8 * c;
+          acc[u][c] = 0.f;
+          if (i < k && m <= i) acc[u][c] = row_of(i)[m];
+        }
+      }
+      const float* pu = ls + (i0 - s0) + 4 * gy;
+      const float* pv = ls + (m0 - s0) + 4 * gx;
+#pragma unroll 4
+      for (int j = 0; j < nb; ++j) {
+        const float4 u4 = *reinterpret_cast<const float4*>(pu + j * sl);
+        const float4 v4 = *reinterpret_cast<const float4*>(pv + j * sl);
+        const float ua[4] = {u4.x, u4.y, u4.z, u4.w};
+        const float va[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[u][c] = fmaf(-ua[u], va[c], acc[u][c]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + gy + 8 * u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int m = m0 + gx + 8 * c;
+          if (i < k && m <= i) row_of(i)[m] = acc[u][c];
+        }
+      }
+    }
+  }
+
+  // the back substitution L^T x = y, panel by panel from the last
+  for (int p1 = k, done = k; p1 > 0;) {
+    const int p0 = (p1 - 1) / nb * nb, nbp = p1 - p0;
+    __syncthreads();            // the last panel's y / x and r are read
+    if (next != nullptr && p1 < done) {              // its rows are free
+      load_rows<kThreads>(next, t, p1, done, k);
+      cp_async_commit();
+      done = p1;
+    }
+    if (warp == 0) {
+      // lane q: unknown p0 + q, column q of the panel's L below the
+      // diagonal in registers, and L[q][q]; lane p divides, then shares
+      // x_p. The steps stop at a short panel's end, as in (a).
+      const int q = lane;
+      float lc[nb], rq = 0.f, dqq = 1.f, xq = 0.f;
+#pragma unroll
+      for (int p = 0; p < nb; ++p) {
+        lc[p] = 0.f;
+        if (q < p && p < nbp) lc[p] = row_of(p0 + p)[p0 + q];
+      }
+      if (q < nbp) {
+        rq = r[p0 + q];
+        dqq = row_of(p0 + q)[p0 + q];
+      }
+#pragma unroll
+      for (int p = nb - 1; p >= 0; --p) {
+        if (p >= nbp) continue;
+        const float xp = __shfl_sync(kFull, rq / dqq, p);
+        rq = fmaf(-lc[p], xp, rq);     // lanes q >= p: lc[p] = 0, rq done
+        xq = q == p ? xp : xq;
+      }
+      yv[q] = xq;
+    }
+    __syncthreads();
+    for (int i = tid; i < p0; i += kThreads) {
+      float ri = r[i];
+      for (int p = nbp - 1; p >= 0; --p)
+        ri = fmaf(-row_of(p0 + p)[i], yv[p], ri);
+      r[i] = ri;
+    }
+    for (int q = tid; q < nbp; q += kThreads) xs[p0 + q] = yv[q];
+    p1 = p0;
+  }
+}
+
+template <int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+spd_solve_block_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ x,
+                       long long n, int k) {
+  extern __shared__ float4 smem4[];
+  float* t = reinterpret_cast<float*>(smem4);
+  float* r = t + round4(tri(k));                // b
+  float* st = t + block_buffer_floats(k);
+  const long long kk = (long long)k * k;
+  // rows [0, loaded) of a system are copied at the top of the loop: all at
+  // the first, the first panel's after it (the rest came during the last
+  // back substitution)
+  int loaded = k;
+  for (long long sys = blockIdx.x; sys < n; sys += gridDim.x) {
+    __syncthreads();            // the last system's x and r are read
+    load_rows<kThreads>(a + sys * kk, t, 0, loaded, k);
+    for (int i = threadIdx.x; i < k; i += kThreads)
+      cp_async4(r + i, b + sys * k + i);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const long long next = sys + gridDim.x;
+    panel_solve<kThreads>(t, r, st, x + sys * k, k,
+                          next < n ? a + next * kk : nullptr);
+    loaded = min(kPanel, k);
+  }
+  cp_async_wait_all();
+}
+
+// ---------------------------------------------------------------------------
+// K > 307: a panel-blocked Cholesky, the triangle in device memory.
+//
+// Past the shared-memory kernel's limit the packed lower triangle lives in a
+// workspace in device memory, one triangle a resident block: the grid is
+// persistent (each block loops over systems blockIdx.x, blockIdx.x + grid,
+// ...; spd_solve_global_grid, the card's resident blocks, at most N), so the
+// workspace is at most half of A's bytes. The first panel reads A itself;
+// every later read is of the workspace, which ends holding L. The
+// factorization runs over the same panels of kPanel = nb columns as the
+// shared-memory kernel's, in the same three steps, with a barrier after each:
+//   (a) the nb x nb diagonal block, staged through shared memory, is
+//       factored by one warp, nb / 32 rows a lane in registers (d, dinv = 1
+//       / sqrtf(d), ljj = d dinv, l = a dinv; the rank-1 update of the rest
+//       of the block, l_mj by a shuffle from the lane of row m), the forward
+//       substitution of its rows beside it (y_j = r_j / ljj, r_q -= l_qj
+//       y_j); then its L goes back to the workspace and, transposed, to
+//       shared memory for (b);
+//   (b) the panel rows below it: a thread a row, as in the shared-memory
+//       kernel;
 //   (c) the trailing lower triangle, rows and columns >= j0 + nb, in 64 x 64
 //       tiles: a thread holds a 4 x 4 register tile of it (rows 4 ty ..,
 //       columns tx + 16 c, so a warp's loads and stores are 16 consecutive
@@ -328,40 +529,38 @@ spd_solve_block_kernel(const float* __restrict__ a,
 //       staged in shared memory (4 threads a row, columns interleaved, so
 //       the transposed stores hit 32 banks), and each element gets the
 //       panel's nb updates in ascending j.
-// Each element of the triangle thus gets exactly the one-block kernel's
-// chain, a_im = fmaf(-l_ij, l_mj, a_im) for j = 0, 1, ... in order, and r
-// its forward chain, so L, y and x are that kernel's bit for bit wherever
-// both run (no atomics, no TF32; two runs are bitwise equal). The back
-// substitution runs over the same panels from the last: one warp solves the
-// panel's unknowns (x_p = r_p / L[p][p], r_q -= L[p][q] x_p, p descending,
-// r_p by a shuffle),
-// then every thread takes the panel's nb updates of one unknown above it, p
-// descending: each r_i gets the one-block kernel's chain, and x goes to
-// device memory as its panel is solved.
+// Each element of the triangle thus gets the shared-memory kernel's chain,
+// a_im = fmaf(-l_ij, l_mj, a_im) for j = 0, 1, ... in order (the pivot too:
+// a_qq there is updated by the same fmaf of l_qj with itself), and r its
+// forward chain; the back substitution, one warp over a panel's unknowns (r_p
+// by a shuffle, divided by L[p][p]) and then a thread an unknown above it,
+// is the same chain too. So x is that kernel's bit for bit wherever both run
+// (no atomics, no TF32; two runs are bitwise equal), which the tests and
+// chip_smoke.py check at every K of the shared-memory kernel's range.
 //
-// What bounds it: the bound's count is the one-block kernel's (operations at
-// these widths). The trailing triangle is read and written once a panel, not
-// once a column: about K^3 / (6 nb) element read-modify-writes a system
-// instead of K^3 / 6, and 3 + 2 t barriers a panel with t its trailing
-// tiles instead of 3 a column. nb = 32 was measured against 64 on the card
-// (PERF.md): at 64 the warp's step (a) holds two 64-float rows a lane and
-// step (b) 64 floats a thread, which spill (255 registers and a 512-byte
-// stack frame), and it is slower at every K timed. The workspace's traffic
-// no longer holds it: the serial steps (a), (b) and the back substitution
-// (one warp, or one row a thread, between barriers) take about as long as
-// the trailing products. Shared memory: b, then y and x (K floats), and the
-// panel's staging area (global_stage_floats, 4,416 floats), which would take
-// K past 52,000; SPD_MAX_K_GLOBAL = 29,056 stays the stated limit.
+// What bounds it: operations at these widths. The trailing triangle is read
+// and written once a panel, not once a column: about K^3 / (6 nb) element
+// read-modify-writes a system instead of K^3 / 6, and 3 + 2 t barriers a
+// panel with t its trailing tiles. nb = 32 was measured against 64 on the
+// card (PERF.md): at 64 the warp's step (a) holds two 64-float rows a lane
+// and step (b) 64 floats a thread, which spill, and it is slower at every K
+// timed. The serial steps (a), (b) and the back substitution (one warp, or
+// one row a thread, between barriers) wait on device memory and take about
+// as long as the trailing products. Shared memory: b, then y and x (K
+// floats), and the panel's staging area (global_stage_floats, 4,416 floats),
+// which would take K past 52,000; SPD_MAX_K_GLOBAL = 29,056 stays the stated
+// limit.
 // ---------------------------------------------------------------------------
+
+constexpr int kGlobalThreads = 256;
 
 __host__ __device__ __forceinline__ long long tri_ll(long long i) {
   return i * (i + 1) / 2;
 }
 
-constexpr int kPanel = 32;             // nb: the columns of a panel
 constexpr int kTile = 64;              // trailing tiles are kTile x kTile
 constexpr int kTileLd = kTile + 4;     // a staged row block, transposed
-static_assert(kBlockThreads == 256 && kTile == 64,
+static_assert(kGlobalThreads == 256 && kTile == 64,
               "a 16 x 16 thread grid, 4 x 4 elements a thread; 4 threads "
               "stage each of a tile's 64 rows");
 static_assert(kPanel % 32 == 0, "whole warps over a panel's columns");
@@ -380,7 +579,7 @@ __host__ __device__ __forceinline__ size_t global_smem_floats(int k) {
   return (size_t)((k + 3) & ~3) + global_stage_floats();
 }
 
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void __launch_bounds__(kGlobalThreads)
 spd_solve_global_kernel(const float* __restrict__ a,
                         const float* __restrict__ b, float* __restrict__ x,
                         float* ws, long long n, int k) {
@@ -403,7 +602,7 @@ spd_solve_global_kernel(const float* __restrict__ a,
 
   for (long long sys = blockIdx.x; sys < n; sys += gridDim.x) {
     const float* as = a + sys * k * k;
-    for (int i = tid; i < k; i += kBlockThreads) r[i] = b[sys * k + i];
+    for (int i = tid; i < k; i += kGlobalThreads) r[i] = b[sys * k + i];
 
     for (int j0 = 0; j0 < k; j0 += nb) {
       const int nbp = min(nb, k - j0);
@@ -414,7 +613,7 @@ spd_solve_global_kernel(const float* __restrict__ a,
 
       // (a) the diagonal block
       __syncthreads();            // the last panel's staged rows are read
-      for (int e = tid; e < nb * nb; e += kBlockThreads) {
+      for (int e = tid; e < nb * nb; e += kGlobalThreads) {
         const int q = e / nb, m = e % nb;
         if (q < nbp && m <= q) dg[q * ld + m] = src(j0 + q)[j0 + m];
       }
@@ -479,7 +678,7 @@ spd_solve_global_kernel(const float* __restrict__ a,
       __syncthreads();
 
       // (b) the panel rows below it (only a full panel has any)
-      for (int i = j0 + nb + tid; i < k; i += kBlockThreads) {
+      for (int i = j0 + nb + tid; i < k; i += kGlobalThreads) {
         const float* s = src(i) + j0;
         float row[nb];
 #pragma unroll
@@ -572,7 +771,7 @@ spd_solve_global_kernel(const float* __restrict__ a,
     for (int p1 = k; p1 > 0;) {
       const int p0 = (p1 - 1) / nb * nb, nbp = p1 - p0;
       __syncthreads();            // the last panel's y / x and r are read
-      for (int e = tid; e < nb * nb; e += kBlockThreads) {
+      for (int e = tid; e < nb * nb; e += kGlobalThreads) {
         const int q = e / nb, m = e % nb;
         if (q < nbp && m <= q) dg[q * ld + m] = t[tri_ll(p0 + q) + p0 + m];
       }
@@ -597,17 +796,38 @@ spd_solve_global_kernel(const float* __restrict__ a,
         }
       }
       __syncthreads();
-      for (int i = tid; i < p0; i += kBlockThreads) {
+      for (int i = tid; i < p0; i += kGlobalThreads) {
         float ri = r[i];
         for (int p = nbp - 1; p >= 0; --p)
           ri = fmaf(-t[tri_ll(p0 + p) + i], yv[p], ri);
         r[i] = ri;
       }
-      for (int q = tid; q < nbp; q += kBlockThreads)
+      for (int q = tid; q < nbp; q += kGlobalThreads)
         x[sys * k + p0 + q] = yv[q];
       p1 = p0;
     }
   }
+}
+
+template <class Kernel>
+int resident_per_sm(Kernel kernel, int threads, size_t bytes, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads,
+                                                      bytes);
+  return (int)e;
+}
+
+// The shared-memory kernel's instance at `threads` (128 or 256) with
+// `regs` registers a thread at most (64: 8 blocks of 128 threads an SM;
+// 128: 4 blocks of 128 or 2 of 256), passed to f; -1 for another geometry.
+template <class F>
+int with_block_kernel(int threads, int regs, F f) {
+  if (threads == 128 && regs == 64) return f(spd_solve_block_kernel<128, 8>);
+  if (threads == 128 && regs == 128) return f(spd_solve_block_kernel<128, 4>);
+  if (threads == 256 && regs == 128) return f(spd_solve_block_kernel<256, 2>);
+  return -1;
 }
 
 }  // namespace
@@ -615,46 +835,62 @@ spd_solve_global_kernel(const float* __restrict__ a,
 extern "C" {
 
 // Solve the n systems on `stream` with the one-warp kernel: a (n, k, k),
-// b (n, k), x (n, k), float32, contiguous, 1 <= k <= 64 (checked by the
+// b (n, k), x (n, k), float32, contiguous, 1 <= k <= 32 (checked by the
 // caller). Returns cudaGetLastError() after the launch (0 on success).
 int spd_solve_launch(const void* a, const void* b, void* x, long long n,
                      int k, void* stream) {
   if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || k > 32) return (int)cudaErrorInvalidValue;
   const long long grid = (n + kWarps - 1) / kWarps;
-  const float* af = static_cast<const float*>(a);
-  const float* bf = static_cast<const float*>(b);
-  float* xf = static_cast<float*>(x);
-  if (k <= 32)
-    spd_solve_kernel<1><<<(unsigned)grid, kThreads, 0, s>>>(af, bf, xf, n, k);
-  else
-    spd_solve_kernel<2><<<(unsigned)grid, kThreads, 0, s>>>(af, bf, xf, n, k);
+  spd_solve_kernel<<<(unsigned)grid, kWarpBlock, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(x), n, k);
   return (int)cudaGetLastError();
 }
 
-// Bytes of dynamic shared memory one block of the one-block kernel needs.
+// Bytes of dynamic shared memory one block of the shared-memory kernel needs
+// at rank k.
 long long spd_solve_block_smem_bytes(int k) {
   return (long long)(block_smem_floats(k) * sizeof(float));
 }
 
-// Solve the n systems on `stream` with the one-block kernel, one block a
-// system: the same operands, 64 < k <= 338 (checked by the caller; a k whose
-// triangle does not fit fails with the launch). Returns cudaGetLastError()
-// after the launch (0 on success).
-int spd_solve_block_launch(const void* a, const void* b, void* x,
-                           long long n, int k, void* stream) {
-  if (n == 0) return 0;
-  if (n > INT_MAX) return (int)cudaErrorInvalidValue;
+// Blocks of the shared-memory kernel resident on one SM of the current
+// device at that geometry (0 where a block does not fit). A negative value
+// is a CUDA error, negated.
+int spd_solve_block_per_sm(int k, int threads, int regs) {
   const size_t bytes = block_smem_floats(k) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      spd_solve_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  spd_solve_block_kernel<<<(unsigned)n, kBlockThreads, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(x), k);
-  return (int)cudaGetLastError();
+  if (bytes > 232448) return 0;
+  int per_sm = 0;
+  const int e = with_block_kernel(threads, regs, [&](auto kernel) {
+    return resident_per_sm(kernel, threads, bytes, &per_sm);
+  });
+  if (e < 0) return -(int)cudaErrorInvalidValue;
+  return e ? -e : per_sm;
+}
+
+// Solve the n systems on `stream` with the shared-memory kernel: the same
+// operands, 33 <= k within its limit (checked by the caller), at the
+// geometry `threads` and `regs`, on `grid` blocks (the resident blocks,
+// spd_solve_block_per_sm times the SMs, at most n). Returns
+// cudaGetLastError() after the launch (0 on success).
+int spd_solve_block_launch(const void* a, const void* b, void* x,
+                           long long n, int k, int threads, int regs,
+                           int grid, void* stream) {
+  if (n == 0) return 0;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  const size_t bytes = block_smem_floats(k) * sizeof(float);
+  const int e = with_block_kernel(threads, regs, [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)grid, threads, bytes,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<float*>(x), n, k);
+    return (int)cudaGetLastError();
+  });
+  return e < 0 ? (int)cudaErrorInvalidValue : e;
 }
 
 // Blocks of the global-memory kernel's persistent grid for n systems of
@@ -665,14 +901,10 @@ int spd_solve_global_grid(long long n, int k) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t bytes = global_smem_floats(k) * sizeof(float);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(spd_solve_global_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, spd_solve_global_kernel, kBlockThreads, bytes);
+    e = (cudaError_t)resident_per_sm(spd_solve_global_kernel, kGlobalThreads,
+                                     global_smem_floats(k) * sizeof(float),
+                                     &per_sm);
   if (e != cudaSuccess) return -(int)e;
   long long grid = (long long)sms * per_sm;
   if (grid > n) grid = n;
@@ -680,9 +912,10 @@ int spd_solve_global_grid(long long n, int k) {
 }
 
 // Solve the n systems on `stream` with the global-memory kernel: the same
-// operands, k > 338 (checked by the caller; any k >= 1 runs), on `grid`
-// blocks (spd_solve_global_grid) with ws (grid, k (k + 1) / 2) float32. Returns
-// cudaGetLastError() after the launch (0 on success).
+// operands, any k >= 1 (the caller sends it k past the shared-memory
+// kernel's limit), on `grid` blocks (spd_solve_global_grid) with ws (grid,
+// k (k + 1) / 2) float32. Returns cudaGetLastError() after the launch (0 on
+// success).
 int spd_solve_global_launch(const void* a, const void* b, void* x, void* ws,
                             long long n, int k, int grid, void* stream) {
   if (n == 0) return 0;
@@ -692,7 +925,7 @@ int spd_solve_global_launch(const void* a, const void* b, void* x, void* ws,
       spd_solve_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  spd_solve_global_kernel<<<(unsigned)grid, kBlockThreads, bytes,
+  spd_solve_global_kernel<<<(unsigned)grid, kGlobalThreads, bytes,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<float*>(x), static_cast<float*>(ws), n, k);

@@ -30,8 +30,9 @@ planes round explicit ratings). Duplicate (row, col) pairs are dropped
 
 The batched solve (``ALSConfig.solver``): "pallas" is
 ``ops/pallas_kernels.spd_solve`` — the hand-written CUDA kernel for CUDA
-tensors (one warp a system at K <= 64, one block a system up to K = 338;
-a larger rank raises), its plain version for CPU tensors, as the JAX
+tensors (one warp a system at K <= 32, a panel-blocked kernel with the
+triangle in shared memory up to K = 307 and in device memory above, up to
+K = 29,056; a larger rank raises), its plain version for CPU tensors, as the JAX
 package runs its Pallas kernel in interpret mode off the TPU; "cholesky"
 is ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``; "newton" is
 the Newton–Schulz loop in float32 matmuls with TF32 off; "auto" takes

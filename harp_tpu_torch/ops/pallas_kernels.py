@@ -22,12 +22,12 @@ Ported:
   ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch, followed by
   ``ring_dma.hop_plain`` with ``ring_hop``;
 * the batched SPD solve of ALS. ``spd_solve_cuda`` launches ``csrc/
-  spd_solve.cu``: one warp a system, the factor in registers, at K <= 64;
-  one block a system, the packed lower triangle in shared memory, at
-  64 < K <= 338; past it a panel-blocked Cholesky with the triangle in
-  device memory and register-tiled trailing updates, on a persistent grid,
-  bitwise the one-block kernel's arithmetic. ``spd_solve_plain`` is the TPU
-  kernel's Cholesky and substitutions, vectorized over the batch;
+  spd_solve.cu``: one warp a system, the factor in registers, at K <= 32;
+  past it a panel-blocked Cholesky with register-tiled trailing updates on
+  a persistent grid, the packed lower triangle in shared memory at
+  33 <= K <= 307 and in device memory above, two kernels with the same
+  chains of operations and so bitwise equal. ``spd_solve_plain`` is the TPU kernel's Cholesky and
+  substitutions, vectorized over the batch;
 * flash attention. ``flash_attention_cuda`` launches ``csrc/
   flash_attention.cu`` (running max, denominator and accumulator on chip,
   the causal trapezoid of KV tiles, any L, any Dh and Dv: to 128 on the
@@ -626,12 +626,16 @@ def dense_mf_hop(slab: torch.Tensor, buckets: torch.Tensor, w: torch.Tensor,
 # Batched small SPD solve (the ALS normal equations)
 # --------------------------------------------------------------------------- #
 
-# the largest K of the one-warp kernel (two columns of the system a lane),
-# and the JAX package's rule for solver="auto"
+# the largest K of the one-warp kernel (a column of the system a lane)
+SPD_MAX_K_WARP = 32
+# the JAX package's rule for solver="auto" (its kernel's K), and nothing more
 SPD_MAX_K = 64
-# the largest K of the one-block kernel: the packed lower triangle and two
-# K-vectors must fit one block's shared memory (spd_solve_block_smem_bytes)
-SPD_MAX_K_SMEM = 338
+# the columns of a panel of the panel-blocked kernels (kPanel)
+SPD_PANEL = 32
+# the largest K of the shared-memory kernel: its packed lower triangle, b and
+# the staging area must fit one block's shared memory
+# (spd_solve_block_smem_bytes)
+SPD_MAX_K_SMEM = 307
 # the largest K of the global-memory kernel, kept from the step-by-step
 # kernel it replaced (whose two K-vectors filled one block's shared memory);
 # the panel-blocked kernel keeps b (K floats) and a staging area of 4,416
@@ -639,11 +643,50 @@ SPD_MAX_K_SMEM = 338
 SPD_MAX_K_GLOBAL = 29_056
 
 
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
 def spd_solve_block_smem_bytes(k: int) -> int:
-    """Bytes of shared memory the one-block solve needs at K: the twin of
-    ``block_smem_floats`` in ``csrc/spd_solve.cu`` (the packed lower
-    triangle, K (K + 1) / 2 floats, the right-hand side and column j of L)."""
-    return 4 * (k * (k + 1) // 2 + 2 * k)
+    """Bytes of shared memory a block of the shared-memory solve needs at
+    K: the twin of ``block_smem_floats`` in ``csrc/spd_solve.cu``. It holds
+    one system's packed lower triangle, K (K + 1) / 2 floats, and its b,
+    each rounded up to 4 floats, and a staging area: a panel's diagonal
+    block of L transposed (32 x 32), the panel's L below it (32 x its K -
+    32 rows, rounded up to whole 32-row blocks), and the panel's dinv and y
+    (2 x 32)."""
+    nb = SPD_PANEL
+    rows = -(-(k - nb) // 32) * 32
+    return 4 * (_round4(k * (k + 1) // 2) + _round4(k) + nb * nb + nb * rows
+                + 2 * nb)
+
+
+# the shared-memory solve's instances: (threads a block, registers a thread
+# at most, so 8, 4 and 2 blocks an SM where shared memory allows)
+SPD_BLOCK_SHAPES = ((128, 64), (128, 128), (256, 128))
+
+
+def spd_solve_block_geometry(k: int) -> Tuple[int, int]:
+    """(threads, registers) of the shared-memory solve at rank K, chosen
+    by the ``[spd:sweep]`` timings of ``chip_smoke.py`` on an H100: the
+    64-register instance to K = 96 (8 blocks an SM, or as many as shared
+    memory holds), 128 registers to K = 128, 256 threads above (1 or 2
+    blocks an SM)."""
+    if k <= 96:
+        return 128, 64
+    return (128, 128) if k <= 128 else (256, 128)
+
+
+def spd_solve_variant(k: int) -> str:
+    """The variant that takes rank K, by the name of its launch counter:
+    the one-warp kernel to ``SPD_MAX_K_WARP``, the shared-memory kernel to
+    ``SPD_MAX_K_SMEM``, the global-memory kernel to ``SPD_MAX_K_GLOBAL``."""
+    if not 1 <= k <= SPD_MAX_K_GLOBAL:
+        raise ValueError(f"spd_solve_cuda takes 1 <= K <= "
+                         f"{SPD_MAX_K_GLOBAL}, got K={k}")
+    if k <= SPD_MAX_K_WARP:
+        return "spd_solve"
+    return "spd_solve_block" if k <= SPD_MAX_K_SMEM else "spd_solve_global"
 
 
 def spd_solve_global_workspace_bytes(grid: int, k: int) -> int:
@@ -705,11 +748,15 @@ def _spd_lib() -> ctypes.CDLL:
 
         lib = _cuda_build.library("spd_solve")
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.spd_solve_launch, lib.spd_solve_block_launch):
-            fn.argtypes = [vp, vp, vp, ll, i, vp]
-            fn.restype = i
+        lib.spd_solve_launch.argtypes = [vp, vp, vp, ll, i, vp]
+        lib.spd_solve_launch.restype = i
         lib.spd_solve_block_smem_bytes.argtypes = [i]
         lib.spd_solve_block_smem_bytes.restype = ll
+        lib.spd_solve_block_per_sm.argtypes = [i, i, i]
+        lib.spd_solve_block_per_sm.restype = i
+        lib.spd_solve_block_launch.argtypes = [vp, vp, vp, ll, i, i, i, i,
+                                               vp]
+        lib.spd_solve_block_launch.restype = i
         lib.spd_solve_global_grid.argtypes = [ll, i]
         lib.spd_solve_global_grid.restype = i
         lib.spd_solve_global_launch.argtypes = [vp] * 4 + [ll, i, i, vp]
@@ -722,13 +769,14 @@ def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched SPD solve on the card: x (N, K) with ``a[n] @ x[n] = b[n]``.
 
     ``a``: (N, K, K) and ``b``: (N, K) float32, contiguous, on one CUDA
-    device; any N. 1 <= K <= ``SPD_MAX_K`` launches the one-warp kernel
-    (counted in ``launches["spd_solve"]``), ``SPD_MAX_K`` < K <=
-    ``SPD_MAX_K_SMEM`` the one-block kernel (``launches["spd_solve_block"]``),
-    ``SPD_MAX_K_SMEM`` < K <= ``SPD_MAX_K_GLOBAL`` the global-memory kernel
-    (``launches["spd_solve_global"]``); a larger K raises. Like the plain
-    version all read only the lower triangle of each system; a system that
-    is not positive definite gives NaN, as the TPU kernel does."""
+    device; any N. :func:`spd_solve_variant` routes by K: to
+    ``SPD_MAX_K_WARP`` the one-warp kernel (counted in
+    ``launches["spd_solve"]``), to ``SPD_MAX_K_SMEM`` the shared-memory
+    kernel (``launches["spd_solve_block"]``), to ``SPD_MAX_K_GLOBAL`` the
+    global-memory kernel (``launches["spd_solve_global"]``); a larger K
+    raises. Like the plain version all read only the lower triangle of each
+    system; a system that is not positive definite gives NaN, as the TPU
+    kernel does."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError(f"spd_solve_cuda needs both tensors on one CUDA "
                          f"device, got {a.device} and {b.device}")
@@ -736,30 +784,69 @@ def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"a and b must be float32, got {a.dtype} and "
                         f"{b.dtype}")
     n, k = _spd_shapes(a, b)
-    if not 1 <= k <= SPD_MAX_K_GLOBAL:
-        raise ValueError(f"spd_solve_cuda takes 1 <= K <= "
-                         f"{SPD_MAX_K_GLOBAL}, got K={k}")
+    variant = spd_solve_variant(k)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
-    if k > SPD_MAX_K_SMEM:
+    if variant == "spd_solve_global":
         return _spd_solve_global(a, b)
+    if variant == "spd_solve_block":
+        return _spd_solve_block(a, b, *spd_solve_block_geometry(k))
     lib = _spd_lib()
-    block = k > SPD_MAX_K
-    launch = lib.spd_solve_block_launch if block else lib.spd_solve_launch
     with torch.cuda.device(a.device):
         x = torch.empty((n, k), dtype=torch.float32, device=a.device)
-        err = launch(a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k,
-                     torch.cuda.current_stream(a.device).cuda_stream)
+        err = lib.spd_solve_launch(
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k,
+            torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"spd_solve kernel launch failed: CUDA error {err}")
-    launches["spd_solve_block" if block else "spd_solve"] += 1
+    launches["spd_solve"] += 1
+    return x
+
+
+def spd_solve_block_per_sm(k: int, threads: int, regs: int,
+                           device=None) -> int:
+    """Blocks of the shared-memory solve resident on one SM at that
+    geometry (the kernel's occupancy on ``device``, cached)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    key = ("spd_solve_block", dev.index, k, threads, regs)
+    if key not in _GRID:
+        with torch.cuda.device(dev):
+            per_sm = _spd_lib().spd_solve_block_per_sm(k, threads, regs)
+        if per_sm < 1:
+            raise RuntimeError(f"spd_solve_block at K={k}, {threads} threads, "
+                               f"{regs} registers: no block fits an SM "
+                               f"({per_sm})")
+        _GRID[key] = per_sm
+    return _GRID[key]
+
+
+def _spd_solve_block(a: torch.Tensor, b: torch.Tensor, threads: int,
+                     regs: int) -> torch.Tensor:
+    """The shared-memory kernel on checked operands at a geometry of
+    ``SPD_BLOCK_SHAPES`` (:func:`spd_solve_cuda` passes
+    :func:`spd_solve_block_geometry`'s), on a persistent grid of the
+    resident blocks, at most N."""
+    n, k = b.shape
+    lib = _spd_lib()
+    with torch.cuda.device(a.device):
+        x = torch.empty((n, k), dtype=torch.float32, device=a.device)
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        per_sm = spd_solve_block_per_sm(k, threads, regs, a.device)
+        grid = max(1, min(n, sms * per_sm))
+        err = lib.spd_solve_block_launch(
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k, threads, regs,
+            grid, torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"spd_solve kernel launch failed: CUDA error {err}")
+    launches["spd_solve_block"] += 1
     return x
 
 
 def _spd_solve_global(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The global-memory kernel on checked operands (any K up to
     ``SPD_MAX_K_GLOBAL``; :func:`spd_solve_cuda` sends it K >
-    ``SPD_MAX_K_SMEM``)."""
+    ``SPD_MAX_K_SMEM``, and at a K both take its x is the shared-memory
+    kernel's bit for bit)."""
     n, k = b.shape
     lib = _spd_lib()
     with torch.cuda.device(a.device):

@@ -106,8 +106,8 @@ def test_spd_solve_plain_matches_jax_solve(k):
 
 @pytest.mark.parametrize("n,k", [(6, 339), (4, 400)])
 def test_spd_solve_plain_past_the_block_width_matches_float64(n, k):
-    """K past the one-block kernel's 338 (the global-memory kernel on the
-    card). The oracle is a float64 numpy solve, not the Pallas kernel in
+    """K past the shared-memory kernel's 307 (the global-memory kernel on
+    the card). The oracle is a float64 numpy solve, not the Pallas kernel in
     interpret mode: that unrolls its K steps in Python and would spend
     minutes compiling at these K. 1e-4 relative to max |x|: float32
     Cholesky on systems of condition about 20."""
@@ -299,7 +299,7 @@ def test_fit_pallas_solver_matches_jax(ratings):
 
 
 def test_fit_pallas_solver_past_the_block_width_matches_jax():
-    """solver="pallas" at rank 340, past the one-block solve's 338 (the
+    """solver="pallas" at rank 340, past the shared-memory solve's 307 (the
     global-memory kernel on the card; the plain version here) against the
     JAX package's "cholesky" fit, implicit, sparse, 2 iterations, on a
     24 x 16 rating set (the plain solve takes K steps over the whole batch,

@@ -25,12 +25,13 @@ Batched SPD solve: the kernel and the plain version sum in different orders
 (the kernel's shuffles, fused multiply-adds), so both are held against a
 float64 ``torch.linalg.solve`` of the same systems: the kernel within
 max(1e-5, 4x the plain version's own distance from it), relative to max
-|x|. The one-block kernel (64 < K <= 338) and the global-memory kernel
-(K > 338, a panel-blocked Cholesky) follow the plain version's steps and are
-held to it within 1e-4 of max |x| as well; the two run the same arithmetic
-(every element's chain of fused multiply-adds in the same order), so where
-both take a K they agree bitwise, at panel edges and at ragged N too. The
-global-memory kernel is held by the same rules at its limit, K =
+|x|. The shared-memory kernel (32 < K <= ``SPD_MAX_K_SMEM``) and the
+global-memory kernel (above it; both a panel-blocked Cholesky) follow the
+plain version's steps and are held to it within 1e-4 of max |x| as well; the
+two run the same arithmetic (every element's chain of fused multiply-adds in
+the same order), so where both take a K they agree bitwise, at every
+geometry of the shared-memory kernel, at panel edges and at ragged N too.
+The global-memory kernel is held by the same rules at its limit, K =
 ``SPD_MAX_K_GLOBAL``, on one system.
 
 Dispatch: where the JAX package takes XLA (K-means on float16 points;
@@ -456,10 +457,10 @@ def spd_inputs(n, k, seed=0):
 
 
 @pytest.mark.parametrize("n,k", [
-    (8192, 32),       # the ALS flagship's systems
+    (8192, 32),       # the ALS flagship's systems, the largest K
     (8191, 10),       # odd N, K below a warp
-    (4096, 33),       # the first K with two columns a lane
-    (8192, 64),       # the largest K
+    (4096, 17),       # K neither a power of two nor a multiple of 8
+    (8192, 31),       # one lane idle
     (100, 1),         # one unknown
 ])
 def test_spd_solve_kernel_matches_plain(cuda, n, k):
@@ -476,8 +477,9 @@ def test_spd_solve_kernel_matches_plain(cuda, n, k):
     assert torch.equal(x, pk.spd_solve_cuda(a, b))
 
 
-@pytest.mark.parametrize("n,k", [(2048, 65), (2048, 96), (2048, 128),
-                                 (257, 256), (64, 338)])
+@pytest.mark.parametrize("n,k", [(4096, 33), (8192, 64), (2048, 65),
+                                 (2048, 96), (2048, 128), (257, 256),
+                                 (64, 307)])
 def test_spd_solve_block_kernel_matches_plain(cuda, n, k):
     a, b = (t.to(cuda) for t in spd_inputs(n, k, seed=n + k))
     before = dict(pk.launches)
@@ -494,10 +496,32 @@ def test_spd_solve_block_kernel_matches_plain(cuda, n, k):
     assert torch.equal(x, pk.spd_solve_cuda(a, b))
 
 
-@pytest.mark.parametrize("k", [1, 64, 65, 128, 338, 339])
+@pytest.mark.parametrize("k", [33, 64, 65, 128, 307, 338])
 def test_spd_solve_block_smem_twin_matches_the_library(cuda, k):
     assert pk._spd_lib().spd_solve_block_smem_bytes(k) == \
         pk.spd_solve_block_smem_bytes(k)
+
+
+@pytest.mark.parametrize("n,k", [
+    (4097, 33),       # ragged N against the grid; one column past a panel
+    (1, 64),          # one system
+    (8192, 65),
+    (4097, 96),
+    (8192, 128),
+    (1031, 200),      # K not a multiple of the panel
+    (257, 307),       # the shared-memory kernel's limit
+])
+def test_spd_solve_block_kernel_is_bitwise_the_global_kernel(cuda, n, k):
+    """The shared-memory kernel runs the global-memory kernel's chains of
+    operations: at every geometry, its x is the global kernel's bit for
+    bit, and the route the wrapper takes is one of them."""
+    a, b = spd_inputs_on(cuda, n, k, seed=n + k)
+    glob = pk._spd_solve_global(a, b)
+    assert pk.spd_solve_variant(k) == "spd_solve_block"
+    assert torch.equal(pk.spd_solve_cuda(a, b), glob)
+    for threads, regs in pk.SPD_BLOCK_SHAPES:
+        x = pk._spd_solve_block(a, b, threads, regs)
+        assert torch.equal(x, glob), (threads, regs)
 
 
 def spd_inputs_on(dev, n, k, seed=0):
@@ -529,9 +553,9 @@ def test_spd_solve_global_kernel_matches_plain(cuda, n, k):
 
 
 def test_spd_solve_global_kernel_is_bitwise_the_block_kernel(cuda):
-    """At a K both take (300), the global-memory kernel runs the one-block
-    kernel's arithmetic: the same x bit for bit, on a grid smaller than
-    N (each block loops over systems)."""
+    """At a K both take (300), the global-memory kernel runs the
+    shared-memory kernel's arithmetic: the same x bit for bit, on a grid
+    smaller than N (each block loops over systems)."""
     a, b = spd_inputs_on(cuda, 4099, 300, seed=3)
     assert pk._spd_lib().spd_solve_global_grid(4099, 300) < 4099
     assert torch.equal(pk._spd_solve_global(a, b), pk.spd_solve_cuda(a, b))
@@ -542,8 +566,8 @@ def test_spd_solve_global_kernel_is_bitwise_the_block_kernel_at_panel_edges(
         cuda, n, k):
     """K = 65 (two panels and one column) and 100 (a partial last panel),
     neither a multiple of the panel width, at a ragged N over a grid
-    smaller than N: the global-memory kernel's x is the one-block kernel's
-    bit for bit."""
+    smaller than N: the global-memory kernel's x is the shared-memory
+    kernel's bit for bit."""
     a, b = spd_inputs_on(cuda, n, k, seed=n + k)
     assert pk._spd_lib().spd_solve_global_grid(n, k) < n
     assert torch.equal(pk._spd_solve_global(a, b), pk.spd_solve_cuda(a, b))

@@ -12,7 +12,10 @@
   hop actually computed, whatever ``use_flash`` was.
 * The K-means shared-memory twin at known (D, K), the wide E-step's plan
   (chunk sizes, a grid that does not depend on W, workspaces), and the SPD
-  solve's shared-memory limit.
+  solve's shared-memory twin (both buffer layouts) and limit.
+* The SPD solve's routing by K (``spd_solve_variant``: the one-warp kernel
+  to K = 32, the shared-memory kernel to ``SPD_MAX_K_SMEM``, the
+  global-memory kernel above), with no launch.
 * ``ALS._resolve_solver`` around the two SPD limits.
 * ``spd_solve_plain`` against the JAX package's ``spd_solve_pallas`` in
   interpret mode at K = 72 and 96, and against ``numpy.linalg.solve`` in
@@ -26,7 +29,7 @@
   CPU, and the solve itself is held to that kernel by the test above.
 
 The card's side (kernel launches, ``plain_on_card`` outside each predicate,
-the loud error beyond a kernel's width, the one-block SPD kernel) is in
+the loud error beyond a kernel's width, the shared-memory SPD kernel) is in
 ``tests/test_torch_cuda_kernels.py``.
 """
 
@@ -183,10 +186,15 @@ def test_kmeans_and_spd_shared_memory_limits():
     # D = 100: K = 249 is the last centroid count one block holds
     assert tpk.kmeans_smem_bytes(100, 249) <= tpk.MAX_SMEM_BYTES
     assert tpk.kmeans_smem_bytes(100, 250) > tpk.MAX_SMEM_BYTES
+    # the shared-memory solve: its stated limit is the last K whose block
+    # fits
     lim = tpk.SPD_MAX_K_SMEM
     assert tpk.spd_solve_block_smem_bytes(lim) <= tpk.MAX_SMEM_BYTES
     assert tpk.spd_solve_block_smem_bytes(lim + 1) > tpk.MAX_SMEM_BYTES
-    assert tpk.spd_solve_block_smem_bytes(128) == 4 * (128 * 129 // 2 + 256)
+    # the geometry the wrapper picks fits at every K the kernel takes
+    for k in range(tpk.SPD_MAX_K_WARP + 1, lim + 1):
+        assert tpk.spd_solve_block_geometry(k) in tpk.SPD_BLOCK_SHAPES
+        assert tpk.spd_solve_block_smem_bytes(k) <= tpk.MAX_SMEM_BYTES
     # the global-memory solve keeps the right-hand side (K floats, rounded
     # up to 4) and its panel's staging area (global_stage_floats in
     # csrc/spd_solve.cu, 4,416 floats) in shared memory: its stated limit fits
@@ -195,6 +203,46 @@ def test_kmeans_and_spd_shared_memory_limits():
     assert tpk.spd_solve_global_workspace_bytes(132, 512) == \
         4 * 132 * 131_328
     assert tpk.spd_solve_global_workspace_bytes(1, 339) == 4 * 57_630
+
+
+# block_smem_floats in csrc/spd_solve.cu, written out: the packed triangle
+# and b, each rounded up to 4 floats, then the staging area: the diagonal
+# block's L transposed (32 x 32), the panel's L below it (32 x the K - 32
+# trailing rows rounded up to 32), dinv and y (2 x 32)
+@pytest.mark.parametrize("k,want", [
+    (33, 4 * (564 + 36 + 1024 + 32 * 32 + 64)),
+    (64, 4 * (2080 + 64 + 1024 + 32 * 32 + 64)),
+    (96, 4 * (4656 + 96 + 1024 + 32 * 64 + 64)),
+    (128, 4 * (8256 + 128 + 1024 + 32 * 96 + 64)),
+    (307, 4 * (47_280 + 308 + 1024 + 32 * 288 + 64)),
+    (338, 4 * (57_292 + 340 + 1024 + 32 * 320 + 64)),
+])
+def test_spd_block_smem_twin(k, want):
+    assert tpk.spd_solve_block_smem_bytes(k) == want
+
+
+@pytest.mark.parametrize("k,variant", [
+    (1, "spd_solve"), (32, "spd_solve"),
+    (33, "spd_solve_block"), (64, "spd_solve_block"),
+    (65, "spd_solve_block"), (307, "spd_solve_block"),
+    (308, "spd_solve_global"), (338, "spd_solve_global"),
+    (339, "spd_solve_global"), (29_056, "spd_solve_global"),
+])
+def test_spd_solve_routes_by_k(k, variant):
+    """The variant ``spd_solve_cuda`` launches at rank K, by the name of
+    the launch counter it adds to, with no launch: the one-warp kernel to
+    K = 32, the shared-memory kernel to ``SPD_MAX_K_SMEM``, the
+    global-memory kernel above. ``SPD_MAX_K`` (64) decides only
+    ``solver="auto"`` (``test_resolve_solver``)."""
+    assert (tpk.SPD_MAX_K_WARP, tpk.SPD_MAX_K_SMEM) == (32, 307)
+    assert tpk.spd_solve_variant(k) == variant
+    assert variant in tpk.launches
+
+
+@pytest.mark.parametrize("k", [0, 29_057])
+def test_spd_solve_routes_nothing_outside_its_limits(k):
+    with pytest.raises(ValueError, match="1 <= K <= 29056"):
+        tpk.spd_solve_variant(k)
 
 
 @pytest.mark.parametrize("n,d,k,grid", [
