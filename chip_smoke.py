@@ -210,12 +210,13 @@ PARENT_DIR = os.path.join("build", "parent")
 PARENT_SOURCES = ("dense_mf_hop", "spd_solve")
 # warmed launches of one hop under the profiler for its kernel split
 MF_SPLIT_REPS = 5
-# the widths past the narrow kernels: the dense-MF hop at rank 256 and a
-# ragged 136 on the SGD-MF flagship's data (and 1024, the top of the range,
-# on a 4096 x 4096 corner of it), the flagship fit at rank 256, W=1
-# two-point at 2 vs 6 epochs, and its fused 1-slice W=4 twin for 2 epochs
-MF_WIDE = dict(rank=256, ragged=136, top=1024, top_rows=4096, epochs=(2, 6),
-               fused_epochs=2)
+# the widths past the narrow kernels: the dense-MF hop at ranks 256, 512
+# and 1024 (each timed) and a ragged 136 on the SGD-MF flagship's data (and
+# 1024, the top of the range, on a 4096 x 4096 corner of it), the flagship
+# fit at rank 256, W=1 two-point at 2 vs 6 epochs, and its fused 1-slice W=4
+# twin for 2 epochs, stacked and as 4 processes x 1 worker
+MF_WIDE = dict(rank=256, timed=(256, 512, 1024), ragged=136, top=1024,
+               top_rows=4096, epochs=(2, 6), fused_epochs=2)
 # flash heads past 128: Gemma's 256 at causal L=16384, H=4 (timed, and
 # through blocked_attention and a fused W=4 ring at L=32768), DeepSeek-V2/V3
 # MLA's query/key 192 with value 128 (timed; and bf16 at a ragged L), and
@@ -848,9 +849,12 @@ def bind_parent(name, lib):
     if name == "dense_mf_hop":
         lib.dense_mf_hop_col_tile.argtypes = [i]
         lib.dense_mf_hop_col_tile.restype = i
-        lib.dense_mf_hop_launch.argtypes = ([vp] * 11 + [i] * 7 + [
+        lib.dense_mf_hop_launch.argtypes = ([vp] * 12 + [i] * 7 + [
             f, f, vp, vp, vp, i, i, i, ctypes.c_ulonglong, vp])
         lib.dense_mf_hop_launch.restype = i
+        lib.dense_mf_hop_wide_launch.argtypes = ([vp] * 13 + [i] * 7 + [
+            f, f, vp, vp, vp, i, i, i, ctypes.c_ulonglong, vp])
+        lib.dense_mf_hop_wide_launch.restype = i
     else:
         ll = ctypes.c_longlong
         for fn in (lib.spd_solve_launch, lib.spd_solve_block_launch):
@@ -880,25 +884,45 @@ def parent_lib(name):
     return entry["lib"]
 
 
+def parent_wide_shapes(nw, rpw, cpb, kp, nmb):
+    """The parent's wide-path buffers, as its ``dense_mf_wide_shapes`` gave
+    them: Wb (W, rpw, KP), G (W, rpw, cpb8) and the stripe snapshots (W,
+    nmb, cpb8, KP), bf16, cpb8 = cpb rounded up to 8."""
+    cpb8 = -(-cpb // 8) * 8
+    return (nw, rpw, kp), (nw, rpw, cpb8), (nw, nmb, cpb8, kp)
+
+
 def parent_hop(lib, slab, buckets, w, h, rc, cc, nmb, lr, lam, group=None):
-    """One hop through the parent's narrow kernel (its wrapper's buffers:
-    the (W, n_ct, rpw, KP) workspace); with ``group`` (stacked) its ring
-    send too. K must be a narrow padded rank."""
+    """One hop through the parent's kernel with its wrapper's buffers: the
+    narrow kernel's Wb chunks and (W, ceil(n_ct / C), rpw, KP) workspace
+    (``dense_mf_narrow_shapes``, which this tree keeps), or past rank 128
+    the wide path's Wb, G and snapshots; with ``group`` (stacked) its ring
+    send too. K must be a padded rank."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
     nw, n_blocks, rpw, cpb = slab.shape
     kp = w.shape[-1]
     n_ct = -(-cpb // lib.dense_mf_hop_col_tile(kp))
     new = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
                                  device=slab.device)
+    bf = lambda s: torch.empty(s, dtype=torch.bfloat16,  # noqa: E731
+                               device=slab.device)
     w_out, h_out = new(nw, rpw, kp), new(nw, cpb, kp)
-    ws, sse_part, sse = new(nw, n_ct, rpw, kp), new(nw, n_ct), new(nw)
+    if kp > 128:
+        ws = [bf(shape) for shape in parent_wide_shapes(nw, rpw, cpb, kp, nmb)]
+        launch = lib.dense_mf_hop_wide_launch
+    else:
+        wb_shape, ws_shape = pk.dense_mf_narrow_shapes(nw, rpw, cpb, kp, nmb)
+        ws, launch = [bf(wb_shape), new(*ws_shape)], lib.dense_mf_hop_launch
+    sse_part, sse = new(nw, n_ct), new(nw)
     h_next = None if group is None else torch.empty_like(h_out)
     ring = ((None, None, 0, 0, 1, 0, None) if group is None else
             (h_next.data_ptr(), None, 0, 0, group.num_workers, 0, None))
-    err = lib.dense_mf_hop_launch(
+    err = launch(
         slab.data_ptr(), buckets.data_ptr(), w.data_ptr(), h.data_ptr(),
         rc.data_ptr(), cc.data_ptr(), w_out.data_ptr(), h_out.data_ptr(),
-        ws.data_ptr(), sse_part.data_ptr(), sse.data_ptr(), nw, n_blocks,
-        rpw, cpb, kp, nmb, cc.shape[2], float(lr), float(lam),
+        *(t.data_ptr() for t in ws), sse_part.data_ptr(), sse.data_ptr(), nw,
+        n_blocks, rpw, cpb, kp, nmb, cc.shape[2], float(lr), float(lam),
         torch.cuda.current_stream().cuda_stream, *ring)
     if err:
         raise RuntimeError(f"the parent's dense_mf_hop launch: CUDA {err}")
@@ -916,26 +940,57 @@ def hop_split(fn, reps=MF_SPLIT_REPS):
 
 
 def mf_geometry(kp, nw, cpb):
-    """The narrow kernel's geometry at padded rank ``kp`` as the library
-    states it, and whether a launch of ``nw`` workers at ``cpb`` columns
-    fits the clusters the card runs at once (one wave)."""
+    """The kernel's geometry at padded rank ``kp`` as the library states
+    it, and whether a launch of ``nw`` workers at ``cpb`` columns fits the
+    clusters the card runs at once (one wave)."""
     import ctypes
 
     from harp_tpu_torch.ops import pallas_kernels as pk
 
     lib = pk._mf_lib()
-    out = (ctypes.c_int * 4)()
-    check(lib.dense_mf_hop_geometry(kp, out) == 0, f"geometry of KP={kp}")
-    rows, stages, active, cluster = list(out)
+    out = (ctypes.c_int * 6)()
     tile = lib.dense_mf_hop_col_tile(kp)
-    n_cl = -(-cpb // (tile * cluster))
+    if kp in pk.MF_WIDE_RANKS:
+        check(lib.dense_mf_hop_wide_geometry(kp, out) == 0,
+              f"geometry of KP={kp}")
+        rows, stages, active, cluster, ranks, dw_stages = list(out)
+        n_cl = -(-cpb // tile)
+        extra = {"ranks_a_block": ranks, "dw_stages": dw_stages}
+    else:
+        check(lib.dense_mf_hop_geometry(kp, out) == 0, f"geometry of KP={kp}")
+        rows, stages, active, cluster = list(out)[:4]
+        n_cl = -(-cpb // (tile * cluster))
+        extra = {}
     return {"col_tile": tile, "cluster": cluster, "rows": rows,
             "stages": stages, "max_active_clusters": active,
             "clusters": n_cl * nw, "one_wave": n_cl * nw <= active,
-            "smem": lib.dense_mf_hop_smem_bytes(kp)}
+            "smem": lib.dense_mf_hop_smem_bytes(kp), **extra}
 
 
-def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed):
+def mf_wide_bytes(nw, rpw, cpb, kp, nmb, parent_tile):
+    """Bytes a wide hop moves through L2 for Wb (every column tile reads the
+    bucket's Wb), and G's bytes (written once by the hop, read once a rank
+    slice by the dW GEMM), this tree's and the parent's (its column tile
+    ``parent_tile``; its dW GEMM read G once a 64-rank tile)."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    wb, g, snap, _ = pk.dense_mf_wide_shapes(nw, rpw, cpb, kp, nmb)
+    n_ct = -(-cpb // pk.MF_WIDE_COLS)
+    nsl = kp // pk.MF_WIDE_RANKS_A_BLOCK
+    wb_bytes = 2 * int(np.prod(wb)) * n_ct
+    g_bytes = 2 * int(np.prod(g))
+    cpb8 = -(-cpb // 8) * 8
+    return {"wb_l2_gb": wb_bytes / 1e9, "g_written_gb": g_bytes / 1e9,
+            "g_read_gb": g_bytes * nsl / 1e9,
+            "snapshot_gb": 2 * int(np.prod(snap)) / 1e9,
+            "parent_wb_l2_gb": 2 * nw * rpw * kp * -(-cpb // parent_tile)
+            / 1e9,
+            "parent_g_written_gb": 2 * nw * rpw * cpb8 / 1e9,
+            "parent_g_read_gb": 2 * nw * rpw * cpb8 * kp // 64 / 1e9}
+
+
+def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed,
+               turn_reps=10):
     from harp_tpu_torch.ops import pallas_kernels as pk
 
     nw, _, rpw, cpb = slab.shape
@@ -966,15 +1021,14 @@ def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed):
     if timed:
         kp = pk.mf_padded_rank(k)
         hop = lambda: pk.dense_mf_hop_cuda(*args)  # noqa: E731
-        parent = (parent_lib("dense_mf_hop") if kp == k and kp in pk.MF_RANKS
-                  else None)
+        parent = parent_lib("dense_mf_hop") if kp == k else None
         if parent is not None:
             out["turns_ms"] = in_turns4(lambda: parent_hop(parent, *args),
-                                        hop, 10)
+                                        hop, turn_reps)
             p1, n1, n2, p2 = out["turns_ms"]
             out["parent_ms"], out["ms"] = (p1 + p2) / 2, (n1 + n2) / 2
         else:
-            out["ms"] = cuda_time_ms(hop, reps=10, warmup=2)
+            out["ms"] = cuda_time_ms(hop, reps=turn_reps, warmup=2)
         out["plain_ms"] = cuda_time_ms(lambda: pk.dense_mf_hop_plain(*args),
                                        reps=2, warmup=1)
         out["library_ms"] = (cuda_time_ms(lambda: library_hop(*args), reps=3,
@@ -989,21 +1043,30 @@ def mfhop_case(name, slab, buckets, w, h, rc, cc, nmb, lr, lam, timed):
             log(f"  in turns, parent / new / new / parent: " + " / ".join(
                 f"{ms:.4f}" for ms in out["turns_ms"]) + f" ms (the parent's "
                 f"kernel {out['parent_ms']:.4f}, this tree's "
-                f"{out['ms']:.4f})")
-        lib = pk._mf_lib()
+                f"{out['ms']:.4f}, {out['parent_ms'] / out['ms']:.2f}x)")
+        geo = mf_geometry(kp, nw, cpb)
+        out["geometry"] = geo
         if kp in pk.MF_WIDE_RANKS:
-            n_ct = -(-cpb // lib.dense_mf_hop_col_tile(kp))
-            nbytes = 2 * sum(np.prod(shape) for shape in
-                             pk.dense_mf_wide_shapes(nw, rpw, cpb, kp, nmb))
-            ws = (f"wide path: Wb, G and the stripe snapshots "
-                  f"{nbytes / 1e9:.3f} GB written and read, {n_ct} column "
-                  f"tiles; {lib.dense_mf_hop_smem_bytes(kp)} B of shared "
-                  f"memory a block")
+            # the parent's column tile was 16384 / KP
+            moved = mf_wide_bytes(nw, rpw, cpb, kp, nmb, 16384 // kp)
+            out["bytes"] = moved
+            ws = (f"wide path: {geo['col_tile']} columns x "
+                  f"{geo['ranks_a_block']} ranks a block in clusters of "
+                  f"{geo['cluster']} ({geo['clusters']} clusters, "
+                  f"{geo['max_active_clusters']} at once on the card), "
+                  f"{geo['rows']} rows a chunk, {geo['stages']} stages, "
+                  f"{geo['smem']} B of shared memory a block, the dW GEMM "
+                  f"{geo['dw_stages']} stages; Wb through L2 "
+                  f"{moved['wb_l2_gb']:.2f} GB a hop (the parent's "
+                  f"{moved['parent_wb_l2_gb']:.2f}), G "
+                  f"{moved['g_written_gb']:.2f} GB written and "
+                  f"{moved['g_read_gb']:.2f} read (the "
+                  f"parent's {moved['parent_g_written_gb']:.2f} and "
+                  f"{moved['parent_g_read_gb']:.2f}), snapshots "
+                  f"{moved['snapshot_gb']:.3f} GB")
         else:
-            geo = mf_geometry(kp, nw, cpb)
             wb_shape, ws_shape = pk.dense_mf_narrow_shapes(nw, rpw, cpb, kp,
                                                            nmb)
-            out["geometry"] = geo
             ws = (f"{geo['col_tile']} columns a block in clusters of "
                   f"{geo['cluster']} ({geo['clusters']} clusters, "
                   f"{geo['max_active_clusters']} at once on the card: "
@@ -1123,7 +1186,7 @@ def mf_flagship(cfg, state, nnz):
                 prof["hop_kernel_ms"] = ms / epochs
             elif name.startswith("dense_mf_w_kernel"):
                 prof["w_reduce_ms"] = ms / epochs
-            elif name.startswith("dense_mf_wbf16_kernel"):
+            elif name.startswith("dense_mf_wb_"):
                 prof["wb_kernel_ms"] = ms / epochs
         log(f"  profile: device busy {100 * busy:.2f}% of the span from the "
             f"first kernel's start to the last one's end")
@@ -1253,11 +1316,14 @@ def mf_phases():
         "fit_w_reduce_ms": fit["w_reduce_ms"],
         "fit_wb_kernel_ms": fit["wb_kernel_ms"],
         "fit_device_busy_share": fit["busy_share"],
-        **{f"rank{MF_WIDE['rank']}_{key}": wide["rank"][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err", "split_ms")},
-        f"rank{MF_WIDE['ragged']}_max_abs_err": wide["ragged"]["max_abs_err"],
-        f"rank{MF_WIDE['top']}_max_abs_err": wide["top"]["max_abs_err"],
+        **{f"rank{k}_{key}": wide[k].get(key) for k in MF_WIDE["timed"]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "max_abs_err", "split_ms", "parent_ms",
+                       "turns_ms", "bytes", "geometry")},
+        f"rank{MF_WIDE['ragged']}_max_abs_err":
+            wide[MF_WIDE["ragged"]]["max_abs_err"],
+        f"rank{MF_WIDE['top']}_corner_max_abs_err":
+            wide["top"]["max_abs_err"],
         **{f"fit_rank{MF_WIDE['rank']}_{key}": val
            for key, val in r256.items()},
     }
@@ -1274,22 +1340,28 @@ def rank_factors(w, h, k, seed):
 
 def mf_wide_hops(args):
     """[mfhop:wide]: the hop past rank 128 (the wide path) on the SGD-MF
-    flagship's slab, W=1: rank 256 timed, a ragged 136 (padded to 256), and
-    one launch at 1024 on a 4096 x 4096 corner of the slab with its own
-    counts, each against the plain version and its float64 twin."""
+    flagship's slab, W=1: ranks 256, 512 and 1024 timed in turns against
+    the parent commit's wide path where its source is at
+    ``build/parent/dense_mf_hop.cu`` (256 over 10 launches a reading, 512
+    and 1024 over 3), a ragged 136 (padded to 256), and one launch at 1024
+    on a 4096 x 4096 corner of the slab with its own counts, each against
+    the plain version and its float64 twin."""
     from harp_tpu_torch.ops import pallas_kernels as pk
 
     f, m = MF_FLAGSHIP, MF_WIDE
     slab, buckets, w, h, rc, cc = args
-    log(f"[mfhop:wide] ranks {m['rank']}, {m['ragged']} and {m['top']} past "
-        f"the narrow kernel's 128")
+    log(f"[mfhop:wide] ranks {', '.join(str(k) for k in m['timed'])} and "
+        f"{m['ragged']} on the flagship's slab, {m['top']} on a "
+        f"{m['top_rows']}^2 corner, past the narrow kernel's 128")
     out = {}
-    for tag, k, timed in (("rank", m["rank"], True),
-                          ("ragged", m["ragged"], False)):
+    for k in (*m["timed"], m["ragged"]):
         wk, hk = rank_factors(w, h, k, seed=k)
-        out[tag] = mfhop_case(f"rank{k}", slab, buckets, wk, hk, rc, cc,
-                              f["nmb"], f["lr"], f["lam"], timed=timed)
+        out[k] = mfhop_case(f"rank{k}", slab, buckets, wk, hk, rc, cc,
+                            f["nmb"], f["lr"], f["lam"],
+                            timed=k in m["timed"],
+                            turn_reps=10 if k == m["rank"] else 3)
         del wk, hk
+        torch.cuda.empty_cache()
     n = m["top_rows"]
     small = slab[:, :, :n, :n].contiguous()
     seen = ~torch.isnan(small)
@@ -1375,12 +1447,14 @@ def mf_rank256_phase(rows, cols, vals):
     check(all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
               for a, b in zip(got, want)),
           "factors and RMSEs bitwise the fused_dma=False fit")
+    digest = factor_digest(pull_factors(sess4, got[0], got[1]), got[2])
     del state4, fused
     torch.cuda.empty_cache()
     return {"launches": launches["dense_mf_hop"], "ratings_per_s": tp["rate"],
             "per_epoch_ms": tp["per_iter_ms"], "rmse_rel_vs_plain": r_rel,
             "factor_rel_vs_plain": f_rel,
-            "fused_launches": counts["dense_mf_hop_ring"]}
+            "fused_launches": counts["dense_mf_hop_ring"],
+            "fused_digest": digest}
 
 
 # --------------------------------------------------------------------------- #
@@ -3367,6 +3441,21 @@ def mp_child() -> int:
     ring_dma.check_errors()
     del state, model
     torch.cuda.empty_cache()
+
+    # the fused 1-slice fit at rank 256 of [sgd_mf:rank256]: the wide path's
+    # in-kernel send between processes
+    m = MF_WIDE
+    model = sgd_mf.SGDMF(sess, mf_fused_config(
+        fused_dma=True, rank=m["rank"], epochs=m["fused_epochs"]))
+    state = model.prepare(rows, cols, vals, f["users"], f["items"], seed=0)
+    zero_counts()
+    out_w, out_h, rmse = model.train_prepared(state)
+    out["wide_launches"] = read_counts()
+    out["wide_plain"] = plain_counts()
+    out["wide_digest"] = factor_digest(pull_factors(sess, out_w, out_h), rmse)
+    ring_dma.check_errors()
+    del state, model, out_w, out_h
+    torch.cuda.empty_cache()
     out["kmeans"] = kmeans_mp_fit(sess)
     torch.cuda.empty_cache()
     out["kmeans_wide"] = kmeans_mp_fit(sess, KMEANS_WIDE_MP)
@@ -3375,12 +3464,14 @@ def mp_child() -> int:
     return 0
 
 
-def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw):
+def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw,
+               stacked_wide):
     """[ringdma:mp] and [sgd_mf:fused] across 4 processes on the card,
-    through the port's launcher, the fused causal ring attention call and
-    the K-means fits at n = 1M (k = 100, and k = 1024, d = 128 through the
-    wide variant) across 4 processes; any child's failure fails the
-    run."""
+    through the port's launcher, the fused causal ring attention call, the
+    fused rank-256 SGD-MF fit (the wide path's send; ``stacked_wide`` the
+    digest of its stacked twin) and the K-means fits at n = 1M (k = 100, and
+    k = 1024, d = 128 through the wide variant) across 4 processes; any
+    child's failure fails the run."""
     from harp_tpu_torch.parallel import launch
 
     log(f"[ringdma:mp] {RING_W} processes x 1 worker on the card (the "
@@ -3463,6 +3554,24 @@ def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw):
     check(all(o["digest"] == stacked_mf["digest"] for o in outs.values()),
           "SGD-MF fused, 4 processes: factors (pulled through the fused "
           "allgather) and RMSEs bitwise the stacked fit")
+    m = MF_WIDE
+    steps_w = m["fused_epochs"] * RING_W
+    for i, o in outs.items():
+        c = o["wide_launches"]
+        check(c["dense_mf_hop"] == steps_w
+              and c["dense_mf_hop_ring"] == steps_w
+              and c["ring_recv"] == steps_w and c["ring_dma_hop"] == 0,
+              f"rank {i}, the fused rank-{m['rank']} fit: {steps_w} "
+              f"dense_mf_hop launches (the wide path), each with the "
+              f"in-kernel send and its receive launch, no ring_dma_hop "
+              f"({c['dense_mf_hop']}, {c['dense_mf_hop_ring']}, "
+              f"{c['ring_recv']}, {c['ring_dma_hop']})")
+        check_no_plain(f"[ringdma:mp] SGD-MF rank {m['rank']} fused, rank "
+                       f"{i}", o["wide_plain"])
+    check(all(o["wide_digest"] == stacked_wide for o in outs.values()),
+          f"SGD-MF rank {m['rank']} fused, 4 processes x 1 worker, "
+          f"{m['fused_epochs']} epochs: factors and RMSEs bitwise the stacked "
+          f"fused fit")
     check(all(o["kmeans"]["digest"] == stacked_km["digest"]
               for o in outs.values()),
           f"K-means, 4 processes x 1 worker, n={KMEANS_MP['n']}: centroids, "
@@ -3501,10 +3610,11 @@ def mp_smoke_phase():
     log(f"  {time.perf_counter() - t0:.2f} s")
 
 
-def ringdma_phases():
-    """Every ring-DMA phase; returns the ring_hop records of the dense-MF
-    and flash kernels and the kernels-line entries of the hop and the
-    allgather."""
+def ringdma_phases(stacked_wide):
+    """Every ring-DMA phase (``stacked_wide``: the digest of the stacked
+    fused rank-256 SGD-MF fit, for its 4-process twin); returns the
+    ring_hop records of the dense-MF and flash kernels and the kernels-line
+    entries of the hop and the allgather."""
     from harp_tpu_torch.ops import ring_dma
 
     hop, ag = ringdma_stacked()
@@ -3520,12 +3630,13 @@ def ringdma_phases():
     torch.cuda.empty_cache()
     kmw = kmeans_mp_stacked(KMEANS_WIDE_MP, "[kmeans:wide stacked]")
     torch.cuda.empty_cache()
-    mp = ringdma_mp(mf, km, attn, kmw)   # each child checks after each part
+    mp = ringdma_mp(mf, km, attn, kmw, stacked_wide)   # each child checks
     mp_smoke_phase()
     mb = str(1 << 20)
     mf_ring = {"launches": mf["launches"]["dense_mf_hop_ring"],
                "mp_launches": mp[0]["launches"]["dense_mf_hop_ring"],
                "mp_recv_launches": mp[0]["launches"]["ring_recv"],
+               "mp_wide_launches": mp[0]["wide_launches"]["dense_mf_hop_ring"],
                **mf["ring_hop"]}
     flash_ring = {
         "launches": attn["launches"]["flash_attention_ring"],
@@ -3791,7 +3902,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     attn = attention_phases()
     torch.cuda.empty_cache()
-    mf["ring_hop"], attn["ring_hop"], ring = ringdma_phases()
+    mf["ring_hop"], attn["ring_hop"], ring = ringdma_phases(
+        mf.pop(f"fit_rank{MF_WIDE['rank']}_fused_digest"))
     torch.cuda.empty_cache()
     plain = dispatch_phase()
     attn["plain_on_card"] = plain["flash_attention"]

@@ -135,8 +135,6 @@ using ring_dma::HopPlan;
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kReduceThreads = 256;
 constexpr int kCluster = 2;               // blocks a cluster
 constexpr int kMaxStages = 4;
@@ -187,52 +185,6 @@ struct Geom {
   static_assert(R % (16 * C) == 0 && WN <= 64 && 4 * DWG <= THREADS / 32,
                 "a 16-row dW tile goes to one block of the cluster");
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// d += a b: a 16x16 (row), b 16x8 (col), bf16; d 16x8 f32
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -399,6 +351,51 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
       : "memory");
 }
 
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,"
+      "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,"
+      "%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,"
+      "%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,"
+      "%103,%104,%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,"
+      "%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB)
+      : "memory");
+}
+
 // d (+)= A B for one k16 step of a 64 x N tile on a warpgroup: A and B in
 // shared memory (descriptors; TA / TB 1 where the operand is MN-major),
 // f32 accumulators N / 2 a thread; warp q of the warpgroup holds rows 16 q
@@ -410,6 +407,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
   if constexpr (N == 32) wgmma_n32<TA, TB>(d, a, b, accumulate);
   if constexpr (N == 64) wgmma_n64<TA, TB>(d, a, b, accumulate);
   if constexpr (N == 128) wgmma_n128<TA, TB>(d, a, b, accumulate);
+  if constexpr (N == 256) wgmma_n256<TA, TB>(d, a, b, accumulate);
 }
 
 // wgmma_bf16's accumulators are written asynchronously: wait for every
@@ -496,13 +494,6 @@ __device__ __forceinline__ float sgd_step(float x, float d, float cnt,
   return __fadd_rn(x, __fmul_rn(lr, __fsub_rn(d, reg)));
 }
 
-__global__ void dense_mf_wbf16_kernel(const float* __restrict__ w,
-                                      bf16* __restrict__ wb, size_t n) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    wb[i] = __float2bfloat16_rn(w[i]);
-}
-
 // Wb = bf16(w) as the narrow kernel's chunks: for each worker, stripe and
 // chunk of R rows (rows past the stripe zero), the R x KP rows in core
 // matrices (core_off), one contiguous copy a chunk; n = nw nmb nch R KP
@@ -565,7 +556,7 @@ __device__ void store_tile(const float* hs, int ldh, int ct_cols, int kp,
 }
 
 // The block's SSE partial: its threads' sums in warp order, into
-// sse_part[wk, ct]; scratch holds kWarps floats.
+// sse_part[wk, ct]; scratch holds a float a warp.
 __device__ void store_sse(float sse, float* scratch,
                           float* __restrict__ sse_part, int wk, int ct,
                           int n_ct) {
@@ -938,24 +929,34 @@ int slab_map(CUtensorMap* map, const void* slab, int nw, int n_blocks,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// The hop kernel's launch configuration: clusters of C along x
-template <int KT>
-struct HopLaunch {
+// A launch configuration in clusters of `cluster` blocks along x (1: no
+// cluster attribute); built in place (cfg points at attr)
+struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  HopLaunch(int n_ct, int nw, cudaStream_t s) : cfg(), attr() {
-    using G = Geom<KT>;
-    cfg.gridDim = dim3((n_ct + G::C - 1) / G::C * G::C, nw);
-    cfg.blockDim = dim3(G::THREADS);
-    cfg.dynamicSmemBytes = G::BYTES;
+  ClusterLaunch(dim3 grid, int threads, size_t smem, int cluster,
+                cudaStream_t s)
+      : cfg(), attr() {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = s;
     attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = G::C;
+    attr.val.clusterDim.x = cluster;
     attr.val.clusterDim.y = 1;
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = cluster > 1 ? 1 : 0;
   }
+};
+
+// The narrow hop kernel's launch: the column tiles padded to clusters of C
+template <int KT>
+struct HopLaunch : ClusterLaunch {
+  using G = Geom<KT>;
+  HopLaunch(int n_ct, int nw, cudaStream_t s)
+      : ClusterLaunch(dim3((n_ct + G::C - 1) / G::C * G::C, nw), G::THREADS,
+                      G::BYTES, G::C, s) {}
 };
 
 template <int KT>
@@ -1029,79 +1030,199 @@ int max_active_clusters() {
 // ---------------------------------------------------------------------------
 // The wide path, 128 < K <= 1024 (KP = 256, 512 or 1024).
 //
-// Where the kernel above stops: its block holds the H tile (CT x KP, f32
-// and bf16) in shared memory and each warp a CW x KP piece of dH in
-// registers, and it sums dW over the column tiles through a (W, n_ct, rpw,
-// KP) workspace. At KP = 256 the tile no longer fits beside the chunk
-// buffers at CT = 128, a warp's dH would be 128 floats a thread, and the
-// workspace, 2 KP / CT times the slab's bytes, would be 17 GB at the
-// flagship. So the wide path keeps the block's ownership of one (worker,
-// column tile) through all nmb stripes, and changes three things:
-//   * The rank is split across the warps: warp q owns rank columns
-//     [q KP / 8, (q + 1) KP / 8). CT = 16384 / KP (64, 32, 16), so the
-//     block's dH tile (CT x KP f32) is 64 floats a thread in registers,
-//     warp q holding dH[:, its columns], and its H tile is 64 KB of f32 and
-//     32 KB of bf16 in shared memory whatever KP is.
-//   * pred = Wb Hb^T for a chunk of R = 16 rows: each warp multiplies its
-//     rank columns (R x CT partial sums), the 8 partials meet in shared
-//     memory and are summed in warp order. G = bf16(V - pred) is formed
-//     once per chunk by the whole block, into shared memory (the operand of
-//     dH += G^T Wb, each warp on its own rank columns) and into a G buffer
-//     in device memory (W, rpw, cpb8) bf16, cpb8 = cpb rounded up to 8.
-//   * dW is not summed over column tiles at all: at each stripe's start a
-//     block writes its bf16 H tile to a snapshot (W, nmb, cpb8, KP), and
-//     after the hop one GEMM kernel forms dW_i = G_i Hb_i for every stripe
-//     i over the full cpb (a fixed order of sums: no atomics, two runs
-//     bitwise equal) and applies the W update in its epilogue. The G buffer
-//     and the snapshots cost one write and one read of rpw cpb 2 and nmb
-//     cpb KP 2 bytes a worker, in place of the workspace's 2 KP / CT slabs.
-//   Wb, the bf16 W of the bucket's rows, is written once per hop by a small
-//   kernel, so a block streams its chunks with 16-byte cp.async loads in
-//   the MMA operand's type, double-buffered like V.
-// The ring send of the final tile, the SSE partials and their fixed-order
-// sum are the kernel's above. KP = 1024 is the widest: there CT is 16, one
-// m16 tile, and a wider rank would need dH outside registers.
+// Where the kernel above stops: its warps hold a CT x KP piece of dH each and
+// it sums dW over the column tiles through a (W, n_ct, rpw, KP) workspace. At
+// KP = 256 a warp's dH would be 128 floats a thread and the workspace 2 KP /
+// CT times the slab's bytes (17 GB at the flagship). The wide path keeps the
+// block's ownership of one (worker, column tile) through all nmb stripes and
+// splits the work three ways:
+//   * A block owns CT = 64 columns and KR = 256 ranks. Past 256 the rank is
+//     split over a cluster of C = KP / 256 blocks of the same column tile
+//     (block rank q: ranks [256 q, 256 q + 256)). So a block's operands are
+//     the same at every KP: its Wb slice (64 rows x 256 ranks, 32 KB a
+//     chunk), its Hb tile (64 x 256) and V; and Wb is read from L2 n_ct
+//     times a hop at any KP (8.6, 17 and 34 GB at the flagship for KP = 256,
+//     512, 1024), where a block owning all KP ranks would take CT = 16384 /
+//     KP columns and read it KP / 64 times.
+//   * Two consumer warpgroups split the columns (warpgroup q: 32 columns), a
+//     producer warp fills a ring of S stages (V by the slab's tensor map, the
+//     chunk's Wb slice by one bulk copy, each stage completed on its
+//     mbarrier and freed by an mbarrier the 8 consumer warps arrive on). Per
+//     64-row chunk a warpgroup forms pred = Wb Hb^T (wgmma m64n32, K = 256,
+//     one accumulator chain), G = bf16(V - pred) from the accumulator
+//     registers into its G tile in core matrices, then dH^T += Wb^T G (four
+//     m64n32k16 chains over the rank, the transposed form, so M runs over
+//     the rank and N over its 32 columns). dH^T and the f32 H tile live in
+//     registers (64 floats each a thread); Hb^T in shared memory is the
+//     operand of pred. The two warpgroups share only the stages: neither
+//     waits for the other inside a chunk.
+//   * With C > 1 the pred partials of a chunk meet in distributed shared
+//     memory: block r owns rows [r 64 / C, (r + 1) 64 / C) of each chunk (the
+//     rows of warp r C / 4 .. of each warpgroup), the other blocks send it
+//     their partials by st.async onto its mbarrier, it sums the C partials
+//     in rank order (every block's arithmetic is the same, so the result
+//     does not depend on which block owns a row), forms G for its rows, and
+//     sends the bf16 G rows to the others' G tiles the same way. Each block
+//     then has the whole G tile of the chunk. SSE counts each row at its
+//     owner.
+//   * dW is not summed over column tiles in the hop: G goes to a G buffer in
+//     device memory in 64 x 32 blobs of core matrices by one bulk store a
+//     chunk (cluster rank 0's), and each stripe's Hb tile to a snapshot by
+//     one bulk store a stripe (every block its rank slice). After the hop one
+//     GEMM kernel (dense_mf_dw_wide_kernel) forms dW_i = G_i Hb_i for every
+//     stripe i on wgmma (128 rows x 256 ranks a block, the column loop in
+//     order: no atomics, two runs bitwise equal) and applies the W update in
+//     its epilogue. Both kernels read their operands with bulk copies in the
+//     layout wgmma takes, so no thread formats an operand on the way.
+// Wb = bf16(W) is written once a hop by dense_mf_wb_slices_kernel as the
+// chunks the stages hold: for each (worker, stripe, chunk of 64 rows, rank
+// slice) 64 x 256 bf16 in core matrices, zero past the stripe.
+// The ring send of the final tile (crank 0 of a cluster reads the credit and
+// tells the cluster, so a column tile is sent whole or left whole), the SSE
+// partials and their fixed-order sum are the narrow kernel's. KP = 1024 is
+// the widest: a cluster of 4 is the largest whose blocks the card keeps
+// resident beside each other at this shared memory.
 // What bounds it: operations. At rank 256 on the flagship the hop is 6 rpw
 // cpb K = 1.65e12 bf16 tensor-core operations (1.67 ms at 989 TFLOP/s)
-// against the slab's 2.15 GB (0.64 ms). The 8-way partial sums of pred
-// and three barriers a 16-row chunk, and every column tile's read of Wb
-// (KP / CT = 4 times the narrow kernel's at rank 256), stand between it and
-// that bound; larger chunks and a pred split over columns are the levers.
+// against the slab's 2.15 GB (0.64 ms); the G buffer adds 2.15 GB written
+// and 2.15 C GB read.
+// What holds it now (an H100, a clock-stamped copy of the kernel:
+// harp_tpu_torch/benchmark/mf_wide_stamps.py): at C = 1 a chunk's pred and
+// dH, m64n32 products whose operands both come from shared memory, more
+// than half of its cycles, G's element-wise pass a sixth; at C = 2 and 4
+// the exchange, whose two hops between blocks a chunk cost more than the
+// products.
 // ---------------------------------------------------------------------------
 
-constexpr int kWideRows = 16;          // rows a chunk
-constexpr int kWideTile = 16384;       // CT x KP: 64 dH floats a thread
-constexpr int kGemmThreads = 128;      // dW GEMM: 4 warps, 64 x 64 tile
-constexpr int kGemmBM = 64;
-constexpr int kGemmBN = 64;
-constexpr int kGemmBK = 32;
+constexpr int kWideRanks = 256;        // KR: ranks a block
+constexpr int kWideCols = 64;          // CT: columns a block
+constexpr int kWideRows = 64;          // R: rows a chunk
+constexpr int kWideGroups = 2;         // consumer warpgroups a block
+constexpr int kWideThreads = 128 * kWideGroups + 32;   // and a producer warp
+constexpr int kDwStages = 4;           // dW GEMM stage ring
 
 template <int KP_>
 struct WideGeom {
   static constexpr int KP = KP_;
-  static constexpr int CT = kWideTile / KP;
+  static constexpr int KR = kWideRanks;
+  static constexpr int C = KP / KR;         // blocks a cluster (rank slices)
+  static constexpr int CT = kWideCols;
   static constexpr int R = kWideRows;
-  static constexpr int KW = KP / kWarps;    // rank columns a warp owns
-  static constexpr int MT = CT / 16;        // m16 tiles of dH (H columns)
-  static constexpr int NK = KW / 8;         // n8 tiles of dH (rank)
-  static constexpr int NT = CT / 8;         // n8 tiles of pred (H columns)
-  static constexpr int LDK = KP + 8;        // bf16 rows over the rank
-  static constexpr int LDH = KP + 4;        // f32
-  static constexpr int LDV = CT + 8;        // bf16 rows over the columns
-  static constexpr int LDP = CT + 4;        // f32 partial pred
-  static constexpr size_t HS = 0;                                     // H f32
-  static constexpr size_t HB = align128(HS + (size_t)CT * LDH * 4);   // bf16
-  static constexpr size_t V = align128(HB + (size_t)CT * LDK * 2);    // 2 x V
-  static constexpr size_t WB = align128(V + (size_t)2 * R * LDV * 2); // 2 x Wb
-  static constexpr size_t GS = align128(WB + (size_t)2 * R * LDK * 2);  // G
-  static constexpr size_t PP = align128(GS + (size_t)R * LDV * 2);
-  static constexpr size_t BYTES = PP + (size_t)kWarps * R * LDP * 4;
-  static_assert(MT * NK == 16, "64 dH floats a thread");
-  static_assert(KW % 16 == 0 && CT % 16 == 0, "whole mma tiles");
+  static constexpr int WC = CT / kWideGroups;   // columns a warpgroup
+  static constexpr int RO = R / C;          // rows of a chunk a block owns
+  static constexpr int MT = KR / 64;        // m64 tiles of dH^T
+  // Hb^T (CT x KR, core_off<KR>(column, rank)), G tiles [group][2] (R x WC,
+  // core_off<WC>(row, column)), the received pred partials [group][2][C]
+  // (RO x WC f32, C > 1), the send flag, then the barriers: full[S],
+  // empty[S], rbar[group][2], gbar[group][2]
+  static constexpr size_t HB = 0;
+  static constexpr size_t GT = HB + (size_t)CT * KR * 2;
+  static constexpr size_t GTILE = (size_t)R * WC * 2;
+  static constexpr size_t RCV = GT + kWideGroups * 2 * GTILE;
+  static constexpr size_t RSLOT = (size_t)C * RO * WC * 4;
+  static constexpr size_t FLAG = RCV + (C > 1 ? kWideGroups * 2 * RSLOT : 0);
+  static constexpr size_t BAR = align128(FLAG + 16);
+  static constexpr size_t ST = align128(BAR + (2 * 4 + 8) * 8);
+  static constexpr size_t VB = (size_t)RO * 128;   // V: 64 columns x RO rows
+  static constexpr size_t WB = (size_t)R * KR * 2;
+  static constexpr size_t STAGE = align1024(VB + WB);
+  static constexpr int S = min_int(4, (kMaxSmem - 1008 - ST) / STAGE);
+  static constexpr size_t BYTES = ST + 1008 + (size_t)S * STAGE;
+  static_assert(S >= 3 && BYTES <= kMaxSmem, "three stages must fit");
+  static_assert(C == 1 || C == 2 || C == 4, "a warp's rows have one owner");
 };
 
+struct DwGeom {
+  static constexpr size_t A = (size_t)2 * kWideRows * 64 * 2;   // 2 x 64 rows
+  static constexpr size_t B = (size_t)64 * kWideRanks * 2;      // 64 columns
+  static constexpr size_t STAGE = A + B;
+  static constexpr size_t BAR = (size_t)kDwStages * STAGE;
+  static constexpr size_t BYTES = BAR + 2 * kDwStages * 8;
+  static_assert(BYTES <= kMaxSmem, "the dW stages fit");
+};
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// bytes (a multiple of 16) from this block's shared memory to global, as
+// one bulk-group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void group_sync(int q) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + q) : "memory");
+}
+
+__device__ __forceinline__ void st_async_b32(unsigned a, unsigned v,
+                                             unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(a),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_u32(unsigned a, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(a), "r"(v)
+               : "memory");
+}
+
+template <int M>
+__device__ __forceinline__ void pin(float (&d)[M]) {
+#pragma unroll
+  for (int q = 0; q < M; ++q) asm volatile("" : "+f"(d[q])::"memory");
+}
+
+// Wb = bf16(w) as the wide path's stage operands: for each worker, stripe,
+// chunk of R rows (zero past the stripe) and rank slice of KR, the R x KR
+// piece in core matrices (core_off), one contiguous copy; n = nw nmb nch R kp
+template <int R, int KR>
+__global__ void dense_mf_wb_slices_kernel(const float* __restrict__ w,
+                                          bf16* __restrict__ wb, size_t n,
+                                          int rpw, int nmb, int nch, int kp) {
+  const int s_rows = rpw / nmb;
+  const int nsl = kp / KR;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int kl = (int)(i % KR);
+    const int r = (int)(i / KR % R);
+    const size_t piece = i / ((size_t)R * KR);   // chunk nsl + slice
+    const int q = (int)(piece % nsl);
+    const size_t chunk = piece / nsl;            // (wk nmb + stripe) nch + c
+    const int c = (int)(chunk % nch);
+    const size_t ws_ = chunk / nch;
+    const int rr = c * R + r;
+    const size_t row = ws_ / nmb * rpw + ws_ % nmb * s_rows + rr;
+    const float v = rr < s_rows ? w[row * kp + (size_t)q * KR + kl] : 0.f;
+    *reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(wb) +
+                             piece * R * KR * 2 + core_off<KR>(r, kl)) =
+        __float2bfloat16_rn(v);
+  }
+}
+
+// Launched in clusters of C blocks along x (C = 1: no cluster); grid (n_ct C,
+// W). Block x owns column tile x / C and rank slice x mod C.
 template <int KP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
 dense_mf_hop_wide_kernel(const bf16* __restrict__ slab,
                          const int* __restrict__ bucket,
                          const bf16* __restrict__ wbf,
@@ -1111,213 +1232,319 @@ dense_mf_hop_wide_kernel(const bf16* __restrict__ slab,
                          bf16* __restrict__ hsnap,
                          float* __restrict__ sse_part, int n_blocks, int rpw,
                          int cpb, int nmb, int nmb_fine, float lr, float lam,
-                         int vec, const RingSend ring) {
+                         int vec, const __grid_constant__ CUtensorMap vmap,
+                         const RingSend ring) {
   using G = WideGeom<KP>;
-  constexpr int CT = G::CT, R = G::R, KW = G::KW;
-  constexpr int MT = G::MT, NK = G::NK, NT = G::NT;
+  constexpr int C = G::C, KR = G::KR, CT = G::CT, R = G::R, WC = G::WC;
+  constexpr int RO = G::RO, S = G::S, MT = G::MT;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* hs = reinterpret_cast<float*>(smem + G::HS);
-  bf16* hb = reinterpret_cast<bf16*>(smem + G::HB);
-  bf16* vbuf = reinterpret_cast<bf16*>(smem + G::V);
-  bf16* wbuf = reinterpret_cast<bf16*>(smem + G::WB);
-  bf16* gs = reinterpret_cast<bf16*>(smem + G::GS);
-  float* pp = reinterpret_cast<float*>(smem + G::PP);
+  unsigned char* hbt = smem + G::HB;
+  float* recv = reinterpret_cast<float*>(smem + G::RCV);
+  unsigned* flag = reinterpret_cast<unsigned*>(smem + G::FLAG);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BAR);
+  uint64_t* empty = full + S;
+  uint64_t* rbar = full + 2 * 4;   // [group][2]
+  uint64_t* gbar = rbar + 4;       // [group][2]
+  unsigned char* stages =
+      smem + G::ST + ((1024 - (smem_u32(smem + G::ST) & 1023)) & 1023);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int gq = lane >> 2;
   const int tq = lane & 3;
-  const int lr8 = lane & 7;
-  const int lh = (lane >> 3) & 1;
-  const int lq = lane >> 4;
-  const int kw0 = warp * KW;      // this warp's rank columns
-
-  const int ct = blockIdx.x;
-  const int n_ct = gridDim.x;
+  const int ct = blockIdx.x / C;
+  const int n_ct = gridDim.x / C;
+  const unsigned crank = C > 1 ? cluster_rank() : 0u;
+  const int k0 = (int)crank * KR;      // this block's rank slice
   const int wk = blockIdx.y;
   const int c0 = ct * CT;
   const int ncols = min(CT, cpb - c0);
-  const int cpb8 = (cpb + 7) / 8 * 8;
-  const int ncols8 = min(CT, cpb8 - c0);   // G and snapshot columns written
   const size_t blk = (size_t)wk * n_blocks + bucket[wk];
-  const bf16* vsl = slab + blk * rpw * cpb;                 // (rpw, cpb)
-  const bf16* wwk = wbf + (size_t)wk * rpw * KP;            // (rpw, KP)
-  const float* ccw = col_cnt + blk * nmb_fine * cpb;        // (nmb_fine, cpb)
-  bf16* gwk = gout + (size_t)wk * rpw * cpb8;               // (rpw, cpb8)
+  const bf16* vsl = slab + blk * rpw * cpb;                // (rpw, cpb)
+  const int vrow = (int)(blk * rpw);
+  const float* ccw = col_cnt + blk * nmb_fine * cpb;       // (nmb_fine, cpb)
   const int s_rows = rpw / nmb;
   const int ratio = nmb_fine / nmb;
   const int nch = (s_rows + R - 1) / R;
   const int total = nmb * nch;
+  // chunk g's Wb slice: (wk total + g) C + crank pieces of WB bytes
+  const unsigned char* wsl = reinterpret_cast<const unsigned char*>(wbf) +
+                             ((size_t)wk * total * C + crank) * G::WB;
 
   if (ring.h_next != nullptr && ring.remote)
     ring_dma::give_credits(ring.plan, gridDim.y);
-
-  for (int e = tid; e < CT * KP; e += kThreads) {
-    const int c = e / KP, k = e - c * KP;
-    const float v = c < ncols ? h[((size_t)wk * cpb + c0 + c) * KP + k] : 0.f;
-    hs[c * G::LDH + k] = v;
-    hb[c * G::LDK + k] = __float2bfloat16_rn(v);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * kWideGroups);   // the consumer warps
+    }
+    for (int s = 0; s < 4; ++s) {
+      mbar_init(rbar + s, 1);
+      mbar_init(gbar + s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (C > 1) cluster_sync(); else __syncthreads();
 
-  // chunk g: rows [row0, row0 + nr) of stripe g / nch, zero-filled past the
-  // stripe (and V past the block's columns)
-  auto issue = [&](int g) {
-    const int c = g % nch;
-    const int row0 = (g / nch) * s_rows + c * R;
-    const int nr = min(R, s_rows - c * R);
-    bf16* vd = vbuf + (g & 1) * R * G::LDV;
-    bf16* wd = wbuf + (g & 1) * R * G::LDK;
-    if (vec) {
-      constexpr int U = CT / 8;
-      for (int u = tid; u < R * U; u += kThreads) {
-        const int r = u / U, col = (u - r * U) * 8;
-        const bool ok = r < nr && col < ncols;
-        cp_async16(vd + r * G::LDV + col,
-                   ok ? vsl + (size_t)(row0 + r) * cpb + c0 + col : vsl,
-                   ok ? 16 : 0);
-      }
-    } else {
-      for (int e = tid; e < R * CT; e += kThreads) {
-        const int r = e / CT, col = e - r * CT;
-        vd[r * G::LDV + col] = (r < nr && col < ncols)
-                                   ? vsl[(size_t)(row0 + r) * cpb + c0 + col]
-                                   : __float2bfloat16_rn(0.f);
-      }
-    }
-    constexpr int UW = KP / 8;
-    for (int u = tid; u < R * UW; u += kThreads) {
-      const int r = u / UW, k = (u - r * UW) * 8;
-      const bool ok = r < nr;
-      cp_async16(wd + r * G::LDK + k,
-                 ok ? wwk + (size_t)(row0 + r) * KP + k : wwk, ok ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  float dh[MT][NK][4];
   float sse = 0.f;
-  issue(0);
-  for (int g = 0; g < total; ++g) {
-    const int i = g / nch;
-    const int c = g - i * nch;
-    const int row0 = i * s_rows + c * R;
-    const int nr = min(R, s_rows - c * R);
-    cp_async_wait<0>();
-    __syncthreads();   // chunk g landed; chunk g-1's readers are done
-    if (g + 1 < total) issue(g + 1);
-    if (c == 0) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NK; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) dh[mt][nt][q] = 0.f;
-      // stripe i's Hb, the B operand of its dW, for this warp's columns
-      constexpr int UK = KW / 8;
-      bf16* snap = hsnap + (((size_t)wk * nmb + i) * cpb8 + c0) * KP;
-      for (int u = lane; u < ncols8 * UK; u += 32) {
-        const int col = u / UK, k = kw0 + (u - col * UK) * 8;
-        *reinterpret_cast<uint4*>(snap + (size_t)col * KP + k) =
-            *reinterpret_cast<const uint4*>(hb + col * G::LDK + k);
+  float hreg[MT][WC / 2];   // the f32 H tile, dH^T's fragment layout
+  if (warp == 4 * kWideGroups) {
+    // the producer warp: chunk g into stage g % S once its consumers have
+    // freed it, V by the tensor map (this block's RO rows; rows past the
+    // stripe are read and masked, columns past cpb arrive as zeros) and the
+    // Wb slice by one bulk copy; without the map (cpb % 8 != 0) V by
+    // element-wise loads of the warp, in the same swizzled layout
+    for (int g = 0; g < total; ++g) {
+      const int s = g % S;
+      if (g >= S) mbar_wait(empty + s, (unsigned)(g / S - 1) & 1u);
+      const int c = g % nch;
+      const int row0 = (g / nch) * s_rows + c * R;
+      unsigned char* st = stages + s * G::STAGE;
+      if (!vec) {
+        const int nr = min(R, s_rows - c * R);
+        for (int e = lane; e < RO * CT; e += 32) {
+          const int r = e / CT, col = e - r * CT;
+          const int rr = (int)crank * RO + r;
+          *reinterpret_cast<bf16*>(st + v_offset<RO>(r, col)) =
+              (rr < nr && col < ncols)
+                  ? vsl[(size_t)(row0 + rr) * cpb + c0 + col]
+                  : __float2bfloat16_rn(0.f);
+        }
+        __syncwarp();
+      }
+      if (lane == 0) {
+        mbar_expect(full + s, (vec ? (unsigned)G::VB : 0u) + (unsigned)G::WB);
+        if (vec)
+          tensor_copy(st, &vmap, c0, vrow + row0 + (int)crank * RO, full + s);
+        bulk_copy(st + G::VB, wsl + (size_t)g * C * G::WB, G::WB, full + s);
       }
     }
-    const bf16* vg = vbuf + (g & 1) * R * G::LDV;
-    const bf16* wg = wbuf + (g & 1) * R * G::LDK;
-
-    // this warp's share of pred = Wb Hb^T: its rank columns, all CT columns
-    {
-      float acc[NT][4];
+  } else {
+    const int q = warp >> 2;          // warpgroup: columns 32 q ..
+    const int wl = warp & 3;
+    const int wr = 16 * wl;           // this warp's rows of a chunk
+    const bool lead = (tid & 127) == 0;
+    // this warp's rows belong to block wl C / 4 of the cluster
+    const unsigned owner = (unsigned)(wl * C / 4);
+    const bool mine = owner == crank;
+    unsigned char* hbq = hbt + (size_t)q * WC * KR * 2;   // its Hb^T rows
+    // element (rank 64 mt + wr + gq + 8 hh, column 8 j + 2 tq + e) of the
+    // warpgroup's tile is hreg / dh [mt][4 j + 2 hh + e]
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KW / 16; ++kk) {
-        unsigned a[4];
-        ldsm4(a, wg + (lr8 + 8 * lh) * G::LDK + kw0 + 16 * kk + 8 * lq);
-#pragma unroll
-        for (int jj = 0; jj < NT / 2; ++jj) {
-          unsigned b[4];
-          ldsm4(b, hb + (16 * jj + lr8 + 8 * lq) * G::LDK + kw0 + 16 * kk +
-                       8 * lh);
-          mma(acc[2 * jj], a, b[0], b[1]);
-          mma(acc[2 * jj + 1], a, b[2], b[3]);
-        }
+      for (int x = 0; x < WC / 2; ++x) {
+        const int j = x >> 2, hh = (x >> 1) & 1, e = x & 1;
+        const int col = q * WC + 8 * j + 2 * tq + e;
+        const int kl = 64 * mt + wr + gq + 8 * hh;
+        const float v =
+            col < ncols ? h[((size_t)wk * cpb + c0 + col) * KP + k0 + kl] : 0.f;
+        hreg[mt][x] = v;
+        *reinterpret_cast<bf16*>(hbt + core_off<KR>(col, kl)) =
+            __float2bfloat16_rn(v);
       }
-      float* dst = pp + (size_t)warp * R * G::LDP;
+    // Hb^T (generic stores) before wgmma and the bulk stores read it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    group_sync(q);
+
+    float dh[MT][WC / 2];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int x = 0; x < WC / 2; ++x) dh[mt][x] = 0.f;
+    for (int g = 0; g < total; ++g) {
+      const int i = g / nch;
+      const int c = g - i * nch;
+      const int nr = min(R, s_rows - c * R);
+      const int s = g % S;
+      const int slot = g & 1;
+      const unsigned char* st = stages + s * G::STAGE;
+      const unsigned char* wbs = st + G::VB;
+      unsigned char* gt = smem + G::GT + (size_t)(2 * q + slot) * G::GTILE;
+      mbar_wait(full + s, (unsigned)(g / S) & 1u);
+      if (c == 0 && lead)   // stripe i's Hb, the B operand of its dW
+        bulk_store(hsnap + ((((size_t)wk * nmb + i) * n_ct + ct) * C + crank) *
+                               CT * KR + (size_t)q * WC * KR,
+                   hbq, WC * KR * 2);
+
+      // pred = Wb Hb^T on the warpgroup's columns (A: the Wb slice, B: Hb^T,
+      // both K-major)
+      float pr[WC / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KR / 16; ++kk)
+        wgmma_bf16<WC, 0, 0>(pr, wg_desc(wbs + 256 * kk, 128, KR * 16),
+                             wg_desc(hbq + 256 * kk, 128, KR * 16), kk);
+      wgmma_commit();
+      unsigned vv[2][WC / 8];   // V of this warp's rows, while pred runs
+      if (mine) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
-          *reinterpret_cast<float2*>(dst + (gq + 8 * hh) * G::LDP + 8 * j +
-                                     2 * tq) =
-              make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
-    }
-    __syncthreads();
-
-    // G = bf16(V - pred) where rated, the partials summed in warp order
-    for (int e = tid; e < R * CT; e += kThreads) {
-      const int r = e / CT, col = e - r * CT;
-      float pred = 0.f;
 #pragma unroll
-      for (int q = 0; q < kWarps; ++q)
-        pred += pp[((size_t)q * R + r) * G::LDP + col];
-      const float v = __bfloat162float(vg[r * G::LDV + col]);
-      const bool live = r < nr && col < ncols && !isnan(v);
-      const bf16 gb = __float2bfloat16_rn(live ? v - pred : 0.f);
-      const float gf = __bfloat162float(gb);
-      sse += gf * gf;
-      gs[r * G::LDV + col] = gb;
-      if (r < nr && col < ncols8)
-        gwk[(size_t)(row0 + r) * cpb8 + c0 + col] = gb;
-    }
-    __syncthreads();
-
-    // dH += G^T Wb over the chunk's rows, this warp's rank columns
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      unsigned a[4];
-      ldsm4t(a, gs + (lr8 + 8 * lq) * G::LDV + 16 * mt + 8 * lh);
-#pragma unroll
-      for (int nn = 0; nn < NK / 2; ++nn) {
-        unsigned b[4];
-        ldsm4t(b, wg + (lr8 + 8 * lh) * G::LDK + kw0 + 16 * nn + 8 * lq);
-        mma(dh[mt][2 * nn], a, b[0], b[1]);
-        mma(dh[mt][2 * nn + 1], a, b[2], b[3]);
+          for (int j = 0; j < WC / 8; ++j)
+            vv[hh][j] = *reinterpret_cast<const unsigned*>(
+                st + v_offset<RO>(wr + gq + 8 * hh - (int)crank * RO,
+                                  q * WC + 8 * j + 2 * tq));
       }
-    }
+      wgmma_wait(pr);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) pin(dh[mt]);
+      // every wgmma of chunk g - 1 is done: its stage is free
+      if (g > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + (g - 1) % S);
+      }
 
-    if (c == nch - 1) {
-      // stripe end: H <- H + lr (dH - lam cc_i H) on this warp's columns
-      const float* cci = ccw + (size_t)i * ratio * cpb + c0;
+      if constexpr (C > 1) {
+        if (!mine) {
+          // this warp's partial rows to their owner, slot [crank]
+          const unsigned to = cluster_addr(
+              recv + ((size_t)(2 * q + slot) * C + crank) * RO * WC, owner);
+          const unsigned to_bar = cluster_addr(rbar + 2 * q + slot, owner);
+#pragma unroll
+          for (int j = 0; j < WC / 8; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int rl = wr + gq + 8 * hh - (int)owner * RO;
+              st_async2(to + (unsigned)((rl * WC + 8 * j + 2 * tq) * 4),
+                        pr[4 * j + 2 * hh], pr[4 * j + 2 * hh + 1], to_bar);
+            }
+        } else {
+          // the C partials of this warp's rows, summed in rank order
+          uint64_t* rb = rbar + 2 * q + slot;
+          if (lane == 0 && wl == (int)crank * 4 / C)
+            mbar_expect(rb, (unsigned)((C - 1) * RO * WC * 4));
+          mbar_wait(rb, (unsigned)(g >> 1) & 1u);
+          const float* rv = recv + (size_t)(2 * q + slot) * C * RO * WC;
+#pragma unroll
+          for (int j = 0; j < WC / 8; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int rl = wr + gq + 8 * hh - (int)crank * RO;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float t = 0.f;
+#pragma unroll
+                for (int p = 0; p < C; ++p) {
+                  const float x = p == (int)crank
+                                      ? pr[4 * j + 2 * hh + e]
+                                      : rv[((size_t)p * RO + rl) * WC + 8 * j +
+                                           2 * tq + e];
+                  t = p == 0 ? x : t + x;
+                }
+                pr[4 * j + 2 * hh + e] = t;
+              }
+            }
+        }
+      }
+      if (mine) {
+        // G = bf16(V - pred), 0 where V is NaN (unrated) or the row is past
+        // the stripe (a mask on the packed pair), into the G tile; with C >
+        // 1 also into the G tiles of the cluster's other blocks
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = wr + gq + 8 * hh;
+          const unsigned rmask = r < nr ? 0xffffffffu : 0u;
+#pragma unroll
+          for (int j = 0; j < WC / 8; ++j) {
+            const bf162 vb = *reinterpret_cast<const bf162*>(&vv[hh][j]);
+            const float2 v = __bfloat1622float2(vb);
+            const bf162 gr = __floats2bfloat162_rn(
+                v.x - pr[4 * j + 2 * hh], v.y - pr[4 * j + 2 * hh + 1]);
+            const unsigned gu = *reinterpret_cast<const unsigned*>(&gr) &
+                                __heq2_mask(vb, vb) & rmask;
+            const bf162 gb = *reinterpret_cast<const bf162*>(&gu);
+            const float2 gf = __bfloat1622float2(gb);
+            sse = fmaf(gf.x, gf.x, sse);
+            sse = fmaf(gf.y, gf.y, sse);
+            const int off = core_off<WC>(r, 8 * j + 2 * tq);
+            *reinterpret_cast<unsigned*>(gt + off) = gu;
+            if constexpr (C > 1) {
+#pragma unroll
+              for (int p = 1; p < C; ++p) {
+                const unsigned to = (crank + p) % C;
+                st_async_b32(cluster_addr(gt, to) + off, gu,
+                             cluster_addr(gbar + 2 * q + slot, to));
+              }
+            }
+          }
+        }
+      }
+      if constexpr (C > 1) {
+        // the other blocks' G rows
+        uint64_t* gb = gbar + 2 * q + slot;
+        if (lane == 0 && wl == 0)
+          mbar_expect(gb, (unsigned)((C - 1) * RO * WC * 2));
+        mbar_wait(gb, (unsigned)(g >> 1) & 1u);
+      }
+      // the G tile (generic stores) before wgmma and the bulk store read
+      // it; the bulk stores of chunk g - 1 have read theirs, so the next
+      // chunk may write that slot
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (lead) bulk_wait_read();
+      group_sync(q);
+      if (crank == 0 && lead)
+        bulk_store(gout + ((((size_t)wk * nmb + i) * nch + c) * (2 * n_ct) +
+                           2 * ct + q) * (R * WC),
+                   gt, (unsigned)G::GTILE);
+
+      // dH^T += Wb^T G over the chunk's rows (A: the Wb slice, MN-major; B:
+      // the G tile, MN-major), m-tile mt: ranks 64 mt ..
+      wgmma_fence();
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int col = 16 * mt + gq + 8 * hh;
-          float cnt = 0.f;
-          if (col < ncols)
-            for (int f = 0; f < ratio; ++f) cnt += cci[(size_t)f * cpb + col];
+        for (int kk = 0; kk < R / 16; ++kk)
+          wgmma_bf16<WC, 1, 1>(
+              dh[mt], wg_desc(wbs + mt * 1024 + 2 * kk * KR * 16, KR * 16, 128),
+              wg_desc(gt + 2 * kk * WC * 16, WC * 16, 128), c > 0 || kk > 0);
+      wgmma_commit();
+
+      if (c == nch - 1) {
+        // stripe end: H <- H + lr (dH - lam cc_i H) on the warpgroup's tile
+        wgmma_wait(pr);
 #pragma unroll
-          for (int nt = 0; nt < NK; ++nt) {
-            const int k = kw0 + 8 * nt + 2 * tq;
-            float* hp = hs + col * G::LDH + k;
-            const float h0 = sgd_step(hp[0], dh[mt][nt][2 * hh], cnt, lr, lam);
-            const float h1 =
-                sgd_step(hp[1], dh[mt][nt][2 * hh + 1], cnt, lr, lam);
-            hp[0] = h0;
-            hp[1] = h1;
-            *reinterpret_cast<bf162*>(hb + col * G::LDK + k) =
-                __floats2bfloat162_rn(h0, h1);
+        for (int mt = 0; mt < MT; ++mt) pin(dh[mt]);
+        if (lead) bulk_wait_read();   // the snapshot has read Hb^T
+        group_sync(q);
+        const float* cci = ccw + (size_t)i * ratio * cpb + c0;
+        float cnt[WC / 8][2];
+#pragma unroll
+        for (int j = 0; j < WC / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = q * WC + 8 * j + 2 * tq + e;
+            float t = 0.f;
+            if (col < ncols)
+              for (int f = 0; f < ratio; ++f) t += cci[(size_t)f * cpb + col];
+            cnt[j][e] = t;
           }
-        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int x = 0; x < WC / 2; ++x) {
+            const int j = x >> 2, hh = (x >> 1) & 1, e = x & 1;
+            const float v =
+                sgd_step(hreg[mt][x], dh[mt][x], cnt[j][e], lr, lam);
+            hreg[mt][x] = v;
+            *reinterpret_cast<bf16*>(
+                hbt + core_off<KR>(q * WC + 8 * j + 2 * tq + e,
+                                   64 * mt + wr + gq + 8 * hh)) =
+                __float2bfloat16_rn(v);
+          }
+        // Hb^T (generic stores) before the next stripe's wgmma reads it
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        group_sync(q);
+      }
     }
+    if (lead) bulk_wait();
   }
-  __syncthreads();
+  __syncthreads();   // every stage is consumed: the ring is free
 
   // the final tile goes to h_out and, with the ring send, to the neighbour
-  // (in another process only if its credit is in: no block spins here)
+  // (in another process only if its credit is in: no block spins here;
+  // cluster rank 0 decides for the whole column tile)
   float* hn = nullptr;
   bool remote_send = false;
   if (ring.h_next != nullptr) {
@@ -1326,154 +1553,187 @@ dense_mf_hop_wide_kernel(const bf16* __restrict__ slab,
     if (d >= 0 && d < (int)gridDim.y) {
       hn = ring.h_next + (size_t)d * cpb * KP;
     } else {
-      int in = 0;
-      if (tid == 0) {
-        in = ring_dma::acquire_load(ring.plan.my_ready[wk]) >= ring.ready;
+      if (crank == 0 && tid == 0) {
+        const unsigned in =
+            ring_dma::acquire_load(ring.plan.my_ready[wk]) >= ring.ready;
         __threadfence();
-        ring.sent[(size_t)wk * n_ct + ct] = in;
+        ring.sent[(size_t)wk * n_ct + ct] = (int)in;
+        if constexpr (C > 1) {
+          for (int p = 0; p < C; ++p) st_cluster_u32(cluster_addr(flag, p), in);
+        } else {
+          *flag = in;
+        }
       }
-      remote_send = __syncthreads_or(in) != 0;
+      if constexpr (C > 1) cluster_sync(); else __syncthreads();
+      remote_send = *reinterpret_cast<volatile unsigned*>(flag) != 0;
       if (remote_send) hn = reinterpret_cast<float*>(ring.plan.remote_dst[wk]);
     }
   }
-  for (int e = tid; e < CT * KP; e += kThreads) {
-    const int c = e / KP, k = e - c * KP;
-    if (c < ncols) {
-      const float v = hs[c * G::LDH + k];
-      const size_t o = (size_t)(c0 + c) * KP + k;
-      h_out[(size_t)wk * cpb * KP + o] = v;
-      if (hn != nullptr) hn[o] = v;
-    }
-  }
-  if (remote_send) ring_dma::signal_arrival(ring.plan.arrive_to[wk]);
+  if (warp < 4 * kWideGroups) {
+    const int q = warp >> 2, wr = 16 * (warp & 3);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    sse += __shfl_xor_sync(0xffffffffu, sse, off);
-  if (lane == 0) pp[warp] = sse;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int q = 0; q < kWarps; ++q) s += pp[q];
-    sse_part[(size_t)wk * n_ct + ct] = s;
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int x = 0; x < WC / 2; ++x) {
+        const int j = x >> 2, hh = (x >> 1) & 1, e = x & 1;
+        const int col = q * WC + 8 * j + 2 * tq + e;
+        if (col < ncols) {
+          const size_t o =
+              (size_t)(c0 + col) * KP + k0 + 64 * mt + wr + gq + 8 * hh;
+          h_out[(size_t)wk * cpb * KP + o] = hreg[mt][x];
+          if (hn != nullptr) hn[o] = hreg[mt][x];
+        }
+      }
   }
+  if (remote_send) {
+    if constexpr (C > 1) cluster_sync();   // every slice is in the slot
+    if (crank == 0) ring_dma::signal_arrival(ring.plan.arrive_to[wk]);
+  }
+  store_sse(sse, reinterpret_cast<float*>(stages), sse_part, wk, blockIdx.x,
+            gridDim.x);
+  if constexpr (C > 1) cluster_sync();   // no block leaves before the others
 }
 
 // dW_i = G_i Hb_i for every stripe i (the G rows of the stripe against its
-// H snapshot, a sum over all cpb8 columns in order), then W <- W + lr (dW
-// - lam rc W). One block a 64-row x 64-rank tile of one stripe; 4 warps of
-// 32 x 32; bf16 tiles of 32 columns double-buffered by cp.async. Block
-// (0, 0) of each worker also sums its SSE partials in order.
-__global__ void __launch_bounds__(kGemmThreads)
-dense_mf_dw_kernel(const bf16* __restrict__ gbuf,
-                   const bf16* __restrict__ hsnap,
-                   const float* __restrict__ w,
-                   const float* __restrict__ row_cnt,
-                   const int* __restrict__ bucket,
-                   const float* __restrict__ sse_part,
-                   float* __restrict__ w_out, float* __restrict__ sse_out,
-                   int n_blocks, int rpw, int cpb8, int kp, int nmb, int n_ct,
-                   float lr, float lam) {
-  constexpr int LDA = kGemmBK + 8, LDB = kGemmBN + 8;
-  __shared__ __align__(128) bf16 as[2][kGemmBM * LDA];
-  __shared__ __align__(128) bf16 bs[2][kGemmBK * LDB];
+// Hb snapshot, a sum over all column tiles in order), then W <- W + lr (dW -
+// lam rc W). One block a 128-row x 256-rank tile of one stripe: two consumer
+// warpgroups of 64 rows (wgmma m64n256k16; A: G blobs, K-major; B: the
+// snapshot, MN-major), a producer warp filling a ring of kDwStages stages by
+// bulk copies (64 columns of G for each warpgroup, 8 KB, and of the
+// snapshot, 32 KB). Block (0, 0) of each worker also sums its SSE partials
+// in order. grid (nmb ceil(nch / 2), kp / 256, W).
+__global__ void __launch_bounds__(kWideThreads, 1)
+dense_mf_dw_wide_kernel(const bf16* __restrict__ gbuf,
+                        const bf16* __restrict__ hsnap,
+                        const float* __restrict__ w,
+                        const float* __restrict__ row_cnt,
+                        const int* __restrict__ bucket,
+                        const float* __restrict__ sse_part,
+                        float* __restrict__ w_out, float* __restrict__ sse_out,
+                        int n_blocks, int rpw, int kp, int nmb, int n_ct,
+                        int n_parts, float lr, float lam) {
+  constexpr int S = kDwStages, R = kWideRows, KR = kWideRanks;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DwGeom::BAR);
+  uint64_t* empty = full + S;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  const int lr8 = lane & 7;
-  const int lh = (lane >> 3) & 1;
-  const int lq = lane >> 4;
-  const int wm = warp >> 1, wn = warp & 1;
   const int wk = blockIdx.z;
+  const int nsl = kp / KR;
+  const int q = blockIdx.y;            // rank slice
   const int s_rows = rpw / nmb;
-  const int tiles_i = (s_rows + kGemmBM - 1) / kGemmBM;
-  const int i = blockIdx.x / tiles_i;
-  const int rs0 = (blockIdx.x - i * tiles_i) * kGemmBM;   // in the stripe
-  const int nr = min(kGemmBM, s_rows - rs0);
-  const int row0 = i * s_rows + rs0;
-  const int n0 = blockIdx.y * kGemmBN;
+  const int nch = (s_rows + R - 1) / R;
+  const int npair = (nch + 1) / 2;
+  const int i = blockIdx.x / npair;
+  const int cc0 = (blockIdx.x - i * npair) * 2;   // the block's first chunk
+  const int nlive = min(2, nch - cc0);
   if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
     float s = 0.f;
-    for (int t = 0; t < n_ct; ++t) s += sse_part[(size_t)wk * n_ct + t];
+    for (int t = 0; t < n_parts; ++t) s += sse_part[(size_t)wk * n_parts + t];
     sse_out[wk] = s;
   }
-  const bf16* ga = gbuf + ((size_t)wk * rpw + row0) * cpb8;
-  const bf16* hbk = hsnap + ((size_t)wk * nmb + i) * cpb8 * kp + n0;
-  const int nkt = (cpb8 + kGemmBK - 1) / kGemmBK;
-
-  auto issue = [&](int t) {
-    const int k0 = t * kGemmBK;
-    bf16* ad = as[t & 1];
-    bf16* bd = bs[t & 1];
-    for (int u = tid; u < kGemmBM * (kGemmBK / 8); u += kGemmThreads) {
-      const int r = u / (kGemmBK / 8), k = (u % (kGemmBK / 8)) * 8;
-      const bool ok = r < nr && k0 + k < cpb8;
-      cp_async16(ad + r * LDA + k, ok ? ga + (size_t)r * cpb8 + k0 + k : ga,
-                 ok ? 16 : 0);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
     }
-    for (int u = tid; u < kGemmBK * (kGemmBN / 8); u += kGemmThreads) {
-      const int r = u / (kGemmBN / 8), n = (u % (kGemmBN / 8)) * 8;
-      const bool ok = k0 + r < cpb8;
-      cp_async16(bd + r * LDB + n, ok ? hbk + (size_t)(k0 + r) * kp + n : hbk,
-                 ok ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
-  issue(0);
-  for (int t = 0; t < nkt; ++t) {
-    cp_async_wait<0>();
-    __syncthreads();
-    if (t + 1 < nkt) issue(t + 1);
-    const bf16* a_s = as[t & 1];
-    const bf16* b_s = bs[t & 1];
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK / 16; ++kk) {
-      unsigned a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm4(a[mi], a_s + (wm * 32 + 16 * mi + lr8 + 8 * lh) * LDA +
-                         16 * kk + 8 * lq);
-#pragma unroll
-      for (int nn = 0; nn < 2; ++nn) {
-        unsigned b[4];
-        ldsm4t(b, b_s + (16 * kk + lr8 + 8 * lh) * LDB + wn * 32 + 16 * nn +
-                      8 * lq);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma(acc[mi][2 * nn], a[mi], b[0], b[1]);
-          mma(acc[mi][2 * nn + 1], a[mi], b[2], b[3]);
-        }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // G blob (chunk cc, 32 columns b) of stripe i; the snapshot of column tile
+  // t and this rank slice
+  const bf16* gst = gbuf + (((size_t)wk * nmb + i) * nch + cc0) *
+                               (2 * n_ct) * (R * 32);
+  const bf16* hst = hsnap + (((size_t)wk * nmb + i) * n_ct * nsl + q) *
+                                (64 * KR);
+  if (warp == 8) {
+    if (lane == 0) {
+      for (int t = 0; t < n_ct; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty + s, (unsigned)(t / S - 1) & 1u);
+        unsigned char* st = smem + s * DwGeom::STAGE;
+        mbar_expect(full + s, (unsigned)(nlive * 8192 + DwGeom::B));
+        for (int p = 0; p < nlive; ++p)
+          bulk_copy(st + p * 8192,
+                    gst + ((size_t)p * 2 * n_ct + 2 * t) * (R * 32), 8192,
+                    full + s);
+        bulk_copy(st + DwGeom::A, hst + (size_t)t * nsl * (64 * KR),
+                  (unsigned)DwGeom::B, full + s);
       }
+    }
+    return;
+  }
+  const int p = warp >> 2;             // warpgroup: chunk cc0 + p
+  const bool live = p < nlive;
+  float acc[128];
+#pragma unroll
+  for (int x = 0; x < 128; ++x) acc[x] = 0.f;
+  for (int t = 0; t < n_ct; ++t) {
+    const int s = t % S;
+    const unsigned char* st = smem + s * DwGeom::STAGE;
+    mbar_wait(full + s, (unsigned)(t / S) & 1u);
+    if (live) {
+      const unsigned char* a = st + p * 8192;
+      const unsigned char* b = st + DwGeom::A;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16<256, 0, 1>(
+            acc, wg_desc(a + (kk >> 1) * 4096 + (kk & 1) * 256, 128, 512),
+            wg_desc(b + 2 * kk * KR * 16, KR * 16, 128), t > 0 || kk > 0);
+      wgmma_commit();
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      pin(acc);
+    }
+    // step t - 1's wgmma is done: its stage is free
+    if (t > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (t - 1) % S);
     }
   }
-
+  if (!live) return;
+  wgmma_wait(acc);
+  const int wr = 16 * (warp & 3);
+  const int gq = lane >> 2, tq = lane & 3;
   const float* rcw = row_cnt + ((size_t)wk * n_blocks + bucket[wk]) * rpw;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rs = (cc0 + p) * R + wr + gq + 8 * hh;   // row in the stripe
+    if (rs >= s_rows) continue;
+    const int row = i * s_rows + rs;
+    const float rc = rcw[row];
+    const size_t o = ((size_t)wk * rpw + row) * kp + (size_t)q * KR;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = wm * 32 + 16 * mi + gq + 8 * hh;
-      if (r >= nr) continue;
-      const float rc = rcw[row0 + r];
-      const size_t o = ((size_t)wk * rpw + row0 + r) * kp;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int k = n0 + wn * 32 + 8 * nj + 2 * tq;
-        w_out[o + k] = sgd_step(w[o + k], acc[mi][nj][2 * hh], rc, lr, lam);
-        w_out[o + k + 1] =
-            sgd_step(w[o + k + 1], acc[mi][nj][2 * hh + 1], rc, lr, lam);
-      }
+    for (int j = 0; j < KR / 8; ++j) {
+      const int k = 8 * j + 2 * tq;
+      const float2 x = *reinterpret_cast<const float2*>(w + o + k);
+      *reinterpret_cast<float2*>(w_out + o + k) =
+          make_float2(sgd_step(x.x, acc[4 * j + 2 * hh], rc, lr, lam),
+                      sgd_step(x.y, acc[4 * j + 2 * hh + 1], rc, lr, lam));
     }
+  }
 }
+
+template <int KP>
+cudaError_t prepare_wide_kernels() {
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_mf_hop_wide_kernel<KP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)WideGeom<KP>::BYTES);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(dense_mf_dw_wide_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)DwGeom::BYTES);
+}
+
+// The wide hop kernel's launch: C rank slices of each column tile
+template <int KP>
+struct WideLaunch : ClusterLaunch {
+  using G = WideGeom<KP>;
+  WideLaunch(int n_ct, int nw, cudaStream_t s)
+      : ClusterLaunch(dim3(n_ct * G::C, nw), kWideThreads, G::BYTES, G::C, s) {}
+};
 
 template <int KP>
 int launch_wide(const void* slab, const void* bucket, const void* w,
@@ -1483,35 +1743,71 @@ int launch_wide(const void* slab, const void* bucket, const void* w,
                 int cpb, int nmb, int nmb_fine, float lr, float lam,
                 const RingSend& ring, cudaStream_t s) {
   using G = WideGeom<KP>;
-  const size_t nwb = (size_t)nw * rpw * KP;
-  const size_t nb = (nwb + 255) / 256;
-  dense_mf_wbf16_kernel<<<(unsigned)(nb < 4096 ? nb : 4096), 256, 0, s>>>(
-      static_cast<const float*>(w), static_cast<bf16*>(wbf), nwb);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dense_mf_hop_wide_kernel<KP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)G::BYTES);
+  const int nch = (rpw / nmb + G::R - 1) / G::R;
+  const size_t nwb = (size_t)nw * nmb * nch * G::R * KP;
+  const size_t nbw = (nwb + 255) / 256;
+  dense_mf_wb_slices_kernel<G::R, G::KR>
+      <<<(unsigned)(nbw < 4096 ? nbw : 4096), 256, 0, s>>>(
+          static_cast<const float*>(w), static_cast<bf16*>(wbf), nwb, rpw,
+          nmb, nch, KP);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  const int vec = cpb % 8 == 0 ? 1 : 0;
+  CUtensorMap vmap;
+  memset(&vmap, 0, sizeof(vmap));
+  if (vec) {
+    e = slab_map(&vmap, slab, nw, n_blocks, rpw, cpb, G::RO);
+    if (e != 0) return e;
+  }
+  cudaError_t err = prepare_wide_kernels<KP>();
   if (err != cudaSuccess) return (int)err;
   const int n_ct = (cpb + G::CT - 1) / G::CT;
-  dense_mf_hop_wide_kernel<KP><<<dim3(n_ct, nw), kThreads, G::BYTES, s>>>(
-      static_cast<const bf16*>(slab), static_cast<const int*>(bucket),
-      static_cast<const bf16*>(wbf), static_cast<const float*>(h),
-      static_cast<const float*>(col_cnt), static_cast<float*>(h_out),
-      static_cast<bf16*>(gbuf), static_cast<bf16*>(hsnap),
-      static_cast<float*>(sse_part), n_blocks, rpw, cpb, nmb, nmb_fine, lr,
-      lam, cpb % 8 == 0 ? 1 : 0, ring);
+  WideLaunch<KP> wl(n_ct, nw, s);
+  err = cudaLaunchKernelEx(
+      &wl.cfg, dense_mf_hop_wide_kernel<KP>, static_cast<const bf16*>(slab),
+      static_cast<const int*>(bucket), static_cast<const bf16*>(wbf),
+      static_cast<const float*>(h), static_cast<const float*>(col_cnt),
+      static_cast<float*>(h_out), static_cast<bf16*>(gbuf),
+      static_cast<bf16*>(hsnap), static_cast<float*>(sse_part), n_blocks, rpw,
+      cpb, nmb, nmb_fine, lr, lam, vec, vmap, ring);
+  if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int s_rows = rpw / nmb;
-  const int tiles = nmb * ((s_rows + kGemmBM - 1) / kGemmBM);
-  dense_mf_dw_kernel<<<dim3(tiles, KP / kGemmBN, nw), kGemmThreads, 0, s>>>(
+  const int npair = (nch + 1) / 2;
+  dense_mf_dw_wide_kernel<<<dim3(nmb * npair, G::C, nw), kWideThreads,
+                            DwGeom::BYTES, s>>>(
       static_cast<const bf16*>(gbuf), static_cast<const bf16*>(hsnap),
       static_cast<const float*>(w), static_cast<const float*>(row_cnt),
       static_cast<const int*>(bucket), static_cast<const float*>(sse_part),
       static_cast<float*>(w_out), static_cast<float*>(sse_out), n_blocks, rpw,
-      (cpb + 7) / 8 * 8, KP, nmb, n_ct, lr, lam);
+      KP, nmb, n_ct, n_ct * G::C, lr, lam);
   return (int)cudaGetLastError();
+}
+
+// Clusters of the wide hop kernel at padded rank KP that the card runs at
+// once (cudaOccupancyMaxActiveClusters; blocks a SM at C = 1), or -1 on an
+// error.
+template <int KP>
+int wide_active_clusters() {
+  if (prepare_wide_kernels<KP>() != cudaSuccess) return -1;
+  WideLaunch<KP> wl(1, 1, nullptr);
+  int n = 0;
+  if (WideGeom<KP>::C == 1) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, dense_mf_hop_wide_kernel<KP>, kWideThreads,
+            WideGeom<KP>::BYTES) != cudaSuccess)
+      return -1;
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return -1;
+    return n * sms;
+  }
+  if (cudaOccupancyMaxActiveClusters(&n, dense_mf_hop_wide_kernel<KP>,
+                                     &wl.cfg) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 RingSend ring_send(void* h_next, const void* plan, int remote, int base,
@@ -1561,15 +1857,17 @@ long long dense_mf_hop_smem_bytes(int kp) {
 }
 
 // Blocks a cluster of the hop kernel for padded rank kp: C along the column
-// tiles for 16, 32, 64 and 128, 1 (no cluster) for the wide path, 0 for
-// any other kp.
+// tiles for 16, 32, 64 and 128, the rank slices KP / 256 for the wide path,
+// 0 for any other kp.
 int dense_mf_hop_cluster(int kp) {
   switch (kp) {
     case 16: return Geom<1>::C;
     case 32: return Geom<2>::C;
     case 64: return Geom<4>::C;
     case 128: return Geom<8>::C;
-    case 256: case 512: case 1024: return 1;
+    case 256: return WideGeom<256>::C;
+    case 512: return WideGeom<512>::C;
+    case 1024: return WideGeom<1024>::C;
     default: return 0;
   }
 }
@@ -1593,6 +1891,28 @@ int dense_mf_hop_geometry(int kp, int* out) {
     default: return -1;
   }
 #undef HARP_MF_GEOM
+}
+
+// The wide path's geometry for kp = 256, 512 or 1024 into out[0..5]: rows a
+// chunk R, stages S, clusters of the hop kernel the card runs at once (at C
+// = 1 its blocks; -1 on an error), blocks a cluster C, ranks a block KR, and
+// the dW GEMM's stages. Returns 0, or -1 for another kp.
+int dense_mf_hop_wide_geometry(int kp, int* out) {
+#define HARP_MF_WIDE_GEOM(KP)                                                \
+  out[0] = WideGeom<KP>::R;                                                 \
+  out[1] = WideGeom<KP>::S;                                                 \
+  out[2] = wide_active_clusters<KP>();                                      \
+  out[3] = WideGeom<KP>::C;                                                 \
+  out[4] = WideGeom<KP>::KR;                                                \
+  out[5] = kDwStages;                                                       \
+  return 0
+  switch (kp) {
+    case 256: HARP_MF_WIDE_GEOM(256);
+    case 512: HARP_MF_WIDE_GEOM(512);
+    case 1024: HARP_MF_WIDE_GEOM(1024);
+    default: return -1;
+  }
+#undef HARP_MF_WIDE_GEOM
 }
 
 // Launch one hop for all nw workers on ``stream``, kp = 16, 32, 64 or 128:
@@ -1633,10 +1953,12 @@ int dense_mf_hop_launch(const void* slab, const void* bucket, const void* w,
 }
 
 // The wide path, kp = 256, 512 or 1024: the same operands and send, with
-// the wide path's buffers in place of ws: wbf (nw, rpw, kp) bf16, gbuf (nw,
-// rpw, cpb8) bf16 and hsnap (nw, nmb, cpb8, kp) bf16, cpb8 = cpb rounded up
-// to a multiple of 8; three launches (Wb, the hop, the dW GEMM with the W
-// update).
+// the wide path's buffers in place of ws, bf16 blobs in core matrices (C =
+// kp / 256 rank slices, nch = ceil(rpw / nmb / 64) chunks a stripe, n_ct =
+// ceil(cpb / 64) column tiles): wbf (nw, nmb, nch, C, 64 x 256), gbuf (nw,
+// nmb, nch, 2 n_ct, 64 x 32) and hsnap (nw, nmb, n_ct, C, 64 x 256);
+// sse_part (nw, n_ct C) f32. Three launches (Wb, the hop in clusters of C,
+// the dW GEMM with the W update).
 int dense_mf_hop_wide_launch(const void* slab, const void* bucket,
                              const void* w, const void* h,
                              const void* row_cnt, const void* col_cnt,

@@ -350,10 +350,10 @@ def kmeans_stats(x: torch.Tensor, c: torch.Tensor,
 # ranks the kernel is built for; K is zero-padded up to the next one, so
 # the kernel takes 1 <= K <= MF_MAX_K: MF_RANKS by the kernel that holds
 # each warp's dH piece in registers, MF_WIDE_RANKS by the wide path, whose
-# (CT, KP) dH tile of 16384 floats lies in registers, 64 a thread: at KP =
-# 1024 its column tile is 16, one m16 tile, so a wider rank would need dH
-# outside registers (the JAX kernel's own VMEM budget ends near K = 1000 at
-# cpb = 8192)
+# block holds a 64-column x 256-rank tile of H and dH^T in registers and
+# splits wider ranks over a cluster of KP / 256 blocks: 4 is the largest
+# cluster the card keeps resident at its shared memory (the JAX kernel's own
+# VMEM budget ends near K = 1000 at cpb = 8192)
 MF_RANKS = (16, 32, 64, 128)
 MF_WIDE_RANKS = (256, 512, 1024)
 MF_MAX_K = MF_WIDE_RANKS[-1]
@@ -387,14 +387,30 @@ def dense_mf_narrow_shapes(nw: int, rpw: int, cpb: int, kp: int,
             (nw, n_cl, rpw, kp))
 
 
+# the wide path's geometry: twins of WideGeom<KP>::CT, R and KR in
+# csrc/dense_mf_hop.cu (the card tests hold them to dense_mf_hop_col_tile,
+# dense_mf_hop_cluster and dense_mf_hop_wide_geometry)
+MF_WIDE_COLS = 64             # columns a block
+MF_WIDE_RANKS_A_BLOCK = 256   # ranks a block; a cluster of KP / 256 blocks
+
+
 def dense_mf_wide_shapes(nw: int, rpw: int, cpb: int, kp: int,
                          nmb: int) -> Tuple[tuple, ...]:
-    """Shapes of the wide path's bf16 device buffers for one hop, in the
-    order ``dense_mf_hop_wide_launch`` (``csrc/dense_mf_hop.cu``) takes
-    them: Wb (W, rpw, KP), the G buffer (W, rpw, cpb8) and the stripe
-    snapshots of Hb (W, nmb, cpb8, KP), cpb8 = cpb rounded up to 8."""
-    cpb8 = -(-cpb // 8) * 8
-    return (nw, rpw, kp), (nw, rpw, cpb8), (nw, nmb, cpb8, kp)
+    """Shapes of the wide path's device buffers for one hop at padded rank
+    ``kp`` > 128, in the order ``dense_mf_hop_wide_launch``
+    (``csrc/dense_mf_hop.cu``) takes them: bf16 blobs of core matrices, C =
+    kp / 256 rank slices, nch = ceil(rpw / nmb / 64) chunks of 64 rows a
+    stripe, n_ct = ceil(cpb / 64) column tiles: Wb (W, nmb, nch, C, 64 x
+    256), the G buffer (W, nmb, nch, 2 n_ct, 64 x 32) and the stripe
+    snapshots of Hb (W, nmb, n_ct, C, 64 x 256); then the SSE partials (W,
+    n_ct C), float32, one a block."""
+    nsl = kp // MF_WIDE_RANKS_A_BLOCK
+    nch = -(-(rpw // nmb) // MF_CHUNK_ROWS)
+    n_ct = -(-cpb // MF_WIDE_COLS)
+    blob = MF_CHUNK_ROWS * MF_WIDE_RANKS_A_BLOCK
+    return ((nw, nmb, nch, nsl, blob), (nw, nmb, nch, 2 * n_ct,
+                                        MF_CHUNK_ROWS * MF_WIDE_COLS // 2),
+            (nw, nmb, n_ct, nsl, blob), (nw, n_ct * nsl))
 
 
 def _mf_shapes(slab, buckets, w, h, row_cnt, col_cnt, nmb):
@@ -483,6 +499,8 @@ def _mf_lib() -> ctypes.CDLL:
         lib.dense_mf_hop_cluster.restype = i
         lib.dense_mf_hop_geometry.argtypes = [i, ctypes.POINTER(i)]
         lib.dense_mf_hop_geometry.restype = i
+        lib.dense_mf_hop_wide_geometry.argtypes = [i, ctypes.POINTER(i)]
+        lib.dense_mf_hop_wide_geometry.restype = i
         lib.dense_mf_hop_launch.argtypes = ([vp] * 12 + [i] * 7
                                             + [f, f, vp, vp, vp, i, i, i,
                                                ctypes.c_ulonglong, vp])
@@ -519,8 +537,9 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
     <= ``MF_MAX_K``, zero-padded here to :func:`mf_padded_rank` (exact): up
     to 128 a Wb launch, the hop kernel in clusters along the column tiles
     and the W reduction, past it the wide path (a Wb launch, the hop, the
-    dW GEMM with the W update); a larger K raises. With ``ring_hop`` W is
-    the group's workers a process."""
+    dW GEMM with the W update, ranks past 256 over a cluster of KP / 256
+    blocks); a larger K raises. With ``ring_hop`` W is the group's workers
+    a process."""
     args = (slab, buckets, w, h, row_cnt, col_cnt)
     if not all(t.is_cuda and t.device == slab.device for t in args):
         raise ValueError("dense_mf_hop_cuda needs every tensor on one CUDA "
@@ -557,9 +576,9 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
         w_out = torch.empty((nw, rpw, kp), dtype=torch.float32, device=dev)
         h_out = torch.empty((nw, cpb, kp), dtype=torch.float32, device=dev)
         if kp in MF_WIDE_RANKS:
+            *shapes, part_shape = dense_mf_wide_shapes(nw, rpw, cpb, kp, nmb)
             ws = tuple(torch.empty(shape, dtype=torch.bfloat16, device=dev)
-                       for shape in dense_mf_wide_shapes(nw, rpw, cpb, kp,
-                                                         nmb))
+                       for shape in shapes)
             launch = lib.dense_mf_hop_wide_launch
         else:
             wb_shape, ws_shape = dense_mf_narrow_shapes(nw, rpw, cpb, kp,
@@ -567,7 +586,8 @@ def dense_mf_hop_cuda(slab: torch.Tensor, buckets: torch.Tensor,
             ws = (torch.empty(wb_shape, dtype=torch.bfloat16, device=dev),
                   torch.empty(ws_shape, dtype=torch.float32, device=dev))
             launch = lib.dense_mf_hop_launch
-        sse_part = torch.empty((nw, n_ct), dtype=torch.float32, device=dev)
+            part_shape = (nw, n_ct)
+        sse_part = torch.empty(part_shape, dtype=torch.float32, device=dev)
         sse = torch.empty((nw,), dtype=torch.float32, device=dev)
         h_next = sent = None
         ring = (None, None, 0, 0, 1, 0, None)           # no send

@@ -317,6 +317,10 @@ def max_rel(a, b):
     (1, 1, 512, 1024, 512, 4, 4, [0]),          # wide, rank 512
     (1, 1, 256, 1000, 1024, 2, 2, [0]),         # wide, rank 1024
     (4, 8, 512, 512, 256, 4, 8, [5, 2, 7, 0]),  # wide, stacked
+    (1, 1, 64, 520, 256, 4, 4, [0]),            # wide, stripes of 16 rows
+    (1, 1, 64, 1003, 512, 4, 4, [0]),           # wide, cluster of 2, odd cpb
+    (2, 2, 256, 520, 1024, 2, 2, [1, 0]),       # wide, stacked rank 1024
+    (1, 1, 200, 130, 300, 2, 2, [0]),           # wide, a tile of 2 columns
 ])
 def test_dense_mf_hop_kernel_matches_plain(cuda, nw, n_blocks, rpw, cpb, k,
                                            nmb, nmb_fine, buckets):
@@ -343,13 +347,15 @@ def test_dense_mf_hop_kernel_matches_plain(cuda, nw, n_blocks, rpw, cpb, k,
 
 
 @pytest.mark.parametrize("k,cpb", [(32, 1000), (20, 1000), (256, 1000),
-                                   (200, 1000), (32, 2100), (128, 1100)])
+                                   (200, 1000), (32, 2100), (128, 1100),
+                                   (512, 1000), (1024, 520)])
 def test_dense_mf_hop_ring_hop_sends_h_bitwise(cuda, k, cpb):
     """W=4 stacked, per-worker buckets, K=32 and K=20 (padded to 32), and
-    the wide path at K=256 and 200 (padded to 256); at K=32 with 9 column
-    tiles and K=128 with 9, each a grid padded to two clusters: the send
-    changes no other output, and h_next is h' rolled by one worker, bitwise
-    the kernel-plus-``ring_dma.hop`` pair it replaces."""
+    the wide path at K=256 and 200 (padded to 256) and in clusters of 2 and
+    4 rank slices (K=512, 1024); at K=32 with 9 column tiles and K=128 with
+    9, each a grid padded to two clusters: the send changes no other
+    output, and h_next is h' rolled by one worker, bitwise the
+    kernel-plus-``ring_dma.hop`` pair it replaces."""
     from harp_tpu_torch.ops import ring_dma
     from harp_tpu_torch.parallel.mesh import WorkerGroup
 
@@ -387,11 +393,34 @@ def test_dense_mf_narrow_twin_matches_the_library(cuda, kp):
     assert geo[0] == pk.MF_CHUNK_ROWS and geo[3] == pk.MF_NARROW_TILES[kp][1]
 
 
-def test_dense_mf_hop_ring_sends_survive_a_held_back_rank(cuda):
+@pytest.mark.parametrize("kp", [256, 512, 1024])
+def test_dense_mf_wide_twin_matches_the_library(cuda, kp):
+    """``MF_WIDE_COLS``, ``MF_WIDE_RANKS_A_BLOCK`` and ``MF_CHUNK_ROWS`` (and
+    so ``dense_mf_wide_shapes``) are the wide path's column tile, ranks a
+    block and rows a chunk in the library; its cluster is the rank slices,
+    and the card holds at least one cluster with three stages or more."""
+    import ctypes
+
+    lib = pk._mf_lib()
+    assert lib.dense_mf_hop_col_tile(kp) == pk.MF_WIDE_COLS
+    assert lib.dense_mf_hop_cluster(kp) == kp // pk.MF_WIDE_RANKS_A_BLOCK
+    geo = (ctypes.c_int * 6)()
+    assert lib.dense_mf_hop_wide_geometry(kp, geo) == 0
+    rows, stages, active, cluster, ranks, dw_stages = list(geo)
+    assert rows == pk.MF_CHUNK_ROWS and ranks == pk.MF_WIDE_RANKS_A_BLOCK
+    assert cluster == kp // ranks and stages >= 3 and dw_stages >= 3
+    assert active >= 1
+    assert lib.dense_mf_hop_wide_geometry(128, geo) == -1
+
+
+@pytest.mark.parametrize("k", [16, 1024])
+def test_dense_mf_hop_ring_sends_survive_a_held_back_rank(cuda, k):
     """2 processes x 1 worker: 200 back-to-back sends, process 1 held back
     before each by a busy kernel of varying length; every h_next is its
     left neighbour's block of the same iteration (an all-missing slab with
-    zero counts leaves H as it was), and each send has its receive launch."""
+    zero counts leaves H as it was), and each send has its receive launch;
+    at K = 16 (the narrow kernel) and 1024 (the wide path in clusters of
+    4, whose rank 0 decides each column tile's send)."""
     import os
     import sys
 
@@ -407,8 +436,8 @@ def test_dense_mf_hop_ring_sends_survive_a_held_back_rank(cuda):
         "slab = torch.full((1, 1, 16, 1000), float('nan'), device=dev)\n"
         "slab = slab.bfloat16()\n"
         "b = torch.zeros(1, dtype=torch.int32, device=dev)\n"
-        "w = torch.ones(1, 16, 16, device=dev)\n"
-        "h = torch.empty(1, 1000, 16, device=dev)\n"
+        f"w = torch.ones(1, 16, {k}, device=dev)\n"
+        f"h = torch.empty(1, 1000, {k}, device=dev)\n"
         "rc = torch.zeros(1, 1, 16, device=dev)\n"
         "cc = torch.zeros(1, 1, 1, 1000, device=dev)\n"
         "bad = torch.zeros((), dtype=torch.int64, device=dev)\n"

@@ -33,6 +33,8 @@ the loud error beyond a kernel's width, the shared-memory SPD kernel) is in
 ``tests/test_torch_cuda_kernels.py``.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -290,12 +292,36 @@ def test_mf_padded_rank(k, kp):
 
 
 def test_dense_mf_wide_shapes():
-    # Wb (W, rpw, KP), G (W, rpw, cpb8) and the snapshots (W, nmb, cpb8,
-    # KP); cpb8 = cpb rounded up to 8
+    # bf16 blobs of core matrices: Wb (W, nmb, nch, C, 64 x 256), G (W,
+    # nmb, nch, 2 n_ct, 64 x 32), the snapshots (W, nmb, n_ct, C, 64 x 256),
+    # then the SSE partials (W, n_ct C); C = KP / 256 rank slices, nch =
+    # ceil(rpw / nmb / 64), n_ct = ceil(cpb / 64)
     assert tpk.dense_mf_wide_shapes(1, 32768, 32768, 256, 8) == (
-        (1, 32768, 256), (1, 32768, 32768), (1, 8, 32768, 256))
+        (1, 8, 64, 1, 16384), (1, 8, 64, 1024, 2048), (1, 8, 512, 1, 16384),
+        (1, 512))
     assert tpk.dense_mf_wide_shapes(2, 64, 1001, 512, 2) == (
-        (2, 64, 512), (2, 64, 1008), (2, 2, 1008, 512))
+        (2, 2, 1, 2, 16384), (2, 2, 1, 32, 2048), (2, 2, 16, 2, 16384),
+        (2, 32))
+
+
+@pytest.mark.parametrize("nw,rpw,cpb,kp,nmb", [
+    (1, 32768, 32768, 256, 8), (1, 32768, 32768, 512, 8),
+    (1, 32768, 32768, 1024, 8), (1, 520, 1001, 256, 4),
+    (1, 64, 520, 256, 4), (2, 256, 520, 1024, 2), (4, 512, 512, 256, 4)])
+def test_dense_mf_wide_buffers_hold_every_operand(nw, rpw, cpb, kp, nmb):
+    # Wb holds every factor row of every stripe (rows padded to whole 64-row
+    # chunks), the snapshots every column of every stripe's Hb (columns
+    # padded to whole 64-column tiles), G one bf16 a padded (row, column)
+    # slot; one SSE partial a block of the grid (n_ct tiles x C slices)
+    wb, g, snap, parts = tpk.dense_mf_wide_shapes(nw, rpw, cpb, kp, nmb)
+    nch = -(-(rpw // nmb) // 64)
+    n_ct = -(-cpb // 64)
+    assert math.prod(wb) == nw * nmb * nch * 64 * kp
+    assert math.prod(g) == nw * nmb * nch * 64 * n_ct * 64
+    assert math.prod(snap) == nw * nmb * n_ct * 64 * kp
+    assert parts == (nw, n_ct * kp // tpk.MF_WIDE_RANKS_A_BLOCK)
+    assert kp // tpk.MF_WIDE_RANKS_A_BLOCK in (1, 2, 4)
+    assert tpk.MF_WIDE_COLS == 64 and tpk.MF_CHUNK_ROWS == 64
 
 
 @pytest.mark.parametrize("rank,solver,device,want", [
