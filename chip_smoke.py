@@ -10,12 +10,17 @@ main path must make no plain call on the card:
   * K-means regroupallgather through ``HarpSession`` and ``KMeans.fit`` at
     the flagship n=1,000,000, k=100, d=100, 10 iterations (the E-step grid
     and the ms an iteration printed beside the reading before the grid
-    fix), and the five comm variants bitwise equal; past one block's shared
-    memory, the E-step's wide variant at K=400, D=100 and K=1024, D=128
-    (n=1,048,576) and K=256, D=1024 (n=262,144), timed against the library
-    path and the bound, and at bf16, a ragged n with phantom rows and the
-    edges K=250, D=100 and K=1, D=825; the fit at K=1024, D=128 through the
-    model (W=1, in lock step with the plain E-step, two-point), its five
+    fix), and the five comm variants bitwise equal; the E-step at the
+    flagship (float32 and bf16) and, past one block's shared memory, its
+    wide variant at K=400, D=100 and K=1024, D=128 (n=1,048,576) and K=256,
+    D=1024 (n=262,144), timed against the library path, the bound (on the
+    tensor cores, and on the f32 CUDA cores beside it) and, where
+    ``build/parent/kmeans_stats.cu`` holds the parent commit's source, in
+    turns against the parent's kernel, with the profiler's split of both;
+    and at bf16, a ragged n with phantom rows and the edges (the first K
+    past shared memory at D=100, and K=1, D=825); the fit at K=1024,
+    D=128 through the model (W=1, in lock step with the plain E-step,
+    two-point), its five
     comm variants at W=4 bitwise equal and a stacked launch bitwise its
     per-worker launches;
   * dense SGD-MF rotation through ``SGDMF.prepare``/``fit_prepared`` at the
@@ -207,7 +212,7 @@ SPD_SWEEP = dict(ks=(33, 48, 64, 65, 96, 128, 192, 256, 338), n=8192)
 # > build/parent/<name>.cu); a checkout without one times this tree's
 # kernel alone
 PARENT_DIR = os.path.join("build", "parent")
-PARENT_SOURCES = ("dense_mf_hop", "spd_solve")
+PARENT_SOURCES = ("dense_mf_hop", "spd_solve", "kmeans_stats")
 # warmed launches of one hop under the profiler for its kernel split
 MF_SPLIT_REPS = 5
 # the widths past the narrow kernels: the dense-MF hop at ranks 256, 512
@@ -419,13 +424,27 @@ def library_estep(x, c, valid_k):
 
 def estep_bound(n, k, valid_k, d, x_bytes):
     """Least time for the same work: each input read once and each output
-    written once, against the operations (score GEMM, norms, sums) at the
-    float32 CUDA-core peak."""
+    written once, against the operations: the cross term on the tensor
+    cores at float32 accuracy, as ``flash_bound`` prices its products
+    (float32 points three TF32 passes, bf16 points one bf16 pass against
+    bf16-rounded centroids), the norms and sums on the float32 CUDA
+    cores."""
     moved = n * d * x_bytes + k * d * 4 + (k * d + k + 1) * 4
-    ops = 2 * n * valid_k * d + 2 * n * d + n * d
-    t_bytes, t_ops = moved / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    gemm = 2 * n * valid_k * d
+    t_ops = ((3 * gemm / PEAK_TF32_FLOPS if x_bytes == 4
+              else gemm / PEAK_BF16_FLOPS) + 3 * n * d / PEAK_F32_FLOPS)
+    t_bytes = moved / PEAK_BYTES_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def estep_bound_cuda_cores(n, k, valid_k, d, x_bytes):
+    """The bound of the E-step's float32 CUDA-core kernels: every
+    operation on the float32 CUDA cores (67 TFLOP/s), against the same
+    bytes; printed beside ``estep_bound`` for continuity."""
+    moved = n * d * x_bytes + k * d * 4 + (k * d + k + 1) * 4
+    return max(moved / PEAK_BYTES_S,
+               (2 * n * valid_k * d + 3 * n * d) / PEAK_F32_FLOPS) * 1e3
 
 
 def near_ties(x, c, valid_k):
@@ -499,21 +518,84 @@ def estep_case(name, n, k, d, valid_k, dtype, timed, data=None):
           "two kernel runs bitwise equal")
     out = {"max_abs_err": max_abs, "near_ties": ties, "count_moves": moved}
     if timed:
-        out["ms"] = cuda_time_ms(lambda: pk.kmeans_stats_cuda(x, c, valid_k))
+        kernel = lambda: pk.kmeans_stats_cuda(x, c, valid_k)  # noqa: E731
+        plib = parent_lib("kmeans_stats")
+        if plib is None:
+            out["ms"], out["parent_ms"] = cuda_time_ms(kernel), None
+        else:
+            p_out = parent_estep(plib, x, c, valid_k)
+            torch.cuda.synchronize()
+            p_moved = float((p_out[1] - pc).abs().sum())
+            check(p_moved <= 2 * ties, f"the parent's counts equal the "
+                  f"plain version's up to near ties ({p_moved:.0f})")
+            out["parent_ms"], out["ms"] = in_turns(
+                lambda: parent_estep(plib, x, c, valid_k), kernel, 20)
+            check(out["ms"] <= out["parent_ms"], f"no slower than the "
+                  f"parent's kernel ({out['ms']:.4f} against "
+                  f"{out['parent_ms']:.4f} ms, in turns)")
         out["plain_ms"] = cuda_time_ms(
             lambda: pk.kmeans_stats_plain(x, c, valid_k),
             reps=3 if wide else 20, warmup=1 if wide else 3)
         out["library_ms"] = cuda_time_ms(lambda: library_estep(x, c, valid_k))
         out["bound_ms"], out["bound_by"] = estep_bound(
             n, k, valid_k, d, x.element_size())
-        log(f"  kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
-            f"library {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} "
-            f"ms ({out['bound_by']})")
-        if wide:
-            out["split_ms"], _ = device_profile(
-                lambda: pk.kmeans_stats_cuda(x, c, valid_k))
-            log(f"  under the profiler: {out['split_ms']}")
+        out["bound_cuda_cores_ms"] = estep_bound_cuda_cores(
+            n, k, valid_k, d, x.element_size())
+        log(f"  kernel {out['ms']:.4f} ms (parent in turns "
+            f"{out['parent_ms']}), plain {out['plain_ms']:.4f} ms, library "
+            f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+            f"({out['bound_by']}; on the f32 CUDA cores "
+            f"{out['bound_cuda_cores_ms']:.4f} ms)")
+        out["split_ms"], _ = device_profile(kernel)
+        log(f"  under the profiler: {out['split_ms']}")
+        if plib is not None:
+            out["parent_split_ms"], _ = device_profile(
+                lambda: parent_estep(plib, x, c, valid_k))
+            log(f"  the parent under the profiler (names profiled twice "
+                f"may read low): {out['parent_split_ms']}")
     return out
+
+
+PARENT_GRID = {}
+
+
+def parent_estep(lib, x, c, valid_k):
+    """One E-step through the parent's kernel with its wrapper's buffers:
+    the narrow kernel's (W, G, K, D+2) partials, or past its shared memory
+    the wide variant's norms, assignments, distances and slabs."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    x3 = x if x.dim() == 3 else x.unsqueeze(0)
+    w, n, d = x3.shape
+    k = c.shape[-2]
+    bf16, per = int(x.dtype == torch.bfloat16), int(c.dim() == 3)
+    new = lambda *s: torch.empty(s, dtype=torch.float32,  # noqa: E731
+                                 device=x.device)
+    sums, counts, cost = new(w, k, d), new(w, k), new(w)
+    stream = torch.cuda.current_stream().cuda_stream
+    wide = lib.kmeans_stats_smem_bytes(d, k) > pk.MAX_SMEM_BYTES
+    key = (n, d, k, valid_k, bf16)
+    if key not in PARENT_GRID:
+        PARENT_GRID[key] = (lib.kmeans_stats_wide_grid(n, d, k) if wide else
+                            lib.kmeans_stats_grid(n, d, k, valid_k, bf16))
+    g = PARENT_GRID[key]
+    ws = new(w, g, k, d + 2)
+    if wide:
+        norms = new((w if per else 1) * k)
+        asg = torch.empty((w, n), dtype=torch.int32, device=x.device)
+        err = lib.kmeans_stats_wide_launch(
+            x3.data_ptr(), c.data_ptr(), norms.data_ptr(), asg.data_ptr(),
+            new(w, n).data_ptr(), ws.data_ptr(), sums.data_ptr(),
+            counts.data_ptr(), cost.data_ptr(), w, n, d, k, valid_k, per, g,
+            bf16, stream)
+    else:
+        err = lib.kmeans_stats_launch(
+            x3.data_ptr(), c.data_ptr(), ws.data_ptr(), sums.data_ptr(),
+            counts.data_ptr(), cost.data_ptr(), w, n, d, k, valid_k, per, g,
+            bf16, stream)
+    if err:
+        raise RuntimeError(f"the parent's kmeans_stats launch: CUDA {err}")
+    return sums, counts, cost
 
 
 # --------------------------------------------------------------------------- #
@@ -675,6 +757,8 @@ def estep_wide_phases():
     shared memory at D = 100, one centroid at D = 825), all on points
     drawn on the card. Returns the timed cases' results and the codebook's
     points and initial centroids."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
     out, keep = {}, None
     for name, n, k, d in ESTEP_WIDE:
         data = card_points(n, d, k, seed=11)
@@ -685,8 +769,10 @@ def estep_wide_phases():
             estep_case(f"wide:{name}:bf16", n, k, d, k, torch.bfloat16,
                        timed=False, data=data)
         del data
+    edge = next(k for k in range(1, 1025)
+                if pk.kmeans_smem_bytes(100, k) > pk.MAX_SMEM_BYTES)
     for name, n, k, d, valid_k in (("ragged", 65_537, 408, 100, 400),
-                                   ("k250", 1 << 20, 250, 100, 250),
+                                   (f"k{edge}", 1 << 20, edge, 100, edge),
                                    ("d825", 65_536, 1, 825, 1)):
         estep_case(f"wide:{name}", n, k, d, valid_k, torch.float32, False,
                    data=card_points(n, d, valid_k, seed=13))
@@ -846,7 +932,18 @@ def bind_parent(name, lib):
     import ctypes
 
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "dense_mf_hop":
+    if name == "kmeans_stats":
+        lib.kmeans_stats_smem_bytes.argtypes = [i, i]
+        lib.kmeans_stats_smem_bytes.restype = ctypes.c_longlong
+        lib.kmeans_stats_grid.argtypes = [i] * 5
+        lib.kmeans_stats_grid.restype = i
+        lib.kmeans_stats_launch.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        lib.kmeans_stats_launch.restype = i
+        lib.kmeans_stats_wide_grid.argtypes = [i] * 3
+        lib.kmeans_stats_wide_grid.restype = i
+        lib.kmeans_stats_wide_launch.argtypes = [vp] * 9 + [i] * 8 + [vp]
+        lib.kmeans_stats_wide_launch.restype = i
+    elif name == "dense_mf_hop":
         lib.dense_mf_hop_col_tile.argtypes = [i]
         lib.dense_mf_hop_col_tile.restype = i
         lib.dense_mf_hop_launch.argtypes = ([vp] * 12 + [i] * 7 + [
@@ -3827,8 +3924,8 @@ def kmeans_wide_row(wide, fit):
     the codebook shape, the other timed shapes as prefixed keys."""
     name = next(n for n, _, k, d in ESTEP_WIDE
                 if (k, d) == (KMEANS_WIDE["k"], KMEANS_WIDE["d"]))
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("max_abs_err", "ms", "parent_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_cuda_cores_ms", "library_ms")
     row = {"name": "kmeans_stats_wide", "route": "cuda",
            "source": "harp_tpu_torch/csrc/kmeans_stats.cu",
            "replaces": "harp_tpu/ops/pallas_kernels.py:93",
@@ -3874,7 +3971,7 @@ def main() -> int:
     for name, v in built.items():
         for fn, regs, spill in ptxas_usage(v["log"]):
             log(f"  {name}: {fn}: {regs}; {spill}")
-            if fn.startswith("dense_mf_hop_kernel"):
+            if fn.startswith(("dense_mf_hop_kernel", "kmeans_")):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in
                       f" {spill}", f"{fn} spills nothing")
 
@@ -3883,7 +3980,8 @@ def main() -> int:
                       torch.float32, timed=True)
     estep_case("ragged", 999_999, f["k"], f["d"], f["k"], torch.float32, False)
     estep_case("valid_k", f["n"], 128, f["d"], f["k"], torch.float32, False)
-    estep_case("bf16", f["n"], f["k"], f["d"], f["k"], torch.bfloat16, False)
+    flag_bf16 = estep_case("bf16", f["n"], f["k"], f["d"], f["k"],
+                           torch.bfloat16, timed=True)
 
     fit = flagship_fit()
     log(f"  kernel {flag['ms']:.4f} ms per E-step against a bound of "
@@ -3918,9 +4016,15 @@ def main() -> int:
         "replaces": "harp_tpu/ops/pallas_kernels.py:93",
         "launches": fit["launches"]["kmeans_stats"],
         "max_abs_err": flag["max_abs_err"], "ms": flag["ms"],
+        "parent_ms": flag["parent_ms"],
         "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
-        "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
+        "bound_by": flag["bound_by"],
+        "bound_cuda_cores_ms": flag["bound_cuda_cores_ms"],
+        "library_ms": flag["library_ms"], "split_ms": flag["split_ms"],
         "near_ties": flag["near_ties"], "count_moves": flag["count_moves"],
+        **{f"bf16_{key}": flag_bf16[key] for key in (
+            "ms", "parent_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "split_ms")},
         "fit_iters_per_s": fit["iters_per_s"],
         "fit_per_iter_ms": fit["per_iter_ms"],
         "fit_centroid_rel_vs_plain": fit["centroid_rel_vs_plain"],

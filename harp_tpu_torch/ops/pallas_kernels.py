@@ -5,11 +5,12 @@ reader finds the counterpart).
 Ported:
 
 * the fused K-means E-step. ``kmeans_stats_cuda`` launches the CUDA kernel
-  ``csrc/kmeans_stats.cu`` (distance + argmin + partial sums, never writing
-  the (N, K) score matrix) at any K and D: the narrow kernel where one
-  block's shared memory holds the centroids and the partial, past it the
-  wide variant (centroids and features streamed in chunks, each point's
-  assignment written, the sums in per-block slabs of device memory);
+  ``csrc/kmeans_stats.cu`` (scores on the tensor cores with float32
+  accuracy, argmin + partial sums, never writing the (N, K) score matrix)
+  at any K and D: the narrow kernel where one block's shared memory holds
+  the centroids and the partial, past it the wide variant (centroids and
+  features streamed in chunks, each point's assignment written, the sums
+  by centroid after a counting sort);
   ``kmeans_stats_plain`` is the same function in plain PyTorch
   (``ops/distance.partial_sums_counts``);
 * the dense SGD-MF hop. ``dense_mf_hop_cuda`` launches ``csrc/
@@ -111,55 +112,83 @@ def count_plain_on_card(name: str, device) -> None:
 # (kmeans_smem_bytes) takes the wide variant.
 KMEANS_MAX_N = 2 ** 31 - 2 ** 19
 KMEANS_DTYPES = (torch.float32, torch.bfloat16)
-_KM_TILE = 64                 # points a tile (kTile in kmeans_stats.cu)
-_KM_XSTRIDE = _KM_TILE + 4    # a transposed tile row (kXStride)
-# The wide variant's per-worker budget for its sums pass's (K, D+2) float32
-# slabs, one a block (kWideSlabBudget): it caps G at budget // slab bytes.
-# KMEANS_MAX_KD, one slab within the budget, is the wide variant's stated
-# limit: a larger table would leave no room for even one block's partial
-# (it is also far past what the TPU kernel holds, its whole (K, D)
-# centroid and sums tables as VMEM blocks).
-KMEANS_WIDE_SLAB_BYTES = 1 << 30
-KMEANS_MAX_KD = KMEANS_WIDE_SLAB_BYTES // 4
-_KMW_POINTS = 128             # the assign pass's point tile (kAPoints)
-_KMW_CENTROIDS = 128          # its centroid chunk (kACents)
-_KMW_DEPTH = 16               # its feature chunk (kADepth)
-_KMW_BLOCKS_PER_SM = 2        # the sums pass's blocks a SM (kSumsBlocksPerSM)
+# KMEANS_MAX_KD is the wide variant's stated limit: its centroid planes
+# (two float32 words an element) and its (K, D+1) rows stay within 32-bit
+# element offsets (it is also far past what the TPU kernel holds, its
+# whole (K, D) centroid and sums tables as VMEM blocks).
+KMEANS_MAX_KD = 2 ** 28
+_KM_TILE = 64                 # points a warpgroup tile (kTile in kmeans_stats.cu)
+_KM_STEP = 8                  # features a TF32 k-step (Fmt<float>::kStep)
+_KM_GROUPS = 3                # warpgroups a narrow block (kGroups)
+_KMW_POINTS = 128             # the streamed assign pass's points (kAPoints)
+_KMW_RESIDENT_POINTS = 192    # the resident pass's, D <= 128 (kRPoints)
+_KMW_CENTROIDS = 128          # its centroid chunk (kACols)
+_KMW_DEPTH = 32               # its feature stage (kADepth)
+_KMW_SORT_POINTS = 4096       # a range of the counting sort (kSortPoints)
+_KMW_PIECE = 256              # points a piece of the sums (kPiece)
+
+
+def _kmeans_chunk_cols(valid_k: int, d: int) -> int:
+    """The narrow kernel's centroids a chunk (``chunk_cols``): the smallest
+    of 32, 64, 112 that covers ``valid_k``, above 112 chunks of 128; past
+    D = 128 (a thread also carries 128-feature partial sums) 32 or 64."""
+    if d > 128:
+        return 32 if valid_k <= 32 else 64
+    return (32 if valid_k <= 32 else 64 if valid_k <= 64
+            else 112 if valid_k <= 112 else 128)
 
 
 def kmeans_smem_bytes(d: int, k: int) -> int:
-    """Bytes of shared memory one E-step block needs at (D, K): the twin of
-    ``smem_floats`` in ``csrc/kmeans_stats.cu`` (the transposed point tile
-    with its ones and distance rows, the centroids at an odd row stride,
-    their norms, the (K, D+2) partial, the tile's norms and ranks, the
-    split)."""
-    floats = ((d + 2) * _KM_XSTRIDE + k * (d | 1) + k + k * (d + 2)
-              + 4 * _KM_TILE + 1)
-    return 4 * floats
+    """Bytes of shared memory one narrow E-step block needs at (D, K) for
+    float32 points: the twin of ``Narrow<float>::bytes`` in
+    ``csrc/kmeans_stats.cu``: the centroids' TF32 hi and lo planes over
+    the chunks' rows and D rounded up to 8, their norms, the partial (K
+    rows of D rounded up to 4 plus 4 columns: the count, the distance and
+    2 of padding), and for each of the three
+    warpgroups its 64-point tile (rows of D rounded up to 8, plus 4
+    words), its 64 assignments and distances, its 64 ranked (row, point)
+    pairs and 8 part bounds. bf16 points need less; the variant is chosen
+    by this figure for both types."""
+    cols = _kmeans_chunk_cols(k, d)
+    rows = -(-k // cols) * cols
+    dp = -(-d // _KM_STEP) * _KM_STEP
+    rs = -(-d // 4) * 4 + 4
+    part = 8 * rows * dp + 4 * rows + 4 * k * rs
+    part = -(-part // 16) * 16
+    return part + _KM_GROUPS * 4 * (_KM_TILE * (dp + 4) + 4 * _KM_TILE + 8)
 
 
-def kmeans_wide_plan(n: int, d: int, k: int, sms: int, workers: int = 1,
+def kmeans_wide_plan(n: int, d: int, k: int, workers: int = 1,
                      per_worker_c: bool = False) -> Dict[str, object]:
-    """The wide E-step's plan at (N, D, K) for ``workers`` stacked workers
-    on a card of ``sms`` streaming multiprocessors: the twin of
-    ``wide_grid`` and ``kmeans_stats_wide_launch`` in
-    ``csrc/kmeans_stats.cu``.
+    """The wide E-step's plan at (N, D, K) for ``workers`` stacked workers:
+    the twin of ``kmeans_stats_wide_grid`` and ``kmeans_stats_wide_launch``
+    in ``csrc/kmeans_stats.cu``.
 
-    ``grid`` is the sums pass's blocks a worker: ``_KMW_BLOCKS_PER_SM`` a
-    SM, at most one a 64-point tile and at most ``grid_cap`` =
-    ``KMEANS_WIDE_SLAB_BYTES`` // one slab's bytes (at least 1); it never
-    depends on ``workers``. ``shapes`` are the workspaces the wrapper
-    allocates (the centroid norms, each point's assignment and distance,
-    one (K, D+2) slab a block) and ``workspace_bytes`` their total."""
-    slab = 4 * k * (d + 2)
-    cap = max(1, KMEANS_WIDE_SLAB_BYTES // slab)
-    grid = max(1, min(_KMW_BLOCKS_PER_SM * sms, -(-n // _KM_TILE), cap))
-    shapes = {"norms": ((workers if per_worker_c else 1) * k,),
+    ``grid`` is the counting sort's blocks a worker, a 4096-point range
+    each (at least 1); it never depends on ``workers``. ``point_tile`` is
+    the assign pass's points a block: 192 where the block's points stay in
+    shared memory (D <= 128), else 128. ``shapes`` are the
+    workspaces the wrapper allocates, each in 4-byte elements: the centroid
+    norms and planes (rows padded to the 128-row chunks, features to the
+    32-feature stages, two words an element), each point's assignment and
+    distance, the sort's keys and indices (two of each), its histograms
+    (256 digits a range), each centroid's first position and first piece,
+    the pieces' sums (one a 256-point piece of a centroid, at most N / 256
+    + K) and each row's distance; ``workspace_bytes`` their total."""
+    tables = workers if per_worker_c else 1
+    kp = -(-k // _KMW_CENTROIDS) * _KMW_CENTROIDS
+    dpw = -(-d // _KMW_DEPTH) * _KMW_DEPTH
+    ranges = -(-n // _KMW_SORT_POINTS)
+    pieces = -(-n // _KMW_PIECE) + k
+    shapes = {"norms": (tables, kp), "planes": (tables, 2 * kp * dpw),
               "asg": (workers, n), "dist": (workers, n),
-              "slabs": (workers, grid, k, d + 2)}
-    return {"point_tile": _KMW_POINTS, "centroid_chunk": _KMW_CENTROIDS,
-            "depth_chunk": _KMW_DEPTH, "sum_tile": _KM_TILE,
-            "grid_cap": cap, "grid": grid, "shapes": shapes,
+              "sort": (4, workers, n), "hist": (workers, ranges, 256),
+              "starts": (workers, k + 1), "pstart": (workers, k + 1),
+              "pieces": (workers, pieces, d + 1), "rowcost": (workers, k)}
+    return {"point_tile": _KMW_RESIDENT_POINTS if d <= 128 else _KMW_POINTS,
+            "centroid_chunk": _KMW_CENTROIDS,
+            "depth_chunk": _KMW_DEPTH, "sort_range": _KMW_SORT_POINTS,
+            "piece": _KMW_PIECE, "grid": max(1, ranges), "shapes": shapes,
             "workspace_bytes": 4 * sum(math.prod(s) for s in shapes.values())}
 
 
@@ -196,11 +225,11 @@ def _kmeans_lib() -> ctypes.CDLL:
         lib.kmeans_stats_smem_bytes.restype = ctypes.c_longlong
         lib.kmeans_stats_grid.argtypes = [i] * 5
         lib.kmeans_stats_grid.restype = i
-        lib.kmeans_stats_launch.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        lib.kmeans_stats_launch.argtypes = [vp] * 7 + [i] * 8 + [vp]
         lib.kmeans_stats_launch.restype = i
         lib.kmeans_stats_wide_grid.argtypes = [i] * 3
         lib.kmeans_stats_wide_grid.restype = i
-        lib.kmeans_stats_wide_launch.argtypes = [vp] * 9 + [i] * 8 + [vp]
+        lib.kmeans_stats_wide_launch.argtypes = [vp] * 15 + [i] * 7 + [vp]
         lib.kmeans_stats_wide_launch.restype = i
         _LIB["kmeans_stats"] = lib
     return lib
@@ -269,12 +298,14 @@ def kmeans_stats_cuda(x: torch.Tensor, c: torch.Tensor,
                                    f"error {-g}")
             _GRID[key] = g
         ws = torch.empty((w, g, k, d + 2), dtype=torch.float32, device=x.device)
+        rowcost = torch.empty((w, k), dtype=torch.float32, device=x.device)
         sums = torch.empty((w, k, d), dtype=torch.float32, device=x.device)
         counts = torch.empty((w, k), dtype=torch.float32, device=x.device)
         cost = torch.empty((w,), dtype=torch.float32, device=x.device)
         err = lib.kmeans_stats_launch(
-            x3.data_ptr(), c.data_ptr(), ws.data_ptr(), sums.data_ptr(),
-            counts.data_ptr(), cost.data_ptr(), w, n, d, k, vk,
+            x3.data_ptr(), c.data_ptr(), ws.data_ptr(), rowcost.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), cost.data_ptr(), w, n, d, k,
+            vk,
             int(per_worker), g, bf16,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -294,27 +325,23 @@ def _kmeans_stats_wide(lib, x, x3, c, vk, bf16):
     dev = x.device
     with torch.cuda.device(dev):
         g = lib.kmeans_stats_wide_grid(n, d, k)
-        if g < 1:
-            raise RuntimeError(f"kmeans_stats wide grid query failed: CUDA "
-                               f"error {-g}")
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = kmeans_wide_plan(n, d, k, sms, w, per_worker)
+        plan = kmeans_wide_plan(n, d, k, w, per_worker)
         if plan["grid"] != g:
             raise RuntimeError(f"kmeans_wide_plan's grid {plan['grid']} is "
                                f"not the kernel's {g}")
         shapes = plan["shapes"]
-        norms = torch.empty(shapes["norms"], dtype=torch.float32, device=dev)
-        asg = torch.empty(shapes["asg"], dtype=torch.int32, device=dev)
-        dist = torch.empty(shapes["dist"], dtype=torch.float32, device=dev)
-        ws = torch.empty(shapes["slabs"], dtype=torch.float32, device=dev)
+        ws = {name: torch.empty(shape, device=dev, dtype=torch.int32 if name
+                                in ("asg", "sort", "hist", "starts",
+                                    "pstart") else torch.float32)
+              for name, shape in shapes.items()}
         sums = torch.empty((w, k, d), dtype=torch.float32, device=dev)
         counts = torch.empty((w, k), dtype=torch.float32, device=dev)
         cost = torch.empty((w,), dtype=torch.float32, device=dev)
         err = lib.kmeans_stats_wide_launch(
-            x3.data_ptr(), c.data_ptr(), norms.data_ptr(), asg.data_ptr(),
-            dist.data_ptr(), ws.data_ptr(), sums.data_ptr(),
+            x3.data_ptr(), c.data_ptr(),
+            *(ws[name].data_ptr() for name in shapes), sums.data_ptr(),
             counts.data_ptr(), cost.data_ptr(), w, n, d, k, vk,
-            int(per_worker), g, bf16,
+            int(per_worker), bf16,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kmeans_stats wide kernel launch failed: CUDA "

@@ -46,7 +46,11 @@ K-means past one block's shared memory (the wide variant): the narrow
 kernel's rules at ragged N, phantom rows, bf16, per-worker tables, D past
 824 and one centroid; a stacked launch bitwise its per-worker launches at
 K = 1024, D = 128; its grid the twin of ``kmeans_wide_plan``; a W = 4 fit
-at K = 1030, D = 1024 one wide launch an iteration.
+at K = 1030, D = 1024 one wide launch an iteration. Both variants also at
+the edges of their tensor-core layout: rows whose bytes are not a multiple
+of 16 (float32 at D = 33, bf16 at D = 100), D past 128 (the 128-feature
+sums carried in float32), K not a multiple of the centroid chunk, N under
+one point tile, phantom rows with a per-worker table.
 
 Flash attention: the kernel and the plain version (a full-row softmax) sum
 in different orders, so both are held against a float64 attention of the
@@ -117,6 +121,10 @@ def _near_ties(x, c, valid_k, eps=1e-4):
     (2, 2500, 112, 48, 112, torch.float32, False),  # 7 centroids a thread
     (2, 700, 130, 9, 129, torch.float32, False),    # K above one chunk
     (1, 1500, 20, 200, 20, torch.float32, False),   # D above 128 features
+    (1, 2048, 100, 100, 100, torch.bfloat16, False),  # bf16 rows of 200 B
+    (1, 50, 20, 33, 17, torch.float32, False),      # N under one tile
+    (1, 3333, 70, 48, 70, torch.float32, False),    # K not a chunk multiple
+    (2, 1000, 100, 100, 90, torch.bfloat16, True),  # per worker, phantom
 ])
 def test_kmeans_stats_kernel_matches_plain(cuda, w, n, k, d, valid_k, dtype,
                                            per_worker):
@@ -174,6 +182,12 @@ def test_kmeans_smem_twin_matches_the_library(cuda, d, k):
     (3, 3000, 16, 900, 16, torch.float32, True),       # D past 824, per worker
     (1, 2000, 1, 825, 1, torch.float32, False),        # one centroid
     (1, 3001, 300, 1030, 290, torch.float32, False),   # D not a chunk multiple
+    (1, 3001, 500, 33, 480, torch.float32, False),     # f32 rows of 132 B
+    (1, 4099, 300, 100, 290, torch.bfloat16, False),   # bf16 rows of 200 B
+    (1, 2100, 300, 1030, 300, torch.bfloat16, False),  # bf16 past D = 128
+    (1, 5000, 200, 64, 200, torch.float32, False),     # K not a multiple of 128
+    (1, 100, 300, 100, 300, torch.float32, False),     # N under one tile
+    (3, 2000, 300, 100, 280, torch.float32, True),     # per worker, phantom
 ])
 def test_kmeans_stats_wide_kernel_matches_plain(cuda, w, n, k, d, valid_k,
                                                 dtype, per_worker):
@@ -227,9 +241,8 @@ def test_kmeans_stats_wide_stacked_launch_is_bitwise_the_separate_ones(
                                    (262_144, 1024, 256), (4097, 100, 250),
                                    (1, 825, 1), (1 << 20, 4094, 2048)])
 def test_kmeans_wide_plan_matches_the_library(cuda, n, d, k):
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert pk._kmeans_lib().kmeans_stats_wide_grid(n, d, k) == \
-        pk.kmeans_wide_plan(n, d, k, sms)["grid"]
+        pk.kmeans_wide_plan(n, d, k)["grid"]
 
 
 def test_kmeans_stats_kernel_refuses_bad_inputs(cuda):

@@ -176,18 +176,23 @@ def test_cpu_dispatch_counts_nothing():
 
 
 @pytest.mark.parametrize("d,k,want", [
-    (100, 100, 4 * (102 * 68 + 100 * 101 + 100 + 100 * 102 + 257)),
-    (16, 8, 4 * (18 * 68 + 8 * 17 + 8 + 8 * 18 + 257)),
-    (64, 32, 4 * (66 * 68 + 32 * 65 + 32 + 32 * 66 + 257)),
+    # TF32 hi and lo planes (chunk rows x D rounded up to 8), norms, the
+    # partial (K x (D rounded up to 4, plus 4)), three warpgroups' tiles (64
+    # rows of D_8 + 4 words) with their 64 ranks, distances, (row, point)
+    # pairs and 8 part bounds
+    (100, 100, 8 * 112 * 104 + 4 * 112 + 4 * 100 * 104
+     + 3 * 4 * (64 * 108 + 264)),
+    (16, 8, 8 * 32 * 16 + 4 * 32 + 4 * 8 * 20 + 3 * 4 * (64 * 20 + 264)),
+    (64, 32, 8 * 32 * 64 + 4 * 32 + 4 * 32 * 68 + 3 * 4 * (64 * 68 + 264)),
 ])
 def test_kmeans_smem_twin(d, k, want):
     assert tpk.kmeans_smem_bytes(d, k) == want
 
 
 def test_kmeans_and_spd_shared_memory_limits():
-    # D = 100: K = 249 is the last centroid count one block holds
-    assert tpk.kmeans_smem_bytes(100, 249) <= tpk.MAX_SMEM_BYTES
-    assert tpk.kmeans_smem_bytes(100, 250) > tpk.MAX_SMEM_BYTES
+    # D = 100: K = 112 is the last centroid count one block holds
+    assert tpk.kmeans_smem_bytes(100, 112) <= tpk.MAX_SMEM_BYTES
+    assert tpk.kmeans_smem_bytes(100, 113) > tpk.MAX_SMEM_BYTES
     # the shared-memory solve: its stated limit is the last K whose block
     # fits
     lim = tpk.SPD_MAX_K_SMEM
@@ -248,35 +253,43 @@ def test_spd_solve_routes_nothing_outside_its_limits(k):
 
 
 @pytest.mark.parametrize("n,d,k,grid", [
-    (1 << 20, 100, 400, 264),      # the card's 2 a SM
-    (1 << 20, 128, 1024, 264),
-    (262_144, 1024, 256, 264),
-    (4097, 100, 250, 65),          # one a 64-point tile
-    (0, 825, 1, 1),                # no points: one block, its slab zeroed
-    (1 << 20, 8190, 32_768, 1),    # one slab fills the budget
-    (1 << 20, 4094, 2048, 32),     # the budget caps G
+    (1 << 20, 100, 400, 256),      # a 4096-point range a block
+    (1 << 20, 128, 1024, 256),
+    (262_144, 1024, 256, 64),
+    (4097, 100, 250, 2),           # a ragged last range
+    (0, 825, 1, 1),                # no points: one block
+    (1 << 20, 8190, 32_768, 256),  # the widest tables: the same ranges
+    (1 << 20, 4094, 2048, 256),
 ])
 def test_kmeans_wide_plan(n, d, k, grid):
-    """The wide E-step's plan: the C side's chunk sizes, G = min(2 a SM,
-    tiles, budget // slab) whatever W, and the workspaces' shapes and
-    bytes (norms, each point's assignment and distance, a slab a block)."""
+    """The wide E-step's plan: the C side's chunk sizes, the sort's ranges
+    whatever W, and the workspaces' shapes and bytes (norms and planes
+    padded to 128 rows and 32 features, each point's assignment and
+    distance, the sort's buffers and histograms, starts, pieces and the
+    rows' distances)."""
+    kp = -(-k // 128) * 128
+    dpw = -(-d // 32) * 32
+    ranges = -(-n // 4096)
+    pieces = -(-n // 256) + k
     for w in (1, 4):
         for per_worker in (False, True):
-            plan = tpk.kmeans_wide_plan(n, d, k, 132, w, per_worker)
-            assert plan["grid"] == grid
-            assert plan["grid_cap"] == max(
-                1, tpk.KMEANS_WIDE_SLAB_BYTES // (4 * k * (d + 2)))
+            plan = tpk.kmeans_wide_plan(n, d, k, w, per_worker)
+            assert plan["grid"] == grid == max(1, ranges)
             assert (plan["point_tile"], plan["centroid_chunk"],
-                    plan["depth_chunk"], plan["sum_tile"]) == (128, 128, 16,
-                                                              64)
+                    plan["depth_chunk"], plan["sort_range"],
+                    plan["piece"]) == (192 if d <= 128 else 128, 128, 32,
+                                       4096, 256)
+            tables = w if per_worker else 1
             assert plan["shapes"] == {
-                "norms": ((w if per_worker else 1) * k,), "asg": (w, n),
-                "dist": (w, n), "slabs": (w, grid, k, d + 2)}
-            rows = w * k if per_worker else k
+                "norms": (tables, kp), "planes": (tables, 2 * kp * dpw),
+                "asg": (w, n), "dist": (w, n), "sort": (4, w, n),
+                "hist": (w, ranges, 256), "starts": (w, k + 1),
+                "pstart": (w, k + 1), "pieces": (w, pieces, d + 1),
+                "rowcost": (w, k)}
             assert plan["workspace_bytes"] == 4 * (
-                rows + 2 * w * n + w * grid * k * (d + 2))
-    # the stated limit: one slab within the budget
-    assert 4 * tpk.KMEANS_MAX_KD == tpk.KMEANS_WIDE_SLAB_BYTES
+                tables * kp * (1 + 2 * dpw) + 6 * w * n + w * 256 * ranges
+                + 2 * w * (k + 1) + w * pieces * (d + 1) + w * k)
+    # the stated limit
     assert 32_768 * (8190 + 2) == tpk.KMEANS_MAX_KD
 
 
