@@ -48,12 +48,16 @@ main path must make no plain call on the card:
     iteration) against the "cholesky" fit. The SPD solve is held against
     its plain version and a float64 solve on the flagship's own normal
     equations and at K = 10 (N odd), 33, 64, 65, 96, 128 and 256 (K = 64,
-    96 and 128 timed against cuSOLVER, the plain version and the bound);
-    ``[spd:sweep]`` at K = 33 to 338 (N = 8192): the routed kernel bitwise
-    the global-memory kernel, timed in turns against the parent commit's
-    route where ``build/parent/spd_solve.cu`` holds its source, beside the
-    global-memory kernel, cuSOLVER, the bound and every geometry of the
-    shared-memory kernel; past its limit the global-memory solve
+    96 and 128 timed against cuSOLVER, the plain version and the bound; the
+    flagship's also from a CUDA graph, and in turns against the parent
+    commit's kernel where ``build/parent/spd_solve.cu`` holds its source);
+    ``[spd:sweep]`` at K = 1 to 338 (N = 8192): the routed kernel bitwise
+    the global-memory kernel from K = 33 (below, logged), bitwise and timed
+    in turns against the parent commit's route where
+    ``build/parent/spd_solve.cu`` holds its source (to K = 32 from CUDA
+    graphs), beside the global-memory kernel, cuSOLVER, the bound, the
+    one-warp kernel's geometry and every geometry of the shared-memory
+    kernel; past its limit the global-memory solve
     (panel-blocked) at K = 339 and 384 (N = 8192) and 512 (N = 2048),
     timed, at K = 300 (N = 8192) bitwise the shared-memory solve and timed
     against it, and the flagship's data at rank 384 with solver="pallas"
@@ -206,7 +210,10 @@ SPD_WIDE = (96, 128)
 ALS_WIDE = {64: "auto", 96: "pallas", 128: "pallas"}
 ALS_WIDE_ITERATIONS = 5
 # [spd:sweep]: N systems at each K, through the route the wrapper takes
-SPD_SWEEP = dict(ks=(33, 48, 64, 65, 96, 128, 192, 256, 338), n=8192)
+# (the one-warp kernel to K = 32: its lanes-a-system edges 8 | 9 and 16 | 17
+# and the ALS default rank 10)
+SPD_SWEEP = dict(ks=(1, 8, 10, 16, 17, 24, 31, 32, 33, 48, 64, 65, 96, 128,
+                     192, 256, 338), n=8192)
 # The parent commit's sources, each timed in turns against this tree's
 # kernel where it is present (git show <parent>:harp_tpu_torch/csrc/<name>.cu
 # > build/parent/<name>.cu); a checkout without one times this tree's
@@ -363,6 +370,34 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """CUDA-event ms a call of ``fn`` replayed from one CUDA graph of
+    ``reps`` calls: the device's time a call back to back, without the
+    host's time a call (a solve of a few microseconds is shorter than its
+    wrapper's host path, so eager calls would time the host). ``fn``'s
+    launch counts add up at capture, once a call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -904,6 +939,8 @@ def mf_hop_bound(nw, rpw, cpb, k, nmb_fine, extra_bytes=0):
 
 
 PARENT = {}
+# kernel -> ptxas's line of registers and memory, from this run's build
+PTXAS = {}
 
 
 def start_parent_builds():
@@ -954,9 +991,13 @@ def bind_parent(name, lib):
         lib.dense_mf_hop_wide_launch.restype = i
     else:
         ll = ctypes.c_longlong
-        for fn in (lib.spd_solve_launch, lib.spd_solve_block_launch):
-            fn.argtypes = [vp, vp, vp, ll, i, vp]
-            fn.restype = i
+        lib.spd_solve_launch.argtypes = [vp, vp, vp, ll, i, vp]
+        lib.spd_solve_launch.restype = i
+        lib.spd_solve_block_per_sm.argtypes = [i, i, i]
+        lib.spd_solve_block_per_sm.restype = i
+        lib.spd_solve_block_launch.argtypes = [vp, vp, vp, ll, i, i, i, i,
+                                               vp]
+        lib.spd_solve_block_launch.restype = i
         lib.spd_solve_global_grid.argtypes = [ll, i]
         lib.spd_solve_global_grid.restype = i
         lib.spd_solve_global_launch.argtypes = [vp] * 4 + [ll, i, i, vp]
@@ -976,6 +1017,9 @@ def parent_lib(name):
         log_text, _ = proc.communicate()
         check(proc.returncode == 0, f"the parent's {name}.cu builds "
               f"({log_text[-2000:] if proc.returncode else 'ok'})")
+        for fn, regs, spill in ptxas_usage(log_text):
+            if fn.startswith(f"{name}_kernel"):
+                log(f"  the parent's {fn}: {regs}; {spill}")
         entry["lib"] = ctypes.CDLL(entry["path"])
         bind_parent(name, entry["lib"])
     return entry["lib"]
@@ -1646,8 +1690,14 @@ def spd_case(name, a, b, timed, reps=20, plain_reps=3):
            "rel_vs_float64": err, "plain_rel_vs_float64": ref}
     if timed:
         warm = min(3, reps // 2)
-        out["ms"] = cuda_time_ms(lambda: pk.spd_solve_cuda(a, b), reps=reps,
-                                 warmup=warm)
+        solve = lambda: pk.spd_solve_cuda(a, b)  # noqa: E731
+        if variant == "spd_solve":
+            out["ms"] = graph_time_ms(solve, reps=10 * reps, warmup=warm)
+            out["eager_ms"] = cuda_time_ms(solve, reps=reps, warmup=warm)
+            log(f"  one-warp kernel from a CUDA graph {out['ms']:.6f} ms, "
+                f"eager calls back to back {out['eager_ms']:.6f} ms")
+        else:
+            out["ms"] = cuda_time_ms(solve, reps=reps, warmup=warm)
         out["plain_ms"] = (cuda_time_ms(lambda: pk.spd_solve_plain(a, b),
                                         reps=plain_reps, warmup=1)
                            if plain_reps else start.elapsed_time(end))
@@ -1692,6 +1742,8 @@ def flagship_normal_equations(state, cfg):
 
 
 def spd_phases(state, cfg):
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
     f = ALS_FLAGSHIP
     a, b, gemm = flagship_normal_equations(state, cfg)
     log(f"[als:gemm] A = conf @ VV, ({f['users']}, {f['items']}) @ "
@@ -1703,6 +1755,18 @@ def spd_phases(state, cfg):
           "results (within 1e-5 of a float32 GEMM, relative to the largest "
           "entry)")
     flag = spd_case("flagship", a, b, timed=True)
+    parent = parent_lib("spd_solve")
+    if parent is not None:
+        check(torch.equal(pk.spd_solve_cuda(a, b), parent_spd(parent, a, b)),
+              "the flagship's x is the parent's one-warp kernel's, bitwise")
+        flag["turns_ms"] = in_turns4(lambda: parent_spd(parent, a, b),
+                                     lambda: pk.spd_solve_cuda(a, b), 200,
+                                     timer=graph_time_ms)
+        p1, n1, n2, p2 = flag["turns_ms"]
+        flag["parent_ms"], flag["ms_in_turns"] = (p1 + p2) / 2, (n1 + n2) / 2
+        log(f"  in turns, from CUDA graphs: parent / new / new / parent " +
+            " / ".join(f"{ms:.6f}" for ms in flag["turns_ms"]) + f" ms "
+            f"({flag['parent_ms'] / flag['ms_in_turns']:.2f}x)")
     del a, b
     spd_case("ragged", *random_spd(8191, 10, seed=10), timed=False)
     spd_case("k33", *random_spd(8192, 33, seed=33), timed=False)
@@ -1716,13 +1780,31 @@ def spd_phases(state, cfg):
 
 
 def parent_spd(lib, a, b):
-    """One solve through the parent commit's route: its one-warp kernel to
-    K = 64, its one-block kernel past it (to K = 338)."""
+    """One solve through the parent commit's route, as its
+    ``spd_solve_cuda`` routes: its one-warp kernel (one system a warp, a
+    column a lane) to K = 32, its shared-memory kernel at
+    ``spd_solve_block_geometry(k)`` on its resident grid to K = 307, its
+    global-memory kernel above."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
     n, k = b.shape
+    if k > pk.SPD_MAX_K_SMEM:
+        return parent_spd_global(lib, a, b)
     x = torch.empty(n, k, device=a.device)
-    launch = lib.spd_solve_launch if k <= 64 else lib.spd_solve_block_launch
-    err = launch(a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k,
-                 torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if k <= pk.SPD_MAX_K_WARP:
+        err = lib.spd_solve_launch(a.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                   n, k, stream)
+    else:
+        threads, regs = pk.spd_solve_block_geometry(k)
+        per_sm = lib.spd_solve_block_per_sm(k, threads, regs)
+        if per_sm < 1:
+            raise RuntimeError(f"the parent's spd_solve_block at K = {k}: no "
+                               f"block fits an SM ({per_sm})")
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        err = lib.spd_solve_block_launch(
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k, threads, regs,
+            max(1, min(n, sms * per_sm)), stream)
     if err:
         raise RuntimeError(f"the parent's spd_solve launch: CUDA {err}")
     return x
@@ -1759,35 +1841,60 @@ def spd_geometry(k):
             "smem": pk.spd_solve_block_smem_bytes(k)}
 
 
+def spd_warp_geometry(k, n):
+    """The one-warp solve's geometry at rank K as the wrapper launches it
+    for N systems: lanes a system, rows a lane, systems a warp, resident
+    blocks (and warps) an SM, the grid and shared-memory bytes a block."""
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    g = pk.spd_solve_warp_group(k)
+    per_sm = pk.spd_solve_warp_per_sm(k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"lanes": g, "rows_a_lane": -(-k // g), "systems_a_warp": 32 // g,
+            "blocks_per_sm": per_sm,
+            "warps_per_sm": pk.spd_solve_warp_block_warps(k) * per_sm,
+            "grid": pk.spd_solve_warp_grid(n, k, per_sm, sms),
+            "smem": pk.spd_solve_warp_smem_bytes(k)}
+
+
 def spd_sweep_phase():
     """[spd:sweep]: at each K of ``SPD_SWEEP`` (N systems), the route the
-    wrapper takes, bitwise the global-memory kernel (which takes any K);
-    timed in turns against the parent commit's route (parent / new / new /
-    parent) where its source is in ``PARENT_DIR``, beside the
-    global-memory kernel, cuSOLVER, the bound and every geometry of the
-    shared-memory kernel that fits. Returns {K: readings}."""
+    wrapper takes, held against the global-memory kernel (which takes any
+    K: bitwise from K = 33, where both are panel-blocked; at K <= 32 a
+    finding, logged); timed in turns against the parent commit's route
+    (parent / new / new / parent; at K <= 32 from CUDA graphs) where its
+    source is in ``PARENT_DIR``, and bitwise its x, beside the
+    global-memory kernel, cuSOLVER, the bound, the one-warp kernel's
+    geometry and every geometry of the shared-memory kernel that fits.
+    Returns {K: readings}."""
     from harp_tpu_torch.ops import pallas_kernels as pk
 
     n = SPD_SWEEP["n"]
     parent = parent_lib("spd_solve")
     log(f"[spd:sweep] N={n}, K = " + ", ".join(
-        str(k) for k in SPD_SWEEP["ks"]) + f"; the shared-memory kernel to "
-        f"K = {pk.SPD_MAX_K_SMEM}, the global-memory kernel past it")
-    if parent is not None:
-        a, b = random_spd(n, 32, seed=32)
-        check(torch.equal(pk.spd_solve_cuda(a, b), parent_spd(parent, a, b)),
-              "K = 32: the one-warp kernel's x is the parent's, bitwise")
+        str(k) for k in SPD_SWEEP["ks"]) + f"; the one-warp kernel to K = "
+        f"{pk.SPD_MAX_K_WARP}, the shared-memory kernel to K = "
+        f"{pk.SPD_MAX_K_SMEM}, the global-memory kernel past it")
     out = {}
     for k in SPD_SWEEP["ks"]:
         a, b = random_spd(n, k, seed=k, chunk=512)
         variant = pk.spd_solve_variant(k)
+        warp = variant == "spd_solve"
         x = pk.spd_solve_cuda(a, b)
-        check(bool(torch.isfinite(x).all())
-              and torch.equal(x, pk._spd_solve_global(a, b)),
-              f"K = {k}: the {variant} kernel's x is finite and bitwise the "
-              f"global-memory kernel's")
-        row = {"variant": variant}
-        reps = 10 if k <= 128 else 3
+        check(bool(torch.isfinite(x).all()), f"K = {k}: the {variant} "
+              f"kernel's x is finite")
+        row = {"variant": variant,
+               "global_bitwise": bool(torch.equal(x, pk._spd_solve_global(
+                   a, b)))}
+        if warp:
+            log(f"  K = {k}: the one-warp kernel's x is "
+                f"{'' if row['global_bitwise'] else 'not '}bitwise the "
+                f"global-memory kernel's (a finding, not a check)")
+        else:
+            check(row["global_bitwise"], f"K = {k}: the {variant} kernel's x "
+                  f"is bitwise the global-memory kernel's")
+        reps = 200 if warp else 10 if k <= 128 else 3
+        timer = graph_time_ms if warp else cuda_time_ms
 
         def route():
             return pk.spd_solve_cuda(a, b)
@@ -1796,31 +1903,40 @@ def spd_sweep_phase():
             row["parent_bitwise"] = bool(torch.equal(x, parent_spd(parent, a,
                                                                    b)))
             check(row["parent_bitwise"], f"K = {k}: x is the parent's "
-                  f"{'one-warp' if k <= 64 else 'one-block'} kernel's, "
-                  f"bitwise")
+                  f"route's, bitwise")
             row["turns_ms"] = in_turns4(lambda: parent_spd(parent, a, b),
-                                        route, reps)
+                                        route, reps, timer=timer)
             p1, n1, n2, p2 = row["turns_ms"]
             row["parent_ms"], row["ms"] = (p1 + p2) / 2, (n1 + n2) / 2
         else:
-            row["ms"] = cuda_time_ms(route, reps=reps, warmup=2)
+            row["ms"] = timer(route, reps=reps, warmup=2)
         row["global_ms"] = cuda_time_ms(lambda: pk._spd_solve_global(a, b),
                                         reps=reps, warmup=1)
         row["library_ms"] = cuda_time_ms(lambda: library_spd(a, b),
                                          reps=reps, warmup=1)
         row["bound_ms"], row["bound_by"] = spd_bound(n, k)
-        line = (f"  K={k} {variant}: {row['ms']:.4f} ms ("
+        line = (f"  K={k} {variant}: {row['ms']:.6f} ms ("
                 f"{row['ms'] / row['bound_ms']:.2f}x its bound "
-                f"{row['bound_ms']:.4f}, {row['bound_by']})")
+                f"{row['bound_ms']:.6f}, {row['bound_by']})")
         if parent is not None:
             line += (f"; parent / new / new / parent " + " / ".join(
-                f"{ms:.4f}" for ms in row["turns_ms"]) + f" ms ("
+                f"{ms:.6f}" for ms in row["turns_ms"]) + f" ms ("
                 f"{row['parent_ms'] / row['ms']:.2f}x), parent's x "
                 f"{'bitwise' if row['parent_bitwise'] else 'not bitwise'}")
-        line += (f"; global-memory {row['global_ms']:.4f}, cuSOLVER "
-                 f"{row['library_ms']:.4f}")
+        line += (f"; global-memory {row['global_ms']:.6f}, cuSOLVER "
+                 f"{row['library_ms']:.6f}")
         log(line)
-        if variant == "spd_solve_block":
+        if warp:
+            row["eager_ms"] = cuda_time_ms(route, reps=reps, warmup=2)
+            row["geometry"] = g = spd_warp_geometry(k, n)
+            g["registers"] = PTXAS.get(f"spd_solve_kernel<{k}>")
+            log(f"    geometry: {g['lanes']} lanes a system, "
+                f"{g['rows_a_lane']} rows a lane, "
+                f"{g['systems_a_warp']} a warp, {g['blocks_per_sm']} blocks "
+                f"({g['warps_per_sm']} warps) an SM, grid {g['grid']}, "
+                f"{g['smem']} bytes a block; eager calls back to back "
+                f"{row['eager_ms']:.6f} ms")
+        elif variant == "spd_solve_block":
             row["geometry"] = g = spd_geometry(k)
             row["geometry_ms"] = {}
             for threads, regs in pk.SPD_BLOCK_SHAPES:
@@ -2259,7 +2375,8 @@ def als_phases():
         **{key: sweep[top][key] for key in ("parent_ms", "turns_ms")
            if key in sweep[top]},
         "geometry": sweep[top]["geometry"],
-        "sweep": {str(k): row for k, row in sweep.items()},
+        "sweep": {str(k): row for k, row in sweep.items()
+                  if row["variant"] != "spd_solve"},
     }
     for rank, case in ((64, k64), *((r, wide[r]) for r in SPD_WIDE)):
         for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2293,6 +2410,13 @@ def als_phases():
         "explicit_fit_iters_per_s": exp["iters_per_s"],
         "explicit_fit_per_iter_ms": exp["per_iter_ms"],
         "explicit_launches": exp["launches"]["spd_solve"],
+        "eager_ms": flag["eager_ms"],
+        **{key: flag[key] for key in ("parent_ms", "turns_ms", "ms_in_turns")
+           if key in flag},
+        "registers": PTXAS.get(f"spd_solve_kernel<{f['rank']}>"),
+        "geometry": sweep[f["rank"]]["geometry"],
+        "sweep": {str(k): row for k, row in sweep.items()
+                  if row["variant"] == "spd_solve"},
     }, block, glob
 
 
@@ -3013,12 +3137,13 @@ def ring_host_steps(x, group, reps):
     return {k: host_us(fn, reps) for k, fn in steps.items()}
 
 
-def in_turns4(fn_a, fn_b, reps, warmup=2):
+def in_turns4(fn_a, fn_b, reps, warmup=2, timer=cuda_time_ms):
     """CUDA-event ms of ``fn_a`` and ``fn_b`` timed in turns: the readings
-    (a, b, b, a)."""
-    a1 = cuda_time_ms(fn_a, reps, warmup)
-    b1, b2 = (cuda_time_ms(fn_b, reps, warmup) for _ in range(2))
-    return a1, b1, b2, cuda_time_ms(fn_a, reps, warmup)
+    (a, b, b, a), each by ``timer`` (``cuda_time_ms`` or
+    ``graph_time_ms``)."""
+    a1 = timer(fn_a, reps, warmup)
+    b1, b2 = (timer(fn_b, reps, warmup) for _ in range(2))
+    return a1, b1, b2, timer(fn_a, reps, warmup)
 
 
 def in_turns(fn_a, fn_b, reps, warmup=2):
@@ -3971,7 +4096,9 @@ def main() -> int:
     for name, v in built.items():
         for fn, regs, spill in ptxas_usage(v["log"]):
             log(f"  {name}: {fn}: {regs}; {spill}")
-            if fn.startswith(("dense_mf_hop_kernel", "kmeans_")):
+            PTXAS[fn] = regs
+            if fn.startswith(("dense_mf_hop_kernel", "kmeans_",
+                              "spd_solve_kernel")):
                 check(" 0 bytes spill stores, 0 bytes spill loads" in
                       f" {spill}", f"{fn} spills nothing")
 

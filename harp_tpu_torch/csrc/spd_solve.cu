@@ -3,7 +3,8 @@
 // by the outer-product Cholesky, then solve L y = b and L^T x = y. All in
 // float32. One kernel for each of three ranges of K (the host routes,
 // pallas_kernels.spd_solve_variant):
-//   K <= 32        one warp a system in registers (spd_solve_kernel);
+//   K <= 32        4 or 8 lanes a system, up to four rows a lane in
+//                  registers (spd_solve_kernel<K>);
 //   33 <= K <= 307 one block a system, the packed triangle resident in
 //                  shared memory, a panel-blocked Cholesky
 //                  (spd_solve_block_kernel);
@@ -31,8 +32,7 @@
 // 3.35 TB/s, against 1e8 multiply-adds); from K = 128 on, operations
 // ((K^3 / 3 + 2 K^2) N float32 operations at 67 TFLOP/s). What holds the
 // kernels above that bound is the serial chain of the Cholesky: K pivots,
-// each a square root and a reciprocal that the next column waits for (about
-// 260 cycles a column for one warp, with the column's updates), and K
+// each a square root and a reciprocal that the next column waits for, and K
 // divisions of the back substitution, each waiting on the one before.
 //
 // The host binding is a plain C interface loaded with ctypes
@@ -45,89 +45,269 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+__host__ __device__ constexpr int tri(int i) { return i * (i + 1) / 2; }
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
 // ---------------------------------------------------------------------------
-// One warp a system, K <= 32.
+// K <= 32: a group of lanes a system, its rows in registers
+// (spd_solve_kernel<K>, one instance a K).
 //
-// One warp per system, four warps a block, a grid over N; no shared memory,
-// no atomics, no sum across blocks, so two runs are bitwise equal. Lane r
-// holds column r of the system in registers, so the warp reads A row by row,
-// 32 consecutive floats a load. Each lane keeps the symmetric mirror of the
-// lower triangle: entry i of column r is A[i][r] for i >= r and A[r][i]
-// above. The symmetric updates keep the running complement bitwise symmetric
-// (fma(-l_i, l_r, a) is fma(-l_r, l_i, a)), so at step j every lane finds
-// l_j at its own row, A[j][r] / sqrt(pivot), in its own registers; only
-// l_j's other entries travel, one __shfl_sync each from the lane that owns
-// column j: K (K + 1) / 2 shuffles a system for the factorization and K for
-// each substitution. After step j lane j's column holds column j of L, and
-// lane r's right-hand side holds y_r and then x_r. The steps are unrolled,
-// so every row index is a compile-time constant (registers, not local
-// memory) and only the lower triangle is computed.
+// G lanes solve one system (warp_group: 8 from K = 9, 4 below), 32 / G
+// systems a warp; lane q of a group holds rows q, q + G, ... of its system
+// (warp_rows: K / G rounded up, 1 to 4). Each group has its own slot of
+// shared memory and its own shuffles (width G), so no system touches
+// another's numbers. What holds a system is its serial chain: at every
+// step of the factorization two shuffles, a square root and two
+// divisions, and at every step of the back substitution a division and a
+// shuffle, each with its range checks, which every lane of the warp
+// issues; with several rows a lane, 4 or 8 systems share each of those
+// instructions, where a row a lane would give one system a warp at K = 32.
+//
+// A persistent grid of blocks of 4 warps (2 past K = 24; the resident
+// blocks, at most the warps the systems need; spd_solve_warp_per_sm) walks
+// over the systems, a warp's turns t, t + warps, ... A slot is one system's K rows at a pitch
+// of K rounded up to an odd number of float4s (warp_pitch), the slot G
+// floats past a multiple of 32 so the groups of a warp lie G banks apart.
+// cp.async copies the system's lower-triangle rows into it (4 bytes a
+// lane, a row an instruction: consecutive floats), and each lane reads its
+// rows back as float4s. Then the slot becomes the L area: at step j row j
+// of the slot takes column j of L. When a lane has read its columns of L
+// back for the back substitution, the slot takes the next system's rows,
+// whose copies run beside this system's back substitution; b comes by
+// plain loads at the same time, a register a row.
+//
+// Lane q's row rho holds row rho of the running Schur complement: entries
+// i <= rho, and past rho numbers that are never read (the updates run over
+// every entry without a predicate), with its diagonal also on its own in
+// dq, so that the next pivot waits on one update of a step, not on the
+// row's. At step j the pivot d comes from row j's lane by a shuffle; dinv =
+// 1 / sqrtf(d), ljj = d dinv, l_rho,j = a_rho,j dinv; each lane sets out
+// its l_rho,j in row j of the slot and, after a __syncwarp, reads l_j's
+// entries i > j back four at a time (float4 broadcasts) for a_rho,i =
+// fmaf(-l_ij, l_rho,j, a_rho,i). The forward substitution runs beside: y_j
+// = r_j / ljj (r_j from row j's lane), r_rho = fmaf(-l_rho,j, y_j, r_rho).
+// These are the chains of operations of a Cholesky that keeps a column of
+// the complement a lane and sends l_j's entries by shuffles from lane j's
+// column: the complement stays bitwise symmetric (fma(-l_i, l_q, a) is
+// fma(-l_q, l_i, a)), so row i's own l_ij is the number lane j would send.
+// The back substitution L^T x = y takes column rho of L (row rho of the
+// slot) for unknown rho: x_p = r_p / L[p][p] (divided in unknown p's lane,
+// which sends it by a shuffle), r_rho = fmaf(-L[p][rho], x_p, r_rho), p
+// descending. No atomics and no sum across
+// lanes: two runs are bitwise equal, and a system's x does not depend on
+// its neighbours or on N.
 // ---------------------------------------------------------------------------
 
-constexpr int kWarpBlock = 128;
-constexpr int kWarps = kWarpBlock / 32;
-
-// Step j of the factorization, with the forward substitution beside it.
-__device__ __forceinline__ void factor_step(float (&c)[32], float& r, int j,
-                                            int k, int lane) {
-  const float cj = c[j];
-  const float d = __shfl_sync(kFull, cj, j);                 // pivot
-  const float dinv = 1.0f / sqrtf(d);
-  const float ljj = d * dinv;                                // L[j][j]
-  const float yj = __shfl_sync(kFull, r, j) / ljj;
-  const float mine = cj * dinv;                              // l_j[lane]
-#pragma unroll
-  for (int i = 1; i < 32; ++i) {
-    if (i > j && i < k) {
-      const float t = __shfl_sync(kFull, c[i], j) * dinv;
-      if (lane > j) c[i] = fmaf(-t, mine, c[i]);
-    }
-  }
-  if (lane == j) {                          // becomes column j of L
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      if (i >= j && i < k) c[i] *= dinv;
-    r = yj;
-  } else if (lane > j) {
-    r = fmaf(-mine, yj, r);
-  }
+// Lanes that solve one system at rank k, and rows a lane (K / G rounded
+// up: 1 or 2 at G = 4, 2 to 4 at G = 8).
+__host__ __device__ constexpr int warp_group(int k) {
+  return k > 8 ? 8 : 4;
+}
+__host__ __device__ constexpr int warp_rows(int k) {
+  return (k + warp_group(k) - 1) / warp_group(k);
 }
 
-// Step p of the back substitution L^T x = y: lane col holds L[p][col] for
-// p >= col, and the owner of column p holds L[p][p].
-__device__ __forceinline__ void back_step(const float (&c)[32], float& r,
-                                          int p, int lane) {
-  const float cp = c[p];
-  const float xp = __shfl_sync(kFull, r / cp, p);
-  if (lane < p) r = fmaf(-cp, xp, r);
-  else if (lane == p) r = xp;
+// Row pitch of a slot, floats: k rounded up to an odd number of float4s
+// (the 8 rows 8 lanes read at once lie in 8 different bank quads).
+__host__ __device__ constexpr int warp_pitch(int k) {
+  return (((k + 3) / 4) | 1) * 4;
 }
 
-__global__ void __launch_bounds__(kWarpBlock)
+// Floats of one group's slot: k rows at warp_pitch, rounded up to G floats
+// past a multiple of 32.
+__host__ __device__ constexpr int warp_slot_floats(int k) {
+  return ((k * warp_pitch(k) - warp_group(k) + 31) / 32) * 32 +
+         warp_group(k);
+}
+
+// Warps a block: 2 past K = 24, whose four rows a lane take up to 232
+// registers a thread and 4 warps' slots would pass the 48 KB of static
+// shared memory a block; 4 below.
+__host__ __device__ constexpr int warp_block_warps(int k) {
+  return k > 24 ? 2 : 4;
+}
+
+// Shared memory of one block at rank k, floats.
+__host__ __device__ constexpr int warp_block_floats(int k) {
+  return warp_block_warps(k) * (32 / warp_group(k)) * warp_slot_floats(k);
+}
+
+// Resident blocks an SM each instance is built for: its register cap
+// (65,536 / threads / blocks), the largest at which ptxas spills nothing
+// (an H100 build): 64 registers to K = 12, 80 to 16, 128 to 23, 168 at
+// K = 24, 255 past it.
+__host__ __device__ constexpr int warp_min_blocks(int k) {
+  return k > 24 ? 4 : k == 24 ? 3 : k > 16 ? 4 : k > 12 ? 6 : 8;
+}
+
+// cp.async of the lower-triangle rows of a system (src = A + q) into its
+// slot s (row i at i * P), entries q, q + G, ... of every row a lane; then
+// the commit of this lane's group of copies.
+template <int K>
+__device__ __forceinline__ void warp_stage(const float* src, int q,
+                                           float* s, bool live) {
+  constexpr int G = warp_group(K), R = warp_rows(K), P = warp_pitch(K);
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int e = 0; e < R; ++e)
+        if (G * e <= i && q + G * e <= i)
+          cp_async4(s + i * P + q + G * e, src + i * K + G * e);
+  }
+  cp_async_commit();
+}
+
+template <int K>
+__global__ void __launch_bounds__(32 * warp_block_warps(K),
+                                  warp_min_blocks(K))
 spd_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 float* __restrict__ x, long long n, int k) {
-  const int lane = threadIdx.x & 31;
-  const long long sys = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (sys >= n) return;                    // the whole warp leaves together
-  const float* as = a + sys * k * k;
+                 float* __restrict__ x, long long n) {
+  constexpr int G = warp_group(K), R = warp_rows(K), P = warp_pitch(K);
+  constexpr int SPW = 32 / G;                // systems a warp
+  constexpr int W = warp_block_warps(K);     // warps a block
+  constexpr int N4 = (K + 3) / 4;            // float4s of a row
+  __shared__ __align__(16) float smem[warp_block_floats(K)];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = lane % G, grp = lane / G;
+  float* const s = smem + (warp * SPW + grp) * warp_slot_floats(K);
+  // turns of the warps: an int (the host checks), a system's index a long
+  const int tasks = (int)((n + SPW - 1) / SPW);
+  const int step = gridDim.x * W;
+  int t = blockIdx.x * W + warp;
+  if (t >= tasks) return;                    // the whole warp leaves together
 
-  float c[32];   // c[i]: row i of the lane's column
-  float r = lane < k ? b[sys * k + lane] : 0.0f;
+  // lane q's rows: q + G r (rho[r]; the row it reads, clamped to K - 1)
+  int rho[R], row[R];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    float v = 0.0f;
-    if (i < k && lane < k) v = as[i >= lane ? i * k + lane : lane * k + i];
-    c[i] = v;
+  for (int r = 0; r < R; ++r) {
+    rho[r] = q + G * r;
+    row[r] = rho[r] < K ? rho[r] : K - 1;
   }
+  float rr[R], bn[R];
+  auto fetch = [&](int task) {               // copies of task's system
+    const long long sys = (long long)task * SPW + grp;
+    const bool live = sys < n;
+    warp_stage<K>(a + sys * (K * K) + q, q, s, live);
 #pragma unroll
-  for (int j = 0; j < 32; ++j)
-    if (j < k) factor_step(c, r, j, k, lane);
+    for (int r = 0; r < R; ++r)
+      bn[r] = live && rho[r] < K ? b[sys * K + rho[r]] : 0.0f;
+  };
+  fetch(t);
+  for (;;) {
+    cp_async_wait_all();
+    __syncwarp();
+    // row rho[r] of the system: c[r][i], entries i < (r + 1) G read
+    float c[R][K], dq[R];
 #pragma unroll
-  for (int p = 31; p >= 0; --p)
-    if (p < k) back_step(c, r, p, lane);
-  if (lane < k) x[sys * k + lane] = r;
-}
+    for (int r = 0; r < R; ++r) {
+      rr[r] = bn[r];
+#pragma unroll
+      for (int m = 0; m < N4 && 4 * m < G * (r + 1); ++m) {
+        const float4 w = *reinterpret_cast<const float4*>(s + row[r] * P +
+                                                          4 * m);
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * m + e < K) c[r][4 * m + e] = wv[e];
+      }
+      dq[r] = s[row[r] * P + row[r]];
+    }
+    __syncwarp();                            // the slot's rows are read
 
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int rj = j / G, qj = j % G;      // row j: lane qj's row rj
+      const float d = __shfl_sync(kFull, dq[rj], qj, G);     // pivot
+      const float dinv = 1.0f / sqrtf(d);
+      const float ljj = d * dinv;                            // L[j][j]
+      const float yj = __shfl_sync(kFull, rr[rj], qj, G) / ljj;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (G * (r + 1) <= j) continue;      // every row of r is done
+        c[r][j] *= dinv;                     // l_rho,j (row j: ljj)
+        dq[r] = fmaf(-c[r][j], c[r][j], dq[r]);
+        if (rho[r] < K) s[j * P + rho[r]] = c[r][j];
+      }
+      if (j + 1 < K) {
+        __syncwarp();                        // row j of the slot is set
+#pragma unroll
+        for (int m = (j + 1) / 4; m < N4; ++m) {
+          const float4 w = *reinterpret_cast<const float4*>(s + j * P + 4 * m);
+          const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * m + e;
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              if (i > j && i < K && i < G * (r + 1))
+                c[r][i] = fmaf(-wv[e], c[r][j], c[r][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (G * (r + 1) <= j) continue;
+        if (rho[r] > j) rr[r] = fmaf(-c[r][j], yj, rr[r]);
+        else if (rho[r] == j) rr[r] = yj;
+      }
+    }
+    __syncwarp();                            // the slot holds L by columns
+    // column rho[r] of L: c[r][p] = L[p][rho] for p >= rho (p >= G r)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int m = (G * r) / 4; m < N4; ++m) {
+        const float4 w = *reinterpret_cast<const float4*>(s + row[r] * P +
+                                                          4 * m);
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * m + e < K) c[r][4 * m + e] = wv[e];
+      }
+    }
+    __syncwarp();                            // the slot is free
+    const long long sys = (long long)t * SPW + grp;
+    t += step;
+    if (t < tasks) fetch(t);
+#pragma unroll
+    for (int p = K - 1; p >= 0; --p) {
+      const int rp = p / G, qp = p % G;      // unknown p: lane qp's row rp
+      // lane qp divides r_p by L[p][p]; the others divide by 1 (a quotient
+      // nobody reads, on the division's fast path)
+      const float lpp = c[rp][p];
+      const float xp = __shfl_sync(
+          kFull, rr[rp] / (rho[rp] == p ? lpp : 1.0f), qp, G);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (G * r > p) continue;             // every unknown of r is past p
+        if (rho[r] < p) rr[r] = fmaf(-c[r][p], xp, rr[r]);
+        else if (rho[r] == p) rr[r] = xp;
+      }
+    }
+    if (sys < n) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (rho[r] < K) x[sys * K + rho[r]] = rr[r];
+    }
+    if (t >= tasks) break;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // 33 <= K <= 307: a panel-blocked Cholesky, the triangle in shared memory.
@@ -195,10 +375,6 @@ spd_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
 constexpr int kPanel = 32;             // nb: the columns of a panel
 static_assert(kPanel == 32, "step (a) is one warp, a row a lane");
 
-__host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
-
-__host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
-
 // The row stride of the staged panel: its trailing rows (K - nb at the
 // first panel), rounded up to whole 32-row blocks.
 __host__ __device__ __forceinline__ int panel_ld(int k) {
@@ -226,20 +402,6 @@ __host__ __device__ __forceinline__ size_t block_smem_floats(int k) {
 // one float4.
 __device__ __forceinline__ int panel_pos(int r) {
   return (r & ~31) + ((r & 7) << 2) + ((r >> 3) & 3);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // cp.async of rows [lo, hi) of one system's lower triangle (as: its A) to
@@ -830,23 +992,70 @@ int with_block_kernel(int threads, int regs, F f) {
   return -1;
 }
 
+// The one-warp kernel's instance at rank k (1 <= k <= 32), passed to f;
+// -1 for another k.
+template <int K = 1, class F>
+int with_warp_kernel(int k, F f) {
+  if constexpr (K > 32) {
+    return -1;
+  } else {
+    if (k == K) return f(spd_solve_kernel<K>);
+    return with_warp_kernel<K + 1>(k, f);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// Bytes of shared memory one block of the one-warp kernel holds at rank k
+// (1 <= k <= 32): warp_block_warps(k) warps, each 32 / G slots
+// (warp_slot_floats).
+long long spd_solve_warp_smem_bytes(int k) {
+  if (k < 1 || k > 32) return -1;
+  return (long long)warp_block_floats(k) * (long long)sizeof(float);
+}
+
+// Blocks of the one-warp kernel resident on one SM of the current device
+// at rank k, after asking for the largest shared-memory carveout for its
+// instance (which its launches then take). A negative value is a CUDA
+// error, negated.
+int spd_solve_warp_per_sm(int k) {
+  int per_sm = 0;
+  const int e = with_warp_kernel(k, [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, 32 * warp_block_warps(k), 0);
+    return (int)err;
+  });
+  if (e < 0) return -(int)cudaErrorInvalidValue;
+  return e ? -e : per_sm;
+}
+
 // Solve the n systems on `stream` with the one-warp kernel: a (n, k, k),
-// b (n, k), x (n, k), float32, contiguous, 1 <= k <= 32 (checked by the
-// caller). Returns cudaGetLastError() after the launch (0 on success).
+// b (n, k), x (n, k), float32, contiguous, 1 <= k <= 32, on `grid` blocks
+// of warp_block_warps(k) warps (the resident blocks, spd_solve_warp_per_sm
+// times the SMs, at most the blocks whose warps the systems fill). Returns
+// cudaGetLastError() after the launch (0 on success).
 int spd_solve_launch(const void* a, const void* b, void* x, long long n,
-                     int k, void* stream) {
+                     int k, int grid, void* stream) {
   if (n == 0) return 0;
-  if (k < 1 || k > 32) return (int)cudaErrorInvalidValue;
-  const long long grid = (n + kWarps - 1) / kWarps;
-  spd_solve_kernel<<<(unsigned)grid, kWarpBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(x), n, k);
-  return (int)cudaGetLastError();
+  // the warps' turns count in an int: never more for systems that fit a
+  // card (K = 1, 8 systems a turn: 2^31 turns are 206 GB of A, b and x)
+  if (grid < 1 || k < 1 || k > 32 ||
+      (n + 32 / warp_group(k) - 1) / (32 / warp_group(k)) > 0x7fff0000LL)
+    return (int)cudaErrorInvalidValue;
+  const int e = with_warp_kernel(k, [&](auto kernel) {
+    kernel<<<(unsigned)grid, 32 * warp_block_warps(k), 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<float*>(x), n);
+    return (int)cudaGetLastError();
+  });
+  return e < 0 ? (int)cudaErrorInvalidValue : e;
 }
 
 // Bytes of dynamic shared memory one block of the shared-memory kernel needs

@@ -23,7 +23,9 @@ Ported:
   ``dense_mf_hop_plain`` is the stripe loop in plain PyTorch, followed by
   ``ring_dma.hop_plain`` with ``ring_hop``;
 * the batched SPD solve of ALS. ``spd_solve_cuda`` launches ``csrc/
-  spd_solve.cu``: one warp a system, the factor in registers, at K <= 32;
+  spd_solve.cu``: at K <= 32 a group of 4 or 8 lanes a system, up to four
+  rows a lane in registers, l_j set out in shared memory, on a persistent
+  grid;
   past it a panel-blocked Cholesky with register-tiled trailing updates on
   a persistent grid, the packed lower triangle in shared memory at
   33 <= K <= 307 and in device memory above, two kernels with the same
@@ -673,7 +675,7 @@ def dense_mf_hop(slab: torch.Tensor, buckets: torch.Tensor, w: torch.Tensor,
 # Batched small SPD solve (the ALS normal equations)
 # --------------------------------------------------------------------------- #
 
-# the largest K of the one-warp kernel (a column of the system a lane)
+# the largest K of the one-warp kernel (four rows of the system a lane)
 SPD_MAX_K_WARP = 32
 # the JAX package's rule for solver="auto" (its kernel's K), and nothing more
 SPD_MAX_K = 64
@@ -722,6 +724,43 @@ def spd_solve_block_geometry(k: int) -> Tuple[int, int]:
     if k <= 96:
         return 128, 64
     return (128, 128) if k <= 128 else (256, 128)
+
+
+def spd_solve_warp_group(k: int) -> int:
+    """Lanes that solve one system of rank K <= 32 in the one-warp kernel
+    (``warp_group`` in ``csrc/spd_solve.cu``): 8 from K = 9, 4 below, so a
+    warp holds 4 or 8 systems; a lane holds K / G rows of its system,
+    rounded up (1 to 4)."""
+    return 8 if k > 8 else 4
+
+
+def spd_solve_warp_block_warps(k: int) -> int:
+    """Warps a block of the one-warp kernel at rank K (``warp_block_warps``
+    in ``csrc/spd_solve.cu``): 2 past K = 24, where a thread takes up to
+    232 registers, 4 below."""
+    return 2 if k > 24 else 4
+
+
+def spd_solve_warp_smem_bytes(k: int) -> int:
+    """Bytes of shared memory a block of the one-warp kernel holds at rank
+    K <= 32: the twin of ``warp_block_floats`` in ``csrc/spd_solve.cu``.
+    Each of its warps has a slot for each of its 32 / G systems: K rows
+    at a pitch of K rounded up to an odd number of float4s, rounded up to G
+    floats past a multiple of 32 (so the slots of a warp lie G banks
+    apart)."""
+    g = spd_solve_warp_group(k)
+    pitch = ((-(-k // 4)) | 1) * 4
+    slot = (k * pitch - g + 31) // 32 * 32 + g
+    return 4 * spd_solve_warp_block_warps(k) * (32 // g) * slot
+
+
+def spd_solve_warp_grid(n: int, k: int, per_sm: int, sms: int) -> int:
+    """Blocks of the one-warp kernel's persistent grid for N systems of
+    rank K: the resident blocks (``per_sm`` an SM on ``sms`` SMs), at most
+    the blocks whose warps the systems fill (32 / G systems a warp)."""
+    warps = -(-n // (32 // spd_solve_warp_group(k)))
+    blocks = -(-warps // spd_solve_warp_block_warps(k))
+    return max(1, min(per_sm * sms, blocks))
 
 
 def spd_solve_variant(k: int) -> str:
@@ -795,8 +834,12 @@ def _spd_lib() -> ctypes.CDLL:
 
         lib = _cuda_build.library("spd_solve")
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.spd_solve_launch.argtypes = [vp, vp, vp, ll, i, vp]
+        lib.spd_solve_launch.argtypes = [vp, vp, vp, ll, i, i, vp]
         lib.spd_solve_launch.restype = i
+        lib.spd_solve_warp_smem_bytes.argtypes = [i]
+        lib.spd_solve_warp_smem_bytes.restype = ll
+        lib.spd_solve_warp_per_sm.argtypes = [i]
+        lib.spd_solve_warp_per_sm.restype = i
         lib.spd_solve_block_smem_bytes.argtypes = [i]
         lib.spd_solve_block_smem_bytes.restype = ll
         lib.spd_solve_block_per_sm.argtypes = [i, i, i]
@@ -818,12 +861,13 @@ def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``a``: (N, K, K) and ``b``: (N, K) float32, contiguous, on one CUDA
     device; any N. :func:`spd_solve_variant` routes by K: to
     ``SPD_MAX_K_WARP`` the one-warp kernel (counted in
-    ``launches["spd_solve"]``), to ``SPD_MAX_K_SMEM`` the shared-memory
-    kernel (``launches["spd_solve_block"]``), to ``SPD_MAX_K_GLOBAL`` the
-    global-memory kernel (``launches["spd_solve_global"]``); a larger K
-    raises. Like the plain version all read only the lower triangle of each
-    system; a system that is not positive definite gives NaN, as the TPU
-    kernel does."""
+    ``launches["spd_solve"]``; :func:`spd_solve_warp_group` lanes a system,
+    on :func:`spd_solve_warp_grid`'s blocks), to ``SPD_MAX_K_SMEM`` the
+    shared-memory kernel (``launches["spd_solve_block"]``), to
+    ``SPD_MAX_K_GLOBAL`` the global-memory kernel
+    (``launches["spd_solve_global"]``); a larger K raises. Like the plain
+    version all read only the lower triangle of each system; a system that
+    is not positive definite gives NaN, as the TPU kernel does."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError(f"spd_solve_cuda needs both tensors on one CUDA "
                          f"device, got {a.device} and {b.device}")
@@ -841,13 +885,31 @@ def spd_solve_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = _spd_lib()
     with torch.cuda.device(a.device):
         x = torch.empty((n, k), dtype=torch.float32, device=a.device)
+        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+        grid = spd_solve_warp_grid(n, k, spd_solve_warp_per_sm(k, a.device),
+                                   sms)
         err = lib.spd_solve_launch(
-            a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k,
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), n, k, grid,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"spd_solve kernel launch failed: CUDA error {err}")
     launches["spd_solve"] += 1
     return x
+
+
+def spd_solve_warp_per_sm(k: int, device=None) -> int:
+    """Blocks of the one-warp solve resident on one SM at rank K (the
+    kernel's occupancy on ``device``, cached)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    key = ("spd_solve", dev.index, k)
+    if key not in _GRID:
+        with torch.cuda.device(dev):
+            per_sm = _spd_lib().spd_solve_warp_per_sm(k)
+        if per_sm < 1:
+            raise RuntimeError(f"spd_solve at K={k}: no block fits an SM "
+                               f"({per_sm})")
+        _GRID[key] = per_sm
+    return _GRID[key]
 
 
 def spd_solve_block_per_sm(k: int, threads: int, regs: int,

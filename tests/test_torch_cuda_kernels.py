@@ -22,10 +22,15 @@ roundings there: one hop amplifies rounding by itself, by an amount that
 depends on the data, so the yardstick is measured on the same inputs.
 
 Batched SPD solve: the kernel and the plain version sum in different orders
-(the kernel's shuffles, fused multiply-adds), so both are held against a
+(the kernel's fused multiply-adds), so both are held against a
 float64 ``torch.linalg.solve`` of the same systems: the kernel within
 max(1e-5, 4x the plain version's own distance from it), relative to max
-|x|. The shared-memory kernel (32 < K <= ``SPD_MAX_K_SMEM``) and the
+|x|. The one-warp kernel (K <= 32) solves 8 or 4 systems a warp, K / G
+rows a lane: at the edges of its lanes and rows (K = 4, 5, 8, 9, 16, 17,
+24, 25) and at N ragged against them
+by the same rule; a system's x is bitwise the same solved alone and at any
+place in a batch, and a system that is not positive definite gives NaN in
+its own row only, its neighbours bitwise as without it. The shared-memory kernel (32 < K <= ``SPD_MAX_K_SMEM``) and the
 global-memory kernel (above it; both a panel-blocked Cholesky) follow the
 plain version's steps and are held to it within 1e-4 of max |x| as well; the
 two run the same arithmetic (every element's chain of fused multiply-adds in
@@ -504,6 +509,14 @@ def spd_inputs(n, k, seed=0):
     (4096, 17),       # K neither a power of two nor a multiple of 8
     (8192, 31),       # one lane idle
     (100, 1),         # one unknown
+    (8191, 8),        # 4 lanes a system, 8 a warp: the last warp ragged
+    (4096, 9),        # the first K of 8 lanes a system
+    (4096, 16),       # the last K of two rows a lane at 8 lanes
+    (1, 10),          # one system, the rest of its warp empty
+    (4099, 4),        # the last K of one row a lane
+    (4099, 5),        # the first K of two rows a lane
+    (2053, 24),       # the last K of three rows a lane
+    (2053, 25),       # the first K of four rows a lane, two warps a block
 ])
 def test_spd_solve_kernel_matches_plain(cuda, n, k):
     a, b = (t.to(cuda) for t in spd_inputs(n, k, seed=n + k))
@@ -517,6 +530,43 @@ def test_spd_solve_kernel_matches_plain(cuda, n, k):
     tol = max(1e-5, 4 * max_rel(plain.double(), exact))
     assert max_rel(x.double(), exact) <= tol
     assert torch.equal(x, pk.spd_solve_cuda(a, b))
+
+
+@pytest.mark.parametrize("k", [8, 10, 32])
+def test_spd_solve_kernel_solves_each_system_alone(cuda, k):
+    """A system's x does not depend on its place in the batch or on its
+    neighbours in the warp: solved alone (N = 1) it is bitwise what the
+    batch gives it at positions 0, middle and last."""
+    n = 1031                      # ragged against 1, 2 and 4 systems a warp
+    a, b = (t.to(cuda) for t in spd_inputs(n, k, seed=k))
+    x = pk.spd_solve_cuda(a, b)
+    for pos in (0, n // 2, n - 1):
+        alone = pk.spd_solve_cuda(a[pos:pos + 1].contiguous(),
+                                  b[pos:pos + 1].contiguous())
+        assert torch.equal(alone[0], x[pos]), pos
+
+
+@pytest.mark.parametrize("k", [8, 10, 32])
+def test_spd_solve_kernel_keeps_a_bad_system_to_itself(cuda, k):
+    """One system that is not positive definite gives NaN in its own row of
+    x only; every other system, its neighbours in the warp among them, is
+    bitwise what it is without it."""
+    n, bad = 37, 5
+    a, b = (t.to(cuda) for t in spd_inputs(n, k, seed=k + 1))
+    good = pk.spd_solve_cuda(a, b)
+    a[bad, k - 1, k - 1] = -5.0   # the last pivot negative
+    x = pk.spd_solve_cuda(a, b)
+    assert bool(torch.isnan(x[bad]).all())
+    rest = torch.arange(n, device=cuda) != bad
+    assert not bool(torch.isnan(x[rest]).any())
+    assert torch.equal(x[rest], good[rest])
+
+
+@pytest.mark.parametrize("k", [1, 8, 9, 16, 17, 24, 25, 32])
+def test_spd_solve_kernel_twin_matches_the_library(cuda, k):
+    assert pk._spd_lib().spd_solve_warp_smem_bytes(k) == \
+        pk.spd_solve_warp_smem_bytes(k)
+    assert pk.spd_solve_warp_per_sm(k) >= 1
 
 
 @pytest.mark.parametrize("n,k", [(4096, 33), (8192, 64), (2048, 65),

@@ -11,8 +11,10 @@
   ``ring_dma.use_ring_dma`` of the device; its einsum hops are counted one a
   hop actually computed, whatever ``use_flash`` was.
 * The K-means shared-memory twin at known (D, K), the wide E-step's plan
-  (chunk sizes, a grid that does not depend on W, workspaces), and the SPD
-  solve's shared-memory twin (both buffer layouts) and limit.
+  (chunk sizes, a grid that does not depend on W, workspaces), the SPD
+  solve's shared-memory twin (both buffer layouts) and limit, and the
+  one-warp solve's twin (lanes a system, shared memory, grid) at the edges
+  of its lanes a system.
 * The SPD solve's routing by K (``spd_solve_variant``: the one-warp kernel
   to K = 32, the shared-memory kernel to ``SPD_MAX_K_SMEM``, the
   global-memory kernel above), with no launch.
@@ -226,6 +228,49 @@ def test_kmeans_and_spd_shared_memory_limits():
 ])
 def test_spd_block_smem_twin(k, want):
     assert tpk.spd_solve_block_smem_bytes(k) == want
+
+
+# warp_block_floats in csrc/spd_solve.cu, written out: W warps of 32 / G
+# slots, G lanes a system; a slot is K rows at a pitch of K rounded up to an
+# odd number of float4s, rounded up to G floats past a multiple of 32
+@pytest.mark.parametrize("k,lanes,warps,slot", [
+    (1, 4, 4, 4),           # 1 x 4
+    (8, 4, 4, 100),         # 8 x 12 = 96
+    (9, 8, 4, 136),         # 9 x 12 = 108
+    (16, 8, 4, 328),        # 16 x 20 = 320
+    (17, 8, 4, 360),        # 17 x 20 = 340
+    (24, 8, 4, 680),        # 24 x 28 = 672
+    (25, 8, 2, 712),        # 25 x 28 = 700
+    (32, 8, 2, 1160),       # 32 x 36 = 1152
+])
+def test_spd_warp_twin(k, lanes, warps, slot):
+    """The one-warp solve's host twin: lanes a system (K / G rows a lane),
+    warps a block, shared memory a block (static, so within 48 KB) and the
+    grid rule: the resident blocks (8 an SM on 132 SMs), at most the blocks
+    whose warps N systems fill."""
+    assert tpk.spd_solve_warp_group(k) == lanes
+    assert tpk.spd_solve_warp_block_warps(k) == warps
+    assert slot % 32 == lanes % 32          # a warp's slots lie G banks apart
+    assert tpk.spd_solve_warp_smem_bytes(k) == 4 * warps * (32 // lanes) * slot
+    assert tpk.spd_solve_warp_smem_bytes(k) <= 48 * 1024
+    assert tpk.spd_solve_warp_grid(8192, k, 8, 132) == min(
+        8 * 132, 8192 // (32 // lanes) // warps)
+    assert tpk.spd_solve_warp_grid(1, k, 8, 132) == 1
+    assert tpk.spd_solve_warp_grid(8191, k, 1, 1) == 1
+
+
+def test_spd_stamped_copy_finds_its_anchors():
+    """``benchmark/spd_stamps.py`` stamps a copy of the K <= 32 kernel at
+    fixed anchors; each must still be in the source, once: four phases, a
+    stamp for the turn count, and the macros' definitions."""
+    from harp_tpu_torch.benchmark import spd_stamps
+    from harp_tpu_torch.ops import _cuda_build
+
+    src = (_cuda_build.CSRC / "spd_solve.cu").read_text()
+    assert not spd_stamps.is_parent_layout(src)
+    stamped = spd_stamps.stamped_source(src)
+    assert stamped.count("STAMP(") == len(spd_stamps.PHASES) + 1
+    assert stamped.count("STAMP_TURN()") == 2
 
 
 @pytest.mark.parametrize("k,variant", [
