@@ -245,6 +245,38 @@ ALS_GLOBAL = dict(rank=384, iterations=2)
 SPD_BOTH = dict(k=300, n=8192)
 
 
+# the statistics path (no TPU kernel on it: float32 torch.matmul and
+# torch.linalg), at the JAX bench's full sizes, f32, one card. [stats:pca]:
+# PCA(method="cor") on bench.py:1368's dense_points(262144, 256, seed=2),
+# W=1, two-point fits/s from fit_repeated at 2 vs 8 repeats, and checked on
+# it and on a copy with 8 strong directions (spikes: their correlation
+# eigenvalues lie far apart, so the component check has components to
+# check); the 4-process twin at n = 65,536
+STATS_PCA = dict(n=262_144, d=256, seed=2, repeats=(2, 8),
+                 spikes=(1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 6.0, 8.0),
+                 mp_n=65_536, mp_seed=4)
+# [stats:suite]: every `run stats` op on run stats' dense_points data at n =
+# 2^20, D = 64, W = 4; the outlier threshold near the median distance of
+# 64-dimensional uniform data (at run stats' 3.0 every row is flagged)
+STATS_SUITE = dict(n=1 << 20, d=64, workers=4, seed=0,
+                   qs=(0.0, 0.001, 0.25, 0.5, 0.75, 0.999, 1.0),
+                   outlier_threshold=8.0)
+# [stats:csr]: bench.py:1525 (CSR covariance, seed 23) and :1326 (CSR
+# K-means, seed 11, k = 100): n = 262,144, D = 256, 5% dense; passes/s
+# two-point at 4 vs 24 passes, iterations/s at 2 vs 10 iterations
+STATS_CSR = dict(n=262_144, d=256, density=0.05, cov_seed=23, km_seed=11,
+                 k=100, iterations=10, passes=(4, 24), iters=(2, 10))
+# [collectives:keyed]: group_by_key_sharded at W = 4 stacked, 2^22 records
+# a worker, keys in [0, 2^20), values (., 8) f32 small integers (every sum
+# exact), a uniform and a Zipf (s = 1.1) key draw at the default capacity;
+# the 4-process twin at 2^18 records a worker
+KEYED = dict(workers=4, n=1 << 22, keys=1 << 20, feat=8, zipf=1.1, seed=41,
+             mp_n=1 << 18)
+# the card's name and power limit (nvidia-smi), printed beside every number
+# of the statistics phases
+CARD_NAME = ""
+
+
 # (seconds, tag) at the first line of each phase, for the phase times
 PHASES = []
 
@@ -3681,19 +3713,23 @@ def mp_child() -> int:
     out["kmeans"] = kmeans_mp_fit(sess)
     torch.cuda.empty_cache()
     out["kmeans_wide"] = kmeans_mp_fit(sess, KMEANS_WIDE_MP)
+    torch.cuda.empty_cache()
+    out["stats_pca"] = pca_mp_digest(sess)
+    out["keyed"] = keyed_mp_digests(sess)
     distributed.shutdown()
     print("MP_CHILD " + json.dumps(out), flush=True)
     return 0
 
 
 def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw,
-               stacked_wide):
+               stacked_wide, stacked_stats):
     """[ringdma:mp] and [sgd_mf:fused] across 4 processes on the card,
     through the port's launcher, the fused causal ring attention call, the
     fused rank-256 SGD-MF fit (the wide path's send; ``stacked_wide`` the
-    digest of its stacked twin) and the K-means fits at n = 1M (k = 100, and
-    k = 1024, d = 128 through the wide variant) across 4 processes; any
-    child's failure fails the run."""
+    digest of its stacked twin), the K-means fits at n = 1M (k = 100, and
+    k = 1024, d = 128 through the wide variant), and a PCA fit and the
+    keyed shuffle (``stacked_stats``: their stacked twins' digests) across
+    4 processes; any child's failure fails the run."""
     from harp_tpu_torch.parallel import launch
 
     log(f"[ringdma:mp] {RING_W} processes x 1 worker on the card (the "
@@ -3807,6 +3843,16 @@ def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw,
     log(f"  K-means wide in each process "
         f"{[round(o['kmeans_wide']['seconds'], 2) for o in outs.values()]} "
         f"s (data drawn, {c['iterations']} iterations, one more E-step)")
+    p = STATS_PCA
+    check(all(o["stats_pca"] == stacked_stats["pca"] for o in outs.values()),
+          f"PCA fit, 4 processes x 1 worker, n={p['mp_n']}, d={p['d']}: "
+          f"eigenvalues, components and mean bitwise the stacked W={RING_W} "
+          f"fit")
+    for name, want in stacked_stats["keyed"].items():
+        check(all(o["keyed"][name] == want for o in outs.values()),
+              f"group_by_key_sharded, {name} keys, 4 processes x 1 worker, "
+              f"{KEYED['mp_n']} records a worker: combined values and "
+              f"overflow bitwise the stacked W={RING_W} run")
     o = outs[0]
     log(f"  SGD-MF 4 processes: fused {o['ratings_per_s']:.6g} ratings/s "
         f"({o['per_epoch_ms']:.4f} ms an epoch), host-staged fused_dma=False "
@@ -3832,9 +3878,10 @@ def mp_smoke_phase():
     log(f"  {time.perf_counter() - t0:.2f} s")
 
 
-def ringdma_phases(stacked_wide):
+def ringdma_phases(stacked_wide, stacked_stats):
     """Every ring-DMA phase (``stacked_wide``: the digest of the stacked
-    fused rank-256 SGD-MF fit, for its 4-process twin); returns the
+    fused rank-256 SGD-MF fit, ``stacked_stats`` those of the PCA and
+    keyed-shuffle twins, for their 4-process twins); returns the
     ring_hop records of the dense-MF and flash kernels and the kernels-line
     entries of the hop and the allgather."""
     from harp_tpu_torch.ops import ring_dma
@@ -3852,7 +3899,8 @@ def ringdma_phases(stacked_wide):
     torch.cuda.empty_cache()
     kmw = kmeans_mp_stacked(KMEANS_WIDE_MP, "[kmeans:wide stacked]")
     torch.cuda.empty_cache()
-    mp = ringdma_mp(mf, km, attn, kmw, stacked_wide)   # each child checks
+    mp = ringdma_mp(mf, km, attn, kmw, stacked_wide,
+                    stacked_stats)                     # each child checks
     mp_smoke_phase()
     mb = str(1 << 20)
     mf_ring = {"launches": mf["launches"]["dense_mf_hop_ring"],
@@ -3926,6 +3974,569 @@ def ringdma_phases(stacked_wide):
         "mp_ms_1mib": mp[0]["sizes"][mb]["allgather_ms"],
         "mp_library_ms": None,
     }]
+
+
+# --------------------------------------------------------------------------- #
+# The statistics path: PCA, the dense suite, the CSR family and the keyed
+# shuffle (float32 torch.matmul and torch.linalg; no TPU kernel on it)
+# --------------------------------------------------------------------------- #
+
+def digest(*arrays) -> str:
+    """sha256 of the bytes of host arrays or tensors, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def spiked_points(c):
+    """``dense_points`` plus 8 strong directions of ``c["spikes"]`` times
+    the data's spread: 8 correlation eigenvalues far apart from the rest
+    and from each other."""
+    from harp_tpu_torch.io import datagen
+
+    x = datagen.dense_points(c["n"], c["d"], seed=c["seed"])
+    rng = np.random.default_rng(c["seed"] + 1)
+    q, _ = np.linalg.qr(rng.standard_normal((c["d"], len(c["spikes"]))))
+    z = rng.random((c["n"], len(c["spikes"])), dtype=np.float32)
+    return x + (z * np.float32(c["spikes"])) @ q.T.astype(np.float32)
+
+
+def check_pca(name, w, comps, x, ref=None):
+    """Eigenvalues within 1e-3 relative of float64 ``eigvalsh(np.corrcoef)``
+    (tests/test_stats.py:38), components orthonormal within 1e-4, and each
+    component whose eigenvalue lies more than 1 % from its neighbours'
+    within |dot| >= 1 - 1e-3 of its float64 counterpart. Returns the
+    reference (eigenvalues, components) for reuse."""
+    if ref is None:
+        rw, rv = np.linalg.eigh(np.corrcoef(x, rowvar=False))
+        ref = rw[::-1], rv[:, ::-1].T
+    rw, rv = ref
+    w64, c64 = np.asarray(w, np.float64), np.asarray(comps, np.float64)
+    rel = float(np.max(np.abs(w64 - rw) / np.abs(rw)))
+    orth = float(np.abs(c64 @ c64.T - np.eye(len(w64))).max())
+    gap = np.full(len(rw), np.inf)
+    gap[1:] = np.minimum(gap[1:], np.abs(np.diff(rw)))
+    gap[:-1] = np.minimum(gap[:-1], np.abs(np.diff(rw)))
+    sep = gap > 0.01 * np.abs(rw)
+    dots = np.abs(np.sum(c64 * rv, axis=1))
+    worst = float(dots[sep].min()) if sep.any() else 1.0
+    check(rel <= 1e-3 and orth <= 1e-4 and worst >= 1 - 1e-3,
+          f"{name}: eigenvalues within {rel:.3g} (<= 1e-3) of float64, "
+          f"components orthonormal within {orth:.3g} (<= 1e-4), the "
+          f"{int(sep.sum())} separated ones |dot| >= {worst:.8f} "
+          f"(>= 1 - 1e-3)")
+    return ref
+
+
+def pca_mp_digest(sess):
+    """The [ringdma:mp] PCA twin on ``sess`` (stacked W=4, or one process
+    of the 4-process group): sha256 of one fit's results."""
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import stats
+
+    c = STATS_PCA
+    x = datagen.dense_points(c["mp_n"], c["d"], seed=c["mp_seed"])
+    return digest(*stats.PCA(sess).fit(x))
+
+
+def stats_pca_phase():
+    """[stats:pca]: PCA(method="cor") at n = 262,144, D = 256, W=1:
+    fits/s two-point, the split of one fit (the gram GEMM, eigh, the rest)
+    and its host syncs, checked against float64; method="svd" and a W=4
+    stacked fit on the same data. Returns the 4-process twin's digest."""
+    import warnings
+
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.benchmark import timing
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import stats
+    from harp_tpu_torch.ops import linalg
+
+    c = STATS_PCA
+    n, d = c["n"], c["d"]
+    log(f"[stats:pca] PCA(method='cor') n={n} d={d} f32, W=1 "
+        f"(bench.py:1368's data), then the same with "
+        f"{len(c['spikes'])} strong directions")
+    sess = HarpSession(num_workers=1)
+    x = datagen.dense_points(n, d, seed=c["seed"])
+    x_dev = sess.scatter(x)
+    model = stats.PCA(sess)
+    zero_counts()
+    w, comps, mean = model.fit(x_dev)
+    check_no_plain("[stats:pca]")
+    ref = check_pca("bench data", w, comps, x)
+    check(np.abs(mean - x.astype(np.float64).mean(0)).max() <= 1e-5,
+          "mean within 1e-5 of float64")
+    lo, hi = c["repeats"]
+
+    def build(r):
+        model.fit_repeated(x_dev, r)
+        return lambda: model.fit_repeated(x_dev, r)
+
+    tp = timing.two_point_timers(build(lo), build(hi), lo, hi, 1.0)
+    gram_ms = cuda_time_ms(lambda: torch.matmul(x_dev.T, x_dev), 10, 2)
+    corr = sess.run(lambda a: linalg.correlation(a)[0], x_dev,
+                    in_specs=(sess.shard(),), out_specs=sess.replicate())
+    eigh_ms = cuda_time_ms(lambda: linalg.small_eigh(corr), 10, 2)
+    # the float32 solve small_eigh avoids (cuSOLVER's Jacobi syevj)
+    eigh32_ms = cuda_time_ms(lambda: torch.linalg.eigh(corr), 10, 2)
+    v32 = torch.linalg.eigh(corr)[1].double()
+    orth32 = float((v32.T @ v32 - torch.eye(d, dtype=torch.float64,
+                                             device=CARD)).abs().max())
+    fit_ms = cuda_time_ms(lambda: model._fit_device(x_dev), 10, 2)
+    per, busy = device_profile(lambda: model._fit_device(x_dev))
+    bound = 2 * n * d * d / PEAK_F32_FLOPS * 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        model._fit_device(x_dev)
+        torch.cuda.set_sync_debug_mode("default")
+    # where the port's code synchronised (set_sync_debug_mode's own
+    # warning is attributed to torch's file, not to the port's)
+    syncs = sorted({f"{os.path.basename(m.filename)}:{m.lineno}"
+                    for m in caught if "synchroniz" in str(m.message)
+                    and "harp_tpu_torch" in m.filename})
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  {tp['rate']:.6g} fits/s two-point ({lo} vs {hi} repeats, "
+        f"{tp['per_iter_ms']:.4f} ms a fit, spread "
+        f"{tp['spread_pct']:.1f}%) [{CARD_NAME}]")
+    log(f"  one fit {fit_ms:.4f} ms: gram GEMM {gram_ms:.4f} ms (f32 bound "
+        f"{bound:.4f} ms, 2 N D^2 / 67 TFLOP/s), eigh in float64 "
+        f"{eigh_ms:.4f} ms (float32 torch.linalg.eigh {eigh32_ms:.4f} ms, "
+        f"its vectors orthonormal within {orth32:.3g}), the rest "
+        f"{fit_ms - gram_ms - eigh_ms:.4f} ms; device busy "
+        f"{100 * (busy or 0):.2f}% of the profiled fit, its longest "
+        f"kernels {[(k, round(v, 4)) for k, v in top]} [{CARD_NAME}]")
+    log(f"  host syncs in the port's code in one fit (sync debug mode): "
+        f"{syncs}")
+    spiked = spiked_points(c)
+    sw, scomps, _ = model.fit(spiked)
+    sref = check_pca("spiked data", sw, scomps, spiked)
+    vw, vcomps, _ = stats.PCA(sess, method="svd").fit(x_dev)
+    rel = float(np.max(np.abs(vw - w) / np.abs(w)))
+    check(rel <= 1e-3, f"method='svd': eigenvalues within {rel:.3g} "
+          f"(<= 1e-3) of the correlation method's")
+    check_pca("method='svd', bench data", vw, vcomps, x, ref)
+    sess4 = HarpSession(num_workers=4)
+    for name, data, r in (("bench data", x, ref), ("spiked data", spiked,
+                                                   sref)):
+        w4, c4, _ = stats.PCA(sess4).fit(data)
+        check_pca(f"W=4 stacked, {name}", w4, c4, data, r)
+    del x_dev, corr
+    torch.cuda.empty_cache()
+    return {"fits_per_s": tp["rate"], "fit_ms": fit_ms, "gram_ms": gram_ms,
+            "eigh_ms": eigh_ms, "eigh32_ms": eigh32_ms, "orth32": orth32,
+            "gram_bound_ms": bound, "busy": busy, "syncs": syncs,
+            "mp_digest": pca_mp_digest(sess4)}
+
+
+def stats_suite_phase():
+    """[stats:suite]: every `run stats` op at n = 2^20, D = 64, W = 4
+    stacked, each against a float64 numpy reference with its tolerance."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import stats
+
+    c = STATS_SUITE
+    n, d = c["n"], c["d"]
+    log(f"[stats:suite] every run-stats op, n={n} d={d} f32, "
+        f"W={c['workers']} stacked, against float64 numpy")
+    sess = HarpSession(num_workers=c["workers"])
+    x = datagen.dense_points(n, d, seed=c["seed"])
+    x64 = x.astype(np.float64)
+    mean64 = x64.mean(0)
+    gram64 = x64.T @ x64
+    cov64 = (gram64 - n * np.outer(mean64, mean64)) / (n - 1)
+    xmax = float(np.abs(x).max())
+    x_dev = sess.scatter(x)
+    walls = {}
+
+    def timed(op, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[op] = time.perf_counter() - t0
+        return out
+
+    def within(what, got, want, tol, scale=None):
+        scale = float(np.abs(want).max()) if scale is None else scale
+        err = float(np.abs(np.asarray(got, np.float64) - want).max())
+        check(err <= tol * scale, f"{what}: within {err / scale:.3g} "
+              f"(<= {tol:g}) of max|ref|")
+
+    zero_counts()
+    cov, mean = timed("cov", lambda: stats.Covariance(sess).compute(x_dev))
+    within("cov", cov, cov64, 1e-4)
+    within("cov mean", mean, mean64, 1e-5)
+    m = timed("moments", lambda: stats.LowOrderMoments(sess).compute(x_dev))
+    check(float(m.count) == n and np.array_equal(m.minimum, x.min(0))
+          and np.array_equal(m.maximum, x.max(0)),
+          "moments: count exact, min and max bitwise np.min/np.max")
+    var64 = x64.var(0, ddof=1)
+    for what, got, want, tol in (
+            ("sum", m.sum, x64.sum(0), 1e-5),
+            ("mean", m.mean, mean64, 1e-5),
+            ("sum of squares", m.sum_squares, (x64 * x64).sum(0), 1e-5),
+            ("variance", m.variance, var64, 1e-4),
+            ("std", m.std_dev, np.sqrt(var64), 1e-4)):
+        within(f"moments {what}", got, want, tol)
+    z = timed("zscore", lambda: stats.ZScore(sess).transform(x_dev))
+    within("zscore", z, (x64 - mean64) / np.sqrt(var64), 1e-4)
+    mm = timed("minmax", lambda: stats.MinMax(sess).transform(x_dev))
+    lo64, hi64 = x64.min(0), x64.max(0)
+    within("minmax", mm, (x64 - lo64) / (hi64 - lo64), 1e-6)
+    del z, mm
+    q, r = timed("qr", lambda: stats.QR(sess).compute(x_dev))
+    within("qr: ||QR - X||", q.astype(np.float64) @ r, x64, 1e-4, xmax)
+    within("qr: Q'Q", q.T.astype(np.float64) @ q, np.eye(d), 1e-4, 1.0)
+    check(bool(np.all(np.diag(r) >= 0)), "qr: R's diagonal nonnegative")
+    blk = x_dev[: n // c["workers"]]
+    q32, r32 = torch.linalg.qr(blk)         # the float32 QR tsqr avoids
+    err32 = float((q32.double() @ r32.double() - blk.double()).abs().max())
+    log(f"  float32 torch.linalg.qr of one worker's block, for comparison: "
+        f"||QR - X|| {err32 / xmax:.3g} of max|X|")
+    del q32, r32
+    q, r, piv = timed("pivoted_qr",
+                      lambda: stats.PivotedQR(sess).compute(x_dev))
+    check(sorted(piv.tolist()) == list(range(d)), "pivoted_qr: pivots are a "
+          "permutation")
+    within("pivoted_qr: ||QR - X[:, piv]||", q.astype(np.float64) @ r,
+           x64[:, piv], 1e-4, xmax)
+    dr = np.abs(np.diag(r)).astype(np.float64)
+    check(bool(np.all(dr[1:] <= dr[:-1] * (1 + 1e-4))),
+          "pivoted_qr: |R_kk| non-increasing (within 1e-4)")
+    within("pivoted_qr: R'R", r.T.astype(np.float64) @ r,
+           gram64[np.ix_(piv, piv)], 1e-4)
+    del q
+    u, sv, vt = timed("svd", lambda: stats.SVD(sess).compute(x_dev))
+    sv64 = np.sqrt(np.linalg.eigvalsh(gram64)[::-1])
+    within("svd: singular values", sv, sv64, 1e-4)
+    within("svd: U S V'", (u.astype(np.float64) * sv) @ vt, x64, 1e-4, xmax)
+    del u
+    chol = timed("cholesky", lambda: stats.Cholesky(sess).compute(x_dev))
+    within("cholesky", chol, np.linalg.cholesky(gram64), 1e-4)
+    qs = list(c["qs"])
+    quant = timed("quantiles",
+                  lambda: stats.Quantiles(sess).compute(x_dev, qs))
+    within("quantiles", quant, np.quantile(x, qs, axis=0), 1e-6, xmax)
+    srt = timed("sort", lambda: stats.Sorting(sess).compute(x_dev))
+    want = np.sort(x, axis=0)
+    check(np.array_equal(srt, want), "sort: bitwise np.sort(axis=0)")
+    pos = np.asarray(qs) * (n - 1)
+    whole = pos == np.floor(pos)
+    check(np.array_equal(quant[whole], want[pos[whole].astype(int)]),
+          "quantiles at whole positions: bitwise the sorted rows")
+    del srt, want
+    thr = c["outlier_threshold"]
+    flags = timed("outlier", lambda: stats.OutlierDetection(
+        sess, thr).compute(x_dev))
+    prec = np.linalg.inv(cov64 + 1e-6 * np.eye(d))
+    xc = x64 - mean64
+    dist = np.sqrt(((xc @ prec) * xc).sum(1))
+    near = np.abs(dist - thr) <= 1e-4 * thr
+    agree = np.array_equal(flags[~near], (dist[~near] > thr).astype(np.int32))
+    check(agree, f"outlier (threshold {thr}): flags equal the float64 "
+          f"distances' except {int(near.sum())} rows within 1e-4 of the "
+          f"threshold ({int(flags.sum())} of {n} flagged)")
+    check_no_plain("[stats:suite]")
+    log("  wall a call, incl. the first call and the fetch: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()) + f" [{CARD_NAME}]")
+    del x_dev
+    torch.cuda.empty_cache()
+    return walls
+
+
+def sparse_lockstep(idx, val, mask, real, x_sq, dense, cen0, iterations,
+                    strategy):
+    """Lloyd iterations through ``sparse_kmeans_stats``, each E-step also
+    run through the plain dense E-step on the densified matrix from the
+    SAME centroids: counts equal up to near ties, rows of equal counts
+    within rtol 1e-4 (as ``lockstep_fit``). Returns the sparse trajectory's
+    end, its costs and the worst error."""
+    from harp_tpu_torch.models import sparse as sp
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    cen, worst, costs = cen0.clone(), 0.0, []
+    for _ in range(iterations):
+        st, cost = sp.sparse_kmeans_stats(idx, val, mask, real, x_sq, cen,
+                                          strategy)
+        s2, n2, _ = pk.kmeans_stats_plain(dense, cen)
+        n1 = st[:, -1]
+        moved = float((n1 - n2).abs().sum())
+        ties = near_ties(dense, cen, cen.shape[0])
+        check(moved <= 2 * ties, f"{strategy}: lock-step counts equal up to "
+              f"near ties ({moved:.0f} <= 2 x {ties})")
+        c1 = st[:, :-1] / torch.clamp(n1[:, None], min=1.0)
+        c2 = s2 / torch.clamp(n2[:, None], min=1.0)
+        same = n1 == n2
+        err = ((c1 - c2).abs()[same]
+               / (c2.abs()[same] + 1e-3 * float(c2.abs().max())))
+        worst = max(worst, float(err.max()))
+        cen = c1
+        costs.append(cost)
+    check(worst <= 1e-4, f"{strategy}: lock-step centroids within rtol 1e-4 "
+          f"of the dense plain E-step at every iteration (max rel "
+          f"{worst:.3g})")
+    return cen, torch.stack(costs), worst
+
+
+def stats_csr_phase():
+    """[stats:csr]: CSRCovariance passes/s and CSRPCA against the dense
+    Covariance and PCA of the densified matrix; SparseKMeans (k = 100,
+    both strategies) iterations/s, in lock step with the dense plain
+    E-step."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.benchmark import timing
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import sparse as sp
+    from harp_tpu_torch.models import stats
+
+    c = STATS_CSR
+    n, d = c["n"], c["d"]
+    sess = HarpSession(num_workers=1)
+    rows, cols, vals = datagen.sparse_points(n, d, c["density"],
+                                             seed=c["cov_seed"])
+    log(f"[stats:csr] n={n} d={d} density {c['density']} ({len(vals)} "
+        f"nonzeros), W=1: CSRCovariance, CSRPCA, SparseKMeans k={c['k']}")
+    dense = np.zeros((n, d), np.float32)
+    dense[rows, cols] = vals
+    zero_counts()
+    cov_model = sp.CSRCovariance(sess)
+    cov, mean = cov_model.compute(rows, cols, vals, n, d)
+    dcov, dmean = stats.Covariance(sess).compute(dense)
+    np.testing.assert_allclose(cov, dcov, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(mean, dmean, rtol=1e-3, atol=1e-4)
+    log("  ok: CSRCovariance within rtol 1e-3, atol 1e-4 of the dense "
+        "Covariance of the densified matrix")
+    w, comps, _ = sp.CSRPCA(sess).fit(rows, cols, vals, n, d)
+    dw, dcomps, _ = stats.PCA(sess).fit(dense)
+    np.testing.assert_allclose(w, dw, rtol=1e-3, atol=1e-4)
+    gap = np.full(d, np.inf)
+    gap[1:] = np.minimum(gap[1:], np.abs(np.diff(dw)))
+    gap[:-1] = np.minimum(gap[:-1], np.abs(np.diff(dw)))
+    sep = gap > 0.01 * np.abs(dw)
+    dots = np.abs(np.sum(comps.astype(np.float64) * dcomps, axis=1))
+    check(bool(np.all(dots[sep] >= 1 - 1e-3)),
+          f"CSRPCA: eigenvalues within rtol 1e-3, atol 1e-4 of the dense "
+          f"PCA's, the {int(sep.sum())} separated components |dot| >= 1 - "
+          f"1e-3")
+    placed = cov_model._layout(rows, cols, vals, n, d)
+    p_lo, p_hi = c["passes"]
+    tp = timing.two_point_timers(
+        lambda: cov_model._run(placed, d, p_lo),
+        lambda: cov_model._run(placed, d, p_hi), p_lo, p_hi, 1.0)
+    log(f"  CSRCovariance {tp['rate']:.6g} passes/s two-point ({p_lo} vs "
+        f"{p_hi} passes on the placed layout, {tp['per_iter_ms']:.4f} ms a "
+        f"pass, spread {tp['spread_pct']:.1f}%) [{CARD_NAME}]")
+    out = {"cov_passes_per_s": tp["rate"], "cov_pass_ms": tp["per_iter_ms"]}
+    del placed, dense
+    torch.cuda.empty_cache()
+
+    rows, cols, vals = datagen.sparse_points(n, d, c["density"],
+                                             seed=c["km_seed"])
+    k = c["k"]
+    dense0 = np.zeros((k, d), np.float32)
+    head = rows < k
+    dense0[rows[head], cols[head]] = vals[head]
+    dense = torch.zeros((n, d), device=CARD)
+    dense[torch.from_numpy(rows).to(CARD), torch.from_numpy(cols).to(CARD)] = (
+        torch.from_numpy(vals).to(CARD))
+    cen0 = torch.from_numpy(dense0).to(CARD)
+    for strategy in ("densify", "gather"):
+        model = sp.SparseKMeans(sess, sp.SparseKMeansConfig(
+            k, d, c["iterations"], strategy))
+        state = model.prepare(rows, cols, vals, n)
+        zero_counts()
+        cen, costs = model.fit_prepared(state, dense0)
+        check_no_plain(f"[stats:csr] SparseKMeans {strategy}")
+        lcen, lcosts, worst = sparse_lockstep(        # W=1: one block
+            *state, dense, cen0, c["iterations"], strategy)
+        if strategy == "densify":
+            check(np.array_equal(cen, lcen.cpu().numpy())
+                  and np.array_equal(costs, lcosts.cpu().numpy()),
+                  "densify: the model's fit is bitwise its lock-step "
+                  "trajectory")
+        else:
+            rel = abs(float(costs[-1]) - float(lcosts[-1])) / float(
+                lcosts[-1])
+            check(rel <= 1e-4, f"gather: the model's final cost within "
+                  f"rtol 1e-4 of its lock-step trajectory's ({rel:.3g})")
+        check(bool(np.all(np.diff(costs) <= 1e-5 * costs[:-1])),
+              f"{strategy}: costs non-increasing")
+        lo, hi = c["iters"]
+
+        def build(iters):
+            m = sp.SparseKMeans(sess, sp.SparseKMeansConfig(k, d, iters,
+                                                            strategy))
+            m.fit_prepared(state, dense0)
+            return lambda: m.fit_prepared(state, dense0)
+
+        tp = timing.two_point_timers(build(lo), build(hi), lo, hi, 1.0)
+        log(f"  SparseKMeans {strategy}: {tp['rate']:.6g} iterations/s "
+            f"two-point ({lo} vs {hi}, {tp['per_iter_ms']:.4f} ms an "
+            f"iteration, spread {tp['spread_pct']:.1f}%), cost "
+            f"{costs[0]:.8g} -> {costs[-1]:.8g} [{CARD_NAME}]")
+        out[f"kmeans_{strategy}_iters_per_s"] = tp["rate"]
+        out[f"kmeans_{strategy}_iter_ms"] = tp["per_iter_ms"]
+        out[f"kmeans_{strategy}_lockstep_rel"] = worst
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def keyed_records(n_total, c, zipf):
+    """Keys in [0, c["keys"]) (uniform, or Zipf(zipf) over the key
+    space) and values (n_total, feat) of small integers as float32."""
+    rng = np.random.default_rng(c["seed"] + (1 if zipf else 0))
+    if zipf:
+        p = np.arange(1, c["keys"] + 1, dtype=np.float64) ** -zipf
+        keys = rng.choice(c["keys"], size=n_total, p=p / p.sum())
+    else:
+        keys = rng.integers(0, c["keys"], size=n_total)
+    vals = rng.integers(-3, 4, size=(n_total, c["feat"]),
+                        dtype=np.int8).astype(np.float32)
+    return keys.astype(np.int64), vals
+
+
+def keyed_run(sess, keys, vals, num_keys):
+    """``group_by_key_sharded`` (SUM, the default capacity) of the sharded
+    records on ``sess``: (combined values, overflow), replicated."""
+    from harp_tpu_torch.collectives import table_ops
+
+    rep = sess.replicate()
+    return sess.run(lambda k, v: table_ops.group_by_key_sharded(
+        k, v, num_keys), keys, vals, in_specs=(sess.shard(),) * 2,
+        out_specs=(rep, rep))
+
+
+def keyed_mp_digests(sess):
+    """The [ringdma:mp] keyed-shuffle twins on ``sess``: sha256 of the
+    combined values and the overflow, uniform and Zipf draws."""
+    c = KEYED
+    out = {}
+    for name, zipf in (("uniform", None), ("zipf", c["zipf"])):
+        keys, vals = keyed_records(c["workers"] * c["mp_n"], c, zipf)
+        out[name] = digest(*keyed_run(sess, sess.scatter(keys),
+                                      sess.scatter(vals), c["keys"]))
+    return out
+
+
+def kept_records(dest, w, cap):
+    """Which records ``bucket_route`` keeps, in numpy: a record is kept
+    when its rank among its worker's records of the same destination (in
+    record order) is below ``cap``."""
+    kept = np.zeros(dest.shape, bool)
+    for r in range(dest.shape[0]):
+        order = np.argsort(dest[r], kind="stable")
+        d_s = dest[r][order]
+        starts = np.concatenate([[0], np.cumsum(np.bincount(
+            d_s, minlength=w))])[:-1]
+        kept[r, order] = np.arange(len(d_s)) - starts[d_s] < cap
+    return kept
+
+
+def keyed_phase():
+    """[collectives:keyed]: group_by_key_sharded at W = 4 stacked, 2^22
+    records a worker, uniform and Zipf keys, against numpy; a bucket_route
+    / route_back round trip; gather, send_recv, rotate_map and barrier on
+    the 1 MiB H block, each bitwise an index op. Returns the 4-process
+    twins' digests."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.collectives import lax_ops, table_ops
+
+    c = KEYED
+    w, n, nk = c["workers"], c["n"], c["keys"]
+    kpw = -(-nk // w)
+    cap = table_ops.default_route_capacity(n, w)
+    log(f"[collectives:keyed] group_by_key_sharded W={w} stacked, {n} "
+        f"records a worker, keys in [0, {nk}), values (., {c['feat']}) f32, "
+        f"capacity {cap}")
+    sess = HarpSession(num_workers=w)
+    cpu = HarpSession(num_workers=w, device="cpu")
+    out = {}
+    for name, zipf in (("uniform", None), ("zipf", c["zipf"])):
+        keys, vals = keyed_records(w * n, c, zipf)
+        kept = kept_records(np.minimum(keys // kpw, w - 1).reshape(w, n), w,
+                            cap).reshape(-1)
+        ref = np.stack([np.bincount(keys[kept], weights=vals[kept, j].astype(
+            np.float64), minlength=nk) for j in range(c["feat"])], axis=1)
+        k_dev, v_dev = sess.scatter(keys), sess.scatter(vals)
+        zero_counts()
+        got, ovf = keyed_run(sess, k_dev, v_dev, nk)
+        check_no_plain(f"[collectives:keyed] {name}")
+        _, cpu_ovf = keyed_run(cpu, cpu.scatter(keys),
+                               cpu.scatter(vals[:, :1]), nk)
+        check(np.array_equal(got.cpu().numpy().astype(np.float64), ref),
+              f"{name}: combined values bitwise the float64 sums (np "
+              f"bincount of the kept records, exact as np.add.at)")
+        check(int(ovf) == int(cpu_ovf) == int((~kept).sum()),
+              f"{name}: overflow {int(ovf)} equal to the CPU port's "
+              f"{int(cpu_ovf)} and numpy's {int((~kept).sum())}")
+        ms = cuda_time_ms(lambda: keyed_run(sess, k_dev, v_dev, nk), 3, 1)
+        log(f"  {name}: {w * n / ms * 1e3:.6g} records/s ({ms:.4f} ms a "
+            f"call, W={w} x {n} records) [{CARD_NAME}]")
+        out[name] = {"records_per_s": w * n / ms * 1e3, "ms": ms,
+                     "overflow": int(ovf)}
+        if name == "uniform":
+            def round_trip(k, v):
+                dest = torch.clamp(k // kpw, max=w - 1)
+                (routed,), _, _, routing = table_ops.bucket_route(
+                    dest, cap, (v,))
+                return table_ops.route_back(routed, routing)
+
+            back, ok = sess.run(round_trip, k_dev, v_dev,
+                                in_specs=(sess.shard(),) * 2,
+                                out_specs=(sess.shard(), sess.shard()))
+            check(np.array_equal(ok.cpu().numpy(), kept)
+                  and torch.equal(back[ok], v_dev[ok])
+                  and not bool(back[~ok].any()),
+                  "bucket_route -> route_back returns every kept record "
+                  "to its place, bitwise, and zeros for the others")
+        del k_dev, v_dev, got
+        torch.cuda.empty_cache()
+    x = ring_inputs(w, seed=11)["f32"]
+    perm = {0: 2, 1: 3, 2: 1, 3: 0}
+    pairs = [(0, 3), (1, 0), (3, 2)]
+    gathered = torch.zeros((w, w * x.shape[1]) + tuple(x.shape[2:]),
+                           device=CARD)
+    gathered[2] = x.flatten(0, 1)
+    sent = torch.zeros_like(x)
+    for s_, d_ in pairs:
+        sent[d_] = x[s_]
+    rotated = torch.empty_like(x)
+    rotated[list(perm.values())] = x[list(perm.keys())]
+    times = {}
+    for name, fn, want in (
+            ("gather", lambda a: lax_ops.gather(a, 2), gathered),
+            ("send_recv", lambda a: lax_ops.send_recv(a, pairs), sent),
+            ("rotate_map", lambda a: lax_ops.rotate_map(a, perm), rotated),
+            ("barrier", lambda a: (lax_ops.barrier(), a)[1], x)):
+        check(torch.equal(as_is(sess, fn, x), want),
+              f"{name} on the 1 MiB H block (W={w}): bitwise its index op")
+        times[name] = cuda_time_ms(lambda: as_is(sess, fn, x), 20, 3)
+    log("  ms a call on the 1 MiB H block: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in times.items()) + f" [{CARD_NAME}]")
+    out["collective_ms"] = times
+    out["mp_digests"] = keyed_mp_digests(sess)
+    return out
+
+
+def stats_phases():
+    """The statistics phases in order; returns their records, the
+    4-process twins' digests among them."""
+    res = {"pca": stats_pca_phase()}
+    torch.cuda.empty_cache()
+    res["suite"] = stats_suite_phase()
+    torch.cuda.empty_cache()
+    res["csr"] = stats_csr_phase()
+    torch.cuda.empty_cache()
+    res["keyed"] = keyed_phase()
+    torch.cuda.empty_cache()
+    return res
 
 
 # --------------------------------------------------------------------------- #
@@ -4084,6 +4695,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    global CARD_NAME
+    CARD_NAME = card
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
@@ -4127,8 +4740,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     attn = attention_phases()
     torch.cuda.empty_cache()
+    st = stats_phases()
     mf["ring_hop"], attn["ring_hop"], ring = ringdma_phases(
-        mf.pop(f"fit_rank{MF_WIDE['rank']}_fused_digest"))
+        mf.pop(f"fit_rank{MF_WIDE['rank']}_fused_digest"),
+        {"pca": st["pca"]["mp_digest"],
+         "keyed": st["keyed"]["mp_digests"]})
     torch.cuda.empty_cache()
     plain = dispatch_phase()
     attn["plain_on_card"] = plain["flash_attention"]

@@ -8,8 +8,10 @@ an exact tensor op over the worker axis:
   * reduce_scatter — combine, then split the partition axis into W blocks
   * allgather      — concatenate the W blocks
   * rotate         — ``torch.roll`` over axis 0
+  * rotate_map / send_recv — rows moved along (source, dest) worker pairs
   * all_to_all     — a swap of the worker axis and the chunk axis
-  * broadcast / reduce with a root — index the root's slice
+  * broadcast / reduce / gather with a root — index the root's slice
+  * barrier        — a device sync
 
 Replicated results are held once (no worker axis). Every op must run inside
 a function called through ``HarpSession.spmd``, which binds the group.
@@ -19,10 +21,12 @@ process's ``workers_per_process`` rows. Each op then reaches the other
 processes over gloo (``parallel/distributed.py``), staged through the host
 for a CUDA tensor: the combining ops gather every worker's row and apply the
 same ``tree_combine`` in the same order as a stacked group, so a P-process
-result at W workers is bitwise the stacked result at W; ``rotate`` moves the
-rows over a gloo ring. The device path between processes is the fused
-ring-DMA engine (``ops/ring_dma.py``, ``allgather(fused=True)`` and the
-``fused_dma`` rotations). The wire-format option ``comm=`` of the JAX
+result at W workers is bitwise the stacked result at W; ``rotate``,
+``rotate_map`` and ``send_recv`` move the rows by gloo sends
+(``distributed.permute_rows``) and ``barrier`` adds a gloo barrier. The
+device path between processes is the fused ring-DMA engine
+(``ops/ring_dma.py``, ``allgather(fused=True)`` and the ``fused_dma``
+rotations). The wire-format option ``comm=`` of the JAX
 package is not ported yet and raises ``NotImplementedError``.
 """
 
@@ -78,6 +82,12 @@ def num_workers() -> int:
     return mesh_lib.current_group().num_workers
 
 
+def barrier() -> None:
+    """Reference: Communication.barrier:61. A device sync; in a process
+    group also a gloo barrier of every process."""
+    mesh_lib.current_group().barrier()
+
+
 def allreduce(x: torch.Tensor,
               combiner: combiner_lib.Combiner = combiner_lib.SUM,
               comm=None) -> torch.Tensor:
@@ -126,6 +136,21 @@ def allgather(x: torch.Tensor, comm=None, fused: bool = False,
     return (full.flatten(0, 1) if tiled else full).clone()
 
 
+def gather(x: torch.Tensor, root: int = 0, tiled: bool = True
+           ) -> torch.Tensor:
+    """The root worker ends with every block, the others with zeros
+    (Communication.gather:196). Stays stacked: ``(W, W*B, ...)``, or
+    ``(W, W, B, ...)`` with ``tiled=False``."""
+    group = _stacked(x)
+    full = _all_rows(x, group)
+    full = full.flatten(0, 1) if tiled else full
+    zero = torch.zeros_like(full)
+    first = group.first_worker
+    return torch.stack([full if i == root else zero
+                        for i in range(first,
+                                       first + group.workers_per_process)])
+
+
 def reduce_scatter(x: torch.Tensor,
                    combiner: combiner_lib.Combiner = combiner_lib.SUM,
                    comm=None) -> torch.Tensor:
@@ -163,3 +188,57 @@ def rotate(x: torch.Tensor, steps: int = 1, comm=None) -> torch.Tensor:
     if group.process_group:
         return distributed.rotate_rows(x, steps, group)
     return torch.roll(x, shifts=steps, dims=0)
+
+
+def _move_rows(x: torch.Tensor, pairs) -> torch.Tensor:
+    """Worker ``dest`` receives worker ``source``'s row for each pair;
+    a worker that is no pair's dest gets zeros (``ppermute``)."""
+    group = _stacked(x)
+    if group.process_group:
+        return distributed.permute_rows(x, pairs, group)
+    out = torch.zeros_like(x)
+    if pairs:
+        src, dst = (torch.tensor(v, device=x.device)
+                    for v in zip(*pairs))
+        out[dst] = x[src]
+    return out
+
+
+def rotate_map(x: torch.Tensor, mapping: dict) -> torch.Tensor:
+    """Rotate with an explicit worker->worker map (Harp's rotateMap,
+    LocalGlobalSyncCollective.rotateGlobal:746): worker ``mapping[i]``
+    receives worker i's block.
+
+    ``mapping`` must be a bijection over the whole group, checked before
+    anything moves: a partial map would silently replace the unnamed
+    workers' blocks with zeros."""
+    n = mesh_lib.current_group().num_workers
+    srcs, dsts = set(mapping.keys()), set(mapping.values())
+    expect = set(range(n))
+    if srcs != expect or dsts != expect:
+        missing_src = sorted(expect - srcs)
+        missing_dst = sorted(expect - dsts)
+        bad = sorted((srcs | dsts) - expect)
+        raise ValueError(
+            f"rotate_map mapping must be a bijection over all {n} workers: "
+            f"sources missing {missing_src}, destinations missing "
+            f"{missing_dst}, out-of-range ids {bad} — a partial map would "
+            f"silently replace the unnamed workers' shards with zeros")
+    return _move_rows(x, sorted(mapping.items()))
+
+
+def send_recv(x: torch.Tensor, pairs) -> torch.Tensor:
+    """Point-to-point sends (source, dest), Harp's DataSender substitute:
+    worker ``dest`` receives worker ``source``'s block; workers receiving
+    nothing get zeros. A source or dest named twice, or outside the group,
+    raises (``ppermute`` refuses such pairs)."""
+    n = mesh_lib.current_group().num_workers
+    pairs = [(int(s), int(d)) for s, d in pairs]
+    srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"send_recv sources and destinations must be "
+                         f"unique, got {pairs}")
+    if any(not 0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"send_recv worker ids must be in [0, {n}), got "
+                         f"{pairs}")
+    return _move_rows(x, pairs)

@@ -9,6 +9,8 @@ sums the same contributions gives the same bits.
 
 MINUS and AVG are defined deterministically, as in the reference:
 MINUS(a, b...) = a - (sum of all - a) and AVG = SUM / contributor count.
+:meth:`Combiner.psum_like` is the combine over the bound group's worker
+axis, the one ``collectives/lax_ops.allreduce`` runs.
 """
 
 from __future__ import annotations
@@ -67,6 +69,15 @@ class Combiner:
             first = x[0]
             return first - (total - first)
         raise ValueError(f"unknown op {self.op}")
+
+    def psum_like(self, x: torch.Tensor) -> torch.Tensor:
+        """Combine a stacked ``(W, ...)`` tensor over the worker axis of the
+        group bound by ``HarpSession.spmd``, held once: the function
+        ``lax_ops.allreduce`` computes (the rows gathered from every process
+        in a process group, then :meth:`tree_combine` in worker order)."""
+        from harp_tpu_torch.collectives import lax_ops  # lax_ops imports us
+
+        return lax_ops.allreduce(x, self)
 
 
 _COMBINERS = {

@@ -1,7 +1,7 @@
 """Synthetic data generators (numpy on the host).
 
-Port of ``dense_points``, ``initial_centroids``, ``sparse_ratings`` and
-``zipf_ratings`` from ``harp_tpu/io/datagen.py`` (reference:
+Port of ``dense_points``, ``initial_centroids``, ``sparse_ratings``,
+``zipf_ratings`` and ``sparse_points`` from ``harp_tpu/io/datagen.py`` (reference:
 KMUtil.generatePoints / generateCentroids and the SGD-MF and ALS rating
 generators). The same seed gives the same arrays as the JAX package.
 """
@@ -77,3 +77,15 @@ def zipf_ratings(num_users: int, num_items: int, rank: int,
     vals = (np.einsum("ij,ij->i", u[rows], v[cols])
             + noise * rng.standard_normal(len(rows)))
     return rows, cols, vals.astype(np.float32)
+
+
+def sparse_points(num_points: int, dim: int, density: float, seed: int = 0):
+    """Uniformly sparse COO feature matrix: the input of the CSR analytics
+    family (daal_kmeans/allreducecsr, daal_cov/csrdistri,
+    daal_pca/corcsrdistr). Returns (rows, cols, vals)."""
+    rng = np.random.default_rng(seed)
+    nnz = max(1, int(density * num_points * dim))
+    flat = rng.choice(num_points * dim, size=nnz, replace=False)
+    rows, cols = np.divmod(flat, dim)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return rows.astype(np.int64), cols.astype(np.int64), vals

@@ -7,6 +7,7 @@ columns are exact no-ops in distances and sums; phantom centroid rows never
 win a masked argmin and average to zero counts. ``LANES`` keeps the JAX
 package's value so shapes can be compared; the GPU has no lane constraint
 and the K-means port does not pad to it (``models/kmeans.py``).
+:func:`densify_rows` is the CSR family's densifier (``models/sparse.py``).
 """
 
 from __future__ import annotations
@@ -62,3 +63,21 @@ def mask_phantom_cols(scores: torch.Tensor, valid: int,
         return scores
     keep = torch.arange(k, device=scores.device) < valid
     return torch.where(keep, scores, torch.full_like(scores, fill))
+
+
+def densify_rows(idx: torch.Tensor, vals: torch.Tensor, width: int
+                 ) -> torch.Tensor:
+    """Padded neighbour lists ``(..., m)`` of column ids and values -> dense
+    float32 rows ``(..., width)``: a scatter-add of each value into its
+    column. ``idx`` must lie in [0, width).
+
+    Exact as the JAX package's one-hot product is on the lists
+    ``models/sparse.csr_worker_layout`` makes: it merges duplicate (row,
+    col) entries, so a real cell receives one value, and a padded slot
+    adds 0.0 (x + 0.0 == x), in whatever order the adds run."""
+    if idx.shape != vals.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} and vals "
+                         f"{tuple(vals.shape)} must match")
+    out = torch.zeros(tuple(idx.shape[:-1]) + (width,), dtype=torch.float32,
+                      device=vals.device)
+    return out.scatter_add_(-1, idx.long(), vals.float())

@@ -14,11 +14,13 @@ initialization blocked until the timeout, and a process that dies takes the
 gang down (a collective with a dead peer raises, and the launcher kills the
 survivors when any process exits non-zero).
 
-Gloo is the control plane and the plain transport: :func:`gather_rows` and
-:func:`rotate_rows` move a process's stacked rows to the others. They run on CPU tensors; a CUDA tensor is staged through
-the host (copied to the CPU, moved, copied back). NCCL is not used: it
-refuses several ranks on one device. The device path between processes is
-the ring-DMA kernels (``ops/ring_dma.py``).
+Gloo is the control plane and the plain transport: :func:`gather_rows`,
+:func:`rotate_rows` and :func:`permute_rows` move a process's stacked rows
+to the others, and :func:`barrier` waits for every process. They run on CPU
+tensors; a CUDA tensor is staged through the host (copied to the CPU,
+moved, copied back). NCCL is not used: it refuses several ranks on one
+device. The device path between processes is the ring-DMA kernels
+(``ops/ring_dma.py``).
 """
 
 from __future__ import annotations
@@ -120,25 +122,41 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
 
 def rotate_rows(x: torch.Tensor, steps: int, group) -> torch.Tensor:
     """Ring shift of a process group's stacked rows: row r (worker g =
-    first_worker + r) receives the row of worker (g - steps) mod W. Rows
-    whose partner is in this process are copied; the others go through one
-    gloo ``batch_isend_irecv`` (tag: the receiving worker's id)."""
-    wl, base, w = (group.workers_per_process, group.first_worker,
-                   group.num_workers)
+    first_worker + r) receives the row of worker (g - steps) mod W."""
+    w = group.num_workers
+    return permute_rows(x, [(g, (g + steps) % w) for g in range(w)], group)
+
+
+def permute_rows(x: torch.Tensor, pairs, group) -> torch.Tensor:
+    """Move a process group's stacked rows along (source, dest) worker
+    pairs: the row of worker ``dest`` receives the row of worker
+    ``source``; a worker that is no pair's dest gets zeros. Every process
+    passes the same pairs, each source and dest at most once. Rows whose
+    partner is in this process are copied; the others go through one gloo
+    ``batch_isend_irecv`` (tag: the receiving worker's id)."""
+    wl, base = group.workers_per_process, group.first_worker
     xb = _row_bytes(x)
-    out = torch.empty_like(xb)
+    out = torch.zeros_like(xb)
     ops = []
-    for r in range(wl):
-        g = base + r
-        dst, src = (g + steps) % w, (g - steps) % w
-        if base <= dst < base + wl:
-            out[dst - base] = xb[r]
-        else:
-            ops.append(dist.P2POp(dist.isend, xb[r], dst // wl, tag=dst))
-        if not base <= src < base + wl:
-            ops.append(dist.P2POp(dist.irecv, out[r], src // wl, tag=g))
+    for src, dst in pairs:
+        mine_src, mine_dst = base <= src < base + wl, base <= dst < base + wl
+        if mine_src and mine_dst:
+            out[dst - base] = xb[src - base]
+        elif mine_src:
+            ops.append(dist.P2POp(dist.isend, xb[src - base], dst // wl,
+                                  tag=dst))
+        elif mine_dst:
+            ops.append(dist.P2POp(dist.irecv, out[dst - base], src // wl,
+                                  tag=dst))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return _from_row_bytes(out, x, wl)
 
+
+def barrier(device=None) -> None:
+    """Wait for ``device`` (a CUDA sync), then for every process of the
+    gang (a gloo barrier)."""
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    dist.barrier()

@@ -73,6 +73,16 @@ class WorkerGroup:
         """Global ID of this process's row 0."""
         return self.rank * self.workers_per_process
 
+    def barrier(self) -> None:
+        """Wait for the device; in a process group also for every process
+        (``distributed.barrier``: a gloo barrier after the device sync)."""
+        if self.process_group:
+            from harp_tpu_torch.parallel import distributed
+
+            distributed.barrier(self.device)
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
 
 @contextlib.contextmanager
 def bind(group: WorkerGroup):

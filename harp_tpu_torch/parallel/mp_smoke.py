@@ -14,8 +14,13 @@ Each process joins the gang (``parallel.distributed.initialize`` through
 same session stacked in one process beside it, and checks, across the
 process boundary:
 
-* every collective of ``collectives/lax_ops.py`` against numpy and bitwise
-  against the stacked group at the same W;
+* every collective of ``collectives/lax_ops.py`` and
+  ``Combiner.psum_like``, the key-value shuffle of
+  ``collectives/table_ops.py`` (``group_by_key``, ``group_by_key_sharded``
+  with and without overflow, a ``bucket_route``/``route_back`` round trip)
+  against numpy and bitwise against the stacked group at the same W;
+* ``models/stats``' ``Sorting``, ``Quantiles`` and a ``PCA`` fit, bitwise
+  the stacked group's;
 * the fused ring-DMA ops (``ops/ring_dma.py``): ``hop`` at three shifts,
   ``hop_tree`` on a tree of f32, bf16 and int32 leaves and
   ``ring_allgather``, bitwise against the stacked group (on the card: the
@@ -89,6 +94,7 @@ def _both(pg, st, fn, x, out_spec: str):
 
 
 def collective_checks(pg, st) -> None:
+    from harp_tpu_torch import combiner
     from harp_tpu_torch.collectives import lax_ops, table_ops
     from harp_tpu_torch.table import Table
 
@@ -124,12 +130,75 @@ def collective_checks(pg, st) -> None:
                            w, w * 2)),
         "worker_id": (lambda x: lax_ops.worker_id()[:, None].float(), data,
                       "shard", np.arange(w, dtype=np.float32)),
+        "gather": (lambda x: lax_ops.gather(x, root=w - 1),
+                   data, "shard",
+                   np.stack([data if i == w - 1 else np.zeros_like(data)
+                             for i in range(w)]).reshape(w * w, 3)),
+        "rotate_map": (lambda x: lax_ops.rotate_map(
+            x, {i: w - 1 - i for i in range(w)}), data, "shard",
+            data[::-1]),
+        "send_recv": (lambda x: lax_ops.send_recv(x, [(0, w - 1)]), data,
+                      "shard", np.stack([data[0] if i == w - 1
+                                         else np.zeros(3, np.float32)
+                                         for i in range(w)])),
+        "barrier": (lambda x: (lax_ops.barrier(), x)[1], data, "shard",
+                    data),
+        "psum_like multiply": (
+            lambda x: combiner.MULTIPLY.psum_like(x[:, 0]), data, "rep",
+            data.prod(0)),
     }
+    # the key-value shuffle: records (key, 3 values) of small integers
+    rng = np.random.default_rng(11)
+    kv = rng.integers(-2, 3, size=(w * 24, 4)).astype(np.float32)
+    kv[:, 0] = rng.integers(0, 10, size=w * 24)
+    kv[::7, 0] = -1                               # dropped, not counted
+    good = kv[:, 0] >= 0
+    sums = np.zeros((10, 3), np.float32)
+    np.add.at(sums, kv[good, 0].astype(int), kv[good, 1:])
+
+    def keyed(fn):
+        return lambda x: fn(x[..., 0].long(), x[..., 1:])
+
+    def round_trip(x):
+        dest = x[..., 0].long() % w
+        (routed,), _, _, routing = table_ops.bucket_route(dest, 24, (x,))
+        back, ok = table_ops.route_back(routed * 2.0, routing)
+        return torch.cat([back, ok[..., None].float()], dim=-1)
+
+    cases.update({
+        "group_by_key": (keyed(lambda k, v: table_ops.group_by_key(k, v, 10)),
+                         kv, "rep", sums),
+        "group_by_key_sharded": (
+            keyed(lambda k, v: table_ops.group_by_key_sharded(k, v, 10)[0]),
+            kv, "rep", sums),
+        "group_by_key_sharded overflow": (
+            keyed(lambda k, v: table_ops.group_by_key_sharded(
+                k * 0, v, 10, capacity=2)[1].float()[None]), kv, "rep",
+            np.array([(w * 24 - w * 2)], np.float32)),
+        "bucket_route round trip": (round_trip, kv, "shard",
+                                    np.concatenate([2 * kv, np.ones(
+                                        (w * 24, 1), np.float32)], axis=1)),
+    })
     for name, (fn, x, spec, want) in cases.items():
         got, ref = _both(pg, st, fn, x, spec)
         _same(got, ref, name)
         np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-6,
                                    err_msg=name)
+
+
+def stats_checks(pg, st) -> None:
+    from harp_tpu_torch.models import stats
+
+    w = pg.num_workers
+    x = np.random.default_rng(13).standard_normal((w * 32, 6)).astype(
+        np.float32)
+    outs = [(stats.Sorting(sess).compute(x),
+             stats.Quantiles(sess).compute(x, [0.0, 0.3, 0.5, 1.0]),
+             *stats.PCA(sess).fit(x)) for sess in (pg, st)]
+    for name, got, ref in zip(("Sorting", "Quantiles", "PCA eigenvalues",
+                               "PCA components", "PCA mean"), *outs):
+        _same(got, ref, name)
+    np.testing.assert_array_equal(outs[0][0], np.sort(x, axis=0))
 
 
 def ring_dma_checks(pg, st) -> None:
@@ -274,6 +343,7 @@ def run(device=None) -> None:
     _check(pg.workers.workers_per_process == wl,
            f"{wl} workers a process ({pg.workers})")
     collective_checks(pg, st)
+    stats_checks(pg, st)
     ring_dma_checks(pg, st)
     ring_send_checks(pg, st)
     kmeans_checks(pg, st)

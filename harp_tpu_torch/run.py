@@ -1,7 +1,9 @@
 """Command-line launcher: ``python -m harp_tpu_torch.run <algorithm> [flags]``.
 
-Port of ``harp_tpu/run.py``. Ported subcommands: ``kmeans``, ``sgd_mf`` and
-``als``.
+Port of ``harp_tpu/run.py``. Ported subcommands: ``kmeans`` (dense, and
+``--format csr`` for sparse input), ``sgd_mf``, ``als``, ``pca`` (``--method
+cor|svd``, ``--format dense|csr``) and ``stats --op {cov, moments, zscore,
+minmax, qr, pivoted_qr, svd, cholesky, quantiles, sort, outlier}``.
 The run goes on CUDA unless ``--device cpu`` is given; without CUDA the
 default fails.
 
@@ -63,7 +65,12 @@ def run_kmeans(argv) -> int:
     _common_flags(p)
     p.add_argument("--num-points", type=int, default=100_000)
     p.add_argument("--points-file", default="")
-    p.add_argument("--format", default="dense")
+    p.add_argument("--format", default="dense", choices=["dense", "csr"],
+                   help="csr = sparse-input variant "
+                        "(daal_kmeans/allreducecsr); synthetic data is "
+                        "sparsified at --density")
+    p.add_argument("--density", type=float, default=0.05,
+                   help="synthetic sparsity for --format csr")
     for flag, kw in NOT_PORTED.items():
         p.add_argument(flag, **kw)
     add_dataclass_args(p, km.KMeansConfig)
@@ -71,12 +78,16 @@ def run_kmeans(argv) -> int:
     for flag in NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")):
             p.error(f"{flag} is not yet ported to harp_tpu_torch")
-    if args.format != "dense":
-        p.error(f"--format {args.format} is not yet ported to harp_tpu_torch "
-                f"(dense only)")
     cfg = km.KMeansConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(km.KMeansConfig)})
+    if args.format == "csr" and (args.points_file
+                                 or cfg.comm != "regroupallgather"):
+        p.error("--format csr supports synthetic data with the fixed "
+                "allreduce collective (daal_kmeans/allreducecsr): "
+                "--points-file/--comm do not apply")
     sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    if args.format == "csr":
+        return _kmeans_csr(sess, cfg, args)
     if args.points_file:
         pts = _load_points(args.points_file)
         cfg = dataclasses.replace(cfg, dim=pts.shape[1])
@@ -103,6 +114,31 @@ def run_kmeans(argv) -> int:
         os.makedirs(args.work_dir, exist_ok=True)
         np.savetxt(os.path.join(args.work_dir, "centroids.csv"),
                    cen.cpu().numpy(), delimiter=",")
+    return 0
+
+
+def _kmeans_csr(sess, cfg, args) -> int:
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import sparse as sp
+
+    n = args.num_points - args.num_points % sess.num_workers
+    rows, cols, vals = datagen.sparse_points(n, cfg.dim, args.density,
+                                             seed=args.seed)
+    dense0 = np.zeros((cfg.num_centroids, cfg.dim), np.float32)
+    head = rows < cfg.num_centroids
+    dense0[rows[head], cols[head]] = vals[head]
+    model = sp.SparseKMeans(sess, sp.SparseKMeansConfig(
+        cfg.num_centroids, cfg.dim, cfg.iterations))
+    state = model.prepare(rows, cols, vals, n)
+    model.fit_prepared(state, dense0)                  # warm-up
+    sess.barrier()
+    t0 = time.perf_counter()
+    cen, costs = model.fit_prepared(state, dense0)
+    dt = time.perf_counter() - t0
+    print(f"kmeans[csr-allreduce] workers={sess.num_workers} n={n} "
+          f"k={cfg.num_centroids} d={cfg.dim} nnz={len(vals)}: "
+          f"{cfg.iterations / dt:.2f} iters/s, cost "
+          f"{costs[0]:.1f} -> {costs[-1]:.1f}")
     return 0
 
 
@@ -234,7 +270,129 @@ def run_als(argv) -> int:
     return 0
 
 
-COMMANDS = {"kmeans": run_kmeans, "sgd_mf": run_sgd_mf, "als": run_als}
+def run_pca(argv) -> int:
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import stats
+    from harp_tpu_torch.session import HarpSession
+
+    p = argparse.ArgumentParser(prog="harp_tpu_torch.run pca")
+    _common_flags(p)
+    p.add_argument("--num-points", type=int, default=65536)
+    p.add_argument("--dim", type=int, default=256)
+    p.add_argument("--iterations", type=int, default=5,
+                   help="timed repeats")
+    p.add_argument("--method", default="cor", choices=["cor", "svd"],
+                   help="cor = cordensedistr; svd = svddensedistr "
+                        "(z-score + TSQR-SVD)")
+    p.add_argument("--format", default="dense", choices=["dense", "csr"],
+                   help="csr = daal_pca/corcsrdistr from sparse input")
+    p.add_argument("--density", type=float, default=0.05,
+                   help="synthetic sparsity for --format csr")
+    p.add_argument("--points-file", default="",
+                   help="dense CSV file/dir/glob (e.g. datasets/pca); "
+                        "overrides the synthetic data (dense format only)")
+    args = p.parse_args(argv)
+    if args.points_file and args.format == "csr":
+        p.error("--points-file applies to --format dense only")
+    if args.format == "csr" and args.method != "cor":
+        p.error("--format csr implements the correlation method only "
+                "(daal_pca/corcsrdistr: the reference has no svd-csr "
+                "variant)")
+    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    n = args.num_points - args.num_points % sess.num_workers
+    if args.format == "csr":
+        from harp_tpu_torch.models import sparse as sp
+
+        rows, cols, vals = datagen.sparse_points(n, args.dim, args.density,
+                                                 seed=args.seed)
+        t0 = time.perf_counter()
+        w, comps, mean = sp.CSRPCA(sess).fit(rows, cols, vals, n, args.dim)
+        dt = time.perf_counter() - t0
+        print(f"pca[csr] workers={sess.num_workers} n={n} d={args.dim} "
+              f"nnz={len(vals)}: fit in {dt:.2f}s (incl. first call), top "
+              f"eigenvalue {w[0]:.4f}")
+        return 0
+    if args.points_file:
+        x = _load_points(args.points_file)
+        x = x[: len(x) - len(x) % sess.num_workers]
+        if len(x) == 0:
+            p.error(f"fewer points than the {sess.num_workers} workers")
+        n = len(x)
+    else:
+        x = datagen.dense_points(n, args.dim, seed=args.seed)
+    x_dev = sess.scatter(x)       # placed once; the fits take it as it is
+    model = stats.PCA(sess, method=args.method)
+    model.fit_repeated(x_dev, args.iterations)        # warm-up
+    sess.barrier()
+    t0 = time.perf_counter()
+    w, comps, mean = model.fit_repeated(x_dev, args.iterations)
+    dt = time.perf_counter() - t0
+    tag = "pca" if args.method == "cor" else "pca[svd]"
+    print(f"{tag} workers={sess.num_workers} n={n} d={x.shape[1]}: "
+          f"{args.iterations / dt:.2f} fits/s, top eigenvalue {w[0]:.4f}")
+    return 0
+
+
+STATS_OPS = ("cov", "moments", "zscore", "minmax", "qr", "pivoted_qr", "svd",
+             "cholesky", "quantiles", "sort", "outlier")
+
+
+def run_stats(argv) -> int:
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import stats
+    from harp_tpu_torch.session import HarpSession
+
+    p = argparse.ArgumentParser(prog="harp_tpu_torch.run stats")
+    _common_flags(p)
+    p.add_argument("--op", default="cov", choices=STATS_OPS)
+    p.add_argument("--num-points", type=int, default=8192)
+    p.add_argument("--dim", type=int, default=64)
+    args = p.parse_args(argv)
+    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    n = args.num_points - args.num_points % sess.num_workers
+    x = datagen.dense_points(n, args.dim, seed=args.seed)
+    t0 = time.perf_counter()
+    if args.op == "cov":
+        cov, mean = stats.Covariance(sess).compute(x)
+        res = f"trace {np.trace(cov):.4f}"
+    elif args.op == "moments":
+        m = stats.LowOrderMoments(sess).compute(x)
+        res = f"mean[0] {m.mean[0]:.4f} var[0] {m.variance[0]:.4f}"
+    elif args.op == "zscore":
+        z = stats.ZScore(sess).transform(x)
+        res = f"col0 mean {z[:, 0].mean():.2e} std {z[:, 0].std():.4f}"
+    elif args.op == "minmax":
+        mm = stats.MinMax(sess).transform(x)
+        res = f"range [{mm.min():.3f}, {mm.max():.3f}]"
+    elif args.op == "qr":
+        q, r = stats.QR(sess).compute(x)
+        res = f"||QR-X|| {np.abs(q @ r - x).max():.2e}"
+    elif args.op == "pivoted_qr":
+        q, r, piv = stats.PivotedQR(sess).compute(x)
+        res = f"||QR-X[:,piv]|| {np.abs(q @ r - x[:, piv]).max():.2e}"
+    elif args.op == "svd":
+        u, s, vt = stats.SVD(sess).compute(x)
+        res = f"top sv {s[0]:.4f}"
+    elif args.op == "cholesky":
+        l = stats.Cholesky(sess).compute(x)
+        res = f"diag[0] {l[0, 0]:.4f}"
+    elif args.op == "quantiles":
+        q = stats.Quantiles(sess).compute(x, [0.25, 0.5, 0.75])
+        res = f"col0 quartiles {np.round(q[:, 0], 4).tolist()}"
+    elif args.op == "sort":
+        s = stats.Sorting(sess).compute(x)
+        res = f"col0 sorted: {bool((np.diff(s[:, 0]) >= 0).all())}"
+    else:
+        flags = stats.OutlierDetection(sess).compute(x)
+        res = f"outliers {int(flags.sum())}/{n}"
+    dt = time.perf_counter() - t0
+    print(f"stats[{args.op}] workers={sess.num_workers} n={n} "
+          f"d={args.dim}: {res} ({dt:.1f}s incl. first call)")
+    return 0
+
+
+COMMANDS = {"kmeans": run_kmeans, "sgd_mf": run_sgd_mf, "als": run_als,
+            "pca": run_pca, "stats": run_stats}
 
 
 def main(argv=None) -> int:

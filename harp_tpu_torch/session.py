@@ -185,9 +185,4 @@ class HarpSession:
     def barrier(self) -> None:
         """Wait for the device, and in a process group for every process
         (a gloo barrier after the device sync)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        if self.workers.process_group:
-            import torch.distributed as dist
-
-            dist.barrier()
+        self.workers.barrier()

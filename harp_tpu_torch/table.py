@@ -138,3 +138,20 @@ class Table:
         if self.dist is Dist.REPLICATED:
             return self.data[: self.valid]
         return self.data[:, : self.valid]
+
+
+def key_value_table(keys: torch.Tensor, values: torch.Tensor, *,
+                    combiner: combiner_lib.Combiner = combiner_lib.SUM,
+                    num_workers: int, name: str = "kv") -> Table:
+    """Key-value table (reference: ``keyval/`` Key2ValKVTable:88 etc.): a
+    LOCAL table whose partition is a (key, value...) record, stacked keys
+    ``(W, n)`` and values ``(W, n, ...)`` as ``(W, n, 1 + F)``. Equal keys
+    are combined by ``collectives.table_ops.group_by_key``.
+
+    The keys are cast to the values' dtype, as in the JAX package: for
+    float32 values that is exact only for keys up to 2^24."""
+    data = torch.cat([keys.to(values.dtype)[..., None],
+                      values.reshape(values.shape[0], values.shape[1], -1)],
+                     dim=2)
+    return Table.local(data, combiner=combiner, num_workers=num_workers,
+                       name=name)

@@ -327,11 +327,21 @@ def test_cli_kmeans_on_cpu(capsys, tmp_path):
                       "--num-workers", "4", "--num-centroids", "2",
                       "--iterations", "2"]) == 0
     assert "n=40 k=2 d=3" in capsys.readouterr().out
-    for flag in (["--stream"], ["--save-every", "2"], ["--quant", "int8"],
-                 ["--format", "csr"]):
+    for flag in (["--stream"], ["--save-every", "2"], ["--quant", "int8"]):
         with pytest.raises(SystemExit):
             trun.main(["kmeans", "--device", "cpu", *flag])
         assert "not yet ported" in capsys.readouterr().err
+    # --format csr is ported: synthetic sparse points through SparseKMeans
+    assert trun.main(["kmeans", "--device", "cpu", "--format", "csr",
+                      "--num-points", "400", "--num-workers", "4",
+                      "--num-centroids", "5", "--dim", "6",
+                      "--iterations", "2"]) == 0
+    assert capsys.readouterr().out.startswith(
+        "kmeans[csr-allreduce] workers=4 n=400 k=5 d=6")
+    with pytest.raises(SystemExit):
+        trun.main(["kmeans", "--device", "cpu", "--format", "csr",
+                   "--points-file", str(csv)])
+    assert "--format csr supports synthetic data" in capsys.readouterr().err
 
 
 def test_cli_kmeans_reads_a_part_file_directory(capsys, monkeypatch):
