@@ -99,6 +99,25 @@ main path must make no plain call on the card:
     iterations (the wide variant), whose centroids, counts and costs are
     bitwise the stacked W=4 fits; and ``parallel/mp_smoke.py`` as 2
     processes x 2 workers;
+  * the quantized wire format, mini-batch NN and the gradient solvers (no
+    TPU kernel on the NN and solver paths: float32 ``torch.matmul``, TF32
+    off): ``[codecs]``, the int8 and bf16 codes on the card bitwise the
+    CPU's (a ragged n with an all-zero block, exact .5 ties, stacked rows,
+    the packed-row round trip, an int8 allreduce with residual);
+    ``[nn]``, bench.py's NN row (n = 65,536, d = 128, 256 x 128, batch
+    512) at W=1, samples/s two-point, the first epochs held against the
+    port's CPU fit within 1e-4 of the largest entry with the caller's
+    TF32 on (the same fit with TF32 GEMMs must miss it), and a W=4 stacked
+    twin; ``[nn:compute]`` (d = 512, 2048 x 1024, batch 8192), the median
+    of three readings against its float32 bound; ``[solver]``, the five solvers at n =
+    262,144, d = 256, iterations/s two-point, theta against a float64 run;
+    ``[kmeans:quant]``, ``[kmeans:stacked]``'s fit in four variants x int8
+    and bf16 within the JAX test's bounds of the float32 fit, one E-step
+    launch an iteration; ``[sgd_mf:quant]``, the fused-asked flagship at
+    W=4 on 1 and 2 slices with both codecs, RMSEs within 0.02 of the
+    float32 fit, the float32 fit's hop launches and no send; in the
+    4-process gang the int8 K-means fit, an NN fit at n = 16,384 and an
+    int8 allreduce with residual, bitwise the stacked runs;
   * dispatch: the plain-call counts of every main path (all 0); one call
     where the JAX package takes XLA (K-means on float16 points; attention
     at L=4096): no launch, one plain call, the plain version's answer; and
@@ -127,6 +146,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -272,6 +292,41 @@ STATS_CSR = dict(n=262_144, d=256, density=0.05, cov_seed=23, km_seed=11,
 # the 4-process twin at 2^18 records a worker
 KEYED = dict(workers=4, n=1 << 22, keys=1 << 20, feat=8, zipf=1.1, seed=41,
              mp_n=1 << 18)
+# [nn]: bench.py:1413-1416's row (tpu_nn): classification_data(65536, 128,
+# 16 classes, seed=4), layers 256 x 128, lr 0.05, batch 512, W=1;
+# samples/s two-point at 1 vs 3 epochs (an epoch is host-bound, about half
+# a second), the first 2 epochs held against the port's CPU fit within
+# `tol` of the largest entry (the card's float32 fit lay 1.0e-6 and 8e-8
+# from it on an H100; a float64 fit is no yardstick here: a rounding of
+# float32 against float64 flips a ReLU at the third step and the two fits
+# part by 2.4%); a W=4 stacked twin; the 4-process twin at n = 16,384
+NN = dict(n=65_536, d=128, layers=(256, 128), classes=16, lr=0.05,
+          batch=512, epochs=(1, 3), check_epochs=2, tol=1e-4, workers=4,
+          mp_n=16_384, seed=4)
+# [nn:compute]: bench.py:1435's compute-bound row: d = 512, layers 2048 x
+# 1024, batch 8192 (1.24 TFLOP an epoch)
+NN_COMPUTE = dict(n=65_536, d=512, layers=(2048, 1024), batch=8192)
+# [solver]: the five solvers on regression_data at the PCA flagship's shape
+# (n = 262,144, d = 256, f32: 256 MiB of x), 100 iterations (sgd_minibatch
+# 16,384 rows a batch), iterations/s two-point at 20 vs 100, theta against a
+# float64 run on the card
+SOLVER = dict(n=262_144, d=256, seed=0, iterations=(20, 100),
+              batch=16_384, kinds=("sgd", "sgd_minibatch", "sgd_momentum",
+                                   "adagrad", "lbfgs"))
+# [kmeans:quant]: [kmeans:stacked]'s data and shape (KMEANS_MP) in four
+# variants x int8 and bf16 against the float32 fit, held to the JAX test's
+# bounds from a start of one point of each generated cluster (the test's
+# premise: no near ties between centroids sharing a cluster); from
+# [kmeans:stacked]'s own start (43 of the 100 clusters without a starting
+# centroid) the deviation is recorded; its int8 regroupallgather fit is the
+# 4-process twin's stacked side
+KMEANS_QUANT = dict(KMEANS_MP, quant="int8",
+                    variants=("regroupallgather", "allreduce", "pushpull",
+                              "rotation"),
+                    bounds={"int8": (0.2, 1e-2), "bf16": (0.05, 1e-3)})
+# the quantized allreduce's 4-process twin: a (4, 4099) float32 payload and
+# residual from this seed
+QUANT_AR = dict(n=4099, seed=51)
 # the card's name and power limit (nvidia-smi), printed beside every number
 # of the statistics phases
 CARD_NAME = ""
@@ -3342,7 +3397,8 @@ def kmeans_mp_fit(sess, c=KMEANS_MP):
                                    num_clusters=c["k"])
         cen0 = datagen.initial_centroids(pts, c["k"], seed=c["seed"] + 1)
     model = km.KMeans(sess, km.KMeansConfig(c["k"], c["d"], c["iterations"],
-                                            "regroupallgather"))
+                                            "regroupallgather",
+                                            quant=c.get("quant")))
     p, c0 = model.prepare(pts, cen0)
     del pts
     zero_counts()
@@ -3457,6 +3513,7 @@ def mf_fused_stacked():
         f"({fused_tp['per_iter_ms']:.4f} ms an epoch), unfused "
         f"{plain_tp['rate']:.6g} ({plain_tp['per_iter_ms']:.4f} ms)")
     ring = mfhop_ring_phase(state)
+    quant = {1: mf_quant_case(sess, state, 1, rmse)}
     del state, model, plain
     torch.cuda.empty_cache()
 
@@ -3488,6 +3545,7 @@ def mf_fused_stacked():
     log(f"  two-point, 2 slices: fused {fused2_tp['rate']:.6g} ratings/s "
         f"({fused2_tp['per_iter_ms']:.4f} ms an epoch), unfused "
         f"{plain2_tp['rate']:.6g} ({plain2_tp['per_iter_ms']:.4f} ms)")
+    quant[2] = mf_quant_case(sess, state2, 2, fit2[2])
     return {"launches": counts, "launches2": counts2, "digest": digest,
             "rmse": [float(r) for r in rmse], "nnz": nnz,
             "ratings_per_s": fused_tp["rate"],
@@ -3496,7 +3554,51 @@ def mf_fused_stacked():
             "unfused_per_epoch_ms": plain_tp["per_iter_ms"],
             "two_slice_per_epoch_ms": fused2_tp["per_iter_ms"],
             "two_slice_unfused_per_epoch_ms": plain2_tp["per_iter_ms"],
-            "ring_hop": ring}
+            "ring_hop": ring, "quant": quant}
+
+
+def mf_quant_case(sess, state, ns, rmse32):
+    """[sgd_mf:quant]: the fused-asked flagship fit on ``ns`` slices with
+    the int8 and bf16 wires: the RMSE trajectory within atol 0.02 of the
+    float32 fit (tests/test_quantize.py:354-371), one hop-kernel launch a
+    rotation step as the float32 fit makes, no in-kernel send and no ring
+    hop (a quantized wire takes precedence over fused_dma); ms an epoch in
+    turns against the unfused float32 fit."""
+    from harp_tpu_torch.models import sgd_mf
+
+    f = MF_FLAGSHIP
+    steps = f["epochs"] * RING_W * ns
+    log(f"[sgd_mf:quant] stacked W={RING_W}, {ns} slice{'s' * (ns > 1)}, "
+        f"fused_dma=True asked, int8 and bf16 against the float32 fit")
+    out = {}
+    f32 = sgd_mf.SGDMF(sess, mf_fused_config(fused_dma=False,
+                                             num_slices=ns))
+    for codec in ("int8", "bf16"):
+        model = sgd_mf.SGDMF(sess, mf_fused_config(
+            fused_dma=True, num_slices=ns, quant=codec))
+        zero_counts()
+        _, _, rmse = model.train_prepared(state)
+        counts = read_counts()
+        check_no_plain(f"[sgd_mf:quant] {ns} slices {codec}")
+        d = float(np.abs(np.asarray(rmse) - np.asarray(rmse32)).max())
+        check(counts["dense_mf_hop"] == steps
+              and counts["dense_mf_hop_ring"] == 0
+              and counts["ring_dma_hop"] == 0 and counts["ring_recv"] == 0
+              and bool(np.all(np.isfinite(rmse))) and d <= 0.02,
+              f"{codec}: {counts['dense_mf_hop']} dense_mf_hop launches (= "
+              f"{steps}, as the float32 fit), {counts['dense_mf_hop_ring']} "
+              f"in-kernel sends, {counts['ring_dma_hop']} ring hops; RMSE "
+              f"{rmse[0]:.5f} -> {rmse[-1]:.5f} within {d:.3g} (<= 0.02) of "
+              f"the float32 fit")
+        ms32, msq = in_turns(lambda: f32.train_prepared(state),
+                             lambda: model.train_prepared(state), 3,
+                             warmup=1)
+        log(f"  {codec}: {msq / f['epochs']:.4f} ms an epoch against "
+            f"{ms32 / f['epochs']:.4f} float32 unfused, in turns")
+        out[codec] = {"launches": counts["dense_mf_hop"],
+                      "rmse_dist": d, "per_epoch_ms": msq / f["epochs"],
+                      "f32_per_epoch_ms": ms32 / f["epochs"]}
+    return out
 
 
 def ring_digest(out) -> str:
@@ -3716,20 +3818,26 @@ def mp_child() -> int:
     torch.cuda.empty_cache()
     out["stats_pca"] = pca_mp_digest(sess)
     out["keyed"] = keyed_mp_digests(sess)
+    out["kmeans_quant"] = kmeans_mp_fit(sess, KMEANS_QUANT)
+    torch.cuda.empty_cache()
+    out["nn"] = nn_mp_digest(sess)
+    out["quant_ar"] = quant_ar_digest(sess)
     distributed.shutdown()
     print("MP_CHILD " + json.dumps(out), flush=True)
     return 0
 
 
 def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw,
-               stacked_wide, stacked_stats):
+               stacked_wide, stacked_stats, stacked_new):
     """[ringdma:mp] and [sgd_mf:fused] across 4 processes on the card,
     through the port's launcher, the fused causal ring attention call, the
     fused rank-256 SGD-MF fit (the wide path's send; ``stacked_wide`` the
     digest of its stacked twin), the K-means fits at n = 1M (k = 100, and
     k = 1024, d = 128 through the wide variant), and a PCA fit and the
-    keyed shuffle (``stacked_stats``: their stacked twins' digests) across
-    4 processes; any child's failure fails the run."""
+    keyed shuffle (``stacked_stats``: their stacked twins' digests), the
+    int8 regroupallgather K-means fit, a 2-epoch NN fit and an int8
+    allreduce with residual (``stacked_new``) across 4 processes; any
+    child's failure fails the run."""
     from harp_tpu_torch.parallel import launch
 
     log(f"[ringdma:mp] {RING_W} processes x 1 worker on the card (the "
@@ -3853,6 +3961,25 @@ def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw,
               f"group_by_key_sharded, {name} keys, 4 processes x 1 worker, "
               f"{KEYED['mp_n']} records a worker: combined values and "
               f"overflow bitwise the stacked W={RING_W} run")
+    for i, o in outs.items():
+        kmo = o["kmeans_quant"]
+        check(kmeans_mp_launches_ok(kmo["launches"], KMEANS_QUANT),
+              f"rank {i}, the int8 K-means fit: one kmeans_stats launch an "
+              f"iteration ({kmo['launches']['kmeans_stats']})")
+        check_no_plain(f"[ringdma:mp] K-means int8, rank {i}", kmo["plain"])
+    check(all(o["kmeans_quant"]["digest"] == stacked_new["kmeans_quant"]
+              for o in outs.values()),
+          f"K-means int8 regroupallgather, 4 processes x 1 worker, "
+          f"n={KMEANS_QUANT['n']}: centroids, counts and costs bitwise the "
+          f"stacked W={RING_W} fit")
+    check(all(o["nn"] == stacked_new["nn"] for o in outs.values()),
+          f"NN, 4 processes x 1 worker, n={NN['mp_n']}, "
+          f"{NN['check_epochs']} epochs: losses and parameters bitwise the "
+          f"stacked W={RING_W} fit")
+    check(all(o["quant_ar"] == stacked_new["quant_ar"]
+              for o in outs.values()),
+          f"int8 allreduce with residual, 4 processes x 1 worker: result "
+          f"and residuals bitwise the stacked W={RING_W} call")
     o = outs[0]
     log(f"  SGD-MF 4 processes: fused {o['ratings_per_s']:.6g} ratings/s "
         f"({o['per_epoch_ms']:.4f} ms an epoch), host-staged fused_dma=False "
@@ -3878,10 +4005,12 @@ def mp_smoke_phase():
     log(f"  {time.perf_counter() - t0:.2f} s")
 
 
-def ringdma_phases(stacked_wide, stacked_stats):
+def ringdma_phases(stacked_wide, stacked_stats, stacked_new):
     """Every ring-DMA phase (``stacked_wide``: the digest of the stacked
     fused rank-256 SGD-MF fit, ``stacked_stats`` those of the PCA and
-    keyed-shuffle twins, for their 4-process twins); returns the
+    keyed-shuffle twins, ``stacked_new`` those of the quantized K-means,
+    NN and quantized allreduce twins, for their 4-process twins); returns
+    the
     ring_hop records of the dense-MF and flash kernels and the kernels-line
     entries of the hop and the allgather."""
     from harp_tpu_torch.ops import ring_dma
@@ -3899,15 +4028,15 @@ def ringdma_phases(stacked_wide, stacked_stats):
     torch.cuda.empty_cache()
     kmw = kmeans_mp_stacked(KMEANS_WIDE_MP, "[kmeans:wide stacked]")
     torch.cuda.empty_cache()
-    mp = ringdma_mp(mf, km, attn, kmw, stacked_wide,
-                    stacked_stats)                     # each child checks
+    mp = ringdma_mp(mf, km, attn, kmw, stacked_wide, stacked_stats,
+                    stacked_new)                       # each child checks
     mp_smoke_phase()
     mb = str(1 << 20)
     mf_ring = {"launches": mf["launches"]["dense_mf_hop_ring"],
                "mp_launches": mp[0]["launches"]["dense_mf_hop_ring"],
                "mp_recv_launches": mp[0]["launches"]["ring_recv"],
                "mp_wide_launches": mp[0]["wide_launches"]["dense_mf_hop_ring"],
-               **mf["ring_hop"]}
+               **mf["ring_hop"], "quant": mf["quant"]}
     flash_ring = {
         "launches": attn["launches"]["flash_attention_ring"],
         "mp_launches": mp[0]["ring_launches"]["flash_attention_ring"],
@@ -4540,6 +4669,440 @@ def stats_phases():
 
 
 # --------------------------------------------------------------------------- #
+# Mini-batch NN, the gradient solvers (float32 torch.matmul with TF32 off; no
+# TPU kernel on their path) and the quantized wire format of the collectives
+# --------------------------------------------------------------------------- #
+
+def rel_dist(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def nn_config(layers, batch, epochs, **kw):
+    from harp_tpu_torch.models import nn
+
+    return nn.NNConfig(layers=tuple(layers), num_classes=NN["classes"],
+                       lr=NN["lr"], batch_size=batch, epochs=epochs, **kw)
+
+
+def nn_flat(model) -> np.ndarray:
+    """A fitted MLPClassifier's parameters as one float64 host vector."""
+    return np.concatenate([t.detach().double().cpu().numpy().ravel()
+                           for wb in model.params for t in wb])
+
+
+def nn_mp_digest(sess):
+    """The [ringdma:mp] NN twin on ``sess`` (stacked W=4, or one process of
+    the 4-process group): sha256 of the losses and parameters of a 2-epoch
+    fit at n = 16,384."""
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import nn
+
+    c = NN
+    x, y = datagen.classification_data(c["mp_n"], c["d"], c["classes"],
+                                       seed=c["seed"])
+    m = nn.MLPClassifier(sess, nn_config(c["layers"], c["batch"],
+                                         c["check_epochs"]))
+    losses = m.fit(x, y, seed=0)
+    return digest(losses, *[t for wb in m.params for t in wb])
+
+
+def quant_ar_digest(sess):
+    """The [ringdma:mp] quantized allreduce twin on ``sess``: sha256 of the
+    int8 allreduce (SUM) of a (4, 4099) payload with its residual, the
+    result and every worker's new residual."""
+    from harp_tpu_torch import combiner
+    from harp_tpu_torch.collectives import lax_ops, quantize
+    from harp_tpu_torch.parallel import distributed
+
+    rng = np.random.default_rng(QUANT_AR["seed"])
+    x = rng.standard_normal((RING_W, QUANT_AR["n"])).astype(np.float32)
+    r = (rng.standard_normal(x.shape) * 0.01).astype(np.float32)
+    comm = quantize.CommConfig("int8")
+    out, res = sess.run(
+        lambda a, b: lax_ops.allreduce(a, combiner.SUM, comm=comm,
+                                       residual=b),
+        sess.scatter(x), sess.scatter(r),
+        in_specs=(sess.shard(), sess.shard()),
+        out_specs=(sess.replicate(), sess.shard()))
+    if sess.workers.process_group:
+        res = distributed.gather_rows(res)
+    return digest(out, res)
+
+
+def nn_phase():
+    """[nn]: bench.py's NN row at W=1: samples/s two-point, the device's
+    share of an epoch, the first epochs' losses and the parameters against
+    the port's CPU fit from the same init_params (within ``NN["tol"]``,
+    fitted with TF32 on outside the port; the same fit with TF32 GEMMs
+    must miss it); a W=4 stacked twin; the 4-process twin's stacked
+    digest."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.benchmark import nn_budget
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import nn
+
+    c = NN
+    x, y = datagen.classification_data(c["n"], c["d"], c["classes"],
+                                       seed=c["seed"])
+    mults = nn_budget.weight_mults(c["d"], c["layers"], c["classes"])
+    bound_ms = 6.0 * mults * c["n"] / PEAK_F32_FLOPS * 1e3
+    steps = -(-c["n"] // c["batch"])
+    log(f"[nn] n={c['n']} d={c['d']} layers "
+        f"{'x'.join(map(str, c['layers']))}, {c['classes']} classes, batch "
+        f"{c['batch']} ({steps} steps an epoch), lr {c['lr']}, W=1 "
+        f"({CARD_NAME})")
+    sess = HarpSession()
+    xd, yd = sess.scatter(x), sess.scatter(y)
+    cfg = nn_config(c["layers"], c["batch"], c["check_epochs"])
+    # a caller's TF32 on around the fit: the port's full_f32_matmul must
+    # turn it off inside and give it back; the same fit with the helper
+    # bypassed shows what the limit below would see of TF32 GEMMs
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        zero_counts()
+        m = nn.MLPClassifier(sess, cfg)
+        losses = m.fit(xd, yd, seed=0)
+        launched = {k: v for k, v in read_counts().items() if v}
+        tf32_after = torch.backends.cuda.matmul.allow_tf32
+        with mock.patch.object(nn, "full_f32_matmul", contextlib.nullcontext):
+            m_tf32 = nn.MLPClassifier(sess, cfg)
+            l_tf32 = m_tf32.fit(xd, yd, seed=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    check_no_plain("[nn]")
+    log(f"  kernel launches on the path: {launched or 'none'} (no TPU "
+        f"kernel on it: float32 torch.matmul, TF32 off)")
+    m_cpu = nn.MLPClassifier(HarpSession(device="cpu"), cfg)
+    l_cpu = m_cpu.fit(x, y, seed=0)
+    p32, p_cpu = nn_flat(m), nn_flat(m_cpu)
+    dl, dp = rel_dist(losses, l_cpu), rel_dist(p32, p_cpu)
+    check(bool(np.all(np.isfinite(losses))) and losses[-1] < losses[0],
+          f"finite, falling losses ({losses[0]:.6f} -> {losses[-1]:.6f})")
+    check(tf32_after is True,
+          "the caller's TF32 setting (on) is back after the fit")
+    check(dl <= NN["tol"] and dp <= NN["tol"],
+          f"the first {c['check_epochs']} epochs' losses within {dl:.3g} "
+          f"and the parameters within {dp:.3g} of the port's CPU fit "
+          f"(<= {NN['tol']:g} of the largest entry), fitted with TF32 on "
+          f"outside the port")
+    dl_tf, dp_tf = rel_dist(l_tf32, l_cpu), rel_dist(nn_flat(m_tf32), p_cpu)
+    check(dp_tf > NN["tol"],
+          f"the limit catches TF32: with full_f32_matmul bypassed the fit "
+          f"is {dp_tf:.3g} (losses {dl_tf:.3g}) from the CPU fit, above "
+          f"{NN['tol']:g}")
+    acc = float((m.predict(xd) == y).mean())
+    eps = nn_budget.two_point_epoch_s(sess, c["n"], c["d"], c["layers"],
+                                      c["batch"], c["epochs"], data=(xd, yd))
+    per, busy = device_profile(lambda: nn.MLPClassifier(sess, nn_config(
+        c["layers"], c["batch"], 1)).fit(xd, yd, seed=0))
+    dev_ms = sum(per.values())
+    log(f"  {c['n'] / eps:.6g} samples/s two-point ({eps * 1e3:.4f} ms an "
+        f"epoch, {eps / steps * 1e6:.2f} us a step); f32 bound "
+        f"{bound_ms:.4f} ms an epoch ({eps * 1e3 / bound_ms:.1f}x); device "
+        f"time in a profiled epoch {dev_ms:.4f} ms, busy "
+        f"{100 * (busy or 0):.2f}% of its span; train accuracy {acc:.4f}")
+    w = c["workers"]
+    sess4 = HarpSession(num_workers=w)
+    xd4, yd4 = sess4.scatter(x), sess4.scatter(y)
+    zero_counts()
+    l4 = nn.MLPClassifier(sess4, cfg).fit(xd4, yd4, seed=0)
+    check_no_plain(f"[nn] W={w}")
+    check(bool(np.all(np.isfinite(l4))) and l4[-1] < l4[0],
+          f"W={w} stacked: finite, falling losses ({l4[0]:.6f} -> "
+          f"{l4[-1]:.6f})")
+    eps4 = nn_budget.two_point_epoch_s(sess4, c["n"], c["d"], c["layers"],
+                                       c["batch"], c["epochs"],
+                                       data=(xd4, yd4))
+    log(f"  W={w} stacked: {c['n'] / eps4:.6g} samples/s two-point "
+        f"({eps4 * 1e3:.4f} ms an epoch)")
+    mp = nn_mp_digest(sess4)
+    return {"samples_per_s": c["n"] / eps, "epoch_ms": eps * 1e3,
+            "bound_ms": bound_ms, "device_ms": dev_ms, "busy": busy,
+            "loss_rel_vs_cpu": dl, "param_rel_vs_cpu": dp,
+            "w4_samples_per_s": c["n"] / eps4, "mp_digest": mp}
+
+
+def nn_compute_phase():
+    """[nn:compute]: bench.py's compute-bound NN row at W=1: ms an epoch
+    two-point against its float32 bound."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.benchmark import nn_budget
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import nn
+
+    c = NN_COMPUTE
+    x, y = datagen.classification_data(c["n"], c["d"], NN["classes"],
+                                       seed=NN["seed"])
+    mults = nn_budget.weight_mults(c["d"], c["layers"], NN["classes"])
+    flops = 6.0 * mults * c["n"]
+    bound_ms = flops / PEAK_F32_FLOPS * 1e3
+    log(f"[nn:compute] n={c['n']} d={c['d']} layers "
+        f"{'x'.join(map(str, c['layers']))}, batch {c['batch']}, W=1: "
+        f"{flops / 1e12:.4f} TFLOP an epoch, f32 bound {bound_ms:.4f} ms")
+    sess = HarpSession()
+    xd, yd = sess.scatter(x), sess.scatter(y)
+    zero_counts()
+    losses = nn.MLPClassifier(sess, nn_config(c["layers"], c["batch"],
+                                              2)).fit(xd, yd, seed=0)
+    check_no_plain("[nn:compute]")
+    check(bool(np.all(np.isfinite(losses))) and losses[-1] < losses[0],
+          f"finite, falling losses ({losses[0]:.6f} -> {losses[-1]:.6f})")
+    row = nn_budget.compute_row(sess, data=(xd, yd))
+    eps = row["epoch_ms"] / 1e3
+    clock = row.get("sm_mhz_min_median_max")
+    log(f"  {eps * 1e3:.4f} ms an epoch two-point, the median of "
+        f"{', '.join(f'{v:.4f}' for v in row['epoch_ms_reads'])} "
+        f"({c['n'] / eps:.6g} samples/s, {flops / eps / 1e12:.3f} TFLOP/s): "
+        f"{100 * bound_ms / (eps * 1e3):.2f}% of the f32 bound; SM clock "
+        f"{clock} MHz (min, median, max), power up to "
+        f"{row.get('power_w_max')} W")
+    return {"epoch_ms": eps * 1e3, "bound_ms": bound_ms,
+            "samples_per_s": c["n"] / eps, "epoch_ms_reads":
+            row["epoch_ms_reads"], "sm_mhz": clock,
+            "power_w_max": row.get("power_w_max")}
+
+
+def solver_phase():
+    """[solver]: the five solvers at the PCA flagship's shape, W=1:
+    iterations/s two-point, theta and the losses within 1e-5 (of the
+    largest entry) of a float64 run on the card (float32 against float64
+    sums over 262,144 rows: a few 1e-7 on the CPU), finite falling losses."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.benchmark import timing
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import solvers
+
+    c = SOLVER
+    x, y, _ = datagen.regression_data(c["n"], c["d"], seed=c["seed"])
+    sess = HarpSession()
+    x32, y32 = sess.scatter(x), sess.scatter(y.reshape(-1))
+    x64, y64 = x32.double(), y32.double()
+    theta0 = np.zeros(c["d"], np.float32)
+    lo, hi = c["iterations"]
+    log(f"[solver] n={c['n']} d={c['d']} f32 ({x32.numel() * 4 / 2**20:.0f} "
+        f"MiB of x), mse_objective, {hi} iterations, W=1 ({CARD_NAME})")
+    out = {}
+    for kind in c["kinds"]:
+        def make(iters):
+            return solvers.Solver(sess, kind, solvers.SolverConfig(
+                iterations=iters, batch_size=c["batch"]))
+
+        zero_counts()
+        t32, l32 = make(hi).minimize(solvers.mse_objective, x32, y32, theta0)
+        check_no_plain(f"[solver] {kind}")
+        t64, l64 = make(hi).minimize(solvers.mse_objective, x64, y64, theta0)
+        dt, dl = rel_dist(t32, t64), rel_dist(l32, l64)
+        check(bool(np.all(np.isfinite(l32))) and l32[-1] < l32[0]
+              and dt <= 1e-5 and dl <= 1e-5,
+              f"{kind}: mse {l32[0]:.6g} -> {l32[-1]:.6g}; theta within "
+              f"{dt:.3g} and the losses within {dl:.3g} (<= 1e-5) of the "
+              f"float64 run")
+
+        def build(iters):
+            s = make(iters)
+            s.minimize(solvers.mse_objective, x32, y32, theta0)
+            return lambda: s.minimize(solvers.mse_objective, x32, y32,
+                                      theta0)
+
+        tp = timing.two_point(build, lo, hi, 1.0)
+        log(f"  {kind}: {tp['rate']:.6g} iterations/s two-point "
+            f"({tp['per_iter_ms']:.4f} ms an iteration)")
+        out[kind] = {"iters_per_s": tp["rate"], "ms": tp["per_iter_ms"],
+                     "theta_rel_f64": dt}
+    return out
+
+
+def codec_case(x, codec, block=None):
+    """Encode ``x`` (host, float32, (..., n)) with the port on the CPU and
+    on the card; whether codes, scales, decode and error-fed residual are
+    bitwise equal."""
+    from harp_tpu_torch.collectives import quantize
+
+    comm = quantize.CommConfig(codec)
+    block = block or quantize._block_for(x.shape[-1], comm)
+    res = np.full(x.shape, 0.003, np.float32)
+    outs = []
+    for dev in ("cpu", CARD):
+        t = torch.from_numpy(x).to(dev)
+        p, sc, n = quantize.encode_flat(t, comm, block)
+        dec = quantize.decode_flat(p, sc, n, comm)
+        *_, r = quantize.ef_encode_flat(t, torch.from_numpy(res).to(dev),
+                                        comm, block)
+        outs.append([v for v in (p, sc, dec, r) if v is not None])
+    return all(digest(a) == digest(b) for a, b in zip(*outs))
+
+
+def codec_phase():
+    """[codecs]: the port's codecs on the card bitwise its CPU codes: a
+    ragged n, an all-zero block, exact .5 ties, stacked rows, and the
+    packed-row round trip; the int8 allreduce with residual bitwise the CPU
+    port's."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.collectives import quantize
+
+    log("[codecs] int8 and bf16 codes on the card against the port's CPU "
+        "codes")
+    rng = np.random.default_rng(61)
+    ragged = (rng.standard_normal(4099) * 10.0 ** rng.uniform(
+        -3, 3, 4099)).astype(np.float32)
+    ragged[:256] = 0.0                                 # an all-zero block
+    ties = np.array([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -2.5] * 4,
+                    np.float32)
+    stacked = rng.standard_normal((RING_W, 3, 1000)).astype(np.float32)
+    for codec in ("int8", "bf16"):
+        for name, x, block in (("ragged n=4099 with a zero block", ragged,
+                                None), ("exact .5 ties", ties, 8),
+                               ("stacked rows (4, 3, 1000)", stacked, None)):
+            check(codec_case(x, codec, block),
+                  f"{codec}, {name}: codes, scales, decode and residual "
+                  f"bitwise the CPU port's")
+    rows = rng.standard_normal((64, 33)).astype(np.float32)
+    rows[5] = 0.0
+    packed = quantize.encode_rows_np(rows)
+    got = [quantize.dequantize_rows(torch.from_numpy(packed).to(dev))
+           for dev in ("cpu", CARD)]
+    q, scale = quantize.decode_rows(torch.from_numpy(packed).to(CARD))
+    want = (np.abs(rows).max(-1) / 127.0).astype(np.float32)
+    check(digest(got[0]) == digest(got[1])
+          and np.array_equal(scale.cpu().numpy().view(np.uint32),
+                             want.view(np.uint32))
+          and not got[1][5].any(),
+          "packed rows: the decode on the card bitwise the CPU's, the "
+          "scales bitwise their float32 bits, a zero row decodes to zeros")
+    cpu = quant_ar_digest(HarpSession(num_workers=RING_W, device="cpu"))
+    card = quant_ar_digest(HarpSession(num_workers=RING_W))
+    check(cpu == card, f"the int8 allreduce with residual at W={RING_W}: "
+          f"result and residuals bitwise the CPU port's")
+    return card
+
+
+def cluster_starts(c):
+    """One point of each cluster that ``datagen.dense_points(c["n"],
+    c["d"], seed=c["seed"], num_clusters=c["k"])`` draws: the first point
+    of each cluster, its assignments replayed from the generator's own
+    draws (a start with no two centroids in one cluster)."""
+    rng = np.random.default_rng(c["seed"])
+    rng.random((c["k"], c["d"]), dtype=np.float32)          # the centres
+    assign = rng.integers(0, c["k"], size=c["n"])
+    return np.array([int(np.argmax(assign == j)) for j in range(c["k"])])
+
+
+def kmeans_quant_phase():
+    """[kmeans:quant]: [kmeans:stacked]'s data and shape in four variants x
+    int8 and bf16 against the float32 fit. From a start of one point of
+    each generated cluster, held to the JAX test's bounds
+    (tests/test_quantize.py:317-343: costs rtol 2e-2, the final cost 1e-2
+    int8 / 1e-3 bf16, centroids 0.2 / 0.05), which the JAX reference meets
+    there on the CPU (int8 final within 1.6e-3, bf16 6.8e-4, centroids
+    0.016); from [kmeans:stacked]'s own start, where near ties between
+    centroids sharing a cluster let the lossy wire move the fit to another
+    local optimum (the JAX reference's int8 fit leaves the float32 costs by
+    11.6% there), the deviation is recorded. One E-step launch an iteration;
+    ms an iteration in turns against the float32 fit; the int8
+    regroupallgather fit's digest for its 4-process twin."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import kmeans as km
+
+    c = KMEANS_QUANT
+    it = c["iterations"]
+    log(f"[kmeans:quant] W={RING_W} stacked: n={c['n']}, k={c['k']}, "
+        f"d={c['d']}, {it} iterations, {len(c['variants'])} variants x int8 "
+        f"and bf16 against the float32 fit")
+    pts = datagen.dense_points(c["n"], c["d"], seed=c["seed"],
+                               num_clusters=c["k"])
+    starts = {"one point a cluster": np.ascontiguousarray(
+                  pts[cluster_starts(c)]),
+              "[kmeans:stacked]'s start": datagen.initial_centroids(
+                  pts, c["k"], seed=c["seed"] + 1)}
+    sess = HarpSession(num_workers=RING_W)
+
+    def model(variant, quant=None):
+        return km.KMeans(sess, km.KMeansConfig(c["k"], c["d"], it, variant,
+                                               quant=quant))
+
+    p, _ = model("regroupallgather").prepare(pts, starts[
+        "one point a cluster"])
+    del pts
+    out = {"launches": {}, "ms_per_iter": {}, "flagship_start": {}}
+    for start, cen0 in starts.items():
+        c0 = sess.replicate_put(cen0, dtype=torch.float32)
+        held = start == "one point a cluster"
+        for variant in c["variants"] if held else c["variants"][:1]:
+            cen32, cost32 = (t.cpu().numpy() for t in
+                             model(variant).fit_prepared(p, c0))
+            for codec, (cen_tol, cost_tol) in c["bounds"].items():
+                zero_counts()
+                cen, cost = (t.cpu().numpy() for t in
+                             model(variant, codec).fit_prepared(p, c0))
+                launches = read_counts()
+                check_no_plain(f"[kmeans:quant] {variant} {codec}, {start}")
+                dc = float(np.abs(cen - cen32).max())
+                dk = float(np.max(np.abs(cost - cost32) / np.abs(cost32)))
+                dlast = abs(float(cost[-1] - cost32[-1])) / abs(float(
+                    cost32[-1]))
+                what = (f"{variant} {codec}, {start}: "
+                        f"{launches['kmeans_stats']} E-step launches; costs "
+                        f"within {dk:.3g}, the final within {dlast:.3g}, "
+                        f"centroids within {dc:.3g} of the float32 fit")
+                ok = (launches["kmeans_stats"] == it
+                      and launches["kmeans_stats_wide"] == 0
+                      and bool(np.all(np.isfinite(cost))))
+                if held:
+                    check(ok and dk <= 2e-2 and dlast <= cost_tol
+                          and dc < cen_tol,
+                          f"{what} (<= 2e-2, <= {cost_tol:g}, < {cen_tol:g})")
+                    out["launches"][f"{variant}_{codec}"] = launches[
+                        "kmeans_stats"]
+                else:
+                    check(ok, f"{what} (recorded)")
+                    out["flagship_start"][codec] = {
+                        "costs_rel": dk, "final_rel": dlast,
+                        "centroids": dc}
+    c0 = sess.replicate_put(starts["[kmeans:stacked]'s start"],
+                            dtype=torch.float32)
+    for codec in ("int8", "bf16"):
+        f32, q = model("regroupallgather"), model("regroupallgather", codec)
+        ms32, msq = in_turns(lambda: f32.fit_prepared(p, c0),
+                             lambda: q.fit_prepared(p, c0), 3, warmup=1)
+        out["ms_per_iter"][codec] = msq / it
+        out["ms_per_iter"][f"float32_beside_{codec}"] = ms32 / it
+        log(f"  regroupallgather {codec}: {msq / it:.4f} ms an iteration "
+            f"against {ms32 / it:.4f} float32, in turns (one card: the wire "
+            f"compresses nothing, the codec adds its passes)")
+    del p, c0
+    torch.cuda.empty_cache()
+    ref = kmeans_mp_fit(sess, c)
+    check(kmeans_mp_launches_ok(ref["launches"], c),
+          f"the int8 regroupallgather fit: one kmeans_stats launch an "
+          f"iteration ({ref['launches']['kmeans_stats']})")
+    out["digest"] = ref["digest"]
+    return out
+
+
+def quant_nn_solver_phases():
+    """[codecs], [nn], [nn:compute], [solver] and [kmeans:quant]; returns
+    their records, the stacked digests of the 4-process twins among
+    them."""
+    res = {"quant_ar_digest": codec_phase()}
+    res["nn"] = nn_phase()
+    torch.cuda.empty_cache()
+    res["nn_compute"] = nn_compute_phase()
+    torch.cuda.empty_cache()
+    res["solver"] = solver_phase()
+    torch.cuda.empty_cache()
+    res["kmeans_quant"] = kmeans_quant_phase()
+    torch.cuda.empty_cache()
+    res["mp"] = {"kmeans_quant": res["kmeans_quant"]["digest"],
+                 "nn": res["nn"]["mp_digest"],
+                 "quant_ar": res["quant_ar_digest"]}
+    return res
+
+
+# --------------------------------------------------------------------------- #
 # Dispatch: the plain calls of the main paths, and one shape outside each
 # kernel's predicate
 # --------------------------------------------------------------------------- #
@@ -4741,10 +5304,12 @@ def main() -> int:
     attn = attention_phases()
     torch.cuda.empty_cache()
     st = stats_phases()
+    new = quant_nn_solver_phases()
     mf["ring_hop"], attn["ring_hop"], ring = ringdma_phases(
         mf.pop(f"fit_rank{MF_WIDE['rank']}_fused_digest"),
         {"pca": st["pca"]["mp_digest"],
-         "keyed": st["keyed"]["mp_digests"]})
+         "keyed": st["keyed"]["mp_digests"]}, new["mp"])
+    mf["quant"] = mf["ring_hop"].pop("quant")
     torch.cuda.empty_cache()
     plain = dispatch_phase()
     attn["plain_on_card"] = plain["flash_attention"]
@@ -4773,6 +5338,8 @@ def main() -> int:
         "fit_centroid_rel_vs_plain": fit["centroid_rel_vs_plain"],
         "grid": fit["grid"],
         "plain_on_card": plain["kmeans_stats"],
+        "quant_fit_launches": new["kmeans_quant"]["launches"],
+        "quant_fit_ms_per_iter": new["kmeans_quant"]["ms_per_iter"],
     }, kmeans_wide_row(wide, wide_fit), mf, *spd, attn, *ring]
     print(card)
     print(json.dumps({"kernels": kernels}))

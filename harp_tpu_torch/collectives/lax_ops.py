@@ -26,8 +26,15 @@ result at W workers is bitwise the stacked result at W; ``rotate``,
 (``distributed.permute_rows``) and ``barrier`` adds a gloo barrier. The
 device path between processes is the fused ring-DMA engine
 (``ops/ring_dma.py``, ``allgather(fused=True)`` and the ``fused_dma``
-rotations). The wire-format option ``comm=`` of the JAX
-package is not ported yet and raises ``NotImplementedError``.
+rotations).
+
+``comm=`` (a ``quantize.CommConfig``) on ``allreduce``, ``reduce_scatter``,
+``allgather`` and ``rotate`` takes the quantized wire format
+(``collectives/quantize.py``): int8 or bf16 payloads, decoded before any
+sum. ``residual=`` on ``allreduce`` and ``reduce_scatter`` carries its
+error feedback and makes the op return ``(out, residual')``, also on the
+float32 path (the residual then comes back as it was), so call sites stay
+uniform. A quantized wire takes precedence over ``fused``.
 """
 
 from __future__ import annotations
@@ -39,10 +46,11 @@ from harp_tpu_torch.parallel import distributed
 from harp_tpu_torch.parallel import mesh as mesh_lib
 
 
-def _not_ported(comm=None) -> None:
-    if comm is not None:
-        raise NotImplementedError("quantized collectives (comm=) are not "
-                                  "ported yet")
+def _quantize():
+    """``collectives/quantize.py``, a layer up (it builds on these ops)."""
+    from harp_tpu_torch.collectives import quantize
+
+    return quantize
 
 
 def _stacked(x: torch.Tensor) -> mesh_lib.WorkerGroup:
@@ -90,12 +98,19 @@ def barrier() -> None:
 
 def allreduce(x: torch.Tensor,
               combiner: combiner_lib.Combiner = combiner_lib.SUM,
-              comm=None) -> torch.Tensor:
+              comm=None, residual=None):
     """All workers end with the combined value (held once).
-    Reference: AllreduceCollective.allreduce:150."""
-    _not_ported(comm)
+    Reference: AllreduceCollective.allreduce:150.
+
+    ``comm``/``residual``: the quantized wire format and its
+    error-feedback state (module docstring); with ``residual`` the return
+    is ``(out, residual')``."""
+    if _quantize().is_active(comm):
+        _stacked(x)
+        return _quantize().allreduce_q(x, combiner, comm, residual)
     group = _stacked(x)
-    return combiner.tree_combine(_all_rows(x, group), axis=0)
+    out = combiner.tree_combine(_all_rows(x, group), axis=0)
+    return (out, residual) if residual is not None else out
 
 
 def reduce(x: torch.Tensor, root: int = 0,
@@ -123,9 +138,12 @@ def allgather(x: torch.Tensor, comm=None, fused: bool = False,
     axis, (W, B, ...).
 
     ``fused``: the reference's ring relay through the ring-DMA engine
-    (``ops/ring_dma.ring_allgather``, bitwise this op)."""
-    _not_ported(comm)
+    (``ops/ring_dma.ring_allgather``, bitwise this op). ``comm``: the
+    quantized wire format (stateless: every worker decodes the same
+    payload); it takes precedence over ``fused``."""
     group = _stacked(x)
+    if _quantize().is_active(comm):
+        return _quantize().allgather_q(x, comm, tiled=tiled)
     if fused:
         from harp_tpu_torch.ops import ring_dma  # a layer up: import late
 
@@ -153,18 +171,22 @@ def gather(x: torch.Tensor, root: int = 0, tiled: bool = True
 
 def reduce_scatter(x: torch.Tensor,
                    combiner: combiner_lib.Combiner = combiner_lib.SUM,
-                   comm=None) -> torch.Tensor:
+                   comm=None, residual=None):
     """Combine per-worker contributions ``(W, P, ...)`` and scatter blocks:
     worker w gets combined block w, stacked ``(W, P/W, ...)``. Harp's
-    ``regroup`` with the block partitioner (RegroupCollective:154)."""
-    _not_ported(comm)
+    ``regroup`` with the block partitioner (RegroupCollective:154).
+
+    ``comm``/``residual``: as for :func:`allreduce` (SUM/AVG only)."""
     group = _stacked(x)
     w = group.num_workers
     if x.dim() < 2 or x.shape[1] % w:
         raise ValueError(f"partition axis of shape {tuple(x.shape)} does not "
                          f"split over {w} workers")
+    if _quantize().is_active(comm):
+        return _quantize().reduce_scatter_q(x, combiner, comm, residual)
     full = combiner.tree_combine(_all_rows(x, group), axis=0)
-    return _own_rows(full.unflatten(0, (w, -1)), group)
+    out = _own_rows(full.unflatten(0, (w, -1)), group)
+    return (out, residual) if residual is not None else out
 
 
 def all_to_all(x: torch.Tensor) -> torch.Tensor:
@@ -182,9 +204,11 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
 
 def rotate(x: torch.Tensor, steps: int = 1, comm=None) -> torch.Tensor:
     """Ring shift: worker i receives the block held by ``i - steps``
-    (LocalGlobalSyncCollective.rotate:710)."""
-    _not_ported(comm)
+    (LocalGlobalSyncCollective.rotate:710). ``comm``: the quantized wire
+    format (stateless; the rotation loops carry error feedback)."""
     group = _stacked(x)
+    if _quantize().is_active(comm):
+        return _quantize().rotate_q(x, steps, comm)
     if group.process_group:
         return distributed.rotate_rows(x, steps, group)
     return torch.roll(x, shifts=steps, dims=0)

@@ -48,10 +48,18 @@ def _expect(t: Table, dist: Dist, op: str) -> None:
             f"(table {t.name!r}); see harp_tpu_torch.table state model")
 
 
-def allreduce(t: Table, comm=None) -> Table:
+def allreduce(t: Table, comm=None, residual=None):
     """LOCAL -> REPLICATED: combine per-worker contributions partition-wise
-    (AllreduceCollective.allreduce:150)."""
+    (AllreduceCollective.allreduce:150).
+
+    ``comm``/``residual``: the quantized wire format and its error-feedback
+    state (``collectives/quantize.py``); with ``residual`` the return is
+    ``(table, residual')``, as for :func:`regroup`."""
     _expect(t, Dist.LOCAL, "allreduce")
+    if residual is not None:
+        out, residual = lax_ops.allreduce(t.data, t.combiner, comm=comm,
+                                          residual=residual)
+        return t.with_data(out, Dist.REPLICATED), residual
     return t.with_data(lax_ops.allreduce(t.data, t.combiner, comm=comm),
                        Dist.REPLICATED)
 
@@ -70,12 +78,25 @@ def broadcast(t: Table, root: int = 0) -> Table:
 
 def regroup(t: Table,
             partitioner: Optional[partitioner_lib.Partitioner] = None,
-            comm=None) -> Table:
+            comm=None, residual=None):
     """LOCAL -> SHARDED: route each partition to its owner, combining
-    contributions (RegroupCollective.regroupCombine:154)."""
+    contributions (RegroupCollective.regroupCombine:154).
+
+    ``comm``/``residual``: the quantized wire format and its error-feedback
+    state. With ``residual`` (stacked like ``t.data``) the return is
+    ``(table, residual')``; residuals live in the partition order of
+    ``t.data`` (before the permutation), so the same partitioner must ride
+    every call."""
     _expect(t, Dist.LOCAL, "regroup")
     perm = partitioner.permutation() if partitioner is not None else None
     data = _perm_apply(t.data, perm, axis=1)
+    if residual is not None:
+        out, res = lax_ops.reduce_scatter(
+            data, t.combiner, comm=comm,
+            residual=_perm_apply(residual, perm, axis=1))
+        inv = (partitioner.inverse_permutation() if partitioner is not None
+               else None)
+        return t.with_data(out, Dist.SHARDED), _perm_apply(res, inv, axis=1)
     out = lax_ops.reduce_scatter(data, t.combiner, comm=comm)
     return t.with_data(out, Dist.SHARDED)
 
@@ -86,7 +107,8 @@ def allgather(t: Table,
     """SHARDED -> REPLICATED (AllgatherCollective.allgather:147).
 
     ``partitioner`` must match the one used at regroup time so partition-ID
-    order is restored after the gather."""
+    order is restored after the gather. ``comm``: the quantized wire format
+    (stateless); ``fused``: the ring relay of the ring-DMA engine."""
     _expect(t, Dist.SHARDED, "allgather")
     full = lax_ops.allgather(t.data, comm=comm, fused=fused)
     inv = partitioner.inverse_permutation() if partitioner is not None else None
@@ -116,11 +138,20 @@ def rotate_with_map(t: Table, mapping: dict) -> Table:
 
 def push(local: Table, global_table: Table,
          partitioner: Optional[partitioner_lib.Partitioner] = None,
-         comm=None) -> Table:
+         comm=None, residual=None):
     """Parameter-server push: combine LOCAL contributions into the persistent
-    SHARDED global table (LocalGlobalSyncCollective.push:209)."""
+    SHARDED global table (LocalGlobalSyncCollective.push:209).
+
+    ``comm``/``residual``: quantize the regroup's wire format; with
+    ``residual`` the return is ``(table, residual')`` (see
+    :func:`regroup`)."""
     _expect(local, Dist.LOCAL, "push")
     _expect(global_table, Dist.SHARDED, "push(global)")
+    if residual is not None:
+        delta, residual = regroup(local, partitioner, comm=comm,
+                                  residual=residual)
+        merged = global_table.combiner.fn(global_table.data, delta.data)
+        return global_table.with_data(merged), residual
     delta = regroup(local, partitioner, comm=comm)
     return global_table.with_data(
         global_table.combiner.fn(global_table.data, delta.data))
@@ -130,7 +161,9 @@ def pull(global_table: Table,
          partitioner: Optional[partitioner_lib.Partitioner] = None,
          comm=None, fused: bool = False) -> Table:
     """Parameter-server pull: SHARDED global -> REPLICATED copy
-    (LocalGlobalSyncCollective.pull:185)."""
+    (LocalGlobalSyncCollective.pull:185). ``comm``: the quantized wire
+    format of the gather; ``fused``: the ring-DMA relay (see
+    :func:`allgather`)."""
     return allgather(global_table, partitioner, comm=comm, fused=fused)
 
 

@@ -11,14 +11,20 @@
   port's config and a prepared state whose replicated initial factors hold
   those factors (:func:`als_state_from_jax`, the inverse of
   ``ALS.fit_prepared``'s read-back).
+* NN: the JAX ``MLPClassifier.params`` (a list of ``(w, b)`` pairs, numpy
+  or jax arrays) -> the port's list of float32 tensor pairs, and back
+  (:func:`nn_params_from_jax`, :func:`nn_params_to_jax`).
+* Solvers: ``theta`` (a flat vector) -> a float32 tensor, and back
+  (:func:`solver_theta_from_jax`, :func:`solver_theta_to_jax`).
 
-So the two packages fit the same problem from the same start.
+So the two packages fit the same problem from the same start. The configs'
+``quant`` (the quantized wire format) carries across as it is.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Tuple
+from typing import List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,14 +38,8 @@ from harp_tpu_torch.parallel.mesh import fetch
 def kmeans_state_from_jax(centroids_np: np.ndarray,
                           config_dict: Mapping) -> Tuple[KMeansConfig, torch.Tensor]:
     """(port KMeansConfig, centroids (K, D) float32 CPU tensor) from the JAX
-    model's centroids and ``dataclasses.asdict`` of its KMeansConfig.
-
-    Fields the port does not have yet raise: ``quant`` other than None is
-    not ported."""
+    model's centroids and ``dataclasses.asdict`` of its KMeansConfig."""
     fields = dict(config_dict)
-    quant = fields.pop("quant", None)
-    if quant is not None:
-        raise NotImplementedError(f"quant={quant!r} is not ported yet")
     known = {f.name for f in dataclasses.fields(KMeansConfig)}
     unknown = sorted(set(fields) - known)
     if unknown:
@@ -64,12 +64,9 @@ def sgd_mf_state_from_jax(model: SGDMF, state: tuple, w_np: np.ndarray,
     worker, columns per block, 1 or 2 slices). The returned state is that
     state with its factor blocks replaced: every id's row placed where
     ``SGDMF._finalize`` reads it back (2-slice H worker-major (W, 2, cpb,
-    K)); padded slots keep the state's values. A field the port does not
-    have yet raises ``NotImplementedError``: ``quant`` other than None."""
+    K)); padded slots keep the state's values. Unknown fields and a config
+    other than the model's raise ``ValueError``."""
     fields = dict(config_dict)
-    if fields.get("quant") is not None:
-        raise NotImplementedError(f"quant={fields['quant']!r} is not ported "
-                                  f"yet")
     known = {f.name for f in dataclasses.fields(SGDMFConfig)}
     unknown = sorted(set(fields) - known)
     if unknown:
@@ -147,3 +144,52 @@ def als_state_from_jax(model: ALS, state: tuple, u_np: np.ndarray,
     sess = model.session
     return cfg, (key, (*data, sess.replicate_put(u_flat),
                        sess.replicate_put(v_flat)), u_slots, v_slots)
+
+
+def nn_params_from_jax(params: Sequence) -> List[Tuple[torch.Tensor,
+                                                       torch.Tensor]]:
+    """The port's ``[(w, b), ...]`` (float32 CPU tensors) from the JAX
+    ``MLPClassifier.params`` or ``nn.init_params`` (numpy or jax arrays):
+    w (d_in, d_out) and b (d_out,) a layer, bit for bit."""
+    out = []
+    for w, b in params:
+        w = np.array(w, dtype=np.float32)       # a writable copy
+        b = np.array(b, dtype=np.float32)
+        if w.ndim != 2 or b.shape != (w.shape[1],):
+            raise ValueError(f"a layer must be w (d_in, d_out) and b "
+                             f"(d_out,), got {w.shape} and {b.shape}")
+        out.append((torch.from_numpy(w), torch.from_numpy(b)))
+    for (w0, _), (w1, _) in zip(out, out[1:]):
+        if w0.shape[1] != w1.shape[0]:
+            raise ValueError(f"layer widths do not chain: {tuple(w0.shape)} "
+                             f"then {tuple(w1.shape)}")
+    return out
+
+
+def nn_params_to_jax(params: Sequence) -> List[Tuple[np.ndarray,
+                                                     np.ndarray]]:
+    """The JAX package's ``[(w, b), ...]`` as float32 numpy arrays (what
+    ``MLPClassifier.params`` holds there) from the port's tensor pairs."""
+    return [(fetch(w).astype(np.float32), fetch(b).astype(np.float32))
+            for w, b in params]
+
+
+def solver_theta_from_jax(theta) -> torch.Tensor:
+    """A solver's ``theta`` (a flat vector, numpy or jax) as a float32 CPU
+    tensor, bit for bit."""
+    theta = np.array(theta, dtype=np.float32)   # a writable copy
+    if theta.ndim != 1:
+        raise ValueError(f"theta must be a flat vector, got shape "
+                         f"{theta.shape}")
+    return torch.from_numpy(theta)
+
+
+def solver_theta_to_jax(theta) -> np.ndarray:
+    """A solver's ``theta`` (a tensor or an array) as the float32 numpy
+    vector the JAX ``Solver.minimize`` takes and returns."""
+    theta = fetch(theta) if isinstance(theta, torch.Tensor) else theta
+    theta = np.asarray(theta, dtype=np.float32)
+    if theta.ndim != 1:
+        raise ValueError(f"theta must be a flat vector, got shape "
+                         f"{theta.shape}")
+    return theta

@@ -1,9 +1,10 @@
 """Synthetic data generators (numpy on the host).
 
 Port of ``dense_points``, ``initial_centroids``, ``sparse_ratings``,
-``zipf_ratings`` and ``sparse_points`` from ``harp_tpu/io/datagen.py`` (reference:
-KMUtil.generatePoints / generateCentroids and the SGD-MF and ALS rating
-generators). The same seed gives the same arrays as the JAX package.
+``zipf_ratings``, ``classification_data``, ``regression_data`` and
+``sparse_points`` from ``harp_tpu/io/datagen.py`` (reference:
+KMUtil.generatePoints / generateCentroids, the SGD-MF and ALS rating
+generators and the DAAL classification and regression datasets). The same seed gives the same arrays as the JAX package.
 """
 
 from __future__ import annotations
@@ -77,6 +78,31 @@ def zipf_ratings(num_users: int, num_items: int, rank: int,
     vals = (np.einsum("ij,ij->i", u[rows], v[cols])
             + noise * rng.standard_normal(len(rows)))
     return rows, cols, vals.astype(np.float32)
+
+
+def classification_data(num_points: int, dim: int, num_classes: int,
+                        seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """Labeled points from a random linear model with noise: x (N, D)
+    float32, y (N,) int32 (the NN, naive Bayes, SVM and boosting data)."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((dim, num_classes)).astype(np.float32)
+    x = rng.standard_normal((num_points, dim)).astype(np.float32)
+    logits = x @ w + 0.5 * rng.standard_normal((num_points, num_classes))
+    y = np.argmax(logits, axis=1).astype(np.int32)
+    return x, y
+
+
+def regression_data(num_points: int, dim: int, num_targets: int = 1,
+                    seed: int = 0, noise: float = 0.01
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Linear regression data (x, y, true_beta): x (N, D), y (N, T) and
+    beta (D, T), float32 (daal_linreg / ridge datasets and the solvers)."""
+    rng = np.random.default_rng(seed)
+    beta = rng.standard_normal((dim, num_targets)).astype(np.float32)
+    x = rng.standard_normal((num_points, dim)).astype(np.float32)
+    y = x @ beta + noise * rng.standard_normal(
+        (num_points, num_targets)).astype(np.float32)
+    return x, y.astype(np.float32), beta
 
 
 def sparse_points(num_points: int, dim: int, density: float, seed: int = 0):

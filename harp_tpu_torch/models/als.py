@@ -47,7 +47,6 @@ fetched once at the end of a fit. Not ported yet: the telemetry events of
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -58,6 +57,7 @@ from harp_tpu_torch.collectives import lax_ops
 from harp_tpu_torch.models.sgd_mf import (_validate_coo, dedupe_coo,
                                           identity_assign, serpentine_assign)
 from harp_tpu_torch.ops import pallas_kernels
+from harp_tpu_torch.ops.precision import full_f32_matmul
 from harp_tpu_torch.parallel.mesh import fetch
 from harp_tpu_torch.session import HarpSession
 
@@ -179,17 +179,6 @@ def _resolve_solver(cfg: ALSConfig, device) -> str:
     return cfg.solver
 
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """float32 matmuls in full float32 (TF32 off) inside the block."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _spd_solve(a: torch.Tensor, b: torch.Tensor, cfg: ALSConfig
                ) -> torch.Tensor:
     """Solve the batched SPD systems ``a @ x = b`` (a: (N, K, K), b: (N, K)).
@@ -210,7 +199,7 @@ def _spd_solve(a: torch.Tensor, b: torch.Tensor, cfg: ALSConfig
     eye = torch.eye(k, dtype=a.dtype, device=a.device)
     norminf = torch.amax(torch.sum(torch.abs(a), dim=-1), dim=-1)
     x = (1.0 / norminf)[..., None, None] * eye
-    with _full_f32_matmul():
+    with full_f32_matmul():
         for _ in range(cfg.newton_iters):
             x = torch.matmul(x, 2.0 * eye - torch.matmul(a, x))
         return torch.matmul(x, b[..., None])[..., 0]

@@ -30,18 +30,31 @@ order (``combiner.tree_combine``). An empty cluster's centroid becomes 0
 trick; on the GPU both settings pad K only to a multiple of the worker count
 (the Table contract) and leave D as it is, with phantom rows masked through
 ``valid_k`` exactly as in JAX, so results do not depend on the flag.
-``quant=``, checkpointed and streamed fits are not ported yet.
+
+``quant`` ("int8" or "bf16") quantizes the stat-table collectives' wire
+format (``collectives/quantize.py``) with an error-feedback residual shaped
+like each worker's stat table, carried from iteration to iteration: the
+regroup (or the allreduce, or the push) takes it, and the allgather (or
+the pull) of the new centroids is quantized without one. The rotation
+variant's circulating centroid blocks stay float32 (they feed every
+argmin); its stats allreduce is quantized. The math stays float32, the
+trajectories are convergence-equivalent to the float32 fit, not bitwise,
+and the variants no longer agree bitwise. ``bcastreduce`` refuses
+``quant``, as in the JAX package. The JAX package's lane padding changes
+the flattened stat table under quantization (D padded to 128 columns moves
+the int8 blocks), so a quantized port fit matches the JAX fit with
+``lane_pad=False``. Checkpointed and streamed fits are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from harp_tpu_torch.collectives import lax_ops, rotation, table_ops
+from harp_tpu_torch.collectives import lax_ops, quantize, rotation, table_ops
 from harp_tpu_torch.ops import lane_pack, pallas_kernels
 from harp_tpu_torch.session import HarpSession
 from harp_tpu_torch.table import Table, round_up
@@ -62,6 +75,7 @@ class KMeansConfig:
     comm: str = "regroupallgather"
     compute_dtype: str = "float32"   # "bfloat16": points stored in bf16
     lane_pad: bool = True            # no effect on the GPU (module doc)
+    quant: Optional[str] = None      # None | "int8" | "bf16" (module doc)
 
 
 def _average(stats: torch.Tensor) -> torch.Tensor:
@@ -77,6 +91,13 @@ class KMeans:
         if config.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of "
                              f"{tuple(COMPUTE_DTYPES)}")
+        if config.quant is not None and config.comm == "bcastreduce":
+            raise ValueError(
+                "quant is not supported for comm='bcastreduce' (rooted "
+                "reduce/broadcast lower to masked psums; the mask defeats "
+                "per-block quantization scales) — use any other variant")
+        self._comm = (quantize.CommConfig(quant=config.quant)
+                      if config.quant is not None else None)
         self.session = session
         self.config = config
         # stat-table partition count: a worker multiple (Table contract)
@@ -89,14 +110,19 @@ class KMeans:
         """points: (W, N/W, D) stacked; centroids0: (K, D) replicated."""
         cfg = self.config
         cen = lane_pack.pad_rows(centroids0.float(), self._k_pad).contiguous()
+        # the quantized wire's residual, shaped like each worker's stats
+        qres = (torch.zeros((points.shape[0], self._k_pad,
+                             points.shape[-1] + 1), dtype=torch.float32,
+                            device=points.device)
+                if self._comm is not None else None)
         costs = []
         for _ in range(cfg.iterations):
-            cen, cost = self._iter(cen, points)
+            cen, cost, qres = self._iter(cen, points, qres)
             costs.append(cost)
         return cen[: cfg.num_centroids], torch.stack(costs)
 
-    def _iter(self, cen: torch.Tensor, points: torch.Tensor):
-        cfg, w = self.config, self.session.num_workers
+    def _iter(self, cen: torch.Tensor, points: torch.Tensor, qres=None):
+        cfg, w, comm = self.config, self.session.num_workers, self._comm
         if cfg.comm == "rotation":
             cen = self._rotation_centroids(cen)
         sums, counts, sq = pallas_kernels.kmeans_stats(
@@ -106,22 +132,34 @@ class KMeans:
         if cfg.comm == "regroupallgather":
             # KMeansCollectiveMapper :168-189: regroup -> average own block
             # -> allgather
-            own = _average(table_ops.regroup(local).data)
-            new_c = lax_ops.allgather(own)
+            if comm is None:
+                g = table_ops.regroup(local)
+            else:
+                g, qres = table_ops.regroup(local, comm=comm, residual=qres)
+            new_c = lax_ops.allgather(_average(g.data), comm=comm)
         elif cfg.comm in ("allreduce", "rotation"):
-            new_c = _average(table_ops.allreduce(local).data)
+            if comm is None:
+                full = table_ops.allreduce(local)
+            else:
+                full, qres = table_ops.allreduce(local, comm=comm,
+                                                 residual=qres)
+            new_c = _average(full.data)
         elif cfg.comm == "pushpull":
             zero = Table.sharded(
                 stats.new_zeros((stats.shape[0], self._k_pad // w,
                                  stats.shape[-1])),
                 num_workers=w)
-            pulled = table_ops.pull(table_ops.push(local, zero))
-            new_c = _average(pulled.data)
-        else:  # bcastreduce
+            if comm is None:
+                g = table_ops.push(local, zero)
+            else:
+                g, qres = table_ops.push(local, zero, comm=comm,
+                                         residual=qres)
+            new_c = _average(table_ops.pull(g, comm=comm).data)
+        else:  # bcastreduce (quant refused at __init__)
             own = _average(table_ops.reduce(local, root=0).data)
             new_c = table_ops.broadcast(Table.local(own, num_workers=w),
                                         root=0).data
-        return new_c, lax_ops.allreduce(sq)
+        return new_c, lax_ops.allreduce(sq), qres
 
     def _rotation_centroids(self, cen: torch.Tensor) -> torch.Tensor:
         """ml/java kmeans/rotation: worker i owns centroid block i; the

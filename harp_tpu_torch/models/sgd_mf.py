@@ -50,11 +50,18 @@ out and trains the rows of its own workers; the SSE and rating counts are
 summed with the deterministic allreduce, so a P-process fit is bitwise the
 stacked fit at the same W.
 
-Not ported yet, each raising ``NotImplementedError``: ``quant`` (quantized
-rotation hops), ``fit_checkpointed`` (and with it the
-``_reshard_mode``/``_repartition_saved`` resume paths: ``reshard`` and
-``reshard_chunk_bytes`` are accepted and unused) and the telemetry events
-of ``train_prepared``. The TPU kernel's lane tiling (``col_tile``,
+``quant`` ("int8" or "bf16") quantizes the H-block hops
+(``collectives/quantize.py``): the ``Rotator`` sends each worker's block
+encoded, with an error-feedback residual a slice that starts at zero each
+epoch, as in the JAX package. A quantized wire takes precedence over
+``fused_dma``: the hop kernel sends nothing itself (no ``ring_hop``) and no
+hop goes through the ring-DMA engine. The trajectories are
+convergence-equivalent to the float32 fit, not bitwise.
+
+Not ported yet: ``fit_checkpointed`` (raising ``NotImplementedError``; with
+it the ``_reshard_mode``/``_repartition_saved`` resume paths: ``reshard``
+and ``reshard_chunk_bytes`` are accepted and unused) and the telemetry
+events of ``train_prepared``. The TPU kernel's lane tiling (``col_tile``,
 ``lane_pack.LANES``) is dropped: the CUDA kernel picks its own column tile.
 """
 
@@ -67,7 +74,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from harp_tpu_torch.collectives import lax_ops, rotation
+from harp_tpu_torch.collectives import lax_ops, quantize, rotation
 from harp_tpu_torch.ops import pallas_kernels, ring_dma
 from harp_tpu_torch.parallel.mesh import fetch
 from harp_tpu_torch.session import HarpSession
@@ -85,7 +92,7 @@ class SGDMFConfig:
     minibatches_per_hop: int = 4  # bounded-staleness stand-in for the timer
     num_slices: int = 1        # 2 = double-buffered pipeline
     layout: str = "auto"       # auto | dense | sparse
-    quant: Optional[str] = None  # quantized hops: not ported yet
+    quant: Optional[str] = None  # None | "int8" | "bf16": quantized hops
     dense_max_bytes: int = 6_000_000_000  # per-worker slab budget for auto
     balance: bool = True       # serpentine-LPT id balancing (sparse layout)
     reshard: str = "auto"      # resume resharding: unused until checkpoints
@@ -208,10 +215,8 @@ class SGDMF:
     comparison."""
 
     def __init__(self, session: HarpSession, config: SGDMFConfig):
-        if config.quant is not None:
-            raise NotImplementedError(
-                f"SGDMFConfig.quant={config.quant!r} (quantized rotation "
-                f"hops) is not ported yet")
+        self._comm = (quantize.CommConfig(quant=config.quant)
+                      if config.quant is not None else None)
         self.session = session
         self.config = config
         self.dense_hop: Callable = pallas_kernels.dense_mf_hop
@@ -270,7 +275,8 @@ class SGDMF:
                 return (w_local, sse), h_block
 
             rotator = rotation.Rotator(
-                w, cfg.num_slices, fused_dma=cfg.fused_dma and not body_hops,
+                w, cfg.num_slices, comm=self._comm,
+                fused_dma=cfg.fused_dma and not body_hops,
                 shift=0 if body_hops else 1)
             # two-slice h0 arrives stacked (W, 1, 2, cpb, K): slice A block
             # w and slice B block W + w on worker w
@@ -339,8 +345,10 @@ class SGDMF:
         lr, lam = cfg.lr, cfg.lam
         # the JAX package's in-kernel ring hop, decided before any launch:
         # the 1-slice schedule only (the 2-slice pipeline keeps its
-        # out-of-kernel hop), with the ring-DMA engine serving the device
+        # out-of-kernel hop) on a float32 wire (quant takes the encode
+        # path), with the ring-DMA engine serving the device
         ring_hop = (cfg.fused_dma and w > 1 and cfg.num_slices == 1
+                    and cfg.quant is None
                     and ring_dma.use_ring_dma(self.session.device))
 
         def make_update_bucket(data):

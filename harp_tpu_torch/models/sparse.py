@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from harp_tpu_torch.collectives import lax_ops
 from harp_tpu_torch.ops import lane_pack, linalg
+from harp_tpu_torch.ops.precision import full_f32_matmul
 from harp_tpu_torch.parallel.mesh import fetch
 from harp_tpu_torch.session import HarpSession
 
@@ -92,8 +93,8 @@ def _pad_to_blocks(n_l: int, block: int, *arrays):
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    torch.backends.cuda.matmul.allow_tf32 = False    # full float32 products
-    return torch.matmul(a, b)
+    with full_f32_matmul():                          # full float32 products
+        return torch.matmul(a, b)
 
 
 def sparse_kmeans_stats(idx, val, mask, real, x_sq, centroids,

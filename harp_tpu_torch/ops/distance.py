@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from harp_tpu_torch.ops import lane_pack
+from harp_tpu_torch.ops.precision import full_f32_matmul
 
 
 def _batched(x: torch.Tensor, c: torch.Tensor):
@@ -41,8 +42,8 @@ def _cross(x3: torch.Tensor, c3: torch.Tensor, compute_dtype) -> torch.Tensor:
     if compute_dtype is not None:
         x3, c3 = x3.to(compute_dtype), c3.to(compute_dtype)
     # full float32 products: TF32 keeps ~3 digits and would move argmins
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.bmm(x3.float(), c3.float().transpose(1, 2))    # (B, N, K)
+    with full_f32_matmul():
+        return torch.bmm(x3.float(), c3.float().transpose(1, 2))  # (B, N, K)
 
 
 def _unbatch(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

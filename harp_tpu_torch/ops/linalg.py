@@ -29,6 +29,7 @@ import torch
 
 from harp_tpu_torch import combiner as combiner_lib
 from harp_tpu_torch.collectives import lax_ops
+from harp_tpu_torch.ops.precision import full_f32_matmul
 from harp_tpu_torch.parallel import mesh as mesh_lib
 
 
@@ -55,8 +56,8 @@ def _each(fn: Callable, *xs: torch.Tensor) -> torch.Tensor:
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     # full float32 products: TF32 keeps ~3 digits
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.matmul(a, b)
+    with full_f32_matmul():
+        return torch.matmul(a, b)
 
 
 def small_eigh(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

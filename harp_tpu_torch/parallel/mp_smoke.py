@@ -33,6 +33,13 @@ process boundary:
   stacked group's;
 * small SGD-MF fits with ``fused_dma=True`` (dense, 1 and 2 slices; on the
   CPU also sparse), bitwise the stacked fused and unfused fits;
+* the quantized wire format (``collectives/quantize.py``): ``allreduce``
+  and ``reduce_scatter`` with a residual, ``allgather`` and ``rotate``,
+  int8 and bf16, an error-fed ``rotate_scan``, the int8 K-means iteration
+  of four variants and a quantized SGD-MF fit (1 and 2 slices), bitwise
+  the stacked group's;
+* a small NN fit (``models/nn.py``) and the five gradient solvers
+  (``models/solvers.py``), bitwise the stacked group's;
 * ``HarpSession.barrier`` and a clean ``distributed.shutdown``.
 
 It prints ``MP_SMOKE OK p<i>/<n>``; any failure raises. The host event
@@ -331,6 +338,94 @@ def sgd_mf_checks(pg, st) -> None:
             _check(bool(np.all(np.isfinite(fits[0][0]))), "finite factors")
 
 
+def quant_checks(pg, st) -> None:
+    from harp_tpu_torch import combiner
+    from harp_tpu_torch.collectives import lax_ops, quantize, rotation
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import kmeans as km
+    from harp_tpu_torch.models import sgd_mf as smf
+
+    w = pg.num_workers
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((w * w * 3, 37)).astype(np.float32)
+    r = (rng.standard_normal(x.shape) * 0.01).astype(np.float32)
+    for codec in ("int8", "bf16"):
+        comm = quantize.CommConfig(codec)
+
+        def ops(a, b):
+            ar, ar_res = lax_ops.allreduce(a, combiner.AVG, comm=comm,
+                                           residual=b)
+            rs, rs_res = lax_ops.reduce_scatter(a, comm=comm, residual=b)
+            ag = lax_ops.allgather(a, comm=comm)
+            rot = lax_ops.rotate(a, 1, comm=comm)
+
+            def body(c, blk, t):
+                return c, (blk[0] * 0.5 + 1.0, blk[1] + 1)
+
+            _, (f, i), res = rotation.rotate_scan(
+                body, None, (a, a[..., :2].to(torch.int32)), w + 1,
+                comm=comm, ef_state=rotation.ef_zero(
+                    (a, a[..., :2].to(torch.int32))))
+            return (ar, ag, ar_res, rs, rs_res, rot, f, i.float(), res[0])
+
+        outs = []
+        for sess in (pg, st):
+            got = sess.run(ops, sess.scatter(x), sess.scatter(r),
+                           in_specs=(sess.shard(),) * 2,
+                           out_specs=(sess.replicate(),) * 2
+                           + (sess.shard(),) * 7)
+            outs.append([got[0], got[1]] + [_global(sess, t)
+                                            for t in got[2:]])
+        for i, (got, ref) in enumerate(zip(*outs)):
+            _same(got, ref, f"quantized collective {i} ({codec})")
+    pts = datagen.dense_points(w * 16, 8, seed=0, num_clusters=4)
+    cen0 = datagen.initial_centroids(pts, 4, seed=1)
+    for comm in ("regroupallgather", "allreduce", "pushpull", "rotation"):
+        cfg = km.KMeansConfig(4, 8, iterations=2, comm=comm, quant="int8")
+        for a, b in zip(km.KMeans(pg, cfg).fit(pts, cen0),
+                        km.KMeans(st, cfg).fit(pts, cen0)):
+            _same(a, b, f"quantized K-means ({comm})")
+    nr = w * 8
+    flat = rng.choice(nr * nr, size=nr * 6, replace=False)
+    rr, cc = np.divmod(flat, nr)
+    vv = (rng.random(len(rr)) + 0.5).astype(np.float32)
+    for ns in (1, 2):
+        cfg = smf.SGDMFConfig(rank=4, epochs=2, minibatches_per_hop=2,
+                              num_slices=ns, layout="dense", quant="bf16",
+                              fused_dma=True)
+        for a, b in zip(smf.SGDMF(pg, cfg).fit(rr, cc, vv, nr, nr),
+                        smf.SGDMF(st, cfg).fit(rr, cc, vv, nr, nr)):
+            _same(torch.from_numpy(a), torch.from_numpy(b),
+                  f"quantized SGD-MF fit ({ns} slices)")
+
+
+def nn_solver_checks(pg, st) -> None:
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import nn, solvers
+
+    w = pg.num_workers
+    x, y = datagen.classification_data(w * 40, 10, 3, seed=5)
+    cfg = nn.NNConfig(layers=(12, 6), num_classes=3, batch_size=16,
+                      epochs=2)
+    fits = []
+    for sess in (pg, st):
+        m = nn.MLPClassifier(sess, cfg)
+        fits.append([torch.from_numpy(m.fit(x, y, seed=3))]
+                    + [t for wb in m.params for t in wb])
+    for i, (got, ref) in enumerate(zip(*fits)):
+        _same(got, ref, f"NN fit, output {i}")
+    xr, yr, _ = datagen.regression_data(w * 40, 6, seed=6)
+    yr = yr.reshape(-1)
+    for kind in ("sgd", "sgd_minibatch", "sgd_momentum", "adagrad", "lbfgs"):
+        scfg = solvers.SolverConfig(iterations=12, batch_size=16, history=3)
+        got, ref = (solvers.Solver(sess, kind, scfg).minimize(
+            solvers.mse_objective, xr, yr, np.zeros(6, np.float32))
+            for sess in (pg, st))
+        for a, b in zip(got, ref):
+            _same(torch.from_numpy(a), torch.from_numpy(b),
+                  f"solver {kind}")
+
+
 def run(device=None) -> None:
     from harp_tpu_torch.parallel import distributed
     from harp_tpu_torch.session import HarpSession
@@ -348,6 +443,8 @@ def run(device=None) -> None:
     ring_send_checks(pg, st)
     kmeans_checks(pg, st)
     sgd_mf_checks(pg, st)
+    quant_checks(pg, st)
+    nn_solver_checks(pg, st)
     pg.barrier()
     distributed.shutdown()
     print(f"MP_SMOKE OK p{rank}/{nproc}", flush=True)

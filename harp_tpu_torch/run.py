@@ -2,10 +2,18 @@
 
 Port of ``harp_tpu/run.py``. Ported subcommands: ``kmeans`` (dense, and
 ``--format csr`` for sparse input), ``sgd_mf``, ``als``, ``pca`` (``--method
-cor|svd``, ``--format dense|csr``) and ``stats --op {cov, moments, zscore,
-minmax, qr, pivoted_qr, svd, cholesky, quantiles, sort, outlier}``.
+cor|svd``, ``--format dense|csr``), ``stats --op {cov, moments, zscore,
+minmax, qr, pivoted_qr, svd, cholesky, quantiles, sort, outlier}``, ``nn``
+and ``solver --kind {sgd, sgd_minibatch, sgd_momentum, adagrad, lbfgs}``.
 The run goes on CUDA unless ``--device cpu`` is given; without CUDA the
 default fails.
+
+``kmeans`` and ``sgd_mf`` take ``--quant {int8,bf16}``, the quantized wire
+format of their collectives, and ``nn`` takes ``--layers`` as
+comma-separated hidden sizes (``--layers 256,128``). The JAX launcher
+registers both flags but drops them (its config parsing keeps only int,
+float, str and bool fields), so there a run takes the float32 wire and the
+default layers.
 
 Under the launcher (``python -m harp_tpu_torch.parallel.launch --nproc P
 [--workers-per-process W_local] -- python -m harp_tpu_torch.run sgd_mf
@@ -28,8 +36,7 @@ from harp_tpu_torch.config import add_dataclass_args
 
 # flags of the JAX launcher whose paths are not ported yet
 NOT_PORTED = {"--stream": dict(action="store_true"),
-              "--save-every": dict(type=int, default=0),
-              "--quant": dict(default=None)}
+              "--save-every": dict(type=int, default=0)}
 
 
 def _common_flags(p: argparse.ArgumentParser) -> None:
@@ -42,6 +49,12 @@ def _common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--work-dir", default="",
                    help="output directory (optional)")
     p.add_argument("--seed", type=int, default=0)
+
+
+def _quant(value):
+    """``--quant``: None for an empty value or "none", else the codec
+    (checked by the model's ``CommConfig``)."""
+    return None if value in (None, "", "none") else value
 
 
 def _load_points(spec: str) -> np.ndarray:
@@ -78,13 +91,14 @@ def run_kmeans(argv) -> int:
     for flag in NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")):
             p.error(f"{flag} is not yet ported to harp_tpu_torch")
+    args.quant = _quant(args.quant)
     cfg = km.KMeansConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(km.KMeansConfig)})
-    if args.format == "csr" and (args.points_file
+    if args.format == "csr" and (args.points_file or args.quant
                                  or cfg.comm != "regroupallgather"):
         p.error("--format csr supports synthetic data with the fixed "
                 "allreduce collective (daal_kmeans/allreducecsr): "
-                "--points-file/--comm do not apply")
+                "--points-file/--comm/--quant do not apply")
     sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
     if args.format == "csr":
         return _kmeans_csr(sess, cfg, args)
@@ -162,11 +176,10 @@ def run_sgd_mf(argv) -> int:
     args = p.parse_args(argv)
     if args.save_every:
         p.error("--save-every is not yet ported to harp_tpu_torch")
-    if args.quant not in (None, "", "none"):
-        p.error("--quant is not yet ported to harp_tpu_torch")
+    args.quant = _quant(args.quant)
     cfg = sgd_mf.SGDMFConfig(**{
         f.name: getattr(args, f.name)
-        for f in dataclasses.fields(sgd_mf.SGDMFConfig) if f.name != "quant"})
+        for f in dataclasses.fields(sgd_mf.SGDMFConfig)})
     gang = "HARP_NUM_PROCESSES" in os.environ
     workers = args.num_workers
     if workers is None:
@@ -333,6 +346,78 @@ def run_pca(argv) -> int:
     return 0
 
 
+def run_nn(argv) -> int:
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import nn
+    from harp_tpu_torch.session import HarpSession
+
+    p = argparse.ArgumentParser(prog="harp_tpu_torch.run nn")
+    _common_flags(p)
+    p.add_argument("--num-points", type=int, default=8192)
+    p.add_argument("--dim", type=int, default=64)
+    add_dataclass_args(p, nn.NNConfig)
+    args = p.parse_args(argv)
+    if isinstance(args.layers, str):
+        try:
+            args.layers = tuple(int(v) for v in args.layers.split(",") if v)
+        except ValueError:
+            p.error(f"--layers takes comma-separated sizes, got "
+                    f"{args.layers!r}")
+    cfg = nn.NNConfig(**{f.name: getattr(args, f.name)
+                         for f in dataclasses.fields(nn.NNConfig)})
+    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    n = args.num_points - args.num_points % sess.num_workers
+    x, y = datagen.classification_data(n, args.dim, cfg.num_classes,
+                                       seed=args.seed)
+    x_dev, y_dev = sess.scatter(x), sess.scatter(y)   # placed once
+    model = nn.MLPClassifier(sess, cfg)
+    model.fit(x_dev, y_dev, seed=args.seed)           # warm-up
+    sess.barrier()
+    t0 = time.perf_counter()
+    losses = model.fit(x_dev, y_dev, seed=args.seed)
+    dt = time.perf_counter() - t0
+    acc = (model.predict(x) == y).mean()
+    samples = n * cfg.epochs
+    print(f"nn workers={sess.num_workers} n={n} d={args.dim} "
+          f"layers={cfg.layers}: {samples / dt / 1e6:.2f} M samples/s, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"train acc {acc:.3f}")
+    return 0
+
+
+SOLVER_KINDS = ("sgd", "sgd_minibatch", "sgd_momentum", "adagrad", "lbfgs")
+
+
+def run_solver(argv) -> int:
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import solvers
+    from harp_tpu_torch.session import HarpSession
+
+    p = argparse.ArgumentParser(prog="harp_tpu_torch.run solver")
+    _common_flags(p)
+    p.add_argument("--kind", default="lbfgs", choices=SOLVER_KINDS)
+    p.add_argument("--num-points", type=int, default=4096)
+    p.add_argument("--dim", type=int, default=32)
+    add_dataclass_args(p, solvers.SolverConfig)
+    args = p.parse_args(argv)
+    cfg = solvers.SolverConfig(**{
+        f.name: getattr(args, f.name)
+        for f in dataclasses.fields(solvers.SolverConfig)})
+    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    n = args.num_points - args.num_points % sess.num_workers
+    x, y, _ = datagen.regression_data(n, args.dim, seed=args.seed)
+    y = y.reshape(-1)
+    theta0 = np.zeros(args.dim, np.float32)
+    t0 = time.perf_counter()
+    theta, losses = solvers.Solver(sess, args.kind, cfg).minimize(
+        solvers.mse_objective, x, y, theta0)
+    dt = time.perf_counter() - t0
+    print(f"solver[{args.kind}] workers={sess.num_workers} n={n} "
+          f"d={args.dim}: {cfg.iterations / dt:.1f} iters/s (first call), "
+          f"mse {losses[0]:.4f} -> {losses[-1]:.6f}")
+    return 0
+
+
 STATS_OPS = ("cov", "moments", "zscore", "minmax", "qr", "pivoted_qr", "svd",
              "cholesky", "quantiles", "sort", "outlier")
 
@@ -392,7 +477,8 @@ def run_stats(argv) -> int:
 
 
 COMMANDS = {"kmeans": run_kmeans, "sgd_mf": run_sgd_mf, "als": run_als,
-            "pca": run_pca, "stats": run_stats}
+            "pca": run_pca, "stats": run_stats, "nn": run_nn,
+            "solver": run_solver}
 
 
 def main(argv=None) -> int:

@@ -230,8 +230,20 @@ def test_misuse_is_loud():
                    in_specs=(ts.shard(),), out_specs=ts.replicate())
     assert torch.equal(fused, ts.run(tlax.allgather, x, in_specs=(ts.shard(),),
                                      out_specs=ts.replicate()))
-    with pytest.raises(NotImplementedError, match="comm="):
-        ts.run(lambda a: tlax.allreduce(a, comm="int8"), x,
+    # comm= is ported: a quantized wire takes the codec's path (an unknown
+    # codec is refused by its CommConfig), an inactive one the float32 path
+    from harp_tpu_torch.collectives import quantize as tq
+
+    with pytest.raises(ValueError, match="quant must be one of"):
+        tq.CommConfig(quant="int4")
+    assert torch.equal(
+        ts.run(lambda a: tlax.allreduce(a, comm=tq.CommConfig()), x,
+               in_specs=(ts.shard(),), out_specs=ts.replicate()),
+        ts.run(tlax.allreduce, x, in_specs=(ts.shard(),),
+               out_specs=ts.replicate()))
+    with pytest.raises(ValueError, match="SUM/AVG"):
+        ts.run(lambda a: tlax.allreduce(a, tcb.MAX,
+                                        comm=tq.CommConfig("int8")), x,
                in_specs=(ts.shard(),), out_specs=ts.replicate())
     with pytest.raises(ValueError, match="divide over"):
         ts.scatter(np.zeros((w * P + 1, F), np.float32))

@@ -327,10 +327,19 @@ def test_cli_kmeans_on_cpu(capsys, tmp_path):
                       "--num-workers", "4", "--num-centroids", "2",
                       "--iterations", "2"]) == 0
     assert "n=40 k=2 d=3" in capsys.readouterr().out
-    for flag in (["--stream"], ["--save-every", "2"], ["--quant", "int8"]):
+    for flag in (["--stream"], ["--save-every", "2"]):
         with pytest.raises(SystemExit):
             trun.main(["kmeans", "--device", "cpu", *flag])
         assert "not yet ported" in capsys.readouterr().err
+    # --quant is ported (tests/test_torch_quantize.py holds it to the JAX
+    # CLI); an unknown codec is refused
+    assert trun.main(["kmeans", "--device", "cpu", "--num-points", "400",
+                      "--num-workers", "4", "--num-centroids", "5", "--dim",
+                      "6", "--iterations", "2", "--quant", "bf16"]) == 0
+    assert capsys.readouterr().out.startswith(
+        "kmeans[regroupallgather] workers=4 n=400 k=5 d=6:")
+    with pytest.raises(ValueError, match="quant must be one of"):
+        trun.main(["kmeans", "--device", "cpu", "--quant", "int4"])
     # --format csr is ported: synthetic sparse points through SparseKMeans
     assert trun.main(["kmeans", "--device", "cpu", "--format", "csr",
                       "--num-points", "400", "--num-workers", "4",
@@ -380,8 +389,13 @@ def test_config_parse_into_matches_jax(argv):
 
 
 def test_convert_rejects_what_is_not_ported():
+    # quant is ported: it carries across as it is
     cfg = dataclasses.asdict(jkm.KMeansConfig(3, 2, 1, quant="int8"))
-    with pytest.raises(NotImplementedError, match="quant"):
+    assert convert.kmeans_state_from_jax(np.zeros((3, 2)),
+                                         cfg)[0].quant == "int8"
+    cfg = dict(dataclasses.asdict(jkm.KMeansConfig(3, 2, 1)),
+               no_such_field=1)
+    with pytest.raises(ValueError, match="unknown KMeansConfig fields"):
         convert.kmeans_state_from_jax(np.zeros((3, 2)), cfg)
     cfg = dataclasses.asdict(jkm.KMeansConfig(3, 2, 1))
     with pytest.raises(ValueError, match="do not match"):

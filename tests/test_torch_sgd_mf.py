@@ -28,6 +28,7 @@ from harp_tpu.ops import pallas_kernels as jpk
 from harp_tpu.session import HarpSession as JaxSession
 from harp_tpu_torch import convert
 from harp_tpu_torch import run as trun
+from harp_tpu_torch.collectives import quantize as tq
 from harp_tpu_torch.collectives import rotation as trot
 from harp_tpu_torch.io import datagen as tdatagen
 from harp_tpu_torch.io import loaders as tloaders
@@ -446,16 +447,17 @@ def test_fit_adaptive_picks_a_divisor(ratings):
 
 def test_what_is_not_ported_raises():
     sess = TorchSession(num_workers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="quant"):
-        tmf.SGDMF(sess, tmf.SGDMFConfig(quant="int8"))
-    with pytest.raises(NotImplementedError, match="comm"):
-        trot.Rotator(2, 1, comm=object())
+    # quant and the Rotator's comm= are ported (tests/test_torch_quantize.py
+    # holds the quantized fits to the JAX ones); an unknown codec is refused
+    assert tmf.SGDMF(sess, tmf.SGDMFConfig(quant="int8")).config.quant
+    with pytest.raises(ValueError, match="quant must be one of"):
+        tmf.SGDMF(sess, tmf.SGDMFConfig(quant="int4"))
+    assert trot.Rotator(2, 1, comm=tq.CommConfig("bf16")).comm.quant == "bf16"
     with pytest.raises(NotImplementedError, match="not ported"):
         tmf.SGDMF(sess, tmf.SGDMFConfig()).fit_checkpointed(None, None)
-    with pytest.raises(NotImplementedError):
-        convert.sgd_mf_state_from_jax(None, None, None, None,
-                                      dataclasses.asdict(
-                                          jmf.SGDMFConfig(quant="int8")))
+    with pytest.raises(ValueError, match="unknown SGDMFConfig fields"):
+        convert.sgd_mf_state_from_jax(None, None, None, None, dict(
+            dataclasses.asdict(jmf.SGDMFConfig(quant="int8")), nope=1))
     # fused_dma=True is ported: the fused Rotator's trajectory is bitwise
     # the unfused one (tests/test_torch_ring_dma.py holds it to the JAX one)
     assert tmf.SGDMF(sess, tmf.SGDMFConfig(fused_dma=True)).config.fused_dma
@@ -514,7 +516,11 @@ def test_cli_sgd_mf_on_cpu(capsys, tmp_path):
                       "--num-items", "64", "--epochs", "2", "--num-workers",
                       "2", "--fused-dma", "yes"]) == 0
     assert capsys.readouterr().out.startswith("sgd_mf[dense] workers=2 ")
-    for flag in (["--save-every", "2"], ["--quant", "int8"]):
-        with pytest.raises(SystemExit):
-            trun.main(["sgd_mf", "--device", "cpu", *flag])
-        assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        trun.main(["sgd_mf", "--device", "cpu", "--save-every", "2"])
+    assert "not yet ported" in capsys.readouterr().err
+    # --quant is ported: the quantized H hops
+    assert trun.main(["sgd_mf", "--device", "cpu", "--num-users", "64",
+                      "--num-items", "64", "--epochs", "2", "--num-workers",
+                      "2", "--quant", "int8"]) == 0
+    assert capsys.readouterr().out.startswith("sgd_mf[dense] workers=2 ")
