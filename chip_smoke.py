@@ -118,6 +118,26 @@ main path must make no plain call on the card:
     float32 fit, the float32 fit's hop launches and no send; in the
     4-process gang the int8 K-means fit, an NN fit at n = 16,384 and an
     int8 allreduce with residual, bitwise the stacked runs;
+  * checkpoints, the device reshard and LDA (no new kernel): ``[ckpt]``,
+    the SGD-MF flagship at W=4 stacked (1 slice, fused) stopped after 4
+    epochs (save_every=2) and resumed in a fresh model to 6, bitwise the
+    uninterrupted checkpointed fit (8 dense-MF hop launches with their
+    sends), its W=4 directory restored at W=2 through the device, ring and
+    host reshards (bitwise each other, every referenced row the saved one),
+    and the K-means flagship (10 iterations, save_every=5) resumed from 5
+    bitwise; save and restore ms; ``[reshard]``, the JAX package's reshard
+    row (262,144 x 64 float32, W 4 -> 8, 1 MiB rounds): all_to_all and ring
+    schedules and the host oracle, bitwise each other, with their rounds and
+    largest round; ``[lda]``, bench.py's LDA rows at W=1 (262,144 tokens, K =
+    32; the clueweb regime, 2,097,152 tokens, K = 64, flat and with
+    vocab_sub_block=128), tokens/s two-point (2 vs 8 epochs), rising
+    log-likelihoods, the counts against z, the threefry uniforms and one CGS
+    epoch bitwise the CPU port's, CVB0 within 1e-5 of it; ``[lda:fused]``,
+    the clueweb regime at W=4 stacked, fused_dma bitwise unfused on 1 and 2
+    slices (one ring_dma_hop launch a rotation step), int8 quant_wt (no
+    hop), a checkpoint resumed at W=2 (device against the host oracle), and
+    in the 4-process gang the fused fit at a quarter of the documents,
+    bitwise the stacked fit;
   * dispatch: the plain-call counts of every main path (all 0); one call
     where the JAX package takes XLA (K-means on float16 points; attention
     at L=4096): no launch, one plain call, the plain version's answer; and
@@ -148,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -327,9 +348,40 @@ KMEANS_QUANT = dict(KMEANS_MP, quant="int8",
 # the quantized allreduce's 4-process twin: a (4, 4099) float32 payload and
 # residual from this seed
 QUANT_AR = dict(n=4099, seed=51)
+# checkpoints: the SGD-MF flagship at W=4 stacked (1 slice, fused), 4 epochs
+# with save_every=2, resumed to 6 in a fresh model, then the W=4 directory
+# restored at W=2 through each reshard mode; the K-means flagship, 10
+# iterations with save_every=5, resumed from 5
+CKPT = dict(mf_epochs=(4, 6), mf_save_every=2, restore_world=2,
+            km_iterations=10, km_save_every=5, km_seed=61)
+# the JAX package's reshard row (harp_tpu/benchmark/reshard_bench.py:31-32):
+# 262,144 rows x rank 64 float32, W 4 -> 8, 1 MiB rounds
+RESHARD = dict(rows=262_144, rank=64, old_world=4, new_world=8,
+               chunk_bytes=1 << 20, reps=3)
+# bench.py's LDA rows (bench.py:1378-1381 and 1395-1410): lda_corpus(...,
+# seed=3), prepare(seed=1), tokens/s two-point over 2 vs 8 epochs; the
+# clueweb regime flat and with vocab_sub_block=128; the fused W=4 fits at
+# the clueweb regime, 2 epochs each, and their 4-process twin at n/4 docs
+# (the clueweb rows are device-bound, their two rounds of the pair spread
+# 0.1-0.4%: one round; the host-bound bench row spread 5-26% over three:
+# five, 0.4 s each)
+LDA_ROWS = (("bench", dict(docs=2048, vocab=2000, doc_len=128, topics=32,
+                           reps=5)),
+            ("clueweb", dict(docs=8192, vocab=8000, doc_len=256, topics=64,
+                             reps=1)),
+            ("clueweb_subblock", dict(docs=8192, vocab=8000, doc_len=256,
+                                      topics=64, vocab_sub_block=128,
+                                      reps=1)))
+LDA_EPOCHS = (2, 8)
+LDA_FUSED = dict(docs=8192, vocab=8000, doc_len=256, topics=64, epochs=2,
+                 workers=4, mp_docs=2048, restore_world=2)
 # the card's name and power limit (nvidia-smi), printed beside every number
 # of the statistics phases
 CARD_NAME = ""
+# W -> (prepared 1-slice state, nnz) of the SGD-MF flagship, handed from
+# [ckpt] to [sgd_mf:fused] (prepare lays out 4 GiB of dense blocks on the
+# host: seconds)
+MF_FUSED_STATE = {}
 
 
 # (seconds, tag) at the first line of each phase, for the phase times
@@ -3343,7 +3395,10 @@ def mf_fused_config(**kw):
         "layout": "dense", **kw})
 
 
+@functools.lru_cache(maxsize=1)
 def mf_fused_data():
+    """The SGD-MF flagship's ratings, made once a process (``[ckpt]`` and
+    ``[sgd_mf:fused]`` share them; nothing writes into them)."""
     from harp_tpu_torch.io import datagen
 
     f = MF_FLAGSHIP
@@ -3480,8 +3535,12 @@ def mf_fused_stacked():
     sess = HarpSession(num_workers=RING_W)
     cfg = mf_fused_config(fused_dma=True)
     model = sgd_mf.SGDMF(sess, cfg)
-    state = model.prepare(rows, cols, vals, f["users"], f["items"], seed=0)
-    nnz = model.last_layout_stats["nnz"]
+    if RING_W in MF_FUSED_STATE:              # prepared by [ckpt]
+        state, nnz = MF_FUSED_STATE.pop(RING_W)
+    else:
+        state = model.prepare(rows, cols, vals, f["users"], f["items"],
+                              seed=0)
+        nnz = model.last_layout_stats["nnz"]
     log(f"[sgd_mf:fused] stacked W={RING_W}: {f['users']}x{f['items']}, "
         f"{f['density']:g}, rank {f['rank']}, {f['nmb']} minibatches a hop, "
         f"{f['epochs']} epochs, dense, nnz={nnz}")
@@ -3822,6 +3881,26 @@ def mp_child() -> int:
     torch.cuda.empty_cache()
     out["nn"] = nn_mp_digest(sess)
     out["quant_ar"] = quant_ar_digest(sess)
+    # the fused LDA fit of [lda:fused] at n/4 docs: the ring hop between
+    # processes
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import lda
+
+    c = LDA_FUSED
+    # lda_corpus draws document by document: its first mp_docs documents
+    # are those of the full corpus
+    docs = datagen.lda_corpus(c["mp_docs"], c["vocab"],
+                              max(2, c["topics"] // 2), c["doc_len"], seed=3)
+    model = lda.LDA(sess, lda.LDAConfig(num_topics=c["topics"],
+                                        vocab=c["vocab"], epochs=c["epochs"],
+                                        fused_dma=True))
+    state = model.prepare(docs, seed=1)
+    zero_counts()
+    dt, wt, ll = model.fit_prepared(state)
+    out["lda_launches"] = read_counts()
+    out["lda_plain"] = plain_counts()
+    out["lda"] = lda_digest(dt, wt, ll)
+    ring_dma.check_errors()
     distributed.shutdown()
     print("MP_CHILD " + json.dumps(out), flush=True)
     return 0
@@ -3976,6 +4055,17 @@ def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw,
           f"NN, 4 processes x 1 worker, n={NN['mp_n']}, "
           f"{NN['check_epochs']} epochs: losses and parameters bitwise the "
           f"stacked W={RING_W} fit")
+    ep = LDA_FUSED["epochs"]
+    for i, o in outs.items():
+        c = o["lda_launches"]
+        check(c["ring_dma_hop"] == ep * RING_W,
+              f"rank {i}, the fused LDA fit: {ep * RING_W} ring_dma_hop "
+              f"launches ({c['ring_dma_hop']})")
+        check_no_plain(f"[ringdma:mp] LDA fused, rank {i}", o["lda_plain"])
+    check(all(o["lda"] == stacked_new["lda"] for o in outs.values()),
+          f"LDA CGS fused, 4 processes x 1 worker, {LDA_FUSED['mp_docs']} "
+          f"docs of the clueweb regime, {ep} epochs: doc_topic, word_topic "
+          f"and log-likelihoods bitwise the stacked W={RING_W} fit")
     check(all(o["quant_ar"] == stacked_new["quant_ar"]
               for o in outs.values()),
           f"int8 allreduce with residual, 4 processes x 1 worker: result "
@@ -4059,6 +4149,7 @@ def ringdma_phases(stacked_wide, stacked_stats, stacked_new):
         "library_host_us": hop["library_host_us"],
         "host_us_steps": hop["host_us_steps"],
         "mp_launches": mp[0]["launches"]["ring_dma_hop"],
+        "lda_mp_launches": mp[0]["lda_launches"]["ring_dma_hop"],
         "mp_ms_by_bytes": {b: [mp[i]["sizes"][str(b)]["hop_ms"] for i in mp]
                            for b in RING_MP_BYTES},
         "mp_gloo_rotate_ms_by_bytes": {
@@ -5103,6 +5194,546 @@ def quant_nn_solver_phases():
 
 
 # --------------------------------------------------------------------------- #
+# Checkpoints, the device reshard and LDA (no new kernel: the dense-MF hop on
+# the checkpointed SGD-MF path, the ring hop on LDA's fused path)
+# --------------------------------------------------------------------------- #
+
+class TimedCheckpointer:
+    """``utils.checkpoint.Checkpointer`` with its saves and restores timed
+    (host clock, ms; a save is the write of a host copy taken before)."""
+
+    def __init__(self, path):
+        from harp_tpu_torch.utils.checkpoint import Checkpointer
+
+        self.ck = Checkpointer(path)
+        self.save_ms, self.restore_ms = [], []
+
+    def save(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.ck.save(*args, **kw)
+        self.save_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def restore_latest_valid(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.ck.restore_latest_valid(*args, **kw)
+        self.restore_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def wait(self):
+        self.ck.wait()
+
+
+def ckpt_mf_phase(root):
+    """[ckpt] on the SGD-MF flagship at W=4 stacked, 1 slice, fused: 4
+    epochs with save_every=2, resumed to 6 in a fresh model bitwise the
+    uninterrupted checkpointed fit; the W=4 directory restored at W=2
+    through "device", "ring" and "host", bitwise each other and every
+    referenced row the saved row."""
+    import shutil
+
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.models import sgd_mf
+
+    c, f = CKPT, MF_FLAGSHIP
+    lo, hi = c["mf_epochs"]
+    log(f"[ckpt] SGD-MF flagship {f['users']} x {f['items']}, rank "
+        f"{f['rank']}, W={RING_W} stacked, 1 slice, fused_dma=True: {lo} "
+        f"epochs with save_every={c['mf_save_every']}, resumed to {hi}; "
+        f"restored at W={c['restore_world']} [{CARD_NAME}]")
+    rows, cols, vals = mf_fused_data()
+    cfg = mf_fused_config(fused_dma=True, epochs=hi)
+    states = {}
+
+    def fit(sess, path, epochs, **kw):
+        m = sgd_mf.SGDMF(sess, dataclasses.replace(cfg, **kw))
+        w = sess.num_workers
+        if w not in states:       # a fit never writes into its start state
+            states[w] = (m.prepare(rows, cols, vals, f["users"], f["items"],
+                                   seed=0), m.last_layout_stats["nnz"])
+        st = states[w][0]
+        ck = TimedCheckpointer(path)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = m.fit_checkpointed(st, ck, epochs=epochs,
+                                 save_every=c["mf_save_every"])
+        torch.cuda.synchronize()
+        return (out, read_counts(), plain_counts(), ck,
+                (time.perf_counter() - t0) * 1e3)
+
+    sess = HarpSession(num_workers=RING_W)
+    (w_a, h_a, r_a, s_a), _, _, ck_a, _ = fit(sess, f"{root}/mf_a", hi)
+    fit(sess, f"{root}/mf_b", lo)
+    (w_b, h_b, r_b, s_b), launches, plain, ck_b, _ = fit(
+        sess, f"{root}/mf_b", hi)
+    steps = (hi - lo) * RING_W
+    check(s_a == 0 and s_b == lo and np.array_equal(w_b, w_a)
+          and np.array_equal(h_b, h_a) and np.array_equal(r_b, r_a[lo:]),
+          f"SGD-MF stopped at epoch {lo} and resumed in a fresh model to "
+          f"{hi}: factors and RMSEs bitwise the uninterrupted checkpointed "
+          f"fit")
+    check(launches["dense_mf_hop"] == steps
+          and launches["dense_mf_hop_ring"] == steps
+          and launches["ring_dma_hop"] == 0,
+          f"the resumed {hi - lo} epochs: {steps} dense_mf_hop launches, "
+          f"each with its in-kernel send ({launches['dense_mf_hop']}, "
+          f"{launches['dense_mf_hop_ring']}, ring_dma_hop "
+          f"{launches['ring_dma_hop']})")
+    check_no_plain("[ckpt] SGD-MF resume", plain)
+    # [sgd_mf:fused] starts from the same 1-slice W=4 state
+    MF_FUSED_STATE[RING_W] = states.pop(RING_W)
+    sess2 = HarpSession(num_workers=c["restore_world"])
+    restored = {}
+    for mode in ("device", "ring", "host"):
+        path = f"{root}/mf_{mode}"
+        shutil.copytree(f"{root}/mf_a", path)
+        (w_r, h_r, r_r, s_r), _, pl, ck_r, ms = fit(
+            sess2, path, hi, reshard=mode, fused_dma=False)
+        check(s_r == hi and len(r_r) == 0,
+              f"W={c['restore_world']} {mode}: resumed at epoch {hi}, "
+              f"nothing left to run")
+        check_no_plain(f"[ckpt] SGD-MF restore at W={c['restore_world']} "
+                       f"({mode})", pl)
+        restored[mode] = (w_r, h_r, ck_r.restore_ms[0], ms)
+    same = all(np.array_equal(restored[m][0], restored["device"][0])
+               and np.array_equal(restored[m][1], restored["device"][1])
+               for m in restored)
+    check(same and np.array_equal(restored["device"][0], w_a)
+          and np.array_equal(restored["device"][1], h_a),
+          f"the W={RING_W} directory restored at W={c['restore_world']}: "
+          f"device, ring and host bitwise each other, every referenced row "
+          f"of W and H the saved row")
+    rec = {"save_ms": ck_a.save_ms, "restore_ms": ck_b.restore_ms[0],
+           "launches": launches,
+           "restore": {m: {"read_ms": v[2], "resume_ms": v[3]}
+                       for m, v in restored.items()}}
+    log(f"  save {[round(x, 3) for x in rec['save_ms']]} ms a step, "
+        f"restore {rec['restore_ms']:.3f} ms (same world); at W="
+        f"{c['restore_world']}: " + ", ".join(
+            f"{m} read {v['read_ms']:.3f} ms, whole resume {v['resume_ms']:.3f}"
+            f" ms" for m, v in rec["restore"].items()) + f" [{CARD_NAME}]")
+    return rec
+
+
+def ckpt_kmeans_phase(root):
+    """[ckpt] on the K-means flagship (W=1): 10 iterations with
+    save_every=5, resumed from 5 in a fresh model bitwise uninterrupted."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.models import kmeans as km
+
+    c, f = CKPT, FLAGSHIP
+    log(f"[ckpt] K-means flagship n={f['n']}, k={f['k']}, d={f['d']}, W=1: "
+        f"{c['km_iterations']} iterations with save_every="
+        f"{c['km_save_every']}, resumed from {c['km_save_every']} "
+        f"[{CARD_NAME}]")
+    pts, cen0 = card_points(f["n"], f["d"], f["k"], c["km_seed"])
+    sess = HarpSession(num_workers=1)
+    cfg = km.KMeansConfig(f["k"], f["d"], c["km_iterations"])
+    p, c0 = km.KMeans(sess, cfg).prepare(pts, cen0)
+    del pts
+    ck_a = TimedCheckpointer(f"{root}/km_a")
+    cen_a, costs_a, _ = km.KMeans(sess, cfg).fit_checkpointed(
+        p, c0, ck_a, save_every=c["km_save_every"])
+    km.KMeans(sess, cfg).fit_checkpointed(
+        p, c0, TimedCheckpointer(f"{root}/km_b"),
+        save_every=c["km_save_every"], iterations=c["km_save_every"])
+    ck_b = TimedCheckpointer(f"{root}/km_b")
+    zero_counts()
+    cen_b, costs_b, start = km.KMeans(sess, cfg).fit_checkpointed(
+        p, c0, ck_b, save_every=c["km_save_every"])
+    launches, plain = read_counts(), plain_counts()
+    rest = c["km_iterations"] - c["km_save_every"]
+    check(start == c["km_save_every"] and torch.equal(cen_b, cen_a)
+          and np.array_equal(costs_b, costs_a[start:]),
+          f"K-means resumed from iteration {start}: centroids and costs "
+          f"bitwise the uninterrupted checkpointed fit")
+    check(launches["kmeans_stats"] == rest,
+          f"{rest} kmeans_stats launches in the resumed iterations "
+          f"({launches['kmeans_stats']})")
+    check_no_plain("[ckpt] K-means resume", plain)
+    log(f"  save {[round(x, 3) for x in ck_a.save_ms]} ms, restore "
+        f"{ck_b.restore_ms[0]:.3f} ms [{CARD_NAME}]")
+    return {"save_ms": ck_a.save_ms, "restore_ms": ck_b.restore_ms[0],
+            "launches": launches["kmeans_stats"]}
+
+
+def reshard_phase():
+    """[reshard]: the JAX package's reshard row on the card, alltoall and
+    ring schedules and the host oracle, bitwise each other, each round's
+    payload within the chunk."""
+    from unittest import mock as _mock
+
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.collectives import lax_ops
+    from harp_tpu_torch.collectives import repartition as rep
+    from harp_tpu_torch.collectives import reshard as rs
+    from harp_tpu_torch.models.sgd_mf import identity_assign, serpentine_assign
+
+    c = RESHARD
+    rows, rank, ow, nw = c["rows"], c["rank"], c["old_world"], c["new_world"]
+    log(f"[reshard] {rows} rows x rank {rank} float32, W {ow} -> {nw} "
+        f"stacked, rounds of at most {c['chunk_bytes']} bytes a worker "
+        f"[{CARD_NAME}]")
+    sess = HarpSession(num_workers=nw)
+    rng = np.random.default_rng(0)
+    old_rpb, new_rpb = -(-rows // ow), -(-rows // nw)
+    old_assign = serpentine_assign(rng.integers(1, 64, rows), ow)
+    new_assign = identity_assign(rows, nw)
+    saved = rng.standard_normal((ow * old_rpb, rank)).astype(np.float32)
+    fill_host = np.zeros((nw * new_rpb, rank), np.float32)
+    old_lay = rs.block_layout(old_assign, old_rpb, ow)
+    new_lay = rs.block_layout(new_assign, new_rpb, nw)
+    oracle = rep.repartition_factor(saved, old_assign, old_rpb, new_assign,
+                                    new_rpb, rows, fill_host.copy())
+    rec = {}
+    for schedule in ("alltoall", "ring"):
+        plan = rs.plan_factor_reshard(old_lay, ow, new_lay, nw, rows,
+                                      rank * 4, c["chunk_bytes"], schedule)
+        fn, args = rs.prepare_reshard(sess, saved, plan,
+                                      sess.scatter(fill_host))
+        sizes = []
+        real = {"all_to_all": lax_ops.all_to_all, "rotate": lax_ops.rotate}
+
+        def spy(name):
+            def f(x, *a, **k):
+                sizes.append(x[0].numel() * x.element_size())
+                return real[name](x, *a, **k)
+            return f
+
+        with _mock.patch.object(lax_ops, "all_to_all", spy("all_to_all")), \
+                _mock.patch.object(lax_ops, "rotate", spy("rotate")):
+            out = fn(*args)
+        check(np.array_equal(out.cpu().numpy(), oracle),
+              f"{schedule}: bitwise the host oracle")
+        check(max(sizes) <= c["chunk_bytes"],
+              f"{schedule}: {len(sizes)} collective rounds, the largest "
+              f"{max(sizes)} bytes a worker (<= {c['chunk_bytes']})")
+        times = []
+        for _ in range(c["reps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec[schedule] = {"ms": statistics.median(times), "ms_all": times,
+                         "rounds": plan.rounds, "collectives": len(sizes),
+                         "max_round_bytes": max(sizes),
+                         "bytes_moved": plan.bytes_moved}
+    times = []
+    for _ in range(c["reps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = rep.repartition_factor(saved, old_assign, old_rpb,
+                                       new_assign, new_rpb, rows,
+                                       fill_host.copy())
+        sess.scatter(moved)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec["host"] = {"ms": statistics.median(times), "ms_all": times,
+                   "bytes": int(saved.nbytes)}
+    log("  " + ", ".join(f"{k} {v['ms']:.3f} ms" + (
+        f" ({v['rounds']} rounds, largest {v['max_round_bytes']} B, "
+        f"{v['bytes_moved']} B cross workers)" if "rounds" in v else
+        " (numpy gather-and-resplit + upload)") for k, v in rec.items())
+        + f" [{CARD_NAME}]")
+    return rec
+
+
+def lda_model_for(sess, cfg, state):
+    """An LDA model of ``cfg`` whose program is built for ``state``'s
+    layout (a state prepared once serves several configs)."""
+    from harp_tpu_torch.models import lda
+
+    model = lda.LDA(sess, cfg)
+    key = state[0]
+    model._fns[key] = model._build(key[0], key[1], key[2], key[3] // key[0],
+                                   key[6])
+    return model
+
+
+def lda_digest(dt, wt, ll) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in (dt, wt, ll):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def lda_counts_exact(model, state, name):
+    """doc_topic, word_topic and topic totals of a 1-worker, 1-slice fit
+    recomputed from its z, exactly."""
+    key, data, seed, _ = state
+    dt, wt, z, ll = model._fns[key](*data, seed)
+    k = model.config.num_topics
+    docs_b, mask_b = data[0], data[1]
+    oh = torch.nn.functional.one_hot(z.long(), k).float() * mask_b[..., None]
+    dt_z = oh.sum(dim=(1, 2))
+    wt_z = torch.zeros_like(wt).index_add_(0, docs_b.reshape(-1).long(),
+                                           oh.reshape(-1, k))
+    check(torch.equal(dt_z, dt) and torch.equal(wt_z, wt)
+          and torch.equal(wt.sum(0), dt.sum(0))
+          and int(dt.sum()) == int(mask_b.sum()),
+          f"{name}: doc_topic, word_topic and the topic totals equal the "
+          f"counts of z exactly")
+    return ll
+
+
+def lda_cpu_twin(model, state, cfg):
+    """The same fit's program on the CPU from the card state's arrays."""
+    from harp_tpu_torch import HarpSession, convert
+    from harp_tpu_torch.models import lda
+
+    cpu = lda.LDA(HarpSession(num_workers=1, device="cpu"), cfg)
+    arrays = convert.lda_state_to_jax(model, state)
+    return cpu, convert.lda_state_from_jax(cpu, arrays, seed=arrays["seed"])
+
+
+def lda_phase():
+    """[lda]: bench.py's LDA rows at W=1, tokens/s two-point (2 vs 8
+    epochs); on the bench row the uniforms, one CGS epoch and a CVB0 fit
+    held against the CPU port, the counts against z, rising
+    log-likelihoods."""
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.benchmark import timing
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import lda
+    from harp_tpu_torch.ops import threefry
+
+    sess = HarpSession(num_workers=1)
+    lo, hi = LDA_EPOCHS
+    rec, corpora = {}, {}
+    for name, r in LDA_ROWS:
+        t0 = time.perf_counter()
+        key = (r["docs"], r["vocab"], r["doc_len"], r["topics"])
+        if key not in corpora:
+            corpora[key] = datagen.lda_corpus(r["docs"], r["vocab"],
+                                              max(2, r["topics"] // 2),
+                                              r["doc_len"], seed=3)
+        docs = corpora[key]
+        cfg = lda.LDAConfig(num_topics=r["topics"], vocab=r["vocab"],
+                            epochs=hi,
+                            vocab_sub_block=r.get("vocab_sub_block", 0))
+        model = lda.LDA(sess, cfg)
+        state = model.prepare(docs, seed=1)
+        data_s = time.perf_counter() - t0
+        log(f"[lda] {name}: {r['docs']} docs x {r['doc_len']} tokens "
+            f"({docs.size}), V={r['vocab']}, K={r['topics']}, W=1"
+            + (f", vocab_sub_block={r['vocab_sub_block']}"
+               if r.get("vocab_sub_block") else "")
+            + f": write path {model.last_layout_stats['wt_path']}, padding "
+            f"x{model.last_layout_stats['overhead']:.3f} (corpus and "
+            f"prepare {data_s:.2f} s) [{CARD_NAME}]")
+        lls = {}
+
+        def timer(ne):
+            m = lda_model_for(sess, dataclasses.replace(cfg, epochs=ne),
+                              state)
+
+            def run():
+                lls[ne] = m.fit_prepared(state)[2]
+            return run
+
+        t_lo, t_hi = timer(lo), timer(hi)
+        zero_counts()
+        t_lo()                        # warm: the same launches as t_hi's
+        check_no_plain(f"[lda] {name}")
+        tp = timing.two_point_timers(t_lo, t_hi, lo, hi, float(docs.size),
+                                     reps=r.get("reps", 3))
+        ll = lls[hi]
+        check(bool(np.all(np.isfinite(ll))) and ll[-1] > ll[0],
+              f"{name}: log-likelihood rises over {hi} epochs "
+              f"({ll[0]:.6g} -> {ll[-1]:.6g})")
+        reps = r.get("reps", 3)
+        spread = tp["spread_pct"] if reps > 1 else None
+        rec[name] = {"tokens_per_s": tp["rate"],
+                     "per_epoch_ms": tp["per_iter_ms"],
+                     "spread_pct": spread, "pairs": reps,
+                     "low_resolution": tp["low_resolution"],
+                     "ll_first": float(ll[0]), "ll_last": float(ll[-1]),
+                     "wt_path": model.last_layout_stats["wt_path"],
+                     "padding": model.last_layout_stats["overhead"]}
+        log(f"  {tp['rate']:.6g} tokens/s ({tp['per_iter_ms']:.4f} ms an "
+            f"epoch, " + (f"spread {spread:.1f}% over {reps} pairs"
+                          if spread is not None else "one pair")
+            + f"), ll {ll[0]:.6g} -> {ll[-1]:.6g} [{CARD_NAME}]")
+        if name != "bench":
+            continue
+        one = dataclasses.replace(cfg, epochs=1)
+        m1 = lda_model_for(sess, one, state)
+        lda_counts_exact(m1, state, name)
+        # the uniforms of the first group, on the card and on the CPU
+        d_local = docs.shape[0]
+        dg = d_local // m1._effective_minibatches(d_local)
+        shape = (dg, state[0][2], 1)
+        keys = threefry.fold_in(threefry.prng_key(0, CARD),
+                                torch.arange(4, device=CARD) + 1)
+        u_card = threefry.uniform(threefry.split(keys)[:, 1], shape)
+        keys_c = threefry.fold_in(threefry.prng_key(0), torch.arange(4) + 1)
+        u_cpu = threefry.uniform(threefry.split(keys_c)[:, 1], shape)
+        check(torch.equal(u_card.cpu(), u_cpu),
+              f"threefry uniforms {tuple(u_card.shape)} on the card bitwise "
+              f"the CPU's")
+        # one CGS epoch from the same state, card and CPU
+        cpu, cstate = lda_cpu_twin(m1, state, one)
+        key_ = state[0]
+        _, wt_g, z_g, ll_g = m1._fns[key_](*state[1], state[2])
+        _, wt_c, z_c, ll_c = cpu._fns[cstate[0]](*cstate[1], cstate[2])
+        moved = int((z_g.cpu() != z_c).sum())
+        check(moved == 0 and torch.equal(wt_g.cpu(), wt_c),
+              f"one CGS epoch from the same state: z ({z_g.numel()} "
+              f"tokens) and the word-topic counts bitwise the CPU port's "
+              f"({moved} draws differ)")
+        rec[name]["ll_card_vs_cpu_rel"] = float(
+            abs(float(ll_g[0]) - float(ll_c[0])) / abs(float(ll_c[0])))
+        # CVB0: a quarter of the corpus, 2 epochs, card against CPU
+        small = docs[: docs.shape[0] // 4]
+        soft = dataclasses.replace(cfg, epochs=2, method="cvb0",
+                                   vocab_sub_block=0)
+        ms = lda.LDA(sess, soft)
+        sst = ms.prepare(small, seed=1)
+        zero_counts()
+        got = ms.fit_prepared(sst)
+        check_no_plain(f"[lda] {name} CVB0")
+        cpu, cst = lda_cpu_twin(ms, sst, soft)
+        want = cpu.fit_prepared(cst)
+        err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(got[:2], want[:2]))
+        check(err <= 1e-5, f"CVB0 ({small.shape[0]} docs, 2 epochs, path "
+              f"{ms.last_layout_stats['wt_path']}): doc_topic and "
+              f"word_topic within 1e-5 of the CPU port's ({err:.3g})")
+        rec[name]["cvb0_rel_vs_cpu"] = err
+    return rec, corpora
+
+
+def lda_fused_phase(corpora):
+    """[lda:fused]: the clueweb regime at W=4 stacked, fused_dma bitwise
+    unfused on 1 and 2 slices (ring_dma_hop launches counted), int8
+    quant_wt, a checkpoint resumed at W=2 (device against the host
+    oracle), and the stacked side of the 4-process twin."""
+    import shutil
+    import tempfile
+
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch.models import lda
+    from harp_tpu_torch.utils.checkpoint import Checkpointer
+
+    c = LDA_FUSED
+    w, ep = c["workers"], c["epochs"]
+    docs = corpora[(c["docs"], c["vocab"], c["doc_len"], c["topics"])]
+    log(f"[lda:fused] clueweb regime ({docs.size} tokens, V={c['vocab']}, "
+        f"K={c['topics']}) at W={w} stacked, {ep} epochs: fused_dma against "
+        f"unfused on 1 and 2 slices, int8 quant_wt, a checkpoint resumed at "
+        f"W={c['restore_world']} [{CARD_NAME}]")
+    sess = HarpSession(num_workers=w)
+    base = lda.LDAConfig(num_topics=c["topics"], vocab=c["vocab"], epochs=ep)
+    rec = {}
+    for ns in (1, 2):
+        cfg = dataclasses.replace(base, num_model_slices=ns)
+        state = lda.LDA(sess, cfg).prepare(docs, seed=1)
+        outs = {}
+        for fused in (False, True):
+            m = lda_model_for(sess, dataclasses.replace(cfg, fused_dma=fused),
+                              state)
+            zero_counts()
+            outs[fused] = m.fit_prepared(state)
+            launches, plain = read_counts(), plain_counts()
+            check_no_plain(f"[lda:fused] {ns} slice(s), fused={fused}", plain)
+            want = ep * w * ns if fused else 0
+            check(launches["ring_dma_hop"] == want,
+                  f"{ns} slice(s), fused_dma={fused}: {want} ring_dma_hop "
+                  f"launches ({launches['ring_dma_hop']})")
+            row = {"ring_dma_hop": launches["ring_dma_hop"]}
+            if ns == 1:               # one timed fit each, 1 slice
+                row["ms_per_epoch"] = cuda_time_ms(
+                    lambda: m.fit_prepared(state), reps=1, warmup=0) / ep
+            rec[f"s{ns}_{'fused' if fused else 'unfused'}"] = row
+        check(all(np.array_equal(a, b) for a, b in zip(outs[False],
+                                                       outs[True])),
+              f"{ns} slice(s): the fused fit bitwise the unfused fit")
+        ll = outs[True][2]
+        check(bool(np.all(np.isfinite(ll))) and ll[-1] > ll[0],
+              f"{ns} slice(s): log-likelihood rises ({ll[0]:.6g} -> "
+              f"{ll[-1]:.6g})")
+        if ns == 1:
+            ll32 = ll
+            state1 = state
+    qcfg = dataclasses.replace(base, quant="int8", quant_wt=True,
+                               fused_dma=True)
+    m = lda_model_for(sess, qcfg, state1)
+    zero_counts()
+    qll = m.fit_prepared(state1)[2]
+    launches = read_counts()
+    qerr = float(np.abs(qll - ll32).max() / np.abs(ll32).max())
+    check(launches["ring_dma_hop"] == 0 and qerr <= 0.2,
+          f"int8 quant_wt (fused asked): no ring_dma_hop launch (the "
+          f"quantized wire takes precedence), log-likelihoods within 20% of "
+          f"the float32 fit's ({qerr:.3g})")
+    check_no_plain("[lda:fused] int8 quant_wt")
+    rec["quant_wt_int8_ll_rel"] = qerr
+    root = tempfile.mkdtemp(prefix="harp_lda_ckpt_")
+    m4 = lda_model_for(sess, dataclasses.replace(base, fused_dma=True),
+                       state1)
+    dt4, wt4, _, _ = m4.fit_checkpointed(state1, Checkpointer(root),
+                                         save_every=1)
+    sess2 = HarpSession(num_workers=c["restore_world"])
+    got = {}
+    state2 = lda.LDA(sess2, base).prepare(docs, seed=1)
+    for mode in ("device", "host"):
+        m2 = lda.LDA(sess2, dataclasses.replace(base, reshard=mode))
+        t0 = time.perf_counter()
+        dt, wt, ll2, start = m2.fit_checkpointed(state2, Checkpointer(root))
+        got[mode] = (dt, wt, (time.perf_counter() - t0) * 1e3, start)
+    check(all(g[3] == ep for g in got.values())
+          and np.array_equal(got["device"][1], got["host"][1])
+          and np.array_equal(got["device"][0], got["host"][0])
+          and np.array_equal(got["device"][1], wt4)
+          and np.array_equal(got["device"][0], dt4),
+          f"the W={w} chain resumed at W={c['restore_world']}: the device "
+          f"reshard's word-topic and doc-topic counts equal the host "
+          f"oracle's and the saved chain's exactly")
+    rec["restore_ms"] = {m: g[2] for m, g in got.items()}
+    shutil.rmtree(root, ignore_errors=True)
+    # the stacked side of [ringdma:mp]'s LDA twin
+    small = docs[: c["mp_docs"]]
+    mcfg = dataclasses.replace(base, fused_dma=True)
+    mm = lda.LDA(sess, mcfg)
+    zero_counts()
+    dt, wt, ll = mm.fit_prepared(mm.prepare(small, seed=1))
+    rec["mp_digest"] = lda_digest(dt, wt, ll)
+    rec["mp_stacked_launches"] = read_counts()["ring_dma_hop"]
+    log(f"  ms an epoch: " + ", ".join(
+        f"{k} {v['ms_per_epoch']:.4f}" for k, v in rec.items()
+        if isinstance(v, dict) and "ms_per_epoch" in v)
+        + f"; resume at W={c['restore_world']}: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in rec["restore_ms"].items())
+        + f" [{CARD_NAME}]")
+    return rec
+
+
+def checkpoint_lda_phases():
+    """[ckpt], [reshard], [lda] and [lda:fused]; returns their records."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="harp_ckpt_")
+    try:
+        res = {"ckpt_mf": ckpt_mf_phase(root)}
+        torch.cuda.empty_cache()
+        res["ckpt_kmeans"] = ckpt_kmeans_phase(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res["reshard"] = reshard_phase()
+    torch.cuda.empty_cache()
+    res["lda"], corpora = lda_phase()
+    torch.cuda.empty_cache()
+    res["lda_fused"] = lda_fused_phase(corpora)
+    torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------------------- #
 # Dispatch: the plain calls of the main paths, and one shape outside each
 # kernel's predicate
 # --------------------------------------------------------------------------- #
@@ -5305,11 +5936,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     st = stats_phases()
     new = quant_nn_solver_phases()
+    cl = checkpoint_lda_phases()
+    new["mp"]["lda"] = cl["lda_fused"]["mp_digest"]
+    mf["ckpt_resume_launches"] = cl["ckpt_mf"]["launches"]["dense_mf_hop"]
+    mf["ckpt_resume_path"] = (
+        f"[ckpt]: the flagship at W={RING_W} stacked, 1 slice, fused, "
+        f"epochs {CKPT['mf_epochs'][0]} to {CKPT['mf_epochs'][1]} resumed")
+    mf["ckpt"] = cl["ckpt_mf"]
+    mf_ring_lda = {k: cl["lda_fused"][k] for k in cl["lda_fused"]
+                   if k != "mp_digest"}
     mf["ring_hop"], attn["ring_hop"], ring = ringdma_phases(
         mf.pop(f"fit_rank{MF_WIDE['rank']}_fused_digest"),
         {"pca": st["pca"]["mp_digest"],
          "keyed": st["keyed"]["mp_digests"]}, new["mp"])
     mf["quant"] = mf["ring_hop"].pop("quant")
+    ring[0]["lda_fused"] = mf_ring_lda
+    ring[0]["lda_fused_launches"] = mf_ring_lda["s1_fused"]["ring_dma_hop"]
+    ring[0]["lda_fused_two_slice_launches"] = \
+        mf_ring_lda["s2_fused"]["ring_dma_hop"]
+    ring[0]["lda_fused_path"] = (
+        f"[lda:fused]: the clueweb regime at W={LDA_FUSED['workers']} "
+        f"stacked, {LDA_FUSED['epochs']} epochs")
     torch.cuda.empty_cache()
     plain = dispatch_phase()
     attn["plain_on_card"] = plain["flash_attention"]
@@ -5340,9 +5987,17 @@ def main() -> int:
         "plain_on_card": plain["kmeans_stats"],
         "quant_fit_launches": new["kmeans_quant"]["launches"],
         "quant_fit_ms_per_iter": new["kmeans_quant"]["ms_per_iter"],
+        "ckpt": cl["ckpt_kmeans"],
+        "ckpt_resume_launches": cl["ckpt_kmeans"]["launches"],
+        "ckpt_resume_path": (
+            f"[ckpt]: the flagship at W=1, iterations {CKPT['km_save_every']}"
+            f" to {CKPT['km_iterations']} resumed"),
     }, kmeans_wide_row(wide, wide_fit), mf, *spd, attn, *ring]
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    # the reshard and LDA's W=1 rates run no kernel of their own: beside
+    # the kernels, not under one
+    print(json.dumps({"kernels": kernels, "reshard": cl["reshard"],
+                      "lda": cl["lda"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

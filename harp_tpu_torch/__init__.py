@@ -13,12 +13,14 @@ held once, and every collective is an exact tensor op over the worker axis
 workers over several processes, each holding its workers stacked. Entry
 points run on CUDA unless the caller passes ``device="cpu"``.
 
-Ported so far: K-means regroupallgather, SGD-MF rotation and ALS (``python
--m harp_tpu_torch.run kmeans|sgd_mf|als``), blocked, ring and Ulysses
-attention (``parallel/ring_attention.py``) and the process group with the
-fused ring-DMA engine (``ops/ring_dma.py``), through the hand-written
-kernels in ``csrc/`` (E-step, SGD-MF hop, SPD solve, flash attention, ring
-hop and ring allgather).
+Ported so far: K-means regroupallgather, SGD-MF rotation, ALS and LDA
+(``python -m harp_tpu_torch.run kmeans|sgd_mf|als|lda``, checkpointed with
+``--save-every``), blocked, ring and Ulysses attention
+(``parallel/ring_attention.py``) and the process group with the fused
+ring-DMA engine (``ops/ring_dma.py``), through the hand-written kernels in
+``csrc/`` (E-step, SGD-MF hop, SPD solve, flash attention, ring hop and
+ring allgather), and the statistics path, NN, the solvers and the
+quantized wire; ``ROADMAP.md`` lists the rest.
 """
 
 from harp_tpu_torch import combiner, partitioner

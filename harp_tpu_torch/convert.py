@@ -16,6 +16,10 @@
   (:func:`nn_params_from_jax`, :func:`nn_params_to_jax`).
 * Solvers: ``theta`` (a flat vector) -> a float32 tensor, and back
   (:func:`solver_theta_from_jax`, :func:`solver_theta_to_jax`).
+* LDA: the JAX package's prepared chain state as numpy (the blocked token
+  slots and mask, the assignments z, the word-topic blocks wt in device
+  order, the vocab id maps) -> the port's prepared state, and back
+  (:func:`lda_state_from_jax`, :func:`lda_state_to_jax`).
 
 So the two packages fit the same problem from the same start. The configs'
 ``quant`` (the quantized wire format) carries across as it is.
@@ -31,6 +35,7 @@ import torch
 
 from harp_tpu_torch.models.als import ALS, ALSConfig
 from harp_tpu_torch.models.kmeans import KMeansConfig
+from harp_tpu_torch.models.lda import LDA
 from harp_tpu_torch.models.sgd_mf import SGDMF, SGDMFConfig
 from harp_tpu_torch.parallel.mesh import fetch
 
@@ -193,3 +198,64 @@ def solver_theta_to_jax(theta) -> np.ndarray:
         raise ValueError(f"theta must be a flat vector, got shape "
                          f"{theta.shape}")
     return theta
+
+
+LDA_ARRAYS = ("docs", "mask", "z", "wt", "word_block", "word_slot")
+
+
+def lda_state_from_jax(model: LDA, arrays: Mapping, seed: int = 0) -> tuple:
+    """The port's prepared LDA state (what :meth:`LDA.prepare` returns)
+    from the JAX package's chain state as numpy: ``docs`` (D, NB, Lb)
+    block-local token slots, ``mask`` (D, NB, Lb), ``z`` (D, NB, Lb) int
+    (CVB0: (D, NB, Lb, K) float32), ``wt`` (V_pad, K) word-topic blocks in
+    the JAX package's device order, ``word_block``/``word_slot`` the vocab
+    id maps, and ``vpb`` the block width (the JAX state's ``data`` arrays
+    and its last element). ``seed`` is the fit's key seed. The shapes must
+    be those ``model.config`` and the session's worker count give."""
+    missing = [k for k in LDA_ARRAYS + ("vpb",) if k not in arrays]
+    if missing:
+        raise ValueError(f"missing LDA state arrays {missing}")
+    cfg = model.config
+    sess = model.session
+    w = sess.num_workers
+    ns = cfg.num_model_slices
+    nb = w * ns
+    vpb = int(arrays["vpb"])
+    docs_b = np.asarray(arrays["docs"]).astype(np.int32)
+    mask_b = np.asarray(arrays["mask"]).astype(np.float32)
+    z = np.asarray(arrays["z"])
+    wt = np.array(arrays["wt"], dtype=np.float32)
+    num_docs, nb_in, lb = docs_b.shape
+    k = cfg.num_topics
+    want_z = (num_docs, nb, lb) + ((k,) if cfg.method == "cvb0" else ())
+    if (nb_in != nb or mask_b.shape != docs_b.shape or z.shape != want_z
+            or wt.shape != (vpb * nb, k)):
+        raise ValueError(
+            f"LDA state of shapes docs {docs_b.shape}, z {z.shape}, wt "
+            f"{wt.shape} does not match {w} workers x {ns} slices, "
+            f"vpb={vpb}, K={k}, method={cfg.method}")
+    lbs = 0
+    if cfg.vocab_sub_block:
+        lbs = lb // (vpb // cfg.vocab_sub_block)
+    key = (w, vpb * nb, lb, num_docs, cfg.method, ns, lbs)
+    if key not in model._fns:
+        model._fns[key] = model._build(w, vpb * nb, lb, num_docs // w, lbs)
+    z = z.astype(np.float32 if cfg.method == "cvb0" else np.int32)
+    return (key,
+            (sess.scatter(docs_b), sess.scatter(mask_b), sess.scatter(z),
+             sess.scatter(wt)),
+            int(seed),
+            (np.asarray(arrays["word_block"]), np.asarray(arrays["word_slot"]),
+             vpb))
+
+
+def lda_state_to_jax(model: LDA, state: tuple) -> dict:
+    """The port's prepared LDA state as the numpy arrays
+    :func:`lda_state_from_jax` takes (gathered over a process group)."""
+    _, (docs_b, mask_b, z, wt), seed, (word_block, word_slot, vpb) = state
+    group = model.session.workers
+    return {"docs": fetch(docs_b, group), "mask": fetch(mask_b, group),
+            "z": fetch(z, group), "wt": fetch(wt, group),
+            "word_block": np.asarray(word_block),
+            "word_slot": np.asarray(word_slot), "vpb": int(vpb),
+            "seed": int(seed)}

@@ -1,10 +1,12 @@
 """Synthetic data generators (numpy on the host).
 
 Port of ``dense_points``, ``initial_centroids``, ``sparse_ratings``,
-``zipf_ratings``, ``classification_data``, ``regression_data`` and
-``sparse_points`` from ``harp_tpu/io/datagen.py`` (reference:
-KMUtil.generatePoints / generateCentroids, the SGD-MF and ALS rating
-generators and the DAAL classification and regression datasets). The same seed gives the same arrays as the JAX package.
+``zipf_ratings``, ``classification_data``, ``regression_data``,
+``sparse_points`` and ``lda_corpus`` from ``harp_tpu/io/datagen.py``
+(reference: KMUtil.generatePoints / generateCentroids, the SGD-MF and ALS
+rating generators, the DAAL classification and regression datasets and the
+LDA launcher's corpus). The same seed gives the same arrays as the JAX
+package.
 """
 
 from __future__ import annotations
@@ -115,3 +117,32 @@ def sparse_points(num_points: int, dim: int, density: float, seed: int = 0):
     rows, cols = np.divmod(flat, dim)
     vals = rng.standard_normal(nnz).astype(np.float32)
     return rows.astype(np.int64), cols.astype(np.int64), vals
+
+
+def lda_corpus(num_docs: int, vocab: int, num_topics: int, doc_len: int,
+               seed: int = 0, alpha: float = 0.1, beta: float = 0.01
+               ) -> np.ndarray:
+    """Generative LDA corpus: token matrix (num_docs, doc_len) of word ids,
+    bitwise the JAX package's for the same arguments.
+
+    The JAX package draws each token by ``rng.choice(vocab,
+    p=topic_word[t])``: one uniform double a call, searched in the topic's
+    normalised cumulative sum. Here a document's uniforms are drawn in one
+    ``rng.random(doc_len)`` (the same doubles in the same order) and
+    searched in cumulative sums built once a topic, so the stream and the
+    ids are the same without a Python call a token."""
+    rng = np.random.default_rng(seed)
+    topic_word = rng.dirichlet([beta] * vocab, size=num_topics)
+    cdf = np.empty_like(topic_word)
+    for t in range(num_topics):
+        c = topic_word[t].cumsum()
+        cdf[t] = c / c[-1]
+    docs = np.empty((num_docs, doc_len), dtype=np.int32)
+    for d in range(num_docs):
+        theta = rng.dirichlet([alpha] * num_topics)
+        z = rng.choice(num_topics, size=doc_len, p=theta)
+        u = rng.random(doc_len)
+        for t in np.unique(z):
+            at = z == t
+            docs[d, at] = cdf[t].searchsorted(u[at], side="right")
+    return docs

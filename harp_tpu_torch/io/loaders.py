@@ -1,6 +1,7 @@
 """Input files — part-file listing and COO text parsing (numpy on the host).
 
-Port of ``list_files`` and ``load_coo`` from ``harp_tpu/io/loaders.py``, for
+Port of ``list_files``, ``load_coo``, ``load_corpus`` and
+``truncate_to_workers`` from ``harp_tpu/io/loaders.py``, for
 local paths only (reference: Harp's ``MultiFileInputFormat`` over a
 directory of part-files, and ``HarpDAALDataSource.loadCOOFiles``). Basenames
 starting with ``_`` or ``.`` (``_SUCCESS``, ``_README``, ``.crc``) are
@@ -53,3 +54,31 @@ def load_coo(paths: Sequence[str], sep: str = " "
     m = np.concatenate([p.reshape(-1, 3) for p in parts])
     return m[:, 0].astype(np.int64), m[:, 1].astype(np.int64), \
         m[:, 2].astype(np.float32)
+
+
+def load_corpus(spec: str) -> np.ndarray:
+    """Rectangular token-id corpus: one document per line, space-separated
+    integer token ids, every line the SAME length (``datasets/lda/``);
+    ``spec`` is a file, a directory of part-files or a glob. Returns int64
+    (D, L) in path order."""
+    paths = list_files(spec)
+    if not paths:
+        raise FileNotFoundError(f"no corpus files match {spec!r}")
+    parts = [np.loadtxt(p, dtype=np.int64, ndmin=2) for p in paths]
+    widths = {p.shape[1] for p in parts}
+    if len(widths) > 1:
+        raise ValueError(
+            f"corpus files disagree on document length: {sorted(widths)} "
+            f"(the dense token-matrix format needs one fixed length)")
+    return np.concatenate(parts).astype(np.int64)
+
+
+def truncate_to_workers(arr: np.ndarray, num_workers: int) -> np.ndarray:
+    """Trim the leading axis to a worker multiple (the load-then-shard
+    idiom of every file-input CLI path)."""
+    n = len(arr) - len(arr) % num_workers
+    if n == 0:
+        raise ValueError(
+            f"{len(arr)} rows cannot shard over {num_workers} workers "
+            f"(need at least one row per worker)")
+    return arr[:n]

@@ -207,6 +207,57 @@ class KMeans:
         cost) on the session's device."""
         return self._fit(*self.prepare(points, centroids0))
 
+    def fit_checkpointed(self, pts: torch.Tensor, cen: torch.Tensor,
+                         checkpointer, save_every: int = 1,
+                         iterations: Optional[int] = None):
+        """Train with periodic centroid checkpoints and automatic resume.
+
+        Runs chunks of ``save_every`` iterations; each chunk boundary saves
+        the replicated centroids (``{"centroids"}``, meta ``model="kmeans"``
+        and the writing ``world``). If the checkpoint directory holds a
+        valid step, training resumes from it (a corrupt newest step falls
+        back to the previous one). Lloyd iterations are deterministic given
+        (points, centroids), so an interrupted and resumed run is bitwise an
+        uninterrupted one. A checkpoint written at another world size
+        restores as it is: the table is replicated, so the reshard is the
+        identity. Returns (centroids, costs of the iterations run here
+        (numpy), start iteration)."""
+        from harp_tpu_torch.utils import checkpoint as ckpt_lib
+
+        total = iterations if iterations is not None else \
+            self.config.iterations
+        start = 0
+        resume, saved = checkpointer.restore_latest_valid(
+            like={"centroids": np.zeros(tuple(cen.shape), np.float32)})
+        if resume is not None:
+            start = resume
+            if start > total:
+                raise ValueError(
+                    f"checkpoint at iteration {start} exceeds the requested "
+                    f"{total} iterations (pass a fresh directory or a larger "
+                    f"budget)")
+            cen = self.session.replicate_put(saved["centroids"],
+                                             dtype=torch.float32)
+        chunk_fits = {}
+        costs = []
+        it = start
+        while it < total:
+            chunk = min(save_every, total - it)
+            if chunk not in chunk_fits:
+                chunk_fits[chunk] = KMeans(
+                    self.session,
+                    dataclasses.replace(self.config, iterations=chunk))._fit
+            cen, cost = chunk_fits[chunk](pts, cen)
+            costs.extend(cost.cpu().numpy().tolist())
+            it += chunk
+            save_state = {"centroids": cen}
+            checkpointer.save(it, save_state, meta=ckpt_lib.state_meta(
+                save_state, model="kmeans",
+                world=self.session.num_workers))
+        if hasattr(checkpointer, "wait"):
+            checkpointer.wait()       # surface a failed async final write
+        return cen, np.asarray(costs, np.float32), start
+
 
 def numpy_reference(points, cen, iters):
     """Plain-numpy Lloyd iterations for convergence parity tests."""

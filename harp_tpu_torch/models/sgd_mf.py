@@ -58,11 +58,21 @@ epoch, as in the JAX package. A quantized wire takes precedence over
 hop goes through the ring-DMA engine. The trajectories are
 convergence-equivalent to the float32 fit, not bitwise.
 
-Not ported yet: ``fit_checkpointed`` (raising ``NotImplementedError``; with
-it the ``_reshard_mode``/``_repartition_saved`` resume paths: ``reshard``
-and ``reshard_chunk_bytes`` are accepted and unused) and the telemetry
-events of ``train_prepared``. The TPU kernel's lane tiling (``col_tile``,
-``lane_pack.LANES``) is dropped: the CUDA kernel picks its own column tile.
+:meth:`SGDMF.fit_checkpointed` saves the factors (in this world's permuted
+block layout, with the (bin, slot) id maps and a meta naming the writing
+world) every ``save_every`` epochs and resumes from the newest valid step.
+A step written at another world size, or with another slice count, is
+moved onto this session's layout by ``SGDMFConfig.reshard``:
+``"device"`` (``collectives/reshard.py``: bounded ``all_to_all`` rounds on
+the worker group, no host gather of a sharded leaf), ``"ring"`` (its ring
+schedule), ``"host"`` (the numpy oracle, ``collectives/repartition.py``) or
+``"auto"`` (device on more than one worker, else host), in rounds of at
+most ``reshard_chunk_bytes`` (0: 1 MiB) a worker.
+
+Not ported yet: the ``faults.fire`` hook and the telemetry events of
+``train_prepared`` and ``fit_checkpointed`` (queue items of their own).
+The TPU kernel's lane tiling (``col_tile``, ``lane_pack.LANES``) is
+dropped: the CUDA kernel picks its own column tile.
 """
 
 from __future__ import annotations
@@ -95,8 +105,8 @@ class SGDMFConfig:
     quant: Optional[str] = None  # None | "int8" | "bf16": quantized hops
     dense_max_bytes: int = 6_000_000_000  # per-worker slab budget for auto
     balance: bool = True       # serpentine-LPT id balancing (sparse layout)
-    reshard: str = "auto"      # resume resharding: unused until checkpoints
-    reshard_chunk_bytes: int = 0   # are ported
+    reshard: str = "auto"      # resume resharding: auto|device|ring|host
+    reshard_chunk_bytes: int = 0   # 0 = collectives.reshard's 1 MiB
     fused_dma: bool = False    # H-block hops through the ring-DMA engine
 
 
@@ -629,10 +639,181 @@ class SGDMF:
                             meta[6])
         fetch(self._compiled[key](*data, w0, h0)[2])
 
-    def fit_checkpointed(self, state, checkpointer, epochs=None,
-                         save_every: int = 1):
-        raise NotImplementedError("fit_checkpointed (checkpoints and resume "
-                                  "resharding) is not ported yet")
+    def fit_checkpointed(self, state, checkpointer,
+                         epochs: Optional[int] = None, save_every: int = 1
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """Train with periodic checkpoints and automatic resume.
+
+        One epoch a host step; every ``save_every`` epochs (and at the last)
+        the factors are saved through ``checkpointer``
+        (``utils/checkpoint.Checkpointer``) with the (bin, slot) id maps
+        and a meta naming the writing world. A populated directory resumes
+        from its newest valid epoch: the training math is deterministic
+        given (data, factors), so an interrupted and resumed run is the
+        trajectory of an uninterrupted one. A step written at another
+        world size or slice count is moved onto this session's layout
+        (:meth:`_repartition_saved`). Returns (W, H, rmse of the epochs run
+        here, first epoch)."""
+        from harp_tpu_torch.utils import checkpoint as ckpt_lib
+
+        layout, data, w0, h0, meta = state
+        num_rows, num_cols, row_assign, col_assign = meta[:4]
+        geom = meta[6]
+        nmb = self.config.minibatches_per_hop
+        epochs = epochs if epochs is not None else self.config.epochs
+        w_cur, h_cur = w0, h0
+        start = 0
+        world = self.session.num_workers
+        group = self.session.workers
+        # the id maps ride in every checkpoint so a DIFFERENT world can
+        # de-permute to canonical id order
+        assign_leaves = {
+            "row_bin": np.asarray(row_assign[0][:num_rows], np.int32),
+            "row_slot": np.asarray(row_assign[1][:num_rows], np.int32),
+            "col_bin": np.asarray(col_assign[0][:num_cols], np.int32),
+            "col_slot": np.asarray(col_assign[1][:num_cols], np.int32),
+        }
+        # meta-less (pre-elastic) steps hold only the factor pair
+        legacy_like = {"w": np.zeros(group.global_shape(w0), np.float32),
+                       "h": np.zeros(group.global_shape(h0), np.float32)}
+        resume, saved, ck_meta = checkpointer.restore_latest_valid(
+            like_from_meta=lambda m: (ckpt_lib.meta_like(m) if m
+                                      else legacy_like),
+            return_meta=True)
+        if resume is not None:
+            start = resume
+            if ck_meta is not None and ck_meta.get("model") not in (
+                    None, "sgd_mf"):
+                raise ValueError(
+                    f"checkpoint in this work dir was written by model "
+                    f"{ck_meta['model']!r}, not sgd_mf — wrong work dir?")
+            if start > epochs:
+                raise ValueError(
+                    f"checkpoint at epoch {start} exceeds the requested "
+                    f"{epochs} epochs — the saved model is already trained "
+                    f"past this budget (pass a fresh checkpoint directory "
+                    f"or a larger epochs)")
+            # shape equality is not world equality: trust the recorded
+            # world, fall back to shapes for meta-less steps
+            if (int(ck_meta["world"]) != world if ck_meta
+                    and "world" in ck_meta
+                    else np.shape(saved["w"]) != group.global_shape(w0)):
+                saved = self._repartition_saved(saved, ck_meta, state)
+            # the device reshard hands back placed tensors
+            w_cur = (saved["w"] if isinstance(saved["w"], torch.Tensor)
+                     else self.session.scatter(saved["w"]))
+            h_cur = (saved["h"] if isinstance(saved["h"], torch.Tensor)
+                     else self.session.scatter(saved["h"]))
+        key = self._program(layout, nmb, 1, geom)
+        fn = self._compiled[key]
+        rmses = []
+        for epoch in range(start, epochs):
+            w_cur, h_cur, r = fn(*data, w_cur, h_cur)
+            rmses.append(float(fetch(r)[0]))
+            if (epoch + 1) % save_every == 0 or epoch + 1 == epochs:
+                save_state = {"w": fetch(w_cur, group),
+                              "h": fetch(h_cur, group), **assign_leaves}
+                checkpointer.save(
+                    epoch + 1, save_state,
+                    meta=ckpt_lib.state_meta(
+                        save_state, model="sgd_mf", world=world,
+                        num_rows=num_rows, num_cols=num_cols,
+                        num_slices=self.config.num_slices, layout=layout))
+        if hasattr(checkpointer, "wait"):
+            checkpointer.wait()     # surface a failed async final write
+        w_final, h_final = self._finalize(w_cur, h_cur, meta)
+        return w_final, h_final, np.asarray(rmses), start
+
+    def _reshard_mode(self) -> str:
+        from harp_tpu_torch.collectives import reshard as rs
+
+        return rs.resolve_mode(self.config.reshard,
+                               self.session.num_workers)
+
+    def _repartition_saved(self, saved: dict, ck_meta: Optional[dict],
+                           state) -> dict:
+        """Factors written at another world size (or slice count) -> this
+        session's layout. ``"device"``/``"ring"``: the saved leaves go up
+        once and every row moves to its new (bin, slot) home in
+        chunk-bounded rounds on the worker group (``collectives/
+        reshard.py``), returning placed tensors; ``"host"``: the numpy
+        gather-and-resplit oracle (``collectives/repartition.py``). Both
+        are exact for every id the ratings reference; padded slots keep
+        this run's fresh init. 2-slice layouts go through the worker-major
+        half-slice placement (``reshard.block_layout``) on either side."""
+        from harp_tpu_torch.collectives import repartition as rep
+        from harp_tpu_torch.collectives import reshard as rs
+
+        layout, data, w0, h0, meta = state
+        num_rows, num_cols, row_assign, col_assign, rpw, cpb = meta[:6]
+        if ck_meta is None or "world" not in ck_meta:
+            raise ValueError(
+                "checkpoint does not match this session's factor shapes and "
+                "carries no world metadata (written by a pre-elastic "
+                "version?) — resume at the original worker count")
+        old_world = int(ck_meta["world"])
+        old_ns = int(ck_meta.get("num_slices", 1))
+        new_ns = self.config.num_slices
+        if (int(ck_meta.get("num_rows", num_rows)) != num_rows
+                or int(ck_meta.get("num_cols", num_cols)) != num_cols):
+            raise ValueError(
+                f"checkpoint was written for a "
+                f"{ck_meta.get('num_rows')}x{ck_meta.get('num_cols')} "
+                f"rating matrix; this run prepared {num_rows}x{num_cols} — "
+                f"not the same dataset")
+        w = self.session.num_workers
+        saved_w = np.asarray(saved["w"])
+        saved_h = np.asarray(saved["h"])
+        old_rpw = saved_w.shape[0] // old_world
+        # 2-slice checkpoints hold H worker-major (W_old, 2, cpb_old, K):
+        # already flat device order when raveled
+        old_cpb = (saved_h.shape[2] if saved_h.ndim == 4
+                   else saved_h.shape[0] // (old_ns * old_world))
+        old_w_lay = rs.block_layout(
+            (np.asarray(saved["row_bin"]), np.asarray(saved["row_slot"])),
+            old_rpw, old_world, 1)
+        old_h_lay = rs.block_layout(
+            (np.asarray(saved["col_bin"]), np.asarray(saved["col_slot"])),
+            old_cpb, old_world, old_ns)
+        new_w_lay = rs.block_layout(row_assign, rpw, w, 1)
+        new_h_lay = rs.block_layout(col_assign, cpb, w, new_ns)
+        mode = self._reshard_mode()
+        if mode in ("device", "ring"):
+            schedule = "alltoall" if mode == "device" else "ring"
+            chunk = (self.config.reshard_chunk_bytes
+                     or rs.DEFAULT_CHUNK_BYTES)
+            w_new = rs.reshard_factor(
+                self.session, saved_w, old_w_lay, old_world, new_w_lay,
+                num_rows, w0, chunk_bytes=chunk, schedule=schedule)
+            h_new = rs.reshard_factor(
+                self.session, saved_h, old_h_lay, old_world, new_h_lay,
+                num_cols, h0, chunk_bytes=chunk, schedule=schedule)
+            return {**saved, "w": w_new, "h": h_new}
+
+        # host oracle: bin-major flat arrays on both sides (2-slice device
+        # order worker-major <-> bin-major via the half-slice transpose)
+        def to_bin_major(a):
+            return (a.transpose(1, 0, 2, 3).reshape(-1, a.shape[-1])
+                    if a.ndim == 4 else a)
+
+        def from_bin_major(flat, ns, w_, rpb):
+            if ns == 1:
+                return flat
+            k = flat.shape[-1]
+            return np.ascontiguousarray(
+                flat.reshape(ns, w_, rpb, k).transpose(1, 0, 2, 3))
+
+        group = self.session.workers
+        fill_h = to_bin_major(fetch(h0, group))
+        w_new = rep.repartition_factor(
+            saved_w, (saved["row_bin"], saved["row_slot"]), old_rpw,
+            row_assign, rpw, num_rows, fetch(w0, group))
+        h_new = rep.repartition_factor(
+            to_bin_major(saved_h),
+            (saved["col_bin"], saved["col_slot"]), old_cpb,
+            col_assign, cpb, num_cols, fill_h)
+        return {**saved, "w": w_new,
+                "h": from_bin_major(h_new, new_ns, w, cpb)}
 
     def fit(self, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
             num_rows: int, num_cols: int, seed: int = 0

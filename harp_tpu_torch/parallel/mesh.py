@@ -73,6 +73,12 @@ class WorkerGroup:
         """Global ID of this process's row 0."""
         return self.rank * self.workers_per_process
 
+    def global_shape(self, x) -> tuple:
+        """The global shape of ``x``, sharded along axis 0 over the workers
+        (in a process group ``x`` is this process's piece)."""
+        return ((x.shape[0] * self.num_workers // self.workers_per_process,)
+                + tuple(x.shape[1:]))
+
     def barrier(self) -> None:
         """Wait for the device; in a process group also for every process
         (``distributed.barrier``: a gloo barrier after the device sync)."""

@@ -40,6 +40,13 @@ process boundary:
   the stacked group's;
 * a small NN fit (``models/nn.py``) and the five gradient solvers
   (``models/solvers.py``), bitwise the stacked group's;
+* the bounded-round reshard (``collectives/reshard.py``, both schedules)
+  through the gloo ``all_to_all`` and ``rotate``, and resumes of SGD-MF
+  (1 and 2 slices) and LDA checkpoints written at 2W workers (process 0
+  writes, every process reads; device, ring and host), bitwise the stacked
+  group's;
+* LDA fits (``models/lda.py``: CGS fused on 1 slice and on 2 slices, CVB0,
+  the int8 topic-total wire), bitwise the stacked group's;
 * ``HarpSession.barrier`` and a clean ``distributed.shutdown``.
 
 It prints ``MP_SMOKE OK p<i>/<n>``; any failure raises. The host event
@@ -50,6 +57,7 @@ The device is CUDA unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -426,6 +434,98 @@ def nn_solver_checks(pg, st) -> None:
                   f"solver {kind}")
 
 
+def _shared_dir(name: str) -> str:
+    """A directory every process of this gang names alike (process 0
+    writes into it; the coordinator's port keeps gangs apart)."""
+    import tempfile
+
+    port = os.environ.get("HARP_COORDINATOR", "local").replace(":", "_")
+    return os.path.join(tempfile.gettempdir(), f"harp_mp_{port}", name)
+
+
+def checkpoint_lda_checks(pg, st) -> None:
+    from harp_tpu_torch.collectives import reshard as rs
+    from harp_tpu_torch.io import datagen
+    from harp_tpu_torch.models import lda
+    from harp_tpu_torch.models import sgd_mf as smf
+    from harp_tpu_torch.models.sgd_mf import serpentine_assign
+    from harp_tpu_torch.session import HarpSession
+    from harp_tpu_torch.utils.checkpoint import Checkpointer
+
+    w = pg.num_workers
+    rng = np.random.default_rng(23)
+    n = 11 * w + 3
+    old = rs.block_layout(serpentine_assign(rng.integers(1, 9, n), 2 * w),
+                          7, 2 * w)
+    new = rs.block_layout(serpentine_assign(rng.integers(1, 9, n), w),
+                          n // w + 2, w)
+    saved = rng.standard_normal((2 * w * 7, 3)).astype(np.float32)
+    fill = rng.standard_normal((w * new.local_rows, 3)).astype(np.float32)
+    for schedule in ("alltoall", "ring"):
+        got, ref = (_global(sess, rs.reshard_factor(
+            sess, saved, old, 2 * w, new, n, sess.scatter(fill),
+            chunk_bytes=40, schedule=schedule)) for sess in (pg, st))
+        _same(got, ref, f"reshard ({schedule})")
+
+    # checkpoints written by a 2W stacked group (process 0 writes), resumed
+    # at W on the process group and on the stacked group
+    wide = HarpSession(num_workers=2 * w, device=pg.device)
+    nr = w * 8
+    flat = rng.choice(nr * nr, size=nr * 6, replace=False)
+    rr, cc = np.divmod(flat, nr)
+    vv = (rng.random(len(rr)) + 0.5).astype(np.float32)
+    for ns in (1, 2):
+        cfg = smf.SGDMFConfig(rank=4, epochs=2, minibatches_per_hop=2,
+                              num_slices=ns, layout="sparse")
+        path = _shared_dir(f"mf{ns}")
+        m = smf.SGDMF(wide, cfg)
+        m.fit_checkpointed(m.prepare(rr, cc, vv, nr, nr), Checkpointer(path))
+        pg.barrier()
+        for mode in ("device", "ring", "host"):
+            c = dataclasses.replace(cfg, reshard=mode)
+            outs = []
+            for sess in (pg, st):
+                m = smf.SGDMF(sess, c)
+                w_f, h_f, _, start = m.fit_checkpointed(
+                    m.prepare(rr, cc, vv, nr, nr), Checkpointer(path))
+                _check(start == 2, "SGD-MF resumed at its last epoch")
+                outs.append((w_f, h_f))
+            for a, b in zip(*outs):
+                _same(torch.from_numpy(a), torch.from_numpy(b),
+                      f"SGD-MF resume from 2W ({ns} slices, {mode})")
+
+    docs = datagen.lda_corpus(w * 4, 40, 3, 10, seed=2)
+    base = dict(num_topics=6, vocab=40, epochs=2, minibatches_per_hop=2)
+    path = _shared_dir("lda")
+    m = lda.LDA(wide, lda.LDAConfig(**base))
+    m.fit_checkpointed(m.prepare(docs, seed=1), Checkpointer(path))
+    pg.barrier()
+    for mode in ("device", "ring", "host"):
+        outs = []
+        for sess in (pg, st):
+            m = lda.LDA(sess, lda.LDAConfig(**base, reshard=mode))
+            dt, wt, _, start = m.fit_checkpointed(m.prepare(docs, seed=1),
+                                                  Checkpointer(path))
+            _check(start == 2, "LDA resumed at its last epoch")
+            outs.append((dt, wt))
+        for a, b in zip(*outs):
+            _same(torch.from_numpy(a), torch.from_numpy(b),
+                  f"LDA resume from 2W ({mode})")
+    for kw in (dict(fused_dma=True), dict(num_model_slices=2, fused_dma=True),
+               dict(method="cvb0"), dict(quant="int8")):
+        fits = [lda.LDA(sess, lda.LDAConfig(**base, **kw)).fit(docs, seed=3)
+                for sess in (pg, st)]
+        for a, b in zip(*fits):
+            _same(torch.from_numpy(a), torch.from_numpy(b), f"LDA fit {kw}")
+        _check(bool(np.all(np.isfinite(fits[0][2]))),
+               f"finite LDA log-likelihoods {kw}")
+    pg.barrier()
+    if pg.workers.rank == 0:
+        import shutil
+
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+
 def run(device=None) -> None:
     from harp_tpu_torch.parallel import distributed
     from harp_tpu_torch.session import HarpSession
@@ -445,6 +545,7 @@ def run(device=None) -> None:
     sgd_mf_checks(pg, st)
     quant_checks(pg, st)
     nn_solver_checks(pg, st)
+    checkpoint_lda_checks(pg, st)
     pg.barrier()
     distributed.shutdown()
     print(f"MP_SMOKE OK p{rank}/{nproc}", flush=True)

@@ -1,15 +1,20 @@
 """Command-line launcher: ``python -m harp_tpu_torch.run <algorithm> [flags]``.
 
 Port of ``harp_tpu/run.py``. Ported subcommands: ``kmeans`` (dense, and
-``--format csr`` for sparse input), ``sgd_mf``, ``als``, ``pca`` (``--method
+``--format csr`` for sparse input), ``sgd_mf``, ``lda``, ``als``, ``pca``
+(``--method
 cor|svd``, ``--format dense|csr``), ``stats --op {cov, moments, zscore,
 minmax, qr, pivoted_qr, svd, cholesky, quantiles, sort, outlier}``, ``nn``
 and ``solver --kind {sgd, sgd_minibatch, sgd_momentum, adagrad, lbfgs}``.
 The run goes on CUDA unless ``--device cpu`` is given; without CUDA the
 default fails.
 
-``kmeans`` and ``sgd_mf`` take ``--quant {int8,bf16}``, the quantized wire
-format of their collectives, and ``nn`` takes ``--layers`` as
+``kmeans``, ``sgd_mf`` and ``lda`` take ``--save-every N`` with
+``--work-dir``: checkpoints every N iterations or epochs under
+``<work-dir>/ckpt`` (``utils/checkpoint.py``; a populated directory
+resumes, also at another worker count). ``kmeans``, ``sgd_mf`` and ``lda``
+take ``--quant {int8,bf16}``, the quantized wire format of their
+collectives, and ``nn`` takes ``--layers`` as
 comma-separated hidden sizes (``--layers 256,128``). The JAX launcher
 registers both flags but drops them (its config parsing keeps only int,
 float, str and bool fields), so there a run takes the float32 wire and the
@@ -35,8 +40,7 @@ import numpy as np
 from harp_tpu_torch.config import add_dataclass_args
 
 # flags of the JAX launcher whose paths are not ported yet
-NOT_PORTED = {"--stream": dict(action="store_true"),
-              "--save-every": dict(type=int, default=0)}
+NOT_PORTED = {"--stream": dict(action="store_true")}
 
 
 def _common_flags(p: argparse.ArgumentParser) -> None:
@@ -84,6 +88,9 @@ def run_kmeans(argv) -> int:
                         "sparsified at --density")
     p.add_argument("--density", type=float, default=0.05,
                    help="synthetic sparsity for --format csr")
+    p.add_argument("--save-every", type=int, default=0,
+                   help="checkpoint centroids every N iterations into "
+                        "work-dir (resumes automatically)")
     for flag, kw in NOT_PORTED.items():
         p.add_argument(flag, **kw)
     add_dataclass_args(p, km.KMeansConfig)
@@ -91,14 +98,17 @@ def run_kmeans(argv) -> int:
     for flag in NOT_PORTED:
         if getattr(args, flag[2:].replace("-", "_")):
             p.error(f"{flag} is not yet ported to harp_tpu_torch")
+    if args.save_every and not args.work_dir:
+        p.error("--save-every requires --work-dir (nowhere to checkpoint)")
     args.quant = _quant(args.quant)
     cfg = km.KMeansConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(km.KMeansConfig)})
     if args.format == "csr" and (args.points_file or args.quant
+                                 or args.save_every
                                  or cfg.comm != "regroupallgather"):
         p.error("--format csr supports synthetic data with the fixed "
                 "allreduce collective (daal_kmeans/allreducecsr): "
-                "--points-file/--comm/--quant do not apply")
+                "--points-file/--save-every/--comm/--quant do not apply")
     sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
     if args.format == "csr":
         return _kmeans_csr(sess, cfg, args)
@@ -114,16 +124,33 @@ def run_kmeans(argv) -> int:
     cen0 = datagen.initial_centroids(pts, cfg.num_centroids, seed=args.seed + 1)
     model = km.KMeans(sess, cfg)
     pts_dev, cen_dev = model.prepare(pts, cen0)
-    model.fit_prepared(pts_dev, cen_dev)          # warm-up (builds the kernel)
-    sess.barrier()
-    t0 = time.perf_counter()
-    cen, costs = model.fit_prepared(pts_dev, cen_dev)
-    sess.barrier()
+    if args.save_every:
+        from harp_tpu_torch.utils.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(os.path.join(args.work_dir, "ckpt"))
+        t0 = time.perf_counter()
+        cen, costs, start = model.fit_checkpointed(
+            pts_dev, cen_dev, ckpt, save_every=args.save_every)
+        sess.barrier()
+        ran = cfg.iterations - start
+        timing = " (incl build)"
+    else:
+        model.fit_prepared(pts_dev, cen_dev)      # warm-up (builds the kernel)
+        sess.barrier()
+        t0 = time.perf_counter()
+        cen, costs = model.fit_prepared(pts_dev, cen_dev)
+        sess.barrier()
+        costs = costs.cpu().numpy()
+        ran = cfg.iterations
+        timing = ""
     dt = time.perf_counter() - t0
-    costs = costs.cpu().numpy()
-    print(f"kmeans[{cfg.comm}] workers={sess.num_workers} n={len(pts)} "
-          f"k={cfg.num_centroids} d={cfg.dim}: {cfg.iterations / dt:.2f} "
-          f"iters/s, cost {costs[0]:.1f} -> {costs[-1]:.1f}")
+    if ran > 0:
+        print(f"kmeans[{cfg.comm}] workers={sess.num_workers} n={len(pts)} "
+              f"k={cfg.num_centroids} d={cfg.dim}: {ran / dt:.2f} "
+              f"iters/s{timing}, cost {costs[0]:.1f} -> {costs[-1]:.1f}")
+    else:
+        print(f"kmeans[{cfg.comm}] workers={sess.num_workers}: fully "
+              f"resumed from checkpoint, nothing left to run")
     if args.work_dir:
         os.makedirs(args.work_dir, exist_ok=True)
         np.savetxt(os.path.join(args.work_dir, "centroids.csv"),
@@ -171,11 +198,13 @@ def run_sgd_mf(argv) -> int:
                         "datasets/sgd_mf); overrides the synthetic data")
     p.add_argument("--adaptive", action="store_true",
                    help="auto-tune the per-hop budget (adjustMiniBatch analog)")
-    p.add_argument("--save-every", type=int, default=0)
+    p.add_argument("--save-every", type=int, default=0,
+                   help="checkpoint every N epochs into work-dir (resumes "
+                        "automatically if checkpoints exist)")
     add_dataclass_args(p, sgd_mf.SGDMFConfig)
     args = p.parse_args(argv)
-    if args.save_every:
-        p.error("--save-every is not yet ported to harp_tpu_torch")
+    if args.save_every and not args.work_dir:
+        p.error("--save-every requires --work-dir (nowhere to checkpoint)")
     args.quant = _quant(args.quant)
     cfg = sgd_mf.SGDMFConfig(**{
         f.name: getattr(args, f.name)
@@ -200,7 +229,20 @@ def run_sgd_mf(argv) -> int:
         nu, ni = args.num_users, args.num_items
     model = sgd_mf.SGDMF(sess, cfg)
     state = model.prepare(rows, cols, vals, nu, ni, seed=args.seed)
-    if args.adaptive:
+    ran = cfg.epochs
+    if args.save_every:
+        from harp_tpu_torch.utils.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(os.path.join(args.work_dir, "ckpt"))
+        model.warmup_epoch(state)                 # builds outside the timing
+        sess.barrier()
+        t0 = time.perf_counter()
+        w, h, rmse, start = model.fit_checkpointed(
+            state, ckpt, save_every=args.save_every)
+        sess.barrier()
+        dt = time.perf_counter() - t0
+        ran = cfg.epochs - start
+    elif args.adaptive:
         w, h, rmse, tuner = model.fit_adaptive(state)
         if lead:
             print(f"tuned budget: {tuner.chosen} "
@@ -214,7 +256,6 @@ def run_sgd_mf(argv) -> int:
         w, h, rmse = model.fit_prepared(state)
         dt = time.perf_counter() - t0
     nnz = len(vals) - model.last_layout_stats.get("duplicates_dropped", 0)
-    sps = nnz * cfg.epochs / dt
     steady = " (tuner steady-state)" if args.adaptive else ""
     if gang:
         from harp_tpu_torch.ops import ring_dma
@@ -224,6 +265,12 @@ def run_sgd_mf(argv) -> int:
         distributed.shutdown()
     if not lead:
         return 0
+    if ran <= 0 or not len(rmse):
+        print(f"sgd_mf[{model.last_layout_stats['layout']}] "
+              f"workers={sess.num_workers}: fully resumed from checkpoint, "
+              f"nothing left to run")
+        return 0
+    sps = nnz * ran / dt
     print(f"sgd_mf[{model.last_layout_stats['layout']}] "
           f"workers={sess.num_workers} nnz={nnz} rank={cfg.rank}: "
           f"{sps / 1e6:.2f} M samples/s{steady}, rmse {rmse[0]:.4f} -> "
@@ -232,6 +279,74 @@ def run_sgd_mf(argv) -> int:
         os.makedirs(args.work_dir, exist_ok=True)
         np.savetxt(os.path.join(args.work_dir, "w.csv"), w, delimiter=",")
         np.savetxt(os.path.join(args.work_dir, "h.csv"), h, delimiter=",")
+    return 0
+
+
+def run_lda(argv) -> int:
+    from harp_tpu_torch.io import datagen, loaders
+    from harp_tpu_torch.models import lda
+    from harp_tpu_torch.session import HarpSession
+
+    p = argparse.ArgumentParser(prog="harp_tpu_torch.run lda")
+    _common_flags(p)
+    p.add_argument("--num-docs", type=int, default=1024)
+    p.add_argument("--doc-len", type=int, default=64)
+    p.add_argument("--corpus-file", default="",
+                   help="token-id corpus file/dir/glob (one doc per line, "
+                        "fixed length — e.g. datasets/lda); overrides the "
+                        "synthetic corpus; vocab grows to fit the data")
+    p.add_argument("--save-every", type=int, default=0,
+                   help="checkpoint the chain (z + word-topic model) every "
+                        "N epochs into work-dir (resumes automatically)")
+    add_dataclass_args(p, lda.LDAConfig)
+    args = p.parse_args(argv)
+    if args.save_every and not args.work_dir:
+        p.error("--save-every requires --work-dir (nowhere to checkpoint)")
+    args.quant = _quant(args.quant)
+    cfg = lda.LDAConfig(**{f.name: getattr(args, f.name)
+                           for f in dataclasses.fields(lda.LDAConfig)})
+    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    if args.corpus_file:
+        docs = loaders.truncate_to_workers(
+            loaders.load_corpus(args.corpus_file), sess.num_workers)
+        num_docs = len(docs)
+        if docs.size and int(docs.max()) >= cfg.vocab:
+            cfg = dataclasses.replace(cfg, vocab=int(docs.max()) + 1)
+    else:
+        num_docs = args.num_docs - args.num_docs % sess.num_workers
+        docs = datagen.lda_corpus(num_docs, cfg.vocab,
+                                  max(2, cfg.num_topics // 2), args.doc_len,
+                                  seed=args.seed)
+    model = lda.LDA(sess, cfg)
+    state = model.prepare(docs, seed=args.seed)   # host layout + H2D once
+    if args.save_every:
+        from harp_tpu_torch.utils.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(os.path.join(args.work_dir, "ckpt"))
+        t0 = time.perf_counter()
+        _, _, ll, start = model.fit_checkpointed(
+            state, ckpt, save_every=args.save_every)
+        sess.barrier()
+        ran = cfg.epochs - start
+        dt = time.perf_counter() - t0
+        timing = " (incl build)"
+        if ran <= 0:
+            print(f"lda[{cfg.method}] workers={sess.num_workers}: fully "
+                  f"resumed from checkpoint, nothing left to run")
+            return 0
+    else:
+        model.fit_prepared(state)                 # warm-up
+        sess.barrier()
+        t0 = time.perf_counter()
+        _, _, ll = model.fit_prepared(state)
+        sess.barrier()
+        ran = cfg.epochs
+        dt = time.perf_counter() - t0
+        timing = ""
+    toks = docs.size * ran
+    print(f"lda[{cfg.method}] workers={sess.num_workers} docs={num_docs} "
+          f"vocab={cfg.vocab} K={cfg.num_topics}: {toks / dt / 1e6:.2f} "
+          f"M tokens/s{timing}, ll {ll[0]:.4e} -> {ll[-1]:.4e}")
     return 0
 
 
@@ -476,7 +591,8 @@ def run_stats(argv) -> int:
     return 0
 
 
-COMMANDS = {"kmeans": run_kmeans, "sgd_mf": run_sgd_mf, "als": run_als,
+COMMANDS = {"kmeans": run_kmeans, "sgd_mf": run_sgd_mf, "lda": run_lda,
+            "als": run_als,
             "pca": run_pca, "stats": run_stats, "nn": run_nn,
             "solver": run_solver}
 

@@ -327,10 +327,14 @@ def test_cli_kmeans_on_cpu(capsys, tmp_path):
                       "--num-workers", "4", "--num-centroids", "2",
                       "--iterations", "2"]) == 0
     assert "n=40 k=2 d=3" in capsys.readouterr().out
-    for flag in (["--stream"], ["--save-every", "2"]):
-        with pytest.raises(SystemExit):
-            trun.main(["kmeans", "--device", "cpu", *flag])
-        assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        trun.main(["kmeans", "--device", "cpu", "--stream"])
+    assert "not yet ported" in capsys.readouterr().err
+    # --save-every is ported (tests/test_torch_lda.py holds it to the JAX
+    # CLI); without --work-dir there is nowhere to checkpoint
+    with pytest.raises(SystemExit):
+        trun.main(["kmeans", "--device", "cpu", "--save-every", "2"])
+    assert "requires --work-dir" in capsys.readouterr().err
     # --quant is ported (tests/test_torch_quantize.py holds it to the JAX
     # CLI); an unknown codec is refused
     assert trun.main(["kmeans", "--device", "cpu", "--num-points", "400",

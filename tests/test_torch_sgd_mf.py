@@ -453,8 +453,11 @@ def test_what_is_not_ported_raises():
     with pytest.raises(ValueError, match="quant must be one of"):
         tmf.SGDMF(sess, tmf.SGDMFConfig(quant="int4"))
     assert trot.Rotator(2, 1, comm=tq.CommConfig("bf16")).comm.quant == "bf16"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tmf.SGDMF(sess, tmf.SGDMFConfig()).fit_checkpointed(None, None)
+    # fit_checkpointed and its resume reshard are ported
+    # (tests/test_torch_reshard.py holds them to the JAX package); an
+    # unknown reshard mode is refused
+    with pytest.raises(ValueError, match=r"auto\|device\|ring\|host"):
+        tmf.SGDMF(sess, tmf.SGDMFConfig(reshard="teleport"))._reshard_mode()
     with pytest.raises(ValueError, match="unknown SGDMFConfig fields"):
         convert.sgd_mf_state_from_jax(None, None, None, None, dict(
             dataclasses.asdict(jmf.SGDMFConfig(quant="int8")), nope=1))
@@ -516,9 +519,10 @@ def test_cli_sgd_mf_on_cpu(capsys, tmp_path):
                       "--num-items", "64", "--epochs", "2", "--num-workers",
                       "2", "--fused-dma", "yes"]) == 0
     assert capsys.readouterr().out.startswith("sgd_mf[dense] workers=2 ")
+    # --save-every is ported; without --work-dir it is refused
     with pytest.raises(SystemExit):
         trun.main(["sgd_mf", "--device", "cpu", "--save-every", "2"])
-    assert "not yet ported" in capsys.readouterr().err
+    assert "requires --work-dir" in capsys.readouterr().err
     # --quant is ported: the quantized H hops
     assert trun.main(["sgd_mf", "--device", "cpu", "--num-users", "64",
                       "--num-items", "64", "--epochs", "2", "--num-workers",
