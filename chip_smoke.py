@@ -138,6 +138,17 @@ main path must make no plain call on the card:
     hop), a checkpoint resumed at W=2 (device against the host oracle), and
     in the 4-process gang the fused fit at a quarter of the documents,
     bitwise the stacked fit;
+  * host IO and streamed K-means (no new kernel: the E-step on a new
+    path): ``[ingest]``, ``benchmark/ingest.bench_ingest`` at the JAX
+    package's row (about 1 GB of CSV in 16 part-files, 888,880 rows x 128,
+    k = 64, 65,536-row chunks, W = 1) with every part parsed by the native
+    loader built from ``native/loader.cpp``: load MB/s, the serialized and
+    overlapped minibatch twins (bitwise each other), the stream->fit wall
+    with one E-step launch an iteration; on the same files
+    ``KMeans.fit_from_stream`` bitwise ``fit`` on ``load_dense_csv``
+    (float32 and bf16), the distributed COO->CSR at W = 4 bitwise the host
+    oracle, ``run kmeans --stream`` in this process, and in the 4-process
+    gang a streamed fit bitwise the stacked one;
   * dispatch: the plain-call counts of every main path (all 0); one call
     where the JAX package takes XLA (K-means on float16 points; attention
     at L=4096): no launch, one plain call, the plain version's answer; and
@@ -169,6 +180,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
@@ -375,6 +387,18 @@ LDA_ROWS = (("bench", dict(docs=2048, vocab=2000, doc_len=128, topics=32,
 LDA_EPOCHS = (2, 8)
 LDA_FUSED = dict(docs=8192, vocab=8000, doc_len=256, topics=64, epochs=2,
                  workers=4, mp_docs=2048, restore_world=2)
+# [ingest]: the JAX package's ingest bench row (harp_tpu/benchmark/
+# ingest.py:49-57), ~1 GB of %.6f CSV in 16 part-files, d = 128, k = 64,
+# 65,536-row chunks, W = 1; a small part-file set for ``run kmeans
+# --stream``; and the streamed fit of [ringdma:mp] (4 processes x 1 worker
+# against the stacked W = 4 fit; each process writes its own copy)
+INGEST = dict(total_mb=1024, d=128, k=64, parts=16, chunk_rows=65536,
+              fit_iters=2, num_threads=4, queue_depth=4, coo_nnz=200_000,
+              coo_rows=8192, coo_cols=4096, coo_seed=420, coo_workers=4)
+INGEST_CLI = dict(parts=3, rows=4000, d=16, k=8, chunk_rows=1500,
+                  iterations=3)
+INGEST_MP = dict(parts=4, rows=16_384, d=32, k=16, chunk_rows=8192,
+                 iterations=3, seed=61)
 # the card's name and power limit (nvidia-smi), printed beside every number
 # of the statistics phases
 CARD_NAME = ""
@@ -3901,6 +3925,11 @@ def mp_child() -> int:
     out["lda_plain"] = plain_counts()
     out["lda"] = lda_digest(dt, wt, ll)
     ring_dma.check_errors()
+    del state, model, docs, dt, wt
+    torch.cuda.empty_cache()
+    # the streamed fit of [ingest]: part-files of this process through the
+    # reader pool and the H2D prefetch into fit_from_stream
+    out["stream"] = stream_fit_digest(sess)
     distributed.shutdown()
     print("MP_CHILD " + json.dumps(out), flush=True)
     return 0
@@ -4066,6 +4095,19 @@ def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw,
           f"LDA CGS fused, 4 processes x 1 worker, {LDA_FUSED['mp_docs']} "
           f"docs of the clueweb regime, {ep} epochs: doc_topic, word_topic "
           f"and log-likelihoods bitwise the stacked W={RING_W} fit")
+    m = INGEST_MP
+    for i, o in outs.items():
+        st = o["stream"]
+        check(st["launches"]["kmeans_stats"] == m["iterations"],
+              f"rank {i}, the streamed fit: one kmeans_stats launch an "
+              f"iteration ({st['launches']['kmeans_stats']})")
+        check_no_plain(f"[ringdma:mp] streamed K-means, rank {i}",
+                       st["plain"])
+    check(all(o["stream"]["digest"] == stacked_new["stream"]
+              for o in outs.values()),
+          f"streamed K-means (fit_from_stream through DevicePrefetcher), 4 "
+          f"processes x 1 worker, {m['parts']} parts x {m['rows']} rows: "
+          f"centroids and costs bitwise the stacked W={RING_W} fit")
     check(all(o["quant_ar"] == stacked_new["quant_ar"]
               for o in outs.values()),
           f"int8 allreduce with residual, 4 processes x 1 worker: result "
@@ -5734,6 +5776,249 @@ def checkpoint_lda_phases():
 
 
 # --------------------------------------------------------------------------- #
+# Host IO: the native loader, the reader pool, the H2D prefetch and the
+# streamed K-means fits
+# --------------------------------------------------------------------------- #
+
+def write_parts(root, parts, rows, d, k, seed):
+    """``parts`` CSV part-files of ``rows`` clustered points (%.6f, as the
+    bench writes them) under ``root``; their paths."""
+    from harp_tpu_torch.io import datagen
+
+    paths = []
+    for i in range(parts):
+        path = os.path.join(root, f"part-{i:05d}")
+        np.savetxt(path, datagen.dense_points(rows, d, seed=seed + i,
+                                              num_clusters=k),
+                   fmt="%.6f", delimiter=",")
+        paths.append(path)
+    return paths
+
+
+def stream_fit_digest(sess, c=INGEST_MP):
+    """The streamed fit ``c`` on ``sess`` (stacked W=4, or one process of
+    the 4-process group): part-files written into a temporary directory of
+    this process, ``StreamLoader`` -> ``DevicePrefetcher`` ->
+    ``KMeans.fit_from_stream``; sha256 of its centroids and costs, with its
+    launch and plain-call counts."""
+    import shutil
+    import tempfile
+
+    from harp_tpu_torch.io import datagen, loaders
+    from harp_tpu_torch.io import pipeline as pl
+    from harp_tpu_torch.models import kmeans as km
+
+    root = tempfile.mkdtemp(prefix="harp_stream_")
+    try:
+        paths = write_parts(root, c["parts"], c["rows"], c["d"], c["k"],
+                            c["seed"])
+        cen0 = datagen.initial_centroids(loaders.load_dense_csv(paths[:1]),
+                                         c["k"], seed=c["seed"])
+        loader = pl.StreamLoader(paths, chunk_rows=c["chunk_rows"])
+        n_fit = loader.total_rows - loader.total_rows % sess.num_workers
+        model = km.KMeans(sess, km.KMeansConfig(c["k"], c["d"],
+                                                c["iterations"]))
+        zero_counts()
+        cen, costs = model.fit_from_stream(
+            pl.DevicePrefetcher(loader, sess.replicate_put), cen0, n_fit)
+        launches, plain = read_counts(), plain_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"digest": digest(cen, costs), "launches": launches,
+            "plain": plain, "cost": float(costs[-1])}
+
+
+def ingest_phase():
+    """[ingest]: ``benchmark/ingest.bench_ingest`` at the JAX package's row
+    on the card, then on the same files the stream-fed fit bitwise the
+    in-memory fit (float32 and bf16), the minibatch twins bitwise each
+    other, the distributed COO->CSR at W=4 bitwise the host oracle,
+    ``run kmeans --stream`` in this process, and the stacked W=4 streamed
+    fit whose digest the 4-process gang must match."""
+    import shutil
+    import tempfile
+
+    from harp_tpu_torch import HarpSession
+    from harp_tpu_torch import run as trun
+    from harp_tpu_torch.benchmark import ingest
+    from harp_tpu_torch.io import datagen, loaders, native_bridge
+    from harp_tpu_torch.io import pipeline as pl
+    from harp_tpu_torch.models import kmeans as km
+    from harp_tpu_torch.ops import pallas_kernels as pk
+
+    c = INGEST
+    wide = pk.kmeans_smem_bytes(c["d"], c["k"]) > pk.MAX_SMEM_BYTES
+    log(f"[ingest] bench_ingest(total_mb={c['total_mb']}, d={c['d']}, "
+        f"k={c['k']}, parts={c['parts']}, chunk_rows={c['chunk_rows']}, "
+        f"fit_iters={c['fit_iters']}, num_threads={c['num_threads']}, "
+        f"queue_depth={c['queue_depth']}), W=1, on {CARD_NAME}; "
+        f"os.cpu_count() {os.cpu_count()}; the E-step at K={c['k']}, "
+        f"D={c['d']} takes the {'wide' if wide else 'narrow'} kernel")
+    t_phase = time.perf_counter()
+    check(native_bridge.available(),
+          "the native loader built from native/loader.cpp and loaded "
+          f"({native_bridge._find_lib()._name})")
+    reads = []
+    read_part = pl._read_part
+
+    def counted_read(path, sep, metrics):
+        reads.append(path)
+        return read_part(path, sep, metrics)
+
+    root = tempfile.mkdtemp(prefix="harp_ingest_")
+    res = {}
+    try:
+        parsed0 = native_bridge.parses["csv"]
+        zero_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(pl, "_read_part", counted_read):
+            row = ingest.bench_ingest(
+                **{key: c[key] for key in (
+                    "total_mb", "d", "k", "parts", "chunk_rows", "fit_iters",
+                    "num_threads", "queue_depth")}, tmpdir=root)
+        res["bench_s"] = time.perf_counter() - t0
+        launches, plain = read_counts(), plain_counts()
+        parsed = native_bridge.parses["csv"] - parsed0
+        check(parsed == len(reads) and len(reads) >= 4 * c["parts"],
+              f"every part read in the bench parsed natively ({parsed} "
+              f"native parses of {len(reads)} part reads)")
+        check(launches["kmeans_stats"] == c["fit_iters"]
+              and launches["kmeans_stats_wide"] == c["fit_iters"] * wide,
+              f"the bench's stream->fit: one kmeans_stats launch an "
+              f"iteration ({launches['kmeans_stats']}, wide "
+              f"{launches['kmeans_stats_wide']})")
+        check_no_plain("[ingest] bench_ingest", plain)
+        res["launches"] = launches["kmeans_stats"]
+        log(f"  {row['csv_bytes']} CSV bytes, {row['total_rows']} rows, "
+            f"{row['chunks']} chunks, bench {res['bench_s']:.3f} s")
+        log(f"  load {row['stream_load_mb_per_sec']} MB/s; serialized "
+            f"{row['serialized_wall_s']} s, overlapped "
+            f"{row['overlapped_wall_s']} s, overlap efficiency "
+            f"{row['overlap_efficiency']} (gate {row['overlap_gate']}, "
+            f"pass {row['overlap_pass']}); stream->fit "
+            f"{row['e2e_stream_fit_wall_s']} s")
+        for stage, t in row["stages"].items():
+            log(f"  stage {stage}: {t}")
+        log(f"  regroup (W=1): {row['regroup']}")
+
+        paths = loaders.list_files(root)
+        sess = HarpSession()
+        whole = loaders.load_dense_csv(paths, num_threads=c["num_threads"])
+        check(whole.shape == (row["total_rows"], c["d"]),
+              f"load_dense_csv of the {len(paths)} parts: {whole.shape}")
+        cen0 = datagen.initial_centroids(whole[:len(whole) // c["parts"]],
+                                         c["k"], seed=419)
+        fits = {}
+        for dtype in ("float32", "bfloat16"):
+            model = km.KMeans(sess, km.KMeansConfig(
+                c["k"], c["d"], c["fit_iters"], compute_dtype=dtype))
+            zero_counts()
+            t0 = time.perf_counter()
+            got = model.fit_from_stream(pl.DevicePrefetcher(
+                pl.StreamLoader(paths, chunk_rows=c["chunk_rows"],
+                                num_threads=c["num_threads"],
+                                queue_depth=c["queue_depth"]),
+                sess.replicate_put), cen0, len(whole))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches, plain = read_counts(), plain_counts()
+            ref = model.fit(whole, cen0)
+            check(all(torch.equal(a, b) for a, b in zip(got, ref))
+                  and all(bool(torch.isfinite(a).all()) for a in got),
+                  f"fit_from_stream ({dtype}, {c['fit_iters']} iterations, "
+                  f"{secs:.3f} s from the files): centroids and costs "
+                  f"bitwise fit on load_dense_csv of the same files "
+                  f"(cost {float(got[1][-1]):.8g})")
+            check(launches["kmeans_stats"] == c["fit_iters"],
+                  f"fit_from_stream ({dtype}): one kmeans_stats launch an "
+                  f"iteration ({launches['kmeans_stats']})")
+            check_no_plain(f"[ingest] fit_from_stream ({dtype})", plain)
+            fits[dtype] = secs
+        res["stream_fit_s"] = fits
+        del whole, got, ref
+
+        model = km.KMeans(sess, km.KMeansConfig(c["k"], c["d"], 1))
+        twins = []
+        for serial in (True, False):
+            t0 = time.perf_counter()
+            twins.append(model.fit_stream_minibatch(pl.DevicePrefetcher(
+                pl.StreamLoader(paths, chunk_rows=c["chunk_rows"],
+                                num_threads=c["num_threads"],
+                                queue_depth=c["queue_depth"],
+                                serial=serial),
+                sess.scatter, enabled=not serial), cen0))
+            twins[-1] += (time.perf_counter() - t0,)
+        (cen_s, cost_s, t_s), (cen_o, cost_o, t_o) = twins
+        check(np.array_equal(cen_s, cen_o) and np.array_equal(cost_s, cost_o),
+              f"fit_stream_minibatch: the serialized twin ({t_s:.3f} s) and "
+              f"the overlapped twin ({t_o:.3f} s) bitwise each other")
+        full = cost_s[:len(cost_s) - 1] if row["total_rows"] % c[
+            "chunk_rows"] else cost_s
+        check(np.isfinite(cost_s).all() and full[-1] < full[0],
+              f"minibatch costs finite, the last full chunk's below the "
+              f"first's ({full[0]:.8g} -> {full[-1]:.8g}, {len(cost_s)} "
+              f"chunks)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not os.path.exists(root), f"the bench's directory {root} removed")
+
+    rng = np.random.default_rng(c["coo_seed"])
+    crow = rng.integers(0, c["coo_rows"], c["coo_nnz"]).astype(np.int64)
+    ccol = rng.integers(0, c["coo_cols"], c["coo_nnz"]).astype(np.int64)
+    cval = rng.standard_normal(c["coo_nnz"]).astype(np.float32)
+    w = c["coo_workers"]
+    t0 = time.perf_counter()
+    got = pl.coo_to_csr_distributed(HarpSession(num_workers=w), crow, ccol,
+                                    cval, num_rows=c["coo_rows"])
+    secs = time.perf_counter() - t0
+    block = -(-c["coo_rows"] // w)
+    ok = True
+    for wi, (r, cc, v) in enumerate(loaders.regroup_coo_by_row(
+            crow, ccol, cval, w)):
+        want = loaders.coo_to_csr(r - wi * block, cc, v, num_rows=block)
+        ok &= all(np.array_equal(a, b) and a.dtype == b.dtype
+                  for a, b in zip(got[wi], want))
+    check(ok, f"coo_to_csr_distributed at W={w} stacked, {c['coo_nnz']} "
+          f"nonzeros ({secs:.3f} s): bitwise regroup_coo_by_row then "
+          f"coo_to_csr per block")
+
+    cl = INGEST_CLI
+    root = tempfile.mkdtemp(prefix="harp_ingest_cli_")
+    try:
+        write_parts(root, cl["parts"], cl["rows"], cl["d"], cl["k"], 7)
+        zero_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = trun.main(["kmeans", "--stream", "--points-file", root,
+                            "--chunk-rows", str(cl["chunk_rows"]),
+                            "--num-centroids", str(cl["k"]),
+                            "--iterations", str(cl["iterations"])])
+        line = out.getvalue().strip().splitlines()[-1]
+        launches, plain = read_counts(), plain_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(rc == 0 and line.startswith(
+        f"kmeans[stream/regroupallgather] workers=1 n="
+        f"{cl['parts'] * cl['rows']} k={cl['k']} d={cl['d']}")
+        and launches["kmeans_stats"] == cl["iterations"],
+        f"run kmeans --stream on the card: {line!r}, "
+        f"{launches['kmeans_stats']} kmeans_stats launches")
+    check_no_plain("[ingest] run kmeans --stream", plain)
+
+    res["mp"] = stream_fit_digest(HarpSession(num_workers=RING_W))
+    m = INGEST_MP
+    check(res["mp"]["launches"]["kmeans_stats"] == m["iterations"],
+          f"the stacked W={RING_W} streamed fit ({m['parts']} parts x "
+          f"{m['rows']} rows, d={m['d']}, k={m['k']}): one kmeans_stats "
+          f"launch an iteration ({res['mp']['launches']['kmeans_stats']})")
+    check_no_plain("[ingest] stacked streamed fit", res["mp"]["plain"])
+    res["row"] = row
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [ingest] {res['phase_s']:.1f} s on {CARD_NAME}")
+    return res
+
+
+# --------------------------------------------------------------------------- #
 # Dispatch: the plain calls of the main paths, and one shape outside each
 # kernel's predicate
 # --------------------------------------------------------------------------- #
@@ -5938,6 +6223,10 @@ def main() -> int:
     new = quant_nn_solver_phases()
     cl = checkpoint_lda_phases()
     new["mp"]["lda"] = cl["lda_fused"]["mp_digest"]
+    torch.cuda.empty_cache()
+    ing = ingest_phase()
+    new["mp"]["stream"] = ing["mp"]["digest"]
+    torch.cuda.empty_cache()
     mf["ckpt_resume_launches"] = cl["ckpt_mf"]["launches"]["dense_mf_hop"]
     mf["ckpt_resume_path"] = (
         f"[ckpt]: the flagship at W={RING_W} stacked, 1 slice, fused, "
@@ -5992,12 +6281,18 @@ def main() -> int:
         "ckpt_resume_path": (
             f"[ckpt]: the flagship at W=1, iterations {CKPT['km_save_every']}"
             f" to {CKPT['km_iterations']} resumed"),
+        "ingest_launches": ing["launches"],
+        "ingest_path": (
+            f"[ingest]: bench_ingest's StreamLoader -> DevicePrefetcher -> "
+            f"KMeans.fit_from_stream, n={ing['row']['total_rows']}, "
+            f"k={INGEST['k']}, d={INGEST['d']}, W=1, "
+            f"{INGEST['fit_iters']} iterations"),
     }, kmeans_wide_row(wide, wide_fit), mf, *spd, attn, *ring]
     print(card)
     # the reshard and LDA's W=1 rates run no kernel of their own: beside
     # the kernels, not under one
     print(json.dumps({"kernels": kernels, "reshard": cl["reshard"],
-                      "lda": cl["lda"]}))
+                      "lda": cl["lda"], "ingest": ing["row"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,8 +19,10 @@ Ported so far: K-means regroupallgather, SGD-MF rotation, ALS and LDA
 (``parallel/ring_attention.py``) and the process group with the fused
 ring-DMA engine (``ops/ring_dma.py``), through the hand-written kernels in
 ``csrc/`` (E-step, SGD-MF hop, SPD solve, flash attention, ring hop and
-ring allgather), and the statistics path, NN, the solvers and the
-quantized wire; ``ROADMAP.md`` lists the rest.
+ring allgather), and the statistics path, NN, the solvers, the
+quantized wire and host IO with streamed K-means (``sched/``,
+``io/loaders.py``, the native loader, ``io/pipeline.py``);
+``ROADMAP.md`` lists the rest.
 """
 
 from harp_tpu_torch import combiner, partitioner

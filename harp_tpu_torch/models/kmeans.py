@@ -43,7 +43,14 @@ and the variants no longer agree bitwise. ``bcastreduce`` refuses
 ``quant``, as in the JAX package. The JAX package's lane padding changes
 the flattened stat table under quantization (D padded to 128 columns moves
 the int8 blocks), so a quantized port fit matches the JAX fit with
-``lane_pad=False``. Checkpointed and streamed fits are not ported yet.
+``lane_pad=False``.
+
+Streamed fits (``io/pipeline.py``): :meth:`KMeans.fit_from_stream`
+assembles a chunk stream into the block :meth:`KMeans.prepare` would place
+and runs the same fit on it, bitwise the in-memory fit on the same rows in
+the same order; :meth:`KMeans.fit_stream_minibatch` folds one chunk at a
+time into a running mean (MacQueen), for streams that never end. Both take
+any chunk iterable, e.g. a ``DevicePrefetcher`` over a ``StreamLoader``.
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ import numpy as np
 import torch
 
 from harp_tpu_torch.collectives import lax_ops, quantize, rotation, table_ops
-from harp_tpu_torch.ops import lane_pack, pallas_kernels
+from harp_tpu_torch.ops import distance, lane_pack, pallas_kernels
+from harp_tpu_torch.ops.precision import full_f32_matmul
 from harp_tpu_torch.session import HarpSession
 from harp_tpu_torch.table import Table, round_up
 
@@ -105,6 +113,7 @@ class KMeans:
         self._fit = session.spmd(
             self._fit_fn, in_specs=(session.shard(), session.replicate()),
             out_specs=(session.replicate(), session.replicate()))
+        self._mb_steps = {}
 
     def _fit_fn(self, points: torch.Tensor, centroids0: torch.Tensor):
         """points: (W, N/W, D) stacked; centroids0: (K, D) replicated."""
@@ -206,6 +215,116 @@ class KMeans:
         """Run the full training; returns (final centroids, per-iteration
         cost) on the session's device."""
         return self._fit(*self.prepare(points, centroids0))
+
+    def fit_from_stream(self, chunks, centroids0, total_rows: int,
+                        *, metrics=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stream-fed training (``io/pipeline.StreamLoader``, alone or under
+        a ``DevicePrefetcher``): assemble the chunk stream into the block
+        :meth:`prepare` would place for the same data, then run the same
+        fit on it: bitwise ``fit(points, centroids0)`` when the stream
+        carries the same rows in the same order (``assemble_stream`` keeps
+        the placement contract).
+
+        ``total_rows`` must divide over the workers (truncate at ingest, as
+        ``loaders.truncate_to_workers`` does); streamed rows past it are
+        dropped. The fit runs under the ``ingest.compute`` timer."""
+        from harp_tpu_torch.io import pipeline as io_pipeline
+        from harp_tpu_torch.utils.metrics import Metrics
+
+        metrics = metrics if metrics is not None else Metrics()
+        pts = io_pipeline.assemble_stream(
+            self.session, chunks, total_rows, self.config.dim,
+            self.config.compute_dtype, metrics=metrics)
+        cen = self.session.replicate_put(centroids0, dtype=torch.float32)
+        with metrics.timer("ingest.compute"):
+            out = self._fit(pts, cen)
+            if pts.is_cuda:
+                torch.cuda.synchronize(pts.device)
+        return out
+
+    def _minibatch_step(self, budget: int, cols: int):
+        """The one-chunk E-step and online M-step that
+        :meth:`fit_stream_minibatch` folds over, cached per chunk shape."""
+        key = (budget, cols)
+        if key in self._mb_steps:
+            return self._mb_steps[key]
+        sess, cfg = self.session, self.config
+        if budget % sess.num_workers:
+            raise ValueError(
+                f"chunk budget {budget} must divide over "
+                f"{sess.num_workers} workers (StreamLoader chunk_rows)")
+        k_pad = self._k_pad
+        cdtype = (None if cfg.compute_dtype == "float32"
+                  else COMPUTE_DTYPES[cfg.compute_dtype])
+
+        def step_fn(pts, mask, cen, counts):
+            # pts (W, b/W, cols), mask (W, b/W): this chunk's rows a worker
+            scores = lane_pack.mask_phantom_cols(
+                distance.pairwise_scores(pts, cen, cdtype),
+                cfg.num_centroids)                            # (W, b/W, K)
+            min_s, assign = torch.min(scores, dim=-1)
+            onehot = torch.nn.functional.one_hot(assign, k_pad).float() \
+                * mask[..., None]
+            xf = pts.float()
+            with full_f32_matmul():
+                sums = torch.bmm(onehot.transpose(1, 2), xf)  # (W, K, cols)
+            sums = lax_ops.allreduce(sums)
+            cnt = lax_ops.allreduce(onehot.sum(1))
+            new_counts = counts + cnt
+            # MacQueen online mean: fold this chunk's sums into the running
+            # per-centroid mean weighted by the cumulative counts
+            new_cen = torch.where(
+                new_counts[:, None] > 0,
+                (counts[:, None] * cen + sums)
+                / torch.clamp(new_counts[:, None], min=1.0),
+                cen)
+            sq = ((min_s * mask).sum(-1)
+                  + ((xf * xf) * mask[..., None]).sum((-2, -1)))
+            return new_cen, new_counts, lax_ops.allreduce(sq)
+
+        fn = sess.spmd(
+            step_fn,
+            in_specs=(sess.shard(), sess.shard(), sess.replicate(),
+                      sess.replicate()),
+            out_specs=(sess.replicate(), sess.replicate(),
+                       sess.replicate()))
+        self._mb_steps[key] = fn
+        return fn
+
+    def fit_stream_minibatch(self, chunks, centroids0
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """Streaming fit for unbounded chunk streams (the minibatch
+        discipline of DrJAX, PAPERS.md arXiv:2403.07128): one E-step per
+        chunk against the CURRENT centroids, folded into a running mean
+        weighted by the cumulative per-centroid counts. A chunk already on
+        the device must be placed by ``session.scatter`` (a
+        ``DevicePrefetcher`` over it). Chunk order IS the algorithm here, so this converges like the batch fit but is not
+        bitwise it; use :meth:`fit_from_stream` for a finite dataset.
+        Plain PyTorch (``distance.pairwise_scores``), as the JAX package's
+        is XLA. Returns (centroids (k, d), per-chunk cost) as numpy."""
+        from harp_tpu_torch.parallel import mesh as mesh_lib
+
+        sess, cfg = self.session, self.config
+        cen0 = torch.as_tensor(np.asarray(centroids0, np.float32))
+        cen = sess.replicate_put(lane_pack.pad_rows(cen0, self._k_pad))
+        counts = sess.replicate_put(torch.zeros(self._k_pad))
+        costs = []
+        for ch in chunks:
+            data = ch.data
+            # a placed chunk is sess.scatter's: this process's rows
+            budget, cols = (sess.workers.global_shape(data)
+                            if isinstance(data, torch.Tensor)
+                            else data.shape)
+            step = self._minibatch_step(budget, cols)
+            mask = (np.arange(budget) < ch.rows).astype(np.float32)
+            pts = data if isinstance(data, torch.Tensor) else sess.scatter(
+                np.ascontiguousarray(data, np.float32))
+            cen, counts, cost = step(pts, sess.scatter(mask), cen, counts)
+            costs.append(cost)
+        cen_h = mesh_lib.fetch(cen)[:cfg.num_centroids]
+        cost_h = (mesh_lib.fetch(torch.stack(costs)) if costs
+                  else np.zeros(0, np.float32))
+        return cen_h, cost_h
 
     def fit_checkpointed(self, pts: torch.Tensor, cen: torch.Tensor,
                          checkpointer, save_every: int = 1,

@@ -47,6 +47,11 @@ process boundary:
   group's;
 * LDA fits (``models/lda.py``: CGS fused on 1 slice and on 2 slices, CVB0,
   the int8 topic-total wire), bitwise the stacked group's;
+* the streamed K-means fits (``io/pipeline.py``): part-files written by
+  process 0 streamed through ``DevicePrefetcher`` into
+  ``KMeans.fit_from_stream`` (float32 and bf16) and
+  ``fit_stream_minibatch``, and the device COO regroup behind
+  ``coo_to_csr_distributed``, bitwise the stacked group's;
 * ``HarpSession.barrier`` and a clean ``distributed.shutdown``.
 
 It prints ``MP_SMOKE OK p<i>/<n>``; any failure raises. The host event
@@ -526,6 +531,56 @@ def checkpoint_lda_checks(pg, st) -> None:
         shutil.rmtree(os.path.dirname(path), ignore_errors=True)
 
 
+def stream_checks(pg, st) -> None:
+    from harp_tpu_torch.io import datagen, loaders
+    from harp_tpu_torch.io import pipeline as pl
+    from harp_tpu_torch.models import kmeans as km
+
+    w = pg.num_workers
+    path = _shared_dir("stream")
+    if pg.workers.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        for i, n in enumerate((5 * w + 3, 2 * w, 7 * w + 1)):
+            np.savetxt(os.path.join(path, f"part-{i}"),
+                       datagen.dense_points(n, 6, seed=40 + i,
+                                            num_clusters=3),
+                       fmt="%.6f", delimiter=",")
+    pg.barrier()
+    paths = loaders.list_files(path)
+    head = loaders.load_dense_csv(paths[:1])
+    n_fit = pl.StreamLoader(paths).total_rows // w * w
+    for dtype in ("float32", "bfloat16"):
+        cfg = km.KMeansConfig(3, 6, iterations=2, compute_dtype=dtype)
+        fits = [km.KMeans(sess, cfg).fit_from_stream(
+            pl.DevicePrefetcher(pl.StreamLoader(paths, chunk_rows=2 * w),
+                                sess.replicate_put), head[:3], n_fit)
+            for sess in (pg, st)]
+        for a, b in zip(*fits):
+            _same(a, b, f"streamed K-means fit ({dtype})")
+    fits = [km.KMeans(sess, km.KMeansConfig(3, 6)).fit_stream_minibatch(
+        pl.DevicePrefetcher(pl.StreamLoader(paths, chunk_rows=2 * w),
+                            sess.scatter), head[:3]) for sess in (pg, st)]
+    for a, b in zip(*fits):
+        _same(torch.from_numpy(a), torch.from_numpy(b),
+              "minibatch streamed K-means fit")
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, 37, 300)
+    cols = rng.integers(0, 11, 300)
+    vals = rng.standard_normal(300).astype(np.float32)
+    got, ref = (pl.coo_to_csr_distributed(sess, rows, cols, vals,
+                                          chunk_bytes=200)
+                for sess in (pg, st))
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            _same(torch.from_numpy(a), torch.from_numpy(b),
+                  "distributed COO->CSR")
+    pg.barrier()
+    if pg.workers.rank == 0:
+        import shutil
+
+        shutil.rmtree(path, ignore_errors=True)
+
+
 def run(device=None) -> None:
     from harp_tpu_torch.parallel import distributed
     from harp_tpu_torch.session import HarpSession
@@ -545,6 +600,7 @@ def run(device=None) -> None:
     sgd_mf_checks(pg, st)
     quant_checks(pg, st)
     nn_solver_checks(pg, st)
+    stream_checks(pg, st)
     checkpoint_lda_checks(pg, st)
     pg.barrier()
     distributed.shutdown()

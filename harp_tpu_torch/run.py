@@ -9,6 +9,16 @@ and ``solver --kind {sgd, sgd_minibatch, sgd_momentum, adagrad, lbfgs}``.
 The run goes on CUDA unless ``--device cpu`` is given; without CUDA the
 default fails.
 
+``kmeans --stream --points-file DIR [--chunk-rows N]`` streams the
+part-files through the chunked ingestion pipeline (``io/pipeline.py``: the
+native parser on a reader pool, each chunk copied to the card on a side
+stream while the last is placed) into the fit, instead of loading them
+whole: the centroids are bitwise those of the in-memory fit. The first
+part-file alone seeds the centroids. File input (``--points-file``,
+``--ratings-file``, ``--corpus-file``) is a file, a directory of part-files
+or a glob, local or a ``scheme://`` URL (through fsspec where it is
+installed), parsed by ``io/loaders.py``.
+
 ``kmeans``, ``sgd_mf`` and ``lda`` take ``--save-every N`` with
 ``--work-dir``: checkpoints every N iterations or epochs under
 ``<work-dir>/ckpt`` (``utils/checkpoint.py``; a populated directory
@@ -39,10 +49,6 @@ import numpy as np
 
 from harp_tpu_torch.config import add_dataclass_args
 
-# flags of the JAX launcher whose paths are not ported yet
-NOT_PORTED = {"--stream": dict(action="store_true")}
-
-
 def _common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--num-workers", type=int, default=None,
                    help="workers of the group (reference: map tasks); default "
@@ -63,14 +69,11 @@ def _quant(value):
 
 def _load_points(spec: str) -> np.ndarray:
     """A CSV file, a directory of CSV part-files, or a glob (path order;
-    ``_``/``.``-prefixed part-files such as ``_README`` are skipped)."""
+    ``_``/``.``-prefixed part-files such as ``_README`` are skipped), parsed
+    by ``loaders.load_dense_csv`` (the native parser where it builds)."""
     from harp_tpu_torch.io import loaders
 
-    paths = loaders.list_files(spec)
-    if not paths:
-        raise FileNotFoundError(f"no input files match {spec!r}")
-    return np.concatenate([np.loadtxt(p, delimiter=",", dtype=np.float32,
-                                      ndmin=2) for p in paths])
+    return loaders.load_dense_csv(loaders.list_files(spec))
 
 
 def run_kmeans(argv) -> int:
@@ -91,15 +94,24 @@ def run_kmeans(argv) -> int:
     p.add_argument("--save-every", type=int, default=0,
                    help="checkpoint centroids every N iterations into "
                         "work-dir (resumes automatically)")
-    for flag, kw in NOT_PORTED.items():
-        p.add_argument(flag, **kw)
+    p.add_argument("--stream", action="store_true",
+                   help="stream --points-file through the chunked "
+                        "ingestion pipeline (harp_tpu_torch.io.pipeline) "
+                        "instead of loading it whole: bounded host memory, "
+                        "H2D overlapped with assembly, bitwise-identical "
+                        "centroids")
+    p.add_argument("--chunk-rows", type=int, default=65536,
+                   help="rows per streamed chunk (--stream)")
     add_dataclass_args(p, km.KMeansConfig)
     args = p.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag[2:].replace("-", "_")):
-            p.error(f"{flag} is not yet ported to harp_tpu_torch")
     if args.save_every and not args.work_dir:
         p.error("--save-every requires --work-dir (nowhere to checkpoint)")
+    if args.stream and not args.points_file:
+        p.error("--stream streams part-files: it requires --points-file")
+    if args.stream and args.save_every:
+        p.error("--stream runs the fit once over the assembled block: "
+                "checkpointing applies to the in-memory path (drop --stream "
+                "or --save-every)")
     args.quant = _quant(args.quant)
     cfg = km.KMeansConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(km.KMeansConfig)})
@@ -112,6 +124,8 @@ def run_kmeans(argv) -> int:
     sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
     if args.format == "csr":
         return _kmeans_csr(sess, cfg, args)
+    if args.stream:
+        return _kmeans_stream(p, sess, cfg, args)
     if args.points_file:
         pts = _load_points(args.points_file)
         cfg = dataclasses.replace(cfg, dim=pts.shape[1])
@@ -151,6 +165,54 @@ def run_kmeans(argv) -> int:
     else:
         print(f"kmeans[{cfg.comm}] workers={sess.num_workers}: fully "
               f"resumed from checkpoint, nothing left to run")
+    if args.work_dir:
+        os.makedirs(args.work_dir, exist_ok=True)
+        np.savetxt(os.path.join(args.work_dir, "centroids.csv"),
+                   cen.cpu().numpy(), delimiter=",")
+    return 0
+
+
+def _kmeans_stream(p, sess, cfg, args) -> int:
+    """``run kmeans --stream``: part-files -> StreamLoader (native parse on
+    the reader pool) -> DevicePrefetcher (H2D on a side stream) ->
+    ``KMeans.fit_from_stream``."""
+    from harp_tpu_torch.io import datagen, loaders
+    from harp_tpu_torch.io import pipeline as pl
+    from harp_tpu_torch.models import kmeans as km
+
+    paths = loaders.list_files(args.points_file)
+    if not paths:
+        p.error(f"no input files match {args.points_file!r}")
+    # the head part alone seeds the centroids: streaming exists so that the
+    # whole set never sits in host memory at once
+    head = loaders.load_dense_csv([paths[0]])
+    cfg = dataclasses.replace(cfg, dim=head.shape[1])
+    loader = pl.StreamLoader(paths, chunk_rows=args.chunk_rows)
+    total = loader.total_rows
+    if total is None:             # no native counter, or URLs
+        total = 0
+        for pth in paths:
+            opener = (loaders._fsspec_open(pth) if loaders._is_url(pth)
+                      else open(pth, "rb"))
+            with opener as f:
+                total += sum(1 for ln in f if ln.strip())
+    n_fit = total - total % sess.num_workers
+    if n_fit <= 0:
+        p.error(f"--stream input has {total} rows, fewer than the "
+                f"{sess.num_workers} workers need")
+    cen0 = datagen.initial_centroids(head, cfg.num_centroids,
+                                     seed=args.seed + 1)
+    model = km.KMeans(sess, cfg)
+    t0 = time.perf_counter()
+    cen, costs = model.fit_from_stream(
+        pl.DevicePrefetcher(loader, sess.replicate_put), cen0, n_fit)
+    costs = costs.cpu().numpy()
+    dt = time.perf_counter() - t0
+    print(f"kmeans[stream/{cfg.comm}] workers={sess.num_workers} "
+          f"n={n_fit} k={cfg.num_centroids} d={cfg.dim} "
+          f"chunk_rows={args.chunk_rows}: {cfg.iterations / dt:.2f} "
+          f"iters/s (incl stream+assembly), cost "
+          f"{costs[0]:.1f} -> {costs[-1]:.1f}")
     if args.work_dir:
         os.makedirs(args.work_dir, exist_ok=True)
         np.savetxt(os.path.join(args.work_dir, "centroids.csv"),

@@ -110,7 +110,12 @@ class HarpSession:
     def _put(self, array, dtype=None) -> torch.Tensor:
         if isinstance(array, np.ndarray):
             array = torch.from_numpy(np.ascontiguousarray(array))
-        return torch.as_tensor(array).to(device=self.device, dtype=dtype)
+        array = torch.as_tensor(array)
+        # from pinned host memory the copy is asynchronous on the current
+        # stream (io/pipeline.DevicePrefetcher waits for it); from pageable
+        # memory non_blocking changes nothing
+        return array.to(device=self.device, dtype=dtype,
+                        non_blocking=array.is_pinned())
 
     def scatter(self, array, axis: int = 0, dtype=None) -> torch.Tensor:
         """Place a host array on the device for sharding along ``axis`` (its

@@ -327,9 +327,11 @@ def test_cli_kmeans_on_cpu(capsys, tmp_path):
                       "--num-workers", "4", "--num-centroids", "2",
                       "--iterations", "2"]) == 0
     assert "n=40 k=2 d=3" in capsys.readouterr().out
+    # --stream is ported (tests/test_torch_pipeline.py holds it to the JAX
+    # CLI); it streams part-files, so it needs --points-file
     with pytest.raises(SystemExit):
         trun.main(["kmeans", "--device", "cpu", "--stream"])
-    assert "not yet ported" in capsys.readouterr().err
+    assert "requires --points-file" in capsys.readouterr().err
     # --save-every is ported (tests/test_torch_lda.py holds it to the JAX
     # CLI); without --work-dir there is nowhere to checkpoint
     with pytest.raises(SystemExit):
