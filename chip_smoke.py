@@ -149,6 +149,22 @@ main path must make no plain call on the card:
     (float32 and bf16), the distributed COO->CSR at W = 4 bitwise the host
     oracle, ``run kmeans --stream`` in this process, and in the 4-process
     gang a streamed fit bitwise the stacked one;
+  * telemetry on the host event plane (no new kernel: the E-step and the
+    dense-MF hop with its send on telemetry's paths): ``[telemetry]``, the
+    K-means flagship through ``fit_checkpointed`` (save_every = 2) with
+    telemetry off and on, bitwise, with the same launches and the same
+    synchronizing calls (``torch.cuda.set_sync_debug_mode("warn")``), an
+    event an iteration with the fit's cost and the port's price row times
+    ``comm_scale``; a 2-boundary profiler window opened by the trigger
+    file, whose trace names the E-step kernel; the exporter's ``/metrics``
+    with the run's comm gauges; ``run kmeans --telemetry-dir`` on the card.
+    In ``[ckpt]`` the uninterrupted fused W=4 SGD-MF fit runs with
+    telemetry on (an event an epoch with its RMSE); in the 4-process gang a
+    collective event from rank 0 reaches every rank,
+    ``send_event(dest=...)`` raises until the P2P transport is ported, the
+    straggler report from scripted step walls flags rank 1 only, and an
+    events-triggered profiler window leaves a trace under each rank's
+    directory;
   * dispatch: the plain-call counts of every main path (all 0); one call
     where the JAX package takes XLA (K-means on float16 points; attention
     at L=4096): no launch, one plain call, the plain version's answer; and
@@ -399,6 +415,12 @@ INGEST_CLI = dict(parts=3, rows=4000, d=16, k=8, chunk_rows=1500,
                   iterations=3)
 INGEST_MP = dict(parts=4, rows=16_384, d=32, k=16, chunk_rows=8192,
                  iterations=3, seed=61)
+# [telemetry]: the K-means flagship (W = 1, regroupallgather, 10
+# iterations) through fit_checkpointed at save_every = 2, telemetry off and
+# on; a 2-boundary profiler window opened by the trigger file; `run kmeans
+# --telemetry-dir` at 65,536 points of the flagship's width, 4 iterations
+TELEMETRY = dict(FLAGSHIP, save_every=2, seed=71, window=2, cli_n=65_536,
+                 cli_iterations=4)
 # the card's name and power limit (nvidia-smi), printed beside every number
 # of the statistics phases
 CARD_NAME = ""
@@ -3930,6 +3952,13 @@ def mp_child() -> int:
     # the streamed fit of [ingest]: part-files of this process through the
     # reader pool and the H2D prefetch into fit_from_stream
     out["stream"] = stream_fit_digest(sess)
+    # the host event plane and telemetry across the gang (four profiler
+    # windows on one card at once)
+    from harp_tpu_torch.parallel import mp_smoke
+
+    t0 = time.perf_counter()
+    out["events"] = mp_smoke.event_telemetry_checks(sess)
+    out["events"]["seconds"] = time.perf_counter() - t0
     distributed.shutdown()
     print("MP_CHILD " + json.dumps(out), flush=True)
     return 0
@@ -4108,6 +4137,15 @@ def ringdma_mp(stacked_mf, stacked_km, stacked_ring, stacked_kmw,
           f"streamed K-means (fit_from_stream through DevicePrefetcher), 4 "
           f"processes x 1 worker, {m['parts']} parts x {m['rows']} rows: "
           f"centroids and costs bitwise the stacked W={RING_W} fit")
+    ev = [o["events"] for o in outs.values()]
+    check(all(e["suspects"] == [1] and e["bsp_suspects"] == []
+              and e["trace_bytes"] > 0 for e in ev),
+          f"the event plane across {RING_W} processes: a collective event "
+          f"from rank 0 on every rank, send_event(dest=...) refused, the "
+          f"straggler report from scripted walls flags rank 1 only (rank 0 "
+          f"wrote it), a profiler trace under every rank's directory "
+          f"({[e['trace_bytes'] for e in ev]} B; "
+          f"{[round(e['seconds'], 2) for e in ev]} s)")
     check(all(o["quant_ar"] == stacked_new["quant_ar"]
               for o in outs.values()),
           f"int8 allreduce with residual, 4 processes x 1 worker: result "
@@ -5304,7 +5342,22 @@ def ckpt_mf_phase(root):
                 (time.perf_counter() - t0) * 1e3)
 
     sess = HarpSession(num_workers=RING_W)
-    (w_a, h_a, r_a, s_a), _, _, ck_a, _ = fit(sess, f"{root}/mf_a", hi)
+    # the uninterrupted fit runs with telemetry on: the bitwise check of
+    # the resumed fit below (telemetry off) covers the on/off pair
+    from harp_tpu_torch import telemetry
+
+    tlog = telemetry.configure(f"{root}/tele_mf", interval=2)
+    try:
+        (w_a, h_a, r_a, s_a), _, _, ck_a, _ = fit(sess, f"{root}/mf_a", hi)
+    finally:
+        telemetry.disable()
+    events = read_jsonl(tlog.path)
+    check([e["step"] for e in events] == list(range(hi))
+          and [e["loss"] for e in events] == np.asarray(r_a).tolist()
+          and all(e["model"] == "sgd_mf"
+                  and e["wire_pricing"] == "traced_shape" for e in events),
+          f"the uninterrupted fit with telemetry on: {len(events)} step "
+          f"events, one an epoch, each with the RMSE the fit returned")
     fit(sess, f"{root}/mf_b", lo)
     (w_b, h_b, r_b, s_b), launches, plain, ck_b, _ = fit(
         sess, f"{root}/mf_b", hi)
@@ -6023,6 +6076,192 @@ def ingest_phase():
 # kernel's predicate
 # --------------------------------------------------------------------------- #
 
+def synced_fit(model, pts, cen0, path, save_every):
+    """``KMeans.fit_checkpointed`` with the launch and plain-call counts
+    and the synchronizing calls it made (``torch.cuda.set_sync_debug_mode
+    ("warn")``, counted from the recorded warnings)."""
+    import warnings
+
+    from harp_tpu_torch.utils.checkpoint import Checkpointer
+
+    ck = Checkpointer(path)
+    torch.cuda.synchronize()
+    zero_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            cen, costs, _ = model.fit_checkpointed(pts, cen0, ck,
+                                                   save_every=save_every)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return {"cen": cen, "costs": costs, "launches": read_counts(),
+            "plain": plain_counts(),
+            "syncs": sum("synchroniz" in str(w.message) for w in caught)}
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f.read().strip().splitlines()]
+
+
+def telemetry_phase():
+    """[telemetry]: the K-means flagship through ``fit_checkpointed`` with
+    telemetry off and on (bitwise, the same launches and synchronizing
+    calls, an event an iteration priced at the port's row times
+    ``comm_scale``), a profiler window opened by the trigger file (its
+    trace names the E-step kernel), the exporter's gauges, and ``run
+    kmeans --telemetry-dir``."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from harp_tpu_torch import HarpSession, telemetry
+    from harp_tpu_torch import run as trun
+    from harp_tpu_torch.models import kmeans as km
+    from harp_tpu_torch.telemetry import comm_ledger
+    from harp_tpu_torch.telemetry.exporter import MetricsExporter
+    from harp_tpu_torch.telemetry.xprof import XprofController
+    from harp_tpu_torch.utils.metrics import Metrics
+
+    c = TELEMETRY
+    t_phase = time.perf_counter()
+    log(f"[telemetry] K-means flagship n={c['n']}, k={c['k']}, d={c['d']}, "
+        f"W=1, {c['iterations']} iterations, save_every={c['save_every']}: "
+        f"telemetry off and on, a {c['window']}-boundary profiler window, "
+        f"the exporter, run kmeans --telemetry-dir [{CARD_NAME}]")
+    root = tempfile.mkdtemp(prefix="harp_tele_")
+    try:
+        pts, cen0 = card_points(c["n"], c["d"], c["k"], c["seed"])
+        sess = HarpSession(num_workers=1)
+        model = km.KMeans(sess, km.KMeansConfig(c["k"], c["d"],
+                                                c["iterations"]))
+        p, c0 = model.prepare(pts, cen0)
+        del pts
+
+        def fit(name):
+            return synced_fit(model, p, c0, f"{root}/ck_{name}",
+                              c["save_every"])
+
+        t0 = time.perf_counter()
+        fit("warm")
+        off = fit("off")
+        m = Metrics()
+        tlog = telemetry.configure(f"{root}/on", interval=2, metrics=m)
+        on = fit("on")
+        telemetry.disable()
+        check(torch.equal(on["cen"], off["cen"])
+              and np.array_equal(on["costs"], off["costs"]),
+              "telemetry on: centroids and costs bitwise the fit with it "
+              "off")
+        check(on["launches"] == off["launches"]
+              and off["launches"]["kmeans_stats"] == c["iterations"],
+              f"telemetry on: the same launches as off "
+              f"({off['launches']['kmeans_stats']} kmeans_stats)")
+        check_no_plain("[telemetry] off", off["plain"])
+        check_no_plain("[telemetry] on", on["plain"])
+        check(on["syncs"] == off["syncs"] > 0,
+              f"telemetry on: the same synchronizing calls as off "
+              f"({on['syncs']} and {off['syncs']}, counted from the sync "
+              f"debug mode's warnings)")
+        events = read_jsonl(tlog.path)
+        row = comm_ledger.CommLedger("kmeans_regroupallgather")
+        wire = row.bytes_per_step * model.comm_scale()
+        check(len(events) == c["iterations"]
+              and [e["step"] for e in events] == list(range(c["iterations"]))
+              and [e["loss"] for e in events] == off["costs"].tolist()
+              and all(e["wire_bytes_per_step"] == wire
+                      and e["wire_pricing"] == "traced_shape"
+                      and e["model"] == "kmeans" for e in events),
+              f"{c['iterations']} step events: the fit's costs, "
+              f"{wire:.0f} wire bytes a step (the row's "
+              f"{row.bytes_per_step:.0f} x comm_scale "
+              f"{model.comm_scale():.6g}), traced_shape pricing at W=1")
+        check(m.timing("telemetry.phase.kmeans.checkpoint")["count"]
+              == c["iterations"] // c["save_every"],
+              "one checkpoint phase timing a chunk")
+        with MetricsExporter(m, port=0) as ex:
+            with urllib.request.urlopen(
+                    f"http://{ex.host}:{ex.port}/metrics", timeout=10) as r:
+                text = r.read().decode()
+        gauges = {ln.split()[0]: float(ln.split()[1])
+                  for ln in text.splitlines()
+                  if ln.startswith("harp_comm_kmeans_regroupallgather_")}
+        want = {f"harp_comm_kmeans_regroupallgather_{g}" for g in (
+            "pricing_exact", "wire_bytes_per_step", "cumulative_gb",
+            "busbw_gbps")}
+        cum = gauges.get("harp_comm_kmeans_regroupallgather_cumulative_gb")
+        check(set(gauges) == want and cum is not None
+              and abs(cum - wire * c["iterations"] / 1e9)
+              <= 1e-5 * cum,
+              f"the exporter serves /metrics with the run's comm gauges "
+              f"({gauges})")
+
+        t_fits = time.perf_counter() - t0
+        # the operator's trigger file, written after the controller starts
+        t0 = time.perf_counter()
+        tdir = f"{root}/window"
+        wlog = telemetry.configure(tdir, interval=2, metrics=Metrics())
+        ctrl = XprofController(sess, rank=0,
+                               trigger_path=f"{tdir}/xprof_request.json",
+                               default_dir=f"{tdir}/xprof")
+        wlog.add_boundary_hook(ctrl)
+        with open(f"{tdir}/xprof_request.json", "w") as f:
+            json.dump({"steps": c["window"]}, f)
+        win = fit("window")
+        telemetry.disable()
+        with open(ctrl.trace_path) as f:
+            trace = json.load(f)
+        kernels = sorted({e.get("name", "") for e in trace["traceEvents"]
+                          if e.get("cat") == "kernel"})
+        estep = [k for k in kernels if "kmeans_stats_kernel" in k]
+        check(not ctrl.tracing and bool(estep)
+              and torch.equal(win["cen"], off["cen"]),
+              f"the trigger file opened a {c['window']}-boundary window: "
+              f"its trace ({os.path.getsize(ctrl.trace_path)} B, "
+              f"{len(kernels)} kernel names) names the E-step "
+              f"({estep[:1]}); the fit bitwise the one without")
+        log(f"  synchronizing calls: off {off['syncs']}, on {on['syncs']}, "
+            f"with the profiler window {win['syncs']}")
+        t_window = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        zero_counts()
+        cli_root = f"{root}/cli"
+        argv = ["kmeans", "--num-points", str(c["cli_n"]), "--num-centroids",
+                str(c["k"]), "--dim", str(c["d"]), "--iterations",
+                str(c["cli_iterations"]), "--save-every",
+                str(c["save_every"]), "--work-dir", f"{cli_root}/work",
+                "--telemetry-dir", f"{cli_root}/tele"]
+        rc = trun.main(argv)
+        telemetry.disable()
+        cli_launches, cli_plain = read_counts(), plain_counts()
+        cli = read_jsonl(f"{cli_root}/tele/rank0/steps.jsonl")
+        check(rc == 0 and len(cli) == c["cli_iterations"]
+              and all(e["model"] == "kmeans" and np.isfinite(e["loss"])
+                      for e in cli)
+              and cli_launches["kmeans_stats"] == c["cli_iterations"],
+              f"run kmeans --telemetry-dir on the card: "
+              f"{len(cli)} events in rank0/steps.jsonl, "
+              f"{cli_launches['kmeans_stats']} kmeans_stats launches")
+        check_no_plain("[telemetry] run kmeans", cli_plain)
+        t_cli = time.perf_counter() - t0
+    finally:
+        telemetry.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"  [telemetry] {seconds:.2f} s: three fits (warm, off, on) and "
+        f"the exporter {t_fits:.2f} s, the profiler window's fit "
+        f"{t_window:.2f} s, run kmeans {t_cli:.2f} s [{CARD_NAME}]")
+    return {"seconds": seconds, "fits_s": t_fits, "window_s": t_window,
+            "cli_s": t_cli, "launches": on["launches"]["kmeans_stats"],
+            "cli_launches": cli_launches["kmeans_stats"],
+            "window_launches": win["launches"]["kmeans_stats"],
+            "syncs": {"off": off["syncs"], "on": on["syncs"],
+                      "window": win["syncs"]},
+            "wire_bytes_per_step": wire}
+
+
 def dispatch_phase():
     """[dispatch]: the plain_on_card counts read after every main path (all
     0); one call on the card where the JAX package takes XLA (K-means on
@@ -6227,6 +6466,8 @@ def main() -> int:
     ing = ingest_phase()
     new["mp"]["stream"] = ing["mp"]["digest"]
     torch.cuda.empty_cache()
+    tele = telemetry_phase()
+    torch.cuda.empty_cache()
     mf["ckpt_resume_launches"] = cl["ckpt_mf"]["launches"]["dense_mf_hop"]
     mf["ckpt_resume_path"] = (
         f"[ckpt]: the flagship at W={RING_W} stacked, 1 slice, fused, "
@@ -6292,7 +6533,8 @@ def main() -> int:
     # the reshard and LDA's W=1 rates run no kernel of their own: beside
     # the kernels, not under one
     print(json.dumps({"kernels": kernels, "reshard": cl["reshard"],
-                      "lda": cl["lda"], "ingest": ing["row"]}))
+                      "lda": cl["lda"], "ingest": ing["row"],
+                      "telemetry": tele}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 the prefetched stream against its serialized twin, and the end-to-end
 stream->fit wall at a ~1 GB part-file set.
 
-Port of ``harp_tpu/benchmark/ingest.py`` (its row keys, without the
-telemetry flush). Twin discipline: both sides run the SAME per-chunk work
+Port of ``harp_tpu/benchmark/ingest.py`` (its row keys; the end-to-end
+run's stage timers go to the telemetry step log through
+``pipeline.flush_stage_timings`` when telemetry is on). Twin discipline: both sides run the SAME per-chunk work
 (parse -> fixed-budget slice -> H2D placement -> one minibatch step of
 ``KMeans.fit_stream_minibatch``). The serialized twin
 (``StreamLoader(serial=True)``, ``DevicePrefetcher(enabled=False)``) does it
@@ -155,6 +156,7 @@ def bench_ingest(total_mb: int = 1024, d: int = 128, k: int = 64,
             cen0, n_fit, metrics=e2e_reg)
         costs.cpu()
         t_e2e = time.perf_counter() - t0
+        pl.flush_stage_timings(e2e_reg, extra={"bench": "ingest"})
 
         # -- distributed COO->CSR: the device regroup on bounded rounds,
         # then the native counting sort per worker --

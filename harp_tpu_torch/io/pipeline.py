@@ -1,7 +1,6 @@
 """Streaming ingestion: a chunked part-file stream with H2D prefetch.
 
-Port of ``harp_tpu/io/pipeline.py`` (without ``flush_stage_timings``, which
-belongs to the telemetry layer, not ported yet). :mod:`loaders` materializes
+Port of ``harp_tpu/io/pipeline.py``. :mod:`loaders` materializes
 every byte before the first device op runs; this module turns a part-file
 set into a BOUNDED chunk stream instead:
 
@@ -23,7 +22,9 @@ set into a BOUNDED chunk stream instead:
   ``loaders.regroup_coo_by_row`` for multi-worker loads.
 
 Every stage runs under a :class:`utils.metrics.Metrics` timer named in
-:data:`STAGES`; ``benchmark/ingest.py`` reads them into its stage table.
+:data:`STAGES`; ``benchmark/ingest.py`` reads them into its stage table, and
+:func:`flush_stage_timings` writes them to the telemetry step log as
+``kind: "timing"`` events.
 """
 
 from __future__ import annotations
@@ -45,6 +46,17 @@ from harp_tpu_torch.utils.metrics import Metrics
 #: iterates them).
 STAGES = ("ingest.list", "ingest.count", "ingest.read", "ingest.parse",
           "ingest.chunk", "ingest.regroup", "ingest.h2d", "ingest.compute")
+
+
+def flush_stage_timings(metrics: Metrics, extra: Optional[dict] = None
+                        ) -> None:
+    """Emit one ``kind: "timing"`` telemetry event per ingestion stage that
+    recorded samples (a no-op when telemetry is off)."""
+    from harp_tpu_torch import telemetry
+
+    for stage in STAGES:
+        if metrics.timing(stage).get("count"):
+            telemetry.record_timing(stage, metrics=metrics, extra=extra)
 
 
 @dataclasses.dataclass

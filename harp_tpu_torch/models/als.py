@@ -41,18 +41,21 @@ device, rank <= 64, ``HARP_ALS_PALLAS`` not "0") and "cholesky" otherwise.
 
 The JAX package runs all iterations as one compiled scan; here an iteration
 is a Python loop over eager tensor ops, and the per-iteration RMSEs are
-fetched once at the end of a fit. Not ported yet: the telemetry events of
-``train_prepared``.
+fetched once at the end of a fit; with telemetry on
+(``harp_tpu_torch.telemetry``) ``train_prepared`` records one step event an
+iteration at that fetch (an explicit fit with its priced comm row).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from harp_tpu_torch import telemetry
 from harp_tpu_torch.collectives import lax_ops
 from harp_tpu_torch.models.sgd_mf import (_validate_coo, dedupe_coo,
                                           identity_assign, serpentine_assign)
@@ -487,8 +490,18 @@ class ALS:
         v_dev, rmse ndarray): the RMSE fetch waits for the device (the
         timing surface; the factors' copy to the host is a one-time cost)."""
         key, placed, _, _ = state
+        t0 = time.perf_counter()
         u, v, rmse = self._fns[key](*placed)
-        return u, v, fetch(rmse)
+        rmse = fetch(rmse)
+        # telemetry at the RMSE fetch that is here anyway (an event an
+        # iteration); the price table has the explicit path only, so an
+        # implicit fit gets no comm row
+        telemetry.record_chunk(
+            "als", start=0, losses=rmse.tolist(),
+            wall_s=time.perf_counter() - t0,
+            ledger=(telemetry.ledger_for("als")
+                    if not self.config.implicit else None))
+        return u, v, rmse
 
     def fit_prepared(self, state
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

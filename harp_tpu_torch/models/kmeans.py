@@ -56,11 +56,13 @@ any chunk iterable, e.g. a ``DevicePrefetcher`` over a ``StreamLoader``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from harp_tpu_torch import telemetry
 from harp_tpu_torch.collectives import lax_ops, quantize, rotation, table_ops
 from harp_tpu_torch.ops import distance, lane_pack, pallas_kernels
 from harp_tpu_torch.ops.precision import full_f32_matmul
@@ -70,6 +72,9 @@ from harp_tpu_torch.table import Table, round_up
 COMM_VARIANTS = ("regroupallgather", "allreduce", "pushpull", "bcastreduce",
                  "rotation")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the worker count of the JAX package's traced price rows
+# (telemetry/collective_budget.json): comm pricing is exact only there
+TRACE_WORKERS = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +119,32 @@ class KMeans:
             self._fit_fn, in_specs=(session.shard(), session.replicate()),
             out_specs=(session.replicate(), session.replicate()))
         self._mb_steps = {}
+
+    def comm_scale(self) -> float:
+        """Ratio of this model's stat-table elements to the price table's
+        traced shape (k=8, d=16, w=8, lane_pad default): every K-means
+        collective moves slices of the (k_pad, d_pad+1) f32 table, so the
+        row's ``bytes_per_step`` times this ratio prices the job's steps
+        (the few-byte cost allreduce rides unscaled). EXACT only at
+        ``num_workers == TRACE_WORKERS``: the sharded variants' operands
+        also depend on w; ``fit_checkpointed`` passes ``exact=``
+        accordingly. Consumed by ``telemetry.comm_ledger``.
+
+        The table's elements are the JAX package's, not the port's: with
+        ``lane_pad`` K pads to a multiple of lcm(128, W) and D to 128, and
+        without it K pads to W. The port pads only K, to W (``_k_pad``), so
+        the ratio uses its own copy of the JAX padding
+        (``lane_pack.lane_target``, ``lane_pack.round_up``) to price the
+        same steps as the JAX package."""
+        cfg, w = self.config, self.session.num_workers
+        if cfg.lane_pad:
+            k_pad = lane_pack.lane_target(cfg.num_centroids, divisor=w)
+            d_pad = lane_pack.round_up(cfg.dim, lane_pack.LANES)
+        else:
+            k_pad, d_pad = round_up(cfg.num_centroids, w), cfg.dim
+        ref_k = lane_pack.lane_target(8, divisor=TRACE_WORKERS)
+        ref_d = lane_pack.round_up(16, lane_pack.LANES)
+        return (k_pad * (d_pad + 1)) / (ref_k * (ref_d + 1))
 
     def _fit_fn(self, points: torch.Tensor, centroids0: torch.Tensor):
         """points: (W, N/W, D) stacked; centroids0: (K, D) replicated."""
@@ -359,6 +390,13 @@ class KMeans:
                                              dtype=torch.float32)
         chunk_fits = {}
         costs = []
+        # telemetry: step events and priced comm volume at the chunk
+        # boundaries, from the cost fetch that is here anyway (None when
+        # off); exact pricing only at the table's traced worker count
+        ledger = telemetry.ledger_for(
+            "kmeans", comm=self.config.comm, quant=self.config.quant,
+            scale=self.comm_scale(),
+            exact=self.session.num_workers == TRACE_WORKERS)
         it = start
         while it < total:
             chunk = min(save_every, total - it)
@@ -366,13 +404,20 @@ class KMeans:
                 chunk_fits[chunk] = KMeans(
                     self.session,
                     dataclasses.replace(self.config, iterations=chunk))._fit
+            t0 = time.perf_counter()
             cen, cost = chunk_fits[chunk](pts, cen)
-            costs.extend(cost.cpu().numpy().tolist())
+            chunk_costs = cost.cpu().numpy().tolist()
+            wall = time.perf_counter() - t0
+            costs.extend(chunk_costs)
+            telemetry.record_chunk("kmeans", start=it, losses=chunk_costs,
+                                   wall_s=wall, ledger=ledger,
+                                   extra={"comm": self.config.comm})
             it += chunk
-            save_state = {"centroids": cen}
-            checkpointer.save(it, save_state, meta=ckpt_lib.state_meta(
-                save_state, model="kmeans",
-                world=self.session.num_workers))
+            with telemetry.phase("kmeans.checkpoint"):
+                save_state = {"centroids": cen}
+                checkpointer.save(it, save_state, meta=ckpt_lib.state_meta(
+                    save_state, model="kmeans",
+                    world=self.session.num_workers))
         if hasattr(checkpointer, "wait"):
             checkpointer.wait()       # surface a failed async final write
         return cen, np.asarray(costs, np.float32), start

@@ -47,19 +47,23 @@ bitwise as the stacked group at the same W. :meth:`LDA.fit_checkpointed`
 saves the chain state every ``save_every`` epochs and resumes, also at
 another world size (``LDAConfig.reshard``: the token assignments and the
 word-topic rows move on the device by ``collectives/reshard.py``, or
-through the numpy oracle). The ``faults.fire`` hook and the ``telemetry``
-events of the JAX package's fits wait for those modules' ports.
+through the numpy oracle). With telemetry on (``harp_tpu_torch.telemetry``)
+both fits record one step event an epoch, with its log-likelihood, at the
+fetch they make anyway. The ``faults.fire`` hook waits for its module's
+port (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from harp_tpu_torch import telemetry
 from harp_tpu_torch.collectives import lax_ops, quantize, rotation
 from harp_tpu_torch.ops import lane_pack, threefry
 from harp_tpu_torch.ops.precision import full_f32_matmul
@@ -617,8 +621,17 @@ class LDA:
         word_topic (V, K), log-likelihood per epoch), numpy."""
         key, data, seed, (word_block, word_slot, vpb) = state
         group = self.session.workers
+        t0 = time.perf_counter()
         doc_topic, wt_out, _, ll = self._fns[key](*data, seed)
         ll = fetch(ll)
+        # telemetry at the ll fetch that is here anyway (an event an epoch,
+        # the wall amortized over the epochs)
+        telemetry.record_chunk(
+            "lda", start=0, losses=ll.tolist(),
+            wall_s=time.perf_counter() - t0,
+            ledger=telemetry.ledger_for(
+                "lda", quant=self.config.quant,
+                sub_block=bool(self.config.vocab_sub_block)))
         wt_out = fetch(wt_out, group)
         wt_final = wt_out[self._out_rows(key[0], word_block, word_slot, vpb)]
         return fetch(doc_topic, group), wt_final, ll
@@ -694,6 +707,9 @@ class LDA:
         chunk_fns = {}
         lls = []
         doc_topic = None
+        # telemetry: step events at the chunk boundaries' ll fetch
+        ledger = telemetry.ledger_for(
+            "lda", quant=cfg.quant, sub_block=bool(cfg.vocab_sub_block))
         ep = start
         while ep < total:
             chunk = min(save_every - ep % save_every, total - ep)
@@ -701,16 +717,22 @@ class LDA:
                 sub = LDA(sess, dataclasses.replace(cfg, epochs=chunk))
                 chunk_fns[chunk] = sub._build(w, v_pad, lb, num_docs // w,
                                               lbs)
+            t0 = time.perf_counter()
             doc_topic, wt_cur, z_cur, ll = chunk_fns[chunk](
                 docs_b, mask_b, z_cur, wt_cur, int(seed) + ep)
-            lls.extend(fetch(ll).tolist())
+            chunk_lls = fetch(ll).tolist()
+            wall = time.perf_counter() - t0
+            lls.extend(chunk_lls)
+            telemetry.record_chunk("lda", start=ep, losses=chunk_lls,
+                                   wall_s=wall, ledger=ledger)
             ep += chunk
-            save_state = {"z": fetch(z_cur, group),
-                          "wt": fetch(wt_cur, group), **layout_leaves}
-            checkpointer.save(ep, save_state, meta=ckpt_lib.state_meta(
-                save_state, model="lda", world=w,
-                num_model_slices=cfg.num_model_slices, vpb=vpb,
-                vocab=cfg.vocab, method=cfg.method))
+            with telemetry.phase("lda.checkpoint"):
+                save_state = {"z": fetch(z_cur, group),
+                              "wt": fetch(wt_cur, group), **layout_leaves}
+                checkpointer.save(ep, save_state, meta=ckpt_lib.state_meta(
+                    save_state, model="lda", world=w,
+                    num_model_slices=cfg.num_model_slices, vpb=vpb,
+                    vocab=cfg.vocab, method=cfg.method))
         if hasattr(checkpointer, "wait"):
             checkpointer.wait()       # surface a failed async final write
         wt_out = fetch(wt_cur, group)

@@ -26,19 +26,22 @@ tensors until the fit returns. The GEMMs run in float32 with TF32 off
 ``ablate_allreduce=True`` drops the gradient and loss allreduce (a timing
 ablation: under W > 1 the rows diverge and the result is wrong); the fit
 then returns worker 0's parameters and losses, which is what the JAX
-package's replicated out-spec hands back. The JAX fit's
-``telemetry.record_chunk`` event waits for the port's telemetry.
+package's replicated out-spec hands back. With telemetry on
+(``harp_tpu_torch.telemetry``) a fit records one step event an epoch at the
+fetch of its losses.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from harp_tpu_torch import combiner as combiner_lib
+from harp_tpu_torch import telemetry
 from harp_tpu_torch.collectives import lax_ops
 from harp_tpu_torch.ops.precision import full_f32_matmul
 from harp_tpu_torch.session import HarpSession
@@ -186,9 +189,16 @@ class MLPClassifier:
                 lambda a, t, p: _train(a, t, p, cfg),
                 in_specs=(sess.shard(), sess.shard(), sess.replicate()),
                 out_specs=(sess.replicate(), sess.replicate()))
+        t0 = time.perf_counter()
         params, losses = self._fn(x, y, params0)
         self.params = params
-        return losses.cpu().numpy()
+        losses = losses.cpu().numpy()
+        # telemetry at the loss fetch that is here anyway (an event an
+        # epoch, the wall amortized over the epochs)
+        telemetry.record_chunk("nn", start=0, losses=losses.tolist(),
+                               wall_s=time.perf_counter() - t0,
+                               ledger=telemetry.ledger_for("nn"))
+        return losses
 
     def predict(self, x) -> np.ndarray:
         """Class of each row of ``x`` (N, D): int32, on the host."""

@@ -69,8 +69,10 @@ schedule), ``"host"`` (the numpy oracle, ``collectives/repartition.py``) or
 ``"auto"`` (device on more than one worker, else host), in rounds of at
 most ``reshard_chunk_bytes`` (0: 1 MiB) a worker.
 
-Not ported yet: the ``faults.fire`` hook and the telemetry events of
-``train_prepared`` and ``fit_checkpointed`` (queue items of their own).
+With telemetry on (``harp_tpu_torch.telemetry``) ``train_prepared`` and
+``fit_checkpointed`` record one step event an epoch, with its RMSE, at the
+RMSE fetch they make anyway. Not ported yet: the ``faults.fire`` hook of
+``fit_checkpointed`` (ROADMAP.md queue 1 item 5).
 The TPU kernel's lane tiling (``col_tile``, ``lane_pack.LANES``) is
 dropped: the CUDA kernel picks its own column tile.
 """
@@ -84,6 +86,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from harp_tpu_torch import telemetry
 from harp_tpu_torch.collectives import lax_ops, quantize, rotation
 from harp_tpu_torch.ops import pallas_kernels, ring_dma
 from harp_tpu_torch.parallel.mesh import fetch
@@ -589,8 +592,16 @@ class SGDMF:
         layout, data, w0, h0, meta = state
         key = self._program(layout, self.config.minibatches_per_hop,
                             self.config.epochs, meta[6])
+        t0 = time.perf_counter()
         out_w, out_h, rmse = self._compiled[key](*data, w0, h0)
-        return out_w, out_h, fetch(rmse)
+        rmse = fetch(rmse)
+        # telemetry at the fetch that is here anyway: one event an epoch,
+        # the wall amortized over the epochs
+        telemetry.record_chunk(
+            "sgd_mf", start=0, losses=rmse.tolist(),
+            wall_s=time.perf_counter() - t0,
+            ledger=telemetry.ledger_for("sgd_mf", quant=self.config.quant))
+        return out_w, out_h, rmse
 
     def fit_prepared(self, state) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Run training on already-placed device data (no host prep)."""
@@ -707,18 +718,27 @@ class SGDMF:
         key = self._program(layout, nmb, 1, geom)
         fn = self._compiled[key]
         rmses = []
+        # telemetry: an event an epoch at the RMSE fetch that is here anyway
+        ledger = telemetry.ledger_for("sgd_mf", quant=self.config.quant)
         for epoch in range(start, epochs):
+            t0 = time.perf_counter()
             w_cur, h_cur, r = fn(*data, w_cur, h_cur)
-            rmses.append(float(fetch(r)[0]))
+            rmse_e = float(fetch(r)[0])
+            wall = time.perf_counter() - t0
+            rmses.append(rmse_e)
+            telemetry.record_chunk("sgd_mf", start=epoch, losses=[rmse_e],
+                                   wall_s=wall, ledger=ledger)
             if (epoch + 1) % save_every == 0 or epoch + 1 == epochs:
-                save_state = {"w": fetch(w_cur, group),
-                              "h": fetch(h_cur, group), **assign_leaves}
-                checkpointer.save(
-                    epoch + 1, save_state,
-                    meta=ckpt_lib.state_meta(
-                        save_state, model="sgd_mf", world=world,
-                        num_rows=num_rows, num_cols=num_cols,
-                        num_slices=self.config.num_slices, layout=layout))
+                with telemetry.phase("sgd_mf.checkpoint"):
+                    save_state = {"w": fetch(w_cur, group),
+                                  "h": fetch(h_cur, group), **assign_leaves}
+                    checkpointer.save(
+                        epoch + 1, save_state,
+                        meta=ckpt_lib.state_meta(
+                            save_state, model="sgd_mf", world=world,
+                            num_rows=num_rows, num_cols=num_cols,
+                            num_slices=self.config.num_slices,
+                            layout=layout))
         if hasattr(checkpointer, "wait"):
             checkpointer.wait()     # surface a failed async final write
         w_final, h_final = self._finalize(w_cur, h_cur, meta)

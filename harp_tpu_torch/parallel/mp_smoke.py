@@ -52,10 +52,16 @@ process boundary:
   ``KMeans.fit_from_stream`` (float32 and bf16) and
   ``fit_stream_minibatch``, and the device COO regroup behind
   ``coo_to_csr_distributed``, bitwise the stacked group's;
+* the host event plane (``parallel/events.py``, the session's events):
+  collective events and the transportless message across processes, and
+  ``send_event(dest=...)`` refused until the P2P transport is ported; then
+  telemetry over it: the gang's snapshot exchange, the straggler report
+  from scripted step walls (rank 1 flagged), the ``GangCollector`` and an
+  events-triggered profiler window a rank;
 * ``HarpSession.barrier`` and a clean ``distributed.shutdown``.
 
-It prints ``MP_SMOKE OK p<i>/<n>``; any failure raises. The host event
-control plane and the P2P transport of the JAX routine are not ported yet.
+It prints ``MP_SMOKE OK p<i>/<n>``; any failure raises. The P2P transport
+of the JAX routine is not ported yet.
 The device is CUDA unless ``--device cpu`` is given.
 """
 
@@ -581,6 +587,111 @@ def stream_checks(pg, st) -> None:
         shutil.rmtree(path, ignore_errors=True)
 
 
+def event_telemetry_checks(pg, st=None) -> dict:
+    """The host event plane and telemetry across the gang: collective events
+    (rank 0's payload, then the last rank's) reach every process; the
+    transportless ``send_message`` reaches only its dest; a point-to-point
+    ``send_event`` raises until the P2P transport is ported; the metric
+    snapshots of every rank are exchanged and the straggler report, from
+    scripted step walls (60 ms on rank 1, 1 ms elsewhere), flags exactly
+    rank 1, by ``publish_straggler_report`` and by a ``GangCollector`` at
+    its boundary, and process 0 writes it; a ``request_xprof`` window leaves
+    a trace under each rank's directory. Returns a record of what ran."""
+    from harp_tpu_torch import telemetry
+    from harp_tpu_torch.parallel import distributed
+    from harp_tpu_torch.parallel import events as ev
+    from harp_tpu_torch.telemetry import gang, xprof
+    from harp_tpu_torch.utils.metrics import Metrics
+
+    nproc, rank = distributed.process_count(), distributed.process_index()
+    pg.send_event({"from": rank, "hello": "gang"})
+    e = pg.get_event()
+    _check(e is not None and e.type is ev.EventType.COLLECTIVE
+           and e.source == 0 and e.payload == {"from": 0, "hello": "gang"},
+           f"a collective event from rank 0 reaches rank {rank} ({e})")
+    last = nproc - 1
+    pg.send_event(("x", rank, list(range(rank + 3))), source=last)
+    e = pg.get_event()
+    _check(e is not None and e.source == last
+           and e.payload == ("x", last, list(range(last + 3))),
+           f"a collective event from rank {last} reaches rank {rank}")
+    pg.open_events()[1].send_message(1, ("msg", rank), source=0)
+    e = pg.get_event()
+    _check((e is not None and e.type is ev.EventType.MESSAGE
+            and e.source == 0 and e.payload == ("msg", 0)) if rank == 1
+           else e is None,
+           f"the transportless message reaches rank 1 only (rank {rank})")
+    try:
+        pg.send_event("p2p", dest=(rank + 1) % nproc)
+        refused = ""
+    except NotImplementedError as err:
+        refused = str(err)
+    _check("queue 1 item 5" in refused,
+           "send_event(dest=...) across processes raises, naming the P2P "
+           "transport's queue item")
+    pg.close_events()
+    _check(pg.get_event() is None, "a closed event plane is empty")
+
+    root = _shared_dir("telemetry")
+    m = Metrics()
+    log = telemetry.configure(root, interval=4, metrics=m, rank=rank)
+    wall = 0.060 if rank == 1 else 0.001          # scripted, not measured
+    for step in range(6):
+        telemetry.record_chunk("smoke", start=step, losses=[float(step)],
+                               wall_s=wall)
+    snaps = gang.gather_snapshots(pg, metrics=m)
+    _check(sorted(snaps) == list(range(nproc))
+           and snaps[rank] == m.snapshot(),
+           "every rank's snapshot gathered on every rank")
+    # k = 1.5: with 2 ranks the median is the mean of both p50s, which the
+    # default k = 2 can never exceed
+    report = gang.publish_straggler_report(pg, root, metrics=m, k=1.5,
+                                           snapshots=snaps)
+    _check(report["suspects"] == [1] and report["num_ranks"] == nproc
+           and (nproc == 2 or report["bsp_suspects"] == []),
+           f"the straggler report flags rank 1 exactly ({report['suspects']}"
+           f", bsp {report['bsp_suspects']})")
+    pg.barrier()
+    if rank == 0:
+        on_disk = gang.read_straggler_report(root)
+        _check(on_disk is not None and on_disk["suspects"] == [1],
+               "process 0 wrote the straggler report")
+    col = gang.GangCollector(pg, root, k=1.5)
+    log.add_boundary_hook(col)
+    for step in range(6, 8):                     # boundary 8: a publish
+        telemetry.record_chunk("smoke", start=step, losses=[float(step)],
+                               wall_s=wall)
+    _check(col.last_report is not None
+           and col.last_report["suspects"] == [1]
+           and sorted(col.last_snapshots) == list(range(nproc)),
+           "the GangCollector published at its boundary")
+    log.flush()
+    with open(log.path) as f:
+        n_lines = len(f.read().strip().splitlines())
+    _check(n_lines == 8, f"rank {rank}'s steps.jsonl holds 8 events")
+    ctrl = xprof.XprofController(pg, rank=rank)
+    xprof.request_xprof(pg, steps=2, directory=os.path.join(root, "xprof"))
+    ctrl(1)
+    _check(ctrl.tracing, "the xprof request opened a window")
+    torch.ones(256, device=pg.device).cumsum(0).sum().item()
+    ctrl(2)
+    ctrl(3)
+    _check(not ctrl.tracing and ctrl.trace_dir == os.path.join(
+        root, "xprof", f"rank{rank}") and os.path.exists(ctrl.trace_path),
+        f"rank {rank}'s profiler trace is under its directory")
+    rec = {"suspects": report["suspects"],
+           "bsp_suspects": report["bsp_suspects"],
+           "trace_bytes": os.path.getsize(ctrl.trace_path)}
+    telemetry.disable()
+    pg.close_events()
+    pg.barrier()                   # every rank has read its trace
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
 def run(device=None) -> None:
     from harp_tpu_torch.parallel import distributed
     from harp_tpu_torch.session import HarpSession
@@ -602,6 +713,7 @@ def run(device=None) -> None:
     nn_solver_checks(pg, st)
     stream_checks(pg, st)
     checkpoint_lda_checks(pg, st)
+    event_telemetry_checks(pg, st)
     pg.barrier()
     distributed.shutdown()
     print(f"MP_SMOKE OK p{rank}/{nproc}", flush=True)

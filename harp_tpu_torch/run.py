@@ -35,6 +35,23 @@ Under the launcher (``python -m harp_tpu_torch.parallel.launch --nproc P
 ...``), ``run sgd_mf`` joins the gang when ``HARP_NUM_PROCESSES`` is set:
 its session spans the P processes, with ``--num-workers`` (default P times
 ``HARP_WORKERS_PER_PROCESS``) workers, and process 0 prints the result.
+
+Every subcommand takes the telemetry flags (``harp_tpu_torch.telemetry``):
+``--telemetry-dir DIR`` writes one JSON event a training step to
+``DIR/rank<r>/steps.jsonl`` (loss, step wall, and for the priced fits the
+reference collective volume of a step: the JAX package's traced figure,
+not bytes the port moved) and polls the trigger file
+``DIR/xprof_request.json``: writing ``{"steps": N}`` there while the job
+runs opens a ``torch.profiler`` window over the next N chunk boundaries
+into ``DIR/xprof/rank<r>/``. In a gang, every ``--telemetry-interval``
+boundaries (default 16; also the JSONL flush cadence) the ranks exchange
+their metric snapshots over the session's event plane and process 0
+writes ``DIR/straggler_report.json``. ``--metrics-port P`` serves
+``/metrics`` (Prometheus text), ``/snapshot`` and, in a gang, ``/gang`` on
+127.0.0.1 (0: an ephemeral port; above 0: P plus the rank), and prints the
+address to stderr. The JAX launcher's ``--slo-p99-ms``, ``--slo-window-s``
+and ``--slo-error-budget`` wait for the port of ``telemetry/watchdog.py``
+and are not registered.
 """
 
 from __future__ import annotations
@@ -59,6 +76,79 @@ def _common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--work-dir", default="",
                    help="output directory (optional)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--telemetry-dir", default="",
+                   help="enable telemetry (harp_tpu_torch.telemetry): "
+                        "per-step JSONL events and comm-volume gauges in "
+                        "DIR/rank<r>/, the xprof trigger file "
+                        "DIR/xprof_request.json, and in a gang the "
+                        "straggler report. Empty = off.")
+    p.add_argument("--telemetry-interval", type=int, default=16,
+                   help="telemetry cadence in CHUNK BOUNDARIES (a count, so "
+                        "gang ranks stay aligned): flush and gang straggler "
+                        "publish every N boundaries")
+    p.add_argument("--metrics-port", type=int, default=-1,
+                   help="start the pull exporter (telemetry.exporter: "
+                        "/metrics Prometheus text, /snapshot JSON, /gang in "
+                        "a gang) on 127.0.0.1. 0 = ephemeral port (printed "
+                        "at startup), >0 = that port + this process's rank, "
+                        "negative = off.")
+
+
+def _session(args, num_workers=None, distributed=False):
+    """The subcommand's HarpSession, with telemetry brought up as the
+    flags ask."""
+    from harp_tpu_torch.session import HarpSession
+
+    sess = HarpSession(num_workers=num_workers or args.num_workers or 1,
+                       device=args.device, distributed=distributed)
+    if args.telemetry_dir:
+        _enable_telemetry(sess, args.telemetry_dir, args.telemetry_interval,
+                          metrics_port=args.metrics_port)
+    elif args.metrics_port >= 0:
+        # the exporter serves without the JSONL layer (scrape-only runs)
+        _start_exporter(args.metrics_port, collector=None)
+    return sess
+
+
+def _start_exporter(metrics_port: int, collector):
+    from harp_tpu_torch.telemetry.exporter import MetricsExporter
+
+    rank = int(os.environ.get("HARP_PROCESS_ID", "0"))
+    port = metrics_port + rank if metrics_port > 0 else 0
+    exporter = MetricsExporter(
+        port=port, rank=rank,
+        gang=collector.snapshots if collector is not None else None)
+    print(f"harp_tpu_torch.telemetry: metrics exporter on "
+          f"http://{exporter.host}:{exporter.port} "
+          f"(/metrics, /snapshot{', /gang' if collector else ''})",
+          file=sys.stderr, flush=True)
+    return exporter
+
+
+def _enable_telemetry(sess, directory: str, interval: int, *,
+                      metrics_port: int = -1) -> None:
+    """Bring up telemetry for this run: the per-step JSONL and comm gauges,
+    the xprof controller on the trigger file as a chunk-boundary hook, in
+    a gang the straggler publisher (a count-based cadence: every member
+    runs the same host loop), and the exporter when ``metrics_port`` >= 0."""
+    from harp_tpu_torch import telemetry
+    from harp_tpu_torch.parallel import distributed
+    from harp_tpu_torch.telemetry.xprof import XprofController
+
+    log = telemetry.configure(directory, interval=interval)
+    # the operator trigger: `echo '{"steps": 20}' > DIR/xprof_request.json`
+    # while the job runs opens a window on every rank at its next boundary
+    log.add_boundary_hook(XprofController(
+        sess, trigger_path=os.path.join(directory, "xprof_request.json"),
+        default_dir=os.path.join(directory, "xprof")))
+    collector = None
+    if distributed.process_count() > 1:
+        from harp_tpu_torch.telemetry.gang import GangCollector
+
+        collector = GangCollector(sess, directory)
+        log.add_boundary_hook(collector)
+    if metrics_port >= 0:
+        _start_exporter(metrics_port, collector)
 
 
 def _quant(value):
@@ -79,8 +169,6 @@ def _load_points(spec: str) -> np.ndarray:
 def run_kmeans(argv) -> int:
     from harp_tpu_torch.io import datagen
     from harp_tpu_torch.models import kmeans as km
-    from harp_tpu_torch.session import HarpSession
-
     p = argparse.ArgumentParser(prog="harp_tpu_torch.run kmeans")
     _common_flags(p)
     p.add_argument("--num-points", type=int, default=100_000)
@@ -121,7 +209,7 @@ def run_kmeans(argv) -> int:
         p.error("--format csr supports synthetic data with the fixed "
                 "allreduce collective (daal_kmeans/allreducecsr): "
                 "--points-file/--save-every/--comm/--quant do not apply")
-    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    sess = _session(args)
     if args.format == "csr":
         return _kmeans_csr(sess, cfg, args)
     if args.stream:
@@ -248,8 +336,6 @@ def _kmeans_csr(sess, cfg, args) -> int:
 def run_sgd_mf(argv) -> int:
     from harp_tpu_torch.io import datagen, loaders
     from harp_tpu_torch.models import sgd_mf
-    from harp_tpu_torch.session import HarpSession
-
     p = argparse.ArgumentParser(prog="harp_tpu_torch.run sgd_mf")
     _common_flags(p)
     p.add_argument("--num-users", type=int, default=8192)
@@ -276,8 +362,7 @@ def run_sgd_mf(argv) -> int:
     if workers is None:
         workers = (int(os.environ["HARP_NUM_PROCESSES"]) * int(
             os.environ.get("HARP_WORKERS_PER_PROCESS", "1")) if gang else 1)
-    sess = HarpSession(num_workers=workers, device=args.device,
-                       distributed=gang)
+    sess = _session(args, workers, distributed=gang)
     lead = sess.workers.rank == 0
     if args.ratings_file:
         rows, cols, vals = loaders.load_coo(
@@ -347,8 +432,6 @@ def run_sgd_mf(argv) -> int:
 def run_lda(argv) -> int:
     from harp_tpu_torch.io import datagen, loaders
     from harp_tpu_torch.models import lda
-    from harp_tpu_torch.session import HarpSession
-
     p = argparse.ArgumentParser(prog="harp_tpu_torch.run lda")
     _common_flags(p)
     p.add_argument("--num-docs", type=int, default=1024)
@@ -367,7 +450,7 @@ def run_lda(argv) -> int:
     args.quant = _quant(args.quant)
     cfg = lda.LDAConfig(**{f.name: getattr(args, f.name)
                            for f in dataclasses.fields(lda.LDAConfig)})
-    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    sess = _session(args)
     if args.corpus_file:
         docs = loaders.truncate_to_workers(
             loaders.load_corpus(args.corpus_file), sess.num_workers)
@@ -415,8 +498,6 @@ def run_lda(argv) -> int:
 def run_als(argv) -> int:
     from harp_tpu_torch.io import datagen, loaders
     from harp_tpu_torch.models import als
-    from harp_tpu_torch.session import HarpSession
-
     p = argparse.ArgumentParser(prog="harp_tpu_torch.run als")
     _common_flags(p)
     p.add_argument("--num-users", type=int, default=2048)
@@ -429,7 +510,7 @@ def run_als(argv) -> int:
     args = p.parse_args(argv)
     cfg = als.ALSConfig(**{f.name: getattr(args, f.name)
                            for f in dataclasses.fields(als.ALSConfig)})
-    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    sess = _session(args)
     if args.ratings_file:
         rows, cols, vals = loaders.load_coo(
             loaders.list_files(args.ratings_file))
@@ -463,8 +544,6 @@ def run_als(argv) -> int:
 def run_pca(argv) -> int:
     from harp_tpu_torch.io import datagen
     from harp_tpu_torch.models import stats
-    from harp_tpu_torch.session import HarpSession
-
     p = argparse.ArgumentParser(prog="harp_tpu_torch.run pca")
     _common_flags(p)
     p.add_argument("--num-points", type=int, default=65536)
@@ -488,7 +567,7 @@ def run_pca(argv) -> int:
         p.error("--format csr implements the correlation method only "
                 "(daal_pca/corcsrdistr: the reference has no svd-csr "
                 "variant)")
-    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    sess = _session(args)
     n = args.num_points - args.num_points % sess.num_workers
     if args.format == "csr":
         from harp_tpu_torch.models import sparse as sp
@@ -526,8 +605,6 @@ def run_pca(argv) -> int:
 def run_nn(argv) -> int:
     from harp_tpu_torch.io import datagen
     from harp_tpu_torch.models import nn
-    from harp_tpu_torch.session import HarpSession
-
     p = argparse.ArgumentParser(prog="harp_tpu_torch.run nn")
     _common_flags(p)
     p.add_argument("--num-points", type=int, default=8192)
@@ -542,7 +619,7 @@ def run_nn(argv) -> int:
                     f"{args.layers!r}")
     cfg = nn.NNConfig(**{f.name: getattr(args, f.name)
                          for f in dataclasses.fields(nn.NNConfig)})
-    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    sess = _session(args)
     n = args.num_points - args.num_points % sess.num_workers
     x, y = datagen.classification_data(n, args.dim, cfg.num_classes,
                                        seed=args.seed)
@@ -568,8 +645,6 @@ SOLVER_KINDS = ("sgd", "sgd_minibatch", "sgd_momentum", "adagrad", "lbfgs")
 def run_solver(argv) -> int:
     from harp_tpu_torch.io import datagen
     from harp_tpu_torch.models import solvers
-    from harp_tpu_torch.session import HarpSession
-
     p = argparse.ArgumentParser(prog="harp_tpu_torch.run solver")
     _common_flags(p)
     p.add_argument("--kind", default="lbfgs", choices=SOLVER_KINDS)
@@ -580,7 +655,7 @@ def run_solver(argv) -> int:
     cfg = solvers.SolverConfig(**{
         f.name: getattr(args, f.name)
         for f in dataclasses.fields(solvers.SolverConfig)})
-    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    sess = _session(args)
     n = args.num_points - args.num_points % sess.num_workers
     x, y, _ = datagen.regression_data(n, args.dim, seed=args.seed)
     y = y.reshape(-1)
@@ -602,15 +677,13 @@ STATS_OPS = ("cov", "moments", "zscore", "minmax", "qr", "pivoted_qr", "svd",
 def run_stats(argv) -> int:
     from harp_tpu_torch.io import datagen
     from harp_tpu_torch.models import stats
-    from harp_tpu_torch.session import HarpSession
-
     p = argparse.ArgumentParser(prog="harp_tpu_torch.run stats")
     _common_flags(p)
     p.add_argument("--op", default="cov", choices=STATS_OPS)
     p.add_argument("--num-points", type=int, default=8192)
     p.add_argument("--dim", type=int, default=64)
     args = p.parse_args(argv)
-    sess = HarpSession(num_workers=args.num_workers or 1, device=args.device)
+    sess = _session(args)
     n = args.num_points - args.num_points % sess.num_workers
     x = datagen.dense_points(n, args.dim, seed=args.seed)
     t0 = time.perf_counter()

@@ -16,6 +16,12 @@ arguments arrive as this process's rows ``(W/P, rows/W, ...)``, sharded
 results are this process's piece of the global layout, and the collectives
 reach the other processes. Several processes may share one card.
 
+The event API (``open_events``, ``get_event``, ``wait_event``,
+``send_event``, ``close_events``; ``parallel/events.py``) is the host
+control plane, addressed by process rank. Across processes a point-to-point
+``send_event(dest=...)`` waits for the P2P transport (ROADMAP.md queue 1
+item 5) and raises; collective events work in every mode.
+
 Typical usage::
 
     sess = HarpSession(num_workers=4)
@@ -32,7 +38,7 @@ Typical usage::
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -191,3 +197,74 @@ class HarpSession:
         """Wait for the device, and in a process group for every process
         (a gloo barrier after the device sync)."""
         self.workers.barrier()
+
+    # -- events (Harp: CollectiveMapper.getEvent:623/waitEvent:632/sendEvent:645)
+    # Addressed by PROCESS rank (distributed.process_index), the host control
+    # plane, not by worker row.
+
+    def open_events(self):
+        """Bring up the event plane (idempotent): ``(queue, client,
+        transport)``. The port has no P2P transport yet, so ``transport``
+        is None. Each open after :meth:`close_events` is a new generation:
+        a fresh queue."""
+        if not hasattr(self, "_events"):
+            from harp_tpu_torch.parallel import distributed
+            from harp_tpu_torch.parallel import events as ev
+
+            queue = ev.EventQueue()
+            self._events = (queue, ev.EventClient(
+                queue, worker_id=distributed.process_index()), None)
+        return self._events
+
+    def get_event(self):
+        """Non-blocking event poll (CollectiveMapper.getEvent:623). Returns
+        None when the plane has not been opened."""
+        if not hasattr(self, "_events"):
+            return None
+        return self._events[0].get()
+
+    def wait_event(self, timeout: Optional[float] = None):
+        """Blocking event wait (CollectiveMapper.waitEvent:632); opens the
+        event plane."""
+        return self.open_events()[0].wait(timeout)
+
+    def send_event(self, payload, dest: Optional[int] = None,
+                   source: Optional[int] = None) -> None:
+        """CollectiveMapper.sendEvent:645: ``dest=None`` delivers to every
+        process (COLLECTIVE: all processes must call, with the same
+        ``source``); a concrete ``dest`` is a point-to-point MESSAGE to that
+        process rank. With one process it is delivered iff ``dest`` is 0.
+
+        Across processes the JAX package sends a MESSAGE by its P2P
+        transport, a call the sender makes alone. The port has no such
+        transport yet (ROADMAP.md queue 1 item 5, ``parallel/p2p.py``), and
+        the transportless fallback is a collective call with another
+        calling convention, so ``dest=`` raises NotImplementedError there.
+
+        Ordering: all events share one queue; match on ``Event.type`` and
+        ``source`` rather than on arrival order."""
+        from harp_tpu_torch.parallel import distributed
+
+        nproc = distributed.process_count()
+        if dest is not None and not (0 <= dest < nproc):
+            raise ValueError(
+                f"dest must be a process rank in [0, {nproc}) "
+                f"— events are the host control plane, addressed per "
+                f"PROCESS, not per device-level worker; got {dest}")
+        if dest is not None and nproc > 1:
+            raise NotImplementedError(
+                "send_event(dest=...) across processes needs the P2P "
+                "transport (parallel/p2p.py), not ported yet: ROADMAP.md "
+                "queue 1 item 5. Use dest=None (a collective event) or "
+                "EventClient.send_message, a collective call")
+        client = self.open_events()[1]
+        if dest is None:
+            client.send_collective(payload, source=source)
+        else:
+            client.send_message(dest, payload, source=source)
+
+    def close_events(self) -> None:
+        """Tear down the event plane (CollectiveMapper teardown :783-788).
+        A later open_events/send_event/wait_event starts a new generation."""
+        if hasattr(self, "_events"):
+            del self._events

@@ -17,7 +17,9 @@ largest entry) and ``tests/test_torch_attention.py`` (1e-5).
 Two tests spawn gloo gangs through the port's launcher (P=4 x 1 worker and
 P=2 x 2 workers), each under its own timeout, running
 ``parallel/mp_smoke.py``: every collective, the ring-DMA ops, five K-means
-iterations and fused SGD-MF fits, bitwise the stacked group at the same W.
+iterations and fused SGD-MF fits, bitwise the stacked group at the same W,
+and the host event plane with the telemetry over it
+(``mp_smoke.event_telemetry_checks``).
 """
 
 import dataclasses
